@@ -1,0 +1,47 @@
+"""r8brain_torch -- the resampler on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of the reference JAX package ``r8brain_tpu``, which stays in the
+repository unchanged and is what this package is tested against.  This
+package imports neither JAX nor anything of the reference package: the
+host-side design and planning layer is its own copy.
+
+Public API:
+  * Resampler / Resampler16 / Resampler16IR / Resampler24 -- batched
+    [channels, time] converters (models.resampler).  Entry points run on
+    ``device="cuda"`` unless the caller passes ``device="cpu"``.
+  * make_plan / Plan -- stage planner (models.plan).
+  * plan_from_reference -- carry a reference-package plan across (convert).
+  * FusedUpExec -- the fused [conv(up), whole-frac] executor (ops.fused).
+  * frac_whole / frac_whole_ref -- the framed-matmul CUDA kernel and its
+    plain PyTorch version (ops.pallas_frac).
+  * design.* -- host-side filter design (sinc, lpfilter, minphase,
+    halfband, fracbank).
+"""
+
+from .convert import plan_from_reference
+from .design.lpfilter import LINEAR_PHASE, MIN_PHASE, build_lp_filter, get_lp_filter
+from .models.plan import Plan, make_plan
+from .models.resampler import (Resampler, Resampler16, Resampler16IR,
+                               Resampler24)
+from .ops.fused import FusedUpExec
+from .ops.pallas_frac import frac_whole, frac_whole_ref
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "LINEAR_PHASE",
+    "MIN_PHASE",
+    "build_lp_filter",
+    "get_lp_filter",
+    "Plan",
+    "make_plan",
+    "plan_from_reference",
+    "Resampler",
+    "Resampler16",
+    "Resampler16IR",
+    "Resampler24",
+    "FusedUpExec",
+    "frac_whole",
+    "frac_whole_ref",
+    "__version__",
+]
