@@ -14,6 +14,9 @@ Public API:
   * FusedUpExec -- the fused [conv(up), whole-frac] executor (ops.fused).
   * frac_whole / frac_whole_ref -- the framed-matmul CUDA kernel and its
     plain PyTorch version (ops.pallas_frac).
+  * ops.pallas_ozaki.ozaki_framed / ozaki_framed_ref -- the split-operand
+    (ozaki) CUDA kernel of the guarantee chain and its plain version;
+    ops.stages.ConvExec / FracWholeExec -- the chain's stage executors.
   * design.* -- host-side filter design (sinc, lpfilter, minphase,
     halfband, fracbank).
 """

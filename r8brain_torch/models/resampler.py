@@ -10,16 +10,20 @@ The zero-flush semantics of the reference's oneshot (CDSPResampler.h:
 of zeros whose outputs cover ``out_len`` (models/lengths.py inverse
 emission algebra).
 
-This slice of the port runs plans that fuse into one [conv(up),
-whole-frac] composite (e.g. 44.1k -> 96k, 44.1k -> 48k).  Any other plan,
-streaming (``oneshot(max_chunk=...)`` beyond one chunk) and the explicit
-engines raise NotImplementedError naming the ROADMAP.md item that ports
-them; nothing falls back to another path.
+Two chains are ported: plans that fuse into one [conv(up), whole-frac]
+composite (e.g. 44.1k -> 96k, 44.1k -> 48k; the default engines), and the
+guarantee chain ``conv_engine="ozaki"`` + ``frac_engine="ozaki"`` of every
+[conv, whole-frac] plan, with the df32 inter-stage carry under
+``precision="high"``.  Any other plan or engine and streaming
+(``oneshot(max_chunk=...)`` beyond one chunk) raise NotImplementedError
+naming the ROADMAP.md item that ports them; nothing falls back to another
+path.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -27,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.fused import fuse_stage_list
+from ..ops.stages import build_exec
 from ..utils.trace import trace_plan
 from .lengths import chain_in_for_out, chain_max_out_len, chain_out_len
 from .plan import Plan, make_plan
@@ -59,21 +64,30 @@ class Resampler(nn.Module):
         plan: a plan of this package (``make_plan``), or one converted from
         the reference package with ``convert.plan_from_reference``.
 
-        fused, conv_engine, frac_engine: only "auto" is ported: the fused
-        composite through the hand-written kernel.
+        fused: "auto" composes a [conv(up), whole-frac] plan into one
+        operator (ops/fused.py) when both engines are "auto"; False runs
+        the stages one by one.
+
+        conv_engine, frac_engine: "auto" (the fused composite) or "ozaki",
+        the error-free split-operand guarantee engine (ops/ozaki.py); pair
+        them.  With conv_engine="ozaki", precision="high" and float32 the
+        stages hand (hi, lo) pairs across their seams (the df32 carry:
+        only the final output rounds) unless the environment sets
+        R8BT_DF_CARRY=0.
 
         device: where the operators live and the contraction runs; "cuda"
         (the default) raises RuntimeError when CUDA is not available."""
         super().__init__()
-        for name, val, item in (
-                ("fused", fused, "queue 1 items 3 and 11 (two-stage "
-                 "pipeline, fused='poly')"),
-                ("conv_engine", conv_engine, "queue 1 items 3, 7, 8 and 11"),
-                ("frac_engine", frac_engine, "queue 1 items 3 and 7")):
-            if val != "auto":
+        if fused not in ("auto", False):
+            raise NotImplementedError(
+                f"fused={fused!r} is not ported yet (ROADMAP.md queue 1 "
+                f"item 11, fused='poly'); 'auto' and False run")
+        for name, val in (("conv_engine", conv_engine),
+                          ("frac_engine", frac_engine)):
+            if val not in ("auto", "ozaki"):
                 raise NotImplementedError(
-                    f"{name}={val!r} is not ported yet (ROADMAP.md {item}); "
-                    f"only 'auto' runs")
+                    f"{name}={val!r} is not ported yet (ROADMAP.md queue 1 "
+                    f"items 3, 8 and 11); 'auto' and 'ozaki' run")
         if plan is not None and not isinstance(plan, Plan):
             raise TypeError("plan must be an r8brain_torch Plan; convert a "
                             "reference plan with convert.plan_from_reference")
@@ -84,8 +98,16 @@ class Resampler(nn.Module):
         self.precision = precision
         trace_plan(self.plan, context=f"resampler dtype={dtype} "
                                       f"precision={precision}")
-        self.execs = nn.ModuleList(
-            fuse_stage_list(self.plan, dtype, precision))
+        if fused == "auto" and conv_engine == "auto" \
+                and frac_engine == "auto":
+            execs = fuse_stage_list(self.plan, dtype, precision)
+        else:
+            execs = [build_exec(s, dtype, precision, conv_engine, frac_engine)
+                     for s in self.plan.stages]
+        self.execs = nn.ModuleList(execs)
+        self.df_carry = (precision == "high" and conv_engine == "ozaki"
+                         and dtype == torch.float32
+                         and os.environ.get("R8BT_DF_CARRY", "1") != "0")
         self.to(self.device)
 
     @property
@@ -105,10 +127,32 @@ class Resampler(nn.Module):
         ROADMAP.md queue 1 item 6)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The stage chain on x [C, N] (already zero-flushed)."""
+        """The stage chain on x [C, N] (already zero-flushed).  Stages with
+        a seam protocol hand their raw (unsliced) framing buffer and a
+        logical length to the next stage, so no seam slices and re-pads."""
+        if self.df_carry:
+            return self._chain_df(x)
+        n = x.shape[1]
         for e in self.execs:
-            x = e(x)
-        return x
+            if hasattr(e, "apply_v"):
+                x, n = e.apply_v(x, n)
+            else:
+                if x.shape[1] != n:
+                    x = x[:, :n]
+                x = e(x)
+                n = x.shape[1]
+        return x if x.shape[1] == n else x[:, :n]
+
+    def _chain_df(self, x: torch.Tensor) -> torch.Tensor:
+        """The guarantee chain's df32 carry: stages thread raw (hi float32,
+        lo bfloat16) pair buffers plus the logical count.  The first stage
+        only emits (there is no residual to consume), the last only
+        consumes, so the chain ends with one float32 output.  Every
+        executor build_exec returns has a carry path."""
+        h, l, n = x, None, x.shape[1]
+        for i, e in enumerate(self.execs):
+            h, l, n = e.apply_df(h, l, n, emit_pair=i < len(self.execs) - 1)
+        return h if h.shape[1] == n else h[:, :n]
 
     def out_len_for_in(self, n_in: int) -> int:
         return chain_out_len(self.plan.stages, n_in)

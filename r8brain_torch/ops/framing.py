@@ -1,0 +1,63 @@
+"""Overlapping frames of a [C, N] signal as reshape views, and the plain
+framed contraction over them.
+
+Counterparts of the reference package's ``ops/stages.py`` helpers
+``_frames`` and ``_framed_matmul``.  A leaf module: the kernel modules and
+the stage executors both build on it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["_frames", "_framed_matmul"]
+
+
+def _frames(xp: torch.Tensor, n_blocks: int, hop: int, L_f: int
+            ) -> torch.Tensor:
+    """Overlapping frames [C, n_blocks, L_f] at stride ``hop`` via chunked
+    reshape+concat (no gather, no conv).  For L_f <= hop the result is a
+    view of (a padded copy of) ``xp``."""
+    C = xp.shape[0]
+    n_seg = -(-L_f // hop)  # segments of length hop covering L_f
+    total = (n_blocks + n_seg) * hop
+    pad = total - xp.shape[1]
+    if pad > 0:
+        xp = F.pad(xp, (0, pad))
+    else:
+        xp = xp[:, :total]
+    chunks = xp.reshape(C, n_blocks + n_seg, hop)
+    segs = [chunks[:, e : n_blocks + e, :] for e in range(n_seg)]
+    if n_seg == 1:
+        return segs[0][:, :, :L_f]
+    return torch.cat(segs, dim=-1)[:, :, :L_f]
+
+
+def _framed_matmul(xp: torch.Tensor, T: torch.Tensor, n_blocks: int,
+                   hop: int) -> torch.Tensor:
+    """out[c, b, k] = sum_l frames[c, b, l] * T[l, k] with
+    frames[c, b, l] = xp[c, b*hop + l], WITHOUT materializing the
+    overlapping frames: einsum(concat(segs), T) == sum_e einsum(seg_e,
+    T_rows_e), and each segment is a pure reshape view of xp.
+
+    This is the plain contraction in the working dtype (the float64
+    reference path).  The float32 path runs through the kernel module
+    (ops/pallas_frac.py), whose plain model fixes the accumulation order."""
+    C = xp.shape[0]
+    L_f = T.shape[0]
+    n_seg = -(-L_f // hop)
+    total = (n_blocks + n_seg) * hop
+    pad = total - xp.shape[1]
+    if pad > 0:
+        xpp = F.pad(xp, (0, pad))
+    else:
+        xpp = xp[:, :total]
+    chunks = xpp.reshape(C, n_blocks + n_seg, hop)
+    out = None
+    for e in range(n_seg):
+        w = min(hop, L_f - e * hop)
+        seg = chunks[:, e : n_blocks + e, :w]
+        o = torch.matmul(seg, T[e * hop : e * hop + w])
+        out = o if out is None else out + o
+    return out

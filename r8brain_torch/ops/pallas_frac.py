@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 
 from . import _cuda
-from .stages import _frames, _framed_matmul
+from .dfloat import two_sum
+from .framing import _frames, _framed_matmul
 
 __all__ = ["KC", "frac_whole", "frac_whole_ref"]
 
@@ -52,9 +53,7 @@ def _check(xp, skT, I, D, O, n_win, skT_lo):
 
 
 def _two_sum_fold(hi, lo, acc):
-    s = hi + acc
-    bp = s - hi
-    e = (hi - (s - bp)) + (acc - bp)
+    s, e = two_sum(hi, acc)
     return s, lo + e
 
 

@@ -24,7 +24,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from r8brain_torch.models.plan import make_plan  # noqa: E402
 from r8brain_torch.ops.fused import FusedUpExec  # noqa: E402
-from r8brain_torch.ops.stages import _frames  # noqa: E402
+from r8brain_torch.ops.framing import _frames  # noqa: E402
 
 
 def _db(y, ref) -> float:
