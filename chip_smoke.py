@@ -15,11 +15,21 @@ uniform float32 input:
   ``conv_engine="ozaki"``, ``frac_engine="ozaki"``: conv and whole-frac
   stages on ``ozaki_framed`` with the df32 inter-stage carry, checked at
   -150 dB; and the same with the carry off (``R8BT_DF_CARRY=0``) at
-  -141 dB.
+  -141 dB;
+* the df32-FFT guarantee engines, ``precision="high"``, ``fused=False``:
+  the same conversion with ``conv_engine="pallas_fft5"`` (the polyphase
+  mode of ``df_fft_conv`` at n=4096, then ``frac_whole`` with the operator
+  residual), ``"pallas_fft4"`` and ``"pallas_fft"`` (n=8192, head P), and
+  96 kHz -> 44.1 kHz with ``"pallas_fft5"`` (framed, n=8192) and at
+  ``trans_band=5``, ``atten=136.45`` (n=2048, the reference's unframed
+  kernel), each checked at -141 dB; and ``"fft"``, the df32 torch ops, on
+  64 channels.
 
 Before the guarantee chain it pins the exactness lemma the split-operand
 kernel rests on (a 256-deep tensor-core float32 accumulation of bf16 slice
-products is exact).  Each path runs with the launch counts set to 0 just
+products is exact); before the FFT engines it holds ``df_fft_conv`` in
+every mode and at every size class (one CTA, four-step) to its plain
+version.  Each path runs with the launch counts set to 0 just
 before it and read just after.  Then it times each path, each kernel at
 the path's shapes, its plain version and the one PyTorch call that
 computes the same function.  Every phase prints one line; the line before
@@ -32,6 +42,7 @@ fails.  Imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,13 +68,36 @@ OZ_KERNEL_DB = -150.0  # ozaki_framed vs the float64 product, relative
 # misplaced x_lo pass (~2^-24) fails it
 OZ_LO_REL_TOL, OZ_PAIR_REL_TOL = 2.0**-22, 2.0**-28
 
-# (fp32 CUDA-core, dense bf16 tensor-core peak FLOP/s, HBM bytes/s) by SKU,
-# at the full power limit (NVIDIA data sheets).  Substring match on the
-# device name.
-PEAKS = (("H100 PCIe", 51.2e12, 756e12, 2.0e12),
-         ("H100 NVL", 60.0e12, 835e12, 3.9e12),
-         ("H100", 67.0e12, 989e12, 3.35e12),
-         ("H200", 67.0e12, 989e12, 4.8e12))
+# df_fft_conv vs df_fft_conv_ref: both round one float64 convolution to
+# float32, so they differ by at most one ulp of the output
+FFT_REL_TOL = 2.0**-22
+N_FFT_TORCH = 64  # channels of the conv_engine="fft" run (df32 torch ops)
+# the FFT engines' paths: (label, src, dst, trans_band, atten,
+# conv_engine, expected df_fft_conv launch (mode, n), replaced TPU kernel)
+FFT_PATHS = (
+    ("poly", 44100, 96000, 2.0, 180.15, "pallas_fft5", ("poly", 4096),
+     "r8brain_tpu/ops/pallas_dfft5.py:763"),
+    ("fft4", 44100, 96000, 2.0, 180.15, "pallas_fft4", ("framed", 8192),
+     "r8brain_tpu/ops/pallas_dfft4.py:404"),
+    ("fft", 44100, 96000, 2.0, 180.15, "pallas_fft", ("framed", 8192),
+     "r8brain_tpu/ops/pallas_dfft.py:269"),
+    ("framed5", 96000, 44100, 2.0, 180.15, "pallas_fft5", ("framed", 8192),
+     "r8brain_tpu/ops/pallas_dfft5.py:693"),
+    ("unframed5", 96000, 44100, 5.0, 136.45, "pallas_fft5",
+     ("framed", 2048), "r8brain_tpu/ops/pallas_dfft5.py:623"))
+# df_fft_conv against its plain version at every mode and size class:
+# (mode, n, head, C, n_frames), C * n_frames odd outside poly mode
+FFT_CASES = ([("frames", n, 0, 5, 3) for n in (512, 1024, 8192, 16384, 65536)]
+             + [("framed", n, n // 4, 3, 5) for n in (4096, 8192)]
+             + [("poly", n, n // 4, 3, 4) for n in (4096, 8192, 16384)])
+
+# (fp32 CUDA-core, dense bf16 tensor-core, fp64 CUDA-core peak FLOP/s, HBM
+# bytes/s) by SKU, at the full power limit (NVIDIA data sheets).  Substring
+# match on the device name.
+PEAKS = (("H100 PCIe", 51.2e12, 756e12, 25.6e12, 2.0e12),
+         ("H100 NVL", 60.0e12, 835e12, 30.0e12, 3.9e12),
+         ("H100", 67.0e12, 989e12, 34.0e12, 3.35e12),
+         ("H200", 67.0e12, 989e12, 34.0e12, 4.8e12))
 
 
 class SmokeFailure(Exception):
@@ -116,7 +150,7 @@ def bound(flops: float, nbytes: float, peak_flops: float,
 def build_kernels() -> None:
     from r8brain_torch.ops import _cuda
 
-    names = ["frac_whole", "ozaki_framed"]
+    names = ["frac_whole", "ozaki_framed", "df_fft_conv"]
     t0 = time.perf_counter()
     _cuda.build(names)
     print(f"build: {', '.join(names)} {time.perf_counter() - t0:.1f} s")
@@ -378,6 +412,224 @@ def guarantee_chain(dev, x, ref, skip, carry: bool):
     return rs, by
 
 
+def check_fft_cases(dev) -> None:
+    """df_fft_conv in every mode, one-CTA and four-step sizes, odd channel
+    and frame counts, on a row-strided input, against df_fft_conv_ref on
+    the card."""
+    import numpy as np
+    import torch
+
+    from r8brain_torch.ops.pallas_dfft import (DfFFTPlan, df_fft_conv,
+                                               df_fft_conv_ref)
+
+    rng = np.random.default_rng(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    worst = 0.0
+    for mode, n, head, C, n_frames in FFT_CASES:
+        k = rng.standard_normal(min(701, n // 2))
+        ks = (k[0::2], k[1::2]) if mode == "poly" else (k,)
+        plan = DfFFTPlan(n, *[np.fft.fft(kk, n) / n for kk in ks]).to(dev)
+        L = (n_frames - 1) * (n - head) + n - 7
+        u = (torch.rand((C, L + 3), generator=g, device=dev) * 2 - 1)[:, 3:]
+        y = df_fft_conv(u, plan, n_frames, head)
+        r = df_fft_conv_ref(u, plan, n_frames, head)
+        torch.cuda.synchronize()
+        rel = max_rel(y, r.double())
+        check(rel <= FFT_REL_TOL, f"df_fft_conv {mode} n={n}: max rel err "
+              f"{rel:.3e} vs plain")
+        worst = max(worst, rel)
+    print(f"df_fft_conv: {len(FFT_CASES)} cases (frames n=512..65536, "
+          f"framed n=4096/8192, poly n=4096..16384; odd C*n_frames, "
+          f"row-strided input) vs df_fft_conv_ref: max rel err {worst:.3e} "
+          f"(tol {FFT_REL_TOL:.2e})")
+
+
+def capture_calls(rs, x):
+    """Run rs.oneshot(x) once with the stage executors' df_fft_conv and
+    frac_whole recorded: the arguments each kernel gets on this path."""
+    from r8brain_torch.ops import stages
+
+    calls = {}
+    real = {k: getattr(stages, k) for k in ("df_fft_conv", "frac_whole")}
+
+    def recorder(k):
+        def rec(*args, **kw):
+            calls.setdefault(k, (args, kw))
+            return real[k](*args, **kw)
+        return rec
+
+    try:
+        for k in real:
+            setattr(stages, k, recorder(k))
+        rs.oneshot(x)
+    finally:
+        for k, fn in real.items():
+            setattr(stages, k, fn)
+    return calls
+
+
+def fft_paths(dev, x, ref, skip, peaks, card):
+    """The df32-FFT engines' paths: each counted (launches set to 0 just
+    before, read just after), checked at -141 dB against the port's
+    float64 CPU path, timed with its kernel calls; the "fft" engine (torch
+    ops, no kernel of its own) on N_FFT_TORCH channels.  Returns the
+    kernel records."""
+    import torch
+
+    from r8brain_torch import Resampler
+    from r8brain_torch.ops.pallas_dfft import df_fft_conv, df_fft_conv_ref
+    from r8brain_torch.ops.pallas_frac import frac_whole
+
+    peak_f32, peak_f64, peak_bytes = peaks
+    refs = {(SRC, DST, TB, ATTEN): (ref, skip)}
+    x4 = x[:N_CMP].cpu().double()
+    records = []
+    for label, src, dst, tb, atten, engine, want, replaces in FFT_PATHS:
+        key = (src, dst, tb, atten)
+        if key not in refs:
+            r64 = Resampler(src, dst, tb, atten, dtype=torch.float64,
+                            device="cpu").oneshot(x4).numpy()
+            refs[key] = (r64, int(EDGE_S * dst))
+        r64, sk = refs[key]
+        rs = Resampler(src, dst, tb, atten, precision="high", fused=False,
+                       conv_engine=engine, device=dev)
+        df_fft_conv.launches = 0
+        df_fft_conv.launches_by.clear()
+        frac_whole.launches = 0
+        out = rs.oneshot(x)
+        torch.cuda.synchronize()
+        by, n_fw = dict(df_fft_conv.launches_by), frac_whole.launches
+        check(tuple(out.shape) == (CHANNELS, rs.default_out_len(N_IN)),
+              f"{label} oneshot shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{label} output not finite")
+        check(by.get(want, 0) >= 1, f"path {label} never launched "
+              f"df_fft_conv {want}: {by}")
+        check(n_fw >= 1, f"path {label} never launched frac_whole")
+        db = rms_db(out[:N_CMP].cpu().double().numpy()[:, sk:-sk]
+                    - r64[:, sk:-sk])
+        print(f"fft path {label}: Resampler({src}, {dst}, {tb}, {atten}, "
+              f"precision='high', fused=False, conv_engine='{engine}') "
+              f"{CHANNELS} x {N_IN} -> {tuple(out.shape)}; {N_CMP} channels "
+              f"vs port f64 CPU path {db:.2f} dB re full scale (class "
+              f"{CLASS_DB:g}, {EDGE_S * 1e3:g} ms edge skip); df_fft_conv "
+              f"launches {by}, frac_whole launches {n_fw}")
+        check(db <= CLASS_DB, f"fft path {label}: {db:.2f} dB misses "
+              f"{CLASS_DB:g} dB")
+        del out
+        one_ms = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
+        print(f"timing {card}: fft path {label} oneshot {one_ms:.3f} ms = "
+              f"{1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
+
+        calls = capture_calls(rs, x)
+        (u, plan, n_frames, head), _kw = calls["df_fft_conv"]
+        y = df_fft_conv(u, plan, n_frames, head)
+        r = df_fft_conv_ref(u, plan, n_frames, head)
+        torch.cuda.synchronize()
+        rel = max_rel(y, r.double())
+        max_abs = float((y.double() - r.double()).abs().max().item())
+        check(rel <= FFT_REL_TOL, f"df_fft_conv at the {label} path's shape: "
+              f"max rel err {rel:.3e} vs plain")
+        k_ms = cuda_ms(lambda: df_fft_conv(u, plan, n_frames, head), reps=20)
+        p_ms = cuda_ms(lambda: df_fft_conv_ref(u, plan, n_frames, head),
+                       reps=3, warmup=1)
+        n = plan.n
+        f_total = u.shape[0] * n_frames
+        n_tr = f_total if plan.poly else -(-f_total // 2)
+        flops = n_tr * (10.0 * n * math.log2(n) + 6.0 * n)
+        span = min(u.shape[1], (n_frames - 1) * (n - head) + n)
+        nbytes = 4.0 * u.shape[0] * span + 4.0 * y.numel() + 32.0 * n
+        bound_ms, bound_by = bound(flops, nbytes, peak_f64, peak_bytes)
+        mode = plan.mode(head)
+        print(f"timing {card}: df_fft_conv {label} ({mode}, n={n}, head="
+              f"{head}, C={u.shape[0]}, {n_frames} frames a row, {n_tr} "
+              f"transforms) kernel {k_ms:.3f} ms ({flops / k_ms * 1e-9:.2f} "
+              f"fp64 TFLOP/s), bound {bound_ms:.3f} ms by {bound_by} "
+              f"({flops:.3e} flop, {nbytes / 1e9:.3f} GB), plain "
+              f"df_fft_conv_ref (cuFFT complex128 through torch.fft: also "
+              f"the library time) {p_ms:.3f} ms; max rel err vs plain "
+              f"{rel:.3e}")
+        records.append({
+            "name": f"df_fft_conv[{label}: {mode}, n={n}]", "route": "cuda",
+            "source": "r8brain_torch/csrc/df_fft_conv.cu",
+            "replaces": replaces, "launches": by.get(want, 0),
+            "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": p_ms})
+        del y, r, u
+
+        if label == "poly":
+            records.append(frac_stage_record(calls["frac_whole"], n_fw,
+                                             peak_f32, peak_bytes, card))
+        del calls, rs
+        torch.cuda.empty_cache()
+
+    # "fft": the df32 torch ops (no kernel of their own), for accuracy and
+    # time
+    rs = Resampler(SRC, DST, TB, ATTEN, precision="high", fused=False,
+                   conv_engine="fft", device=dev)
+    xs = x[:N_FFT_TORCH]
+    out = rs.oneshot(xs)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "fft (torch ops) not finite")
+    db = rms_db(out[:N_CMP].cpu().double().numpy()[:, skip:-skip]
+                - ref[:, skip:-skip])
+    t_ms = cuda_ms(lambda: rs.oneshot(xs), reps=3, warmup=1)
+    print(f"fft path torch-ops: conv_engine='fft' (df32 torch ops), "
+          f"{N_FFT_TORCH} x {N_IN}: {N_CMP} channels vs port f64 CPU path "
+          f"{db:.2f} dB re full scale; timing {card}: oneshot {t_ms:.3f} ms "
+          f"= {1e-6 * N_FFT_TORCH * N_IN / (t_ms * 1e-3):.1f} Mrops")
+    check(db <= CLASS_DB, f"fft (torch ops): {db:.2f} dB misses "
+          f"{CLASS_DB:g} dB")
+    return records
+
+
+def frac_stage_record(call, launches, peak_f32, peak_bytes, card):
+    """frac_whole at the guarantee chains' frac stage (the operator
+    residual on): against its plain version in float64, timed beside the
+    f32 model and cuDNN conv1d.  The bound counts the operator's nonzero
+    entries (the stage's operator is banded; the kernel multiplies it
+    dense)."""
+    import torch
+    import torch.nn.functional as F
+
+    from r8brain_torch.ops.pallas_frac import frac_whole, frac_whole_ref
+
+    (xp, skT, I, D, O, n_win), kw = call
+    lo = kw.get("skT_lo")
+    y = frac_whole(xp, skT, I, D, O, n_win, skT_lo=lo)
+    r64 = frac_whole_ref(xp.double(), skT.double(), I, D, O, n_win,
+                         skT_lo=lo.double())
+    torch.cuda.synchronize()
+    err = max_rel(y, r64)
+    max_abs = float((y.double() - r64).abs().max().item())
+    check(err <= KERNEL_REL_TOL, f"frac_whole frac stage rel err {err:.3e}")
+    del r64
+    k_ms = cuda_ms(lambda: frac_whole(xp, skT, I, D, O, n_win, skT_lo=lo),
+                   reps=20)
+    p_ms = cuda_ms(lambda: frac_whole_ref(xp, skT, I, D, O, n_win,
+                                          skT_lo=lo), reps=3, warmup=1)
+    w = (skT.double() + lo.double()).T.contiguous()[:, None, :]
+    xp64 = xp.double()[:, None, :]
+    lib_ms = cuda_ms(lambda: F.conv1d(xp64, w, stride=I), reps=3, warmup=1)
+    del xp64
+    C = xp.shape[0]
+    nnz = int((skT != 0).sum().item()) + int((lo != 0).sum().item())
+    flops = 2.0 * C * n_win * nnz
+    nbytes = 4.0 * (C * ((n_win - 1) * I + D) + 2 * D * O + C * n_win * O)
+    bound_ms, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
+    print(f"timing {card}: frac_whole frac stage I={I} D={D} O={O} C={C} "
+          f"n_win={n_win} with skT_lo: kernel {k_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms by {bound_by} ({flops:.3e} flop over the "
+          f"{nnz} nonzeros of skT and skT_lo, {nbytes / 1e9:.3f} GB), plain "
+          f"frac_whole_ref {p_ms:.3f} ms, f64 cuDNN conv1d {lib_ms:.3f} ms; "
+          f"max rel err vs f64 plain {err:.3e} (tol {KERNEL_REL_TOL:g})")
+    return {"name": "frac_whole[frac stage, skT_lo]", "route": "cuda",
+            "source": "r8brain_torch/csrc/frac_whole.cu",
+            "replaces": "r8brain_tpu/ops/pallas_frac.py:111",
+            "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
 def main() -> int:
     import torch
 
@@ -406,8 +658,8 @@ def main() -> int:
     print(f"device: {name} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda}")
     print(f"nvidia-smi: {smi}")
-    peak_f32, peak_bf16, peak_bytes = next(
-        (f, h, b) for k, f, h, b in PEAKS if k in name)
+    peak_f32, peak_bf16, peak_f64, peak_bytes = next(
+        (f, h, d, b) for k, f, h, d, b in PEAKS if k in name)
 
     build_kernels()
 
@@ -512,6 +764,14 @@ def main() -> int:
                    reps=10)
     print(f"timing {card}: framed_cheap (the frac stage's x_lo pass, plain "
           f"PyTorch) {c_ms:.3f} ms")
+    del cases, rs_on, rs_off
+    torch.cuda.empty_cache()
+
+    # the df32-FFT engines: the kernel at every mode and size, then each
+    # path counted, checked and timed with its kernels
+    check_fft_cases(dev)
+    kernels += fft_paths(dev, x, ref, skip, (peak_f32, peak_f64, peak_bytes),
+                         card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,13 +29,16 @@
 //     reads its TM rows as one vector.  Two stages: the next slab's copies
 //     are in flight while this slab's FMAs run.  The ragged edges in
 //     C*n_win, D and O are zero-filled, so C needs no alignment.
-//   * Accuracy: each output sums BK terms (one slab, BK = KC = 32 in f32)
-//     into a register partial, then folds it into a (hi, lo) pair with
-//     two_sum.  A single running f32 sum over 1027 terms reaches only about
-//     -132 dB on this operator; the chunked fold holds about -144 dB.  The
-//     residual dot (skT_lo, ~2^-24 of the main term) is a plain running sum
-//     added at the end as hi + (lo + residual).  Built without
-//     --use_fast_math so the fold is not reassociated.
+//   * Accuracy: each output sums FOLD terms into a register partial, then
+//     folds it into a (hi, lo) pair with two_sum: FOLD = BK = KC = 32 in
+//     f32, and KC_LO = 8 when the residual dot is on (precision "high", the
+//     guarantee chains' interpolator, whose ~24 nonzero taps a column would
+//     otherwise share one partial: -146.1 against -148.8 dB on the 44.1k ->
+//     96k frac stage).  A single running f32 sum over 1027 terms reaches
+//     only about -132 dB on the fused operator; the chunked fold holds about
+//     -144 dB.  The residual dot (skT_lo, ~2^-24 of the main term) is a
+//     plain running sum added at the end as hi + (lo + residual).  Built
+//     without --use_fast_math so the fold is not reassociated.
 //   The plain PyTorch model of this exact chunking and fold is
 //   r8brain_torch/ops/pallas_frac.py::frac_whole_ref.
 
@@ -167,6 +170,24 @@ frac_whole_kernel(const T* __restrict__ xp, long long ldx,
     }
   }
 
+  // fold the partials into (hi, lo): two_sum(hi, acc) -> (hi, lo += err)
+  constexpr int FOLD = (HAS_LO && sizeof(T) == 4) ? 8 : BK;
+  static_assert(BK % FOLD == 0, "fold within a slab");
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const T s = hi[i][j] + acc[i][j];
+        const T bp = s - hi[i][j];
+        const T err = (hi[i][j] - (s - bp)) + (acc[i][j] - bp);
+        hi[i][j] = s;
+        lo[i][j] += err;
+        acc[i][j] = T(0);
+      }
+    }
+  };
+
   const int n_slabs = (D + BK - 1) / BK;
   load_slab(0, 0);
   for (int t = 0; t < n_slabs; ++t) {
@@ -209,23 +230,10 @@ frac_whole_kernel(const T* __restrict__ xp, long long ldx,
           for (int j = 0; j < TN; ++j) rr[i][j] = fma_t(a[i], c[j], rr[i][j]);
         }
       }
+      if ((kk + 1) % FOLD == 0) fold();
     }
     // every warp is done with stage st before the next iteration refills it
     __syncthreads();
-
-    // fold this slab's partial sums: two_sum(hi, acc) -> (hi, lo += err)
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const T s = hi[i][j] + acc[i][j];
-        const T bp = s - hi[i][j];
-        const T err = (hi[i][j] - (s - bp)) + (acc[i][j] - bp);
-        hi[i][j] = s;
-        lo[i][j] += err;
-        acc[i][j] = T(0);
-      }
-    }
   }
 
 #pragma unroll

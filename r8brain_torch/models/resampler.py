@@ -10,11 +10,14 @@ The zero-flush semantics of the reference's oneshot (CDSPResampler.h:
 of zeros whose outputs cover ``out_len`` (models/lengths.py inverse
 emission algebra).
 
-Two chains are ported: plans that fuse into one [conv(up), whole-frac]
-composite (e.g. 44.1k -> 96k, 44.1k -> 48k; the default engines), and the
-guarantee chain ``conv_engine="ozaki"`` + ``frac_engine="ozaki"`` of every
-[conv, whole-frac] plan, with the df32 inter-stage carry under
-``precision="high"``.  Any other plan or engine and streaming
+Ported: plans that fuse into one [conv(up), whole-frac] composite (e.g.
+44.1k -> 96k, 44.1k -> 48k; the default engines), and every [conv,
+whole-frac] plan stage by stage with the guarantee engines: the ozaki
+chain (``conv_engine="ozaki"`` + ``frac_engine="ozaki"``, with the df32
+inter-stage carry under ``precision="high"``) and the df32-FFT conv
+engines (``"fft"``, ``"pallas_fft"``, ``"pallas_fft4"``,
+``"pallas_fft5"``) before the ``im2col`` interpolator.  Any other plan or
+engine and streaming
 (``oneshot(max_chunk=...)`` beyond one chunk) raise NotImplementedError
 naming the ROADMAP.md item that ports them; nothing falls back to another
 path.
@@ -37,6 +40,11 @@ from .lengths import chain_in_for_out, chain_max_out_len, chain_out_len
 from .plan import Plan, make_plan
 
 __all__ = ["Resampler", "Resampler16", "Resampler16IR", "Resampler24"]
+
+#: The engines the port runs, by stage kind.
+CONV_ENGINES = ("auto", "ozaki", "fft", "pallas_fft", "pallas_fft4",
+                "pallas_fft5")
+FRAC_ENGINES = ("auto", "im2col", "ozaki")
 
 
 def resolve_device(device) -> torch.device:
@@ -68,12 +76,19 @@ class Resampler(nn.Module):
         operator (ops/fused.py) when both engines are "auto"; False runs
         the stages one by one.
 
-        conv_engine, frac_engine: "auto" (the fused composite) or "ozaki",
-        the error-free split-operand guarantee engine (ops/ozaki.py); pair
-        them.  With conv_engine="ozaki", precision="high" and float32 the
-        stages hand (hi, lo) pairs across their seams (the df32 carry:
-        only the final output rounds) unless the environment sets
-        R8BT_DF_CARRY=0.
+        conv_engine: "auto" (fused, or float64's "fft" unfused); "ozaki",
+        the error-free split-operand guarantee engine (ops/ozaki.py); or
+        the df32-FFT guarantee engines "pallas_fft5", "pallas_fft4",
+        "pallas_fft" (the FP64 overlap-save kernel of ops/pallas_dfft.py,
+        in the reference's geometry for each name) and "fft" (the df32
+        torch ops of ops/dfft.py under precision="high").
+
+        frac_engine: "auto" (the reference's rule: "im2col" in float32
+        when the windows barely overlap), "im2col" (ops/pallas_frac.py)
+        or "ozaki".  With conv_engine="ozaki", precision="high" and
+        float32 the stages hand (hi, lo) pairs across their seams (the
+        df32 carry: only the final output rounds) unless the environment
+        sets R8BT_DF_CARRY=0.
 
         device: where the operators live and the contraction runs; "cuda"
         (the default) raises RuntimeError when CUDA is not available."""
@@ -82,12 +97,14 @@ class Resampler(nn.Module):
             raise NotImplementedError(
                 f"fused={fused!r} is not ported yet (ROADMAP.md queue 1 "
                 f"item 11, fused='poly'); 'auto' and False run")
-        for name, val in (("conv_engine", conv_engine),
-                          ("frac_engine", frac_engine)):
-            if val not in ("auto", "ozaki"):
+        for name, val, ported in (("conv_engine", conv_engine,
+                                   CONV_ENGINES),
+                                  ("frac_engine", frac_engine,
+                                   FRAC_ENGINES)):
+            if val not in ported:
                 raise NotImplementedError(
                     f"{name}={val!r} is not ported yet (ROADMAP.md queue 1 "
-                    f"items 3, 8 and 11); 'auto' and 'ozaki' run")
+                    f"items 3 and 11); {', '.join(ported)} run")
         if plan is not None and not isinstance(plan, Plan):
             raise TypeError("plan must be an r8brain_torch Plan; convert a "
                             "reference plan with convert.plan_from_reference")

@@ -10,12 +10,12 @@ against the f64->f32 operator residual that ``precision="high"`` passes.
 
 ``frac_whole`` launches ``csrc/frac_whole.cu`` on a CUDA tensor and runs
 ``frac_whole_ref`` on a CPU tensor.  The kernel accumulates ``KC``-term
-partial sums in registers and folds each into a (sum, compensation) pair
-with ``two_sum``; ``frac_whole_ref`` in float32 reproduces that chunking
-and fold (each chunk one segmented matmul), so the CPU tests hold the
-kernel's accumulation scheme to the -141 dB class.  A single running f32
-sum over D = 1027 terms reaches only about -132 dB on the flagship
-operator.
+partial sums in registers (``KC_LO``-term ones in float32 with the
+residual dot) and folds each into a (sum, compensation) pair with
+``two_sum``; ``frac_whole_ref`` in float32 reproduces that chunking and
+fold (each chunk one segmented matmul), so the CPU tests hold the kernel's
+accumulation scheme to the -141 dB class.  A single running f32 sum over D
+= 1027 terms reaches only about -132 dB on the flagship operator.
 """
 
 from __future__ import annotations
@@ -29,10 +29,15 @@ from . import _cuda
 from .dfloat import two_sum
 from .framing import _frames, _framed_matmul
 
-__all__ = ["KC", "frac_whole", "frac_whole_ref"]
+__all__ = ["KC", "KC_LO", "frac_whole", "frac_whole_ref"]
 
 #: Terms per partial sum before the two_sum fold (float32 kernel and model).
 KC = 32
+#: The same with the residual dot (``skT_lo``, precision "high"): a
+#: whole-stepping interpolator's ~24 nonzero taps a column would otherwise
+#: share one partial (-146.1 against -148.8 dB re full scale on the
+#: 44.1k -> 96k frac stage; tests/test_torch_fft_chain.py holds the chain).
+KC_LO = 8
 
 
 def _check(xp, skT, I, D, O, n_win, skT_lo):
@@ -63,9 +68,10 @@ def frac_whole_ref(xp: torch.Tensor, skT: torch.Tensor, I: int, D: int,
     """Plain PyTorch version of ``frac_whole``, on any device.
 
     float64: one framed contraction (segmented reshape views).
-    float32: the kernel's accuracy model -- ``KC``-term chunks over d, each
-    a segmented matmul, folded with two_sum into (hi, lo); the residual dot
-    is one more framed contraction, added as hi + (lo + residual)."""
+    float32: the kernel's accuracy model -- ``KC``-term chunks over d
+    (``KC_LO`` with ``skT_lo``), each a segmented matmul, folded with
+    two_sum into (hi, lo); the residual dot is one more framed
+    contraction, added as hi + (lo + residual)."""
     _check(xp, skT, I, D, O, n_win, skT_lo)
     C = xp.shape[0]
     if xp.dtype == torch.float64:
@@ -74,8 +80,9 @@ def frac_whole_ref(xp: torch.Tensor, skT: torch.Tensor, I: int, D: int,
             y = y + _framed_matmul(xp, skT_lo, n_win, I)
         return y.reshape(C, n_win * O)
     hi = lo = None
-    for d0 in range(0, D, KC):
-        d1 = min(D, d0 + KC)
+    kc = KC if skT_lo is None else KC_LO
+    for d0 in range(0, D, kc):
+        d1 = min(D, d0 + kc)
         acc = torch.matmul(_frames(xp[:, d0:], n_win, I, d1 - d0), skT[d0:d1])
         if hi is None:
             hi, lo = acc, torch.zeros_like(acc)

@@ -15,13 +15,24 @@ M = stage_out_len(spec, N), plus the two seam protocols of the chain:
   float32 store rounding never happens; only the chain's last output
   rounds.  Returns ``(h, l, n_out)``.
 
-Ported so far: the ozaki (error-free split-operand) engine of ``ConvExec``
-and of ``FracWholeExec``, which run every [conv, whole-frac] guarantee
-plan.  Their contraction is ``ozaki_framed`` (ops/pallas_ozaki.py): the
-CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.  Every
-other engine and stage kind raises NotImplementedError naming the
-ROADMAP.md item that ports it; the fast flagship runs through the fused
-executor (ops/fused.py) instead.
+Ported so far, for every [conv, whole-frac] plan:
+
+* ``ConvExec``: the ozaki (error-free split-operand) engine on
+  ``ozaki_framed`` (ops/pallas_ozaki.py); the df32-FFT guarantee engines
+  ``pallas_fft5``, ``pallas_fft4`` and ``pallas_fft`` on ``df_fft_conv``
+  (ops/pallas_dfft.py), the FP64 overlap-save kernel, with the
+  reference's engine and geometry choices; and ``fft``: the df32 torch
+  ops of ops/dfft.py under ``precision="high"``, ``torch.fft.rfft`` in
+  float32 (hi + lo spectrum) or float64 otherwise.
+* ``FracWholeExec``: the ozaki engine, and the ``im2col`` engine (and the
+  float64 ``conv`` engine, the same contraction) on ``frac_whole``
+  (ops/pallas_frac.py) with the float32 operator residual under
+  ``precision="high"``.
+
+Each kernel wrapper runs the CUDA kernel on a CUDA tensor and its plain
+version on a CPU tensor.  Every other engine and stage kind raises
+NotImplementedError naming the ROADMAP.md item that ports it; the fast
+flagship runs through the fused executor (ops/fused.py) instead.
 """
 
 from __future__ import annotations
@@ -33,10 +44,23 @@ from torch import nn
 
 from ..models.lengths import stage_out_len
 from ..models.plan import ConvStage, FracStage, HBDownStage, HBUpStage
+from ..utils.trace import trace
+from .dfft import DfFFT, df_ols_convolve
 from .ozaki import channel_scale, framed_cheap, split_operator_host
+from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
+                          supported_n)
+from .pallas_frac import frac_whole
 from .pallas_ozaki import ozaki_framed
 
-__all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "build_exec"]
+__all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "build_exec",
+           "FFT_ENGINES"]
+
+#: ConvExec's FFT engines; all but "fft" run the df_fft_conv kernel.
+FFT_ENGINES = ("fft", "pallas_fft", "pallas_fft4", "pallas_fft5")
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
 def truncate_residual(Tlo: np.ndarray, scale: float):
@@ -57,34 +81,123 @@ def truncate_residual(Tlo: np.ndarray, scale: float):
 def _check_ozaki(dtype, precision):
     if dtype != torch.float32:
         raise NotImplementedError(
-            f"the ozaki engine runs in float32 only (got {dtype}); the "
-            f"float64 engines are ROADMAP.md queue 1 items 3 and 8")
+            f"the ozaki engine runs in float32 only (got {dtype}); float64 "
+            f"runs conv_engine='fft' (ROADMAP.md queue 1 items 3 and 8)")
     if precision not in ("fast", "high"):
         raise ValueError(f"precision must be 'fast' or 'high', got "
                          f"{precision!r}")
 
 
 class ConvExec(nn.Module):
-    """Convolver with integer up/down resampling, ozaki engine.
+    """Convolver with integer up/down resampling.
 
     Content semantics (the oracle's): u = zero-stuffed input, w = kernel
-    (*) u (causal), y[r] = w[r*down + offset], r in [0, M).  The polyphase
-    superkernel SK[j, d] makes y[m*up + j] = sum_d SK[j, d] *
-    x[m*down + s_min + d]; B_toep consecutive cycles form one banded
-    Toeplitz operator [L_f, B_toep*up], applied as a framed matmul at hop
-    B_toep*down in the error-free split form (the backend-independent
-    -141 dB guarantee)."""
+    (*) u (causal), y[r] = w[r*down + offset], r in [0, M).
+
+    Engines:
+      * "ozaki": the polyphase superkernel SK[j, d] makes y[m*up + j] =
+        sum_d SK[j, d] * x[m*down + s_min + d]; B_toep consecutive cycles
+        form one banded Toeplitz operator [L_f, B_toep*up], applied as a
+        framed matmul at hop B_toep*down in the error-free split form.
+      * "pallas_fft5", "pallas_fft4", "pallas_fft": overlap-save at nfft =
+        hop + P on ``df_fft_conv`` (the f64 convolution rounded to
+        float32).  ``pallas_fft5`` keeps the reference's geometry: the
+        polyphase fold for up = 2 (``framed5_poly``: the unstuffed signal
+        against k_even and k_odd at nx, head nx/4), the framed mode (hop
+        3n/4, head n/4) where ``framed_supported``, and its rename to
+        ``pallas_fft4`` where ``supported_n`` fails.
+      * "fft": the same framing through the df32 torch ops under
+        ``precision="high"``, ``torch.fft.rfft`` otherwise.
+      * "auto": "fft" in float64; float32's toeplitz engine is not ported.
+    """
 
     def __init__(self, spec: ConvStage, dtype=torch.float32,
-                 precision: str = "high", B: int = 256):
+                 precision: str = "high", B: int = 256,
+                 engine: str = "ozaki"):
         super().__init__()
-        _check_ozaki(dtype, precision)
+        if engine == "auto":
+            engine = "fft" if dtype == torch.float64 else "toeplitz"
+        if engine != "ozaki" and engine not in FFT_ENGINES:
+            raise _unported("ConvStage", engine)
         self.spec = spec
         self.dtype = dtype
+        self.engine = engine
+        self.framed5 = self.framed5_poly = False
         k = np.asarray(spec.filt.kernel, dtype=np.float64)
         self.K = k.shape[0]
-        self._build_direct(k)
-        self._build_ozaki(B)
+        if engine == "ozaki":
+            _check_ozaki(dtype, precision)
+            self._build_direct(k)
+            self._build_ozaki(B)
+        else:
+            self._build_fft(k, precision)
+
+    def _build_fft(self, k: np.ndarray, precision: str, ext: int = 2):
+        """The reference's FFT geometry (its ConvExec.__init__): nfft =
+        max(128, next_pow2(P) << ext), doubled while the saved overlap P
+        exceeds the hop; the engines' plans and spectra."""
+        spec, engine = self.spec, self.engine
+        if self.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"dtype must be float32 or float64, got "
+                            f"{self.dtype}")
+        if precision not in ("fast", "high"):
+            raise ValueError(f"precision must be 'fast' or 'high', got "
+                             f"{precision!r}")
+        if engine != "fft":
+            if self.dtype != torch.float32:
+                raise ValueError(f"conv_engine={engine!r} takes float32; "
+                                 f"float64 runs conv_engine='fft'")
+            precision = "high"
+        elif self.dtype != torch.float32:
+            precision = "fast"
+        self.precision = precision
+        P = self.K - 1
+        nfft = max(128, _next_pow2(max(1, P)) << ext)
+        while nfft - P < P:
+            nfft *= 2
+        self.nfft, self.hop = nfft, nfft - P
+        if precision == "high":
+            Hfull = np.fft.fft(k, n=nfft) / nfft
+            if engine == "pallas_fft5":
+                if spec.up == 2:
+                    # polyphase fold: the stuffed up=2 convolution is two
+                    # convolutions of the unstuffed input with k_even and
+                    # k_odd, one forward transform at half the size
+                    ke, ko = k[0::2], k[1::2]
+                    Px = max(ke.shape[0], ko.shape[0]) - 1
+                    nx = max(4096, _next_pow2(max(1, Px)) << ext)
+                    while Px > nx // 4:
+                        nx *= 2
+                    if framed_supported(nx):
+                        self.dfft_plan = DfFFTPlan(
+                            nx, np.fft.fft(ke, n=nx) / nx,
+                            np.fft.fft(ko, n=nx) / nx)
+                        self.framed5_poly = True
+                        return
+                if supported_n(nfft):
+                    # overlap-save at hop 3n/4, head n/4 >= P
+                    self.framed5 = framed_supported(nfft) and P <= nfft // 4
+                    if self.framed5:
+                        self.hop = 3 * nfft // 4
+                else:
+                    trace("conv_pallas_fft5_fallback", nfft=nfft)
+                    self.engine = "pallas_fft4"
+            if engine == "fft":
+                self.H_re = np.ascontiguousarray(Hfull.real)
+                self.H_im = np.ascontiguousarray(Hfull.imag)
+                self.dfft = DfFFT(nfft)
+            else:
+                self.dfft_plan = DfFFTPlan(nfft, Hfull)
+        else:
+            Hf = np.fft.rfft(k, n=nfft)
+            if self.dtype == torch.float32:
+                hi = Hf.astype(np.complex64)
+                lo = (Hf - hi.astype(np.complex128)).astype(np.complex64)
+                self.register_buffer("H_hi", torch.from_numpy(hi))
+                self.register_buffer("H_lo", torch.from_numpy(lo))
+            else:
+                self.register_buffer("H_hi", torch.from_numpy(Hf))
+                self.register_buffer("H_lo", None)
 
     def _build_direct(self, k: np.ndarray):
         """Polyphase superkernel: SK[j, d] = k[(j*down + off) - (s_min+d)*up]
@@ -155,10 +268,62 @@ class ConvExec(nn.Module):
     def out_len(self, n_in: int) -> int:
         return stage_out_len(self.spec, n_in)
 
+    def _apply_fft(self, x: torch.Tensor, M: int) -> torch.Tensor:
+        """The FFT engines (the reference's ConvExec.apply): the stuffed
+        convolution stream w at positions [0, t_needed), then y[r] =
+        w[r*down + off]."""
+        spec = self.spec
+        up, down, off = spec.up, spec.down, spec.offset
+        C, N = x.shape
+        P, hop, nfft = self.K - 1, self.hop, self.nfft
+        t_needed = (M - 1) * down + off + 1
+        pick = slice(off, off + (M - 1) * down + 1, down)
+        if self.framed5_poly:
+            # the unstuffed signal against k_even / k_odd, interleaved
+            plan = self.dfft_plan
+            head = plan.n // 4
+            n_frames = -(-((t_needed + 1) // 2) // (plan.n - head))
+            w = df_fft_conv(F.pad(x.float(), (head, 0)), plan, n_frames, head)
+            return w[:, pick]
+        if up > 1:
+            u = x.new_zeros((C, N * up), dtype=self.dtype)
+            u[:, ::up] = x
+        else:
+            u = x.to(self.dtype)
+        n_frames = -(-t_needed // hop)
+        if self.engine != "fft":
+            # frames read straight from the padded signal: framed5's head
+            # n/4, else the overlap P (the reference's frame tensor)
+            head = nfft // 4 if self.framed5 else P
+            w = df_fft_conv(F.pad(u.float(), (head, 0)), self.dfft_plan,
+                            n_frames, head)
+            return w[:, pick]
+        # u_p = [zeros(P), u, zeros(pad_r)] of length (n_frames + 1) * hop
+        total = (n_frames + 1) * hop
+        pad_r = total - P - u.shape[1]
+        if pad_r < 0:
+            u = u[:, : u.shape[1] + pad_r]
+            pad_r = 0
+        chunks = F.pad(u, (P, pad_r)).reshape(C, n_frames + 1, hop)
+        frames = torch.cat([chunks[:, :n_frames, :], chunks[:, 1:, :P]],
+                           dim=-1)
+        if self.precision == "high":
+            W = df_ols_convolve(frames, self.H_re, self.H_im, self.dfft)
+        else:
+            X = torch.fft.rfft(frames, dim=-1)
+            Y = X * self.H_hi
+            if self.H_lo is not None:
+                Y = Y + X * self.H_lo
+            W = torch.fft.irfft(Y, n=nfft, dim=-1).to(self.dtype)
+        return W[:, :, P:].reshape(C, n_frames * hop)[:, pick]
+
     def apply_v(self, x: torch.Tensor, n_valid: int):
         M = self.out_len(n_valid)
-        if M > 0:
+        if M > 0 and self.engine == "ozaki":
             return self._apply_ozaki(x, M, raw=True), M
+        if M > 0:
+            y = self.apply(x if x.shape[1] == n_valid else x[:, :n_valid])
+            return y, y.shape[1]
         return x.new_zeros((x.shape[0], 0), dtype=self.dtype), 0
 
     def apply_df(self, h: torch.Tensor, l, n_valid=None,
@@ -181,27 +346,35 @@ class ConvExec(nn.Module):
         M = self.out_len(x.shape[1])
         if M <= 0:
             return x.new_zeros((x.shape[0], 0), dtype=self.dtype)
-        return self._apply_ozaki(x, M)
+        if self.engine == "ozaki":
+            return self._apply_ozaki(x, M)
+        return self._apply_fft(x, M)
 
     forward = apply
 
 
 class FracWholeExec(nn.Module):
-    """Whole-stepping fractional interpolator, ozaki engine.
+    """Whole-stepping fractional interpolator.
 
     For output n = m*O + j (O = out_step, I = in_step):
         g_j = W0 + j*I;  f_j = g_j mod O;  s_j = g_j // O
         y[n] = sum_i bank[f_j][i] * x[s_j + m*I - (fl2 - 1) + i]
     Rows of the superkernel SK[j] hold bank[f_j] at offset s_j - s_0, so
     y[:, m*O + j] = sum_d SK[j, d] * x[m*I + a0 + d]: a framed matmul at
-    stride I with O output columns, here in the error-free split form."""
+    stride I with O output columns.
+
+    Engines: "ozaki", the error-free split form on ``ozaki_framed``;
+    "im2col" on ``frac_whole``, with the float32 residual of the operator
+    (``skT_lo``) under ``precision="high"``; "conv", the same contraction
+    in float64 (the reference's strided convolution; its float32 form is
+    not ported); "auto", the reference's rule: "im2col" in float32 when
+    D <= 4*I, else "conv"."""
 
     def __init__(self, spec: FracStage, dtype=torch.float32,
-                 precision: str = "high"):
+                 precision: str = "high", engine: str = "ozaki"):
         super().__init__()
         if not spec.is_whole:
             raise ValueError("FracWholeExec needs a whole-stepping stage")
-        _check_ozaki(dtype, precision)
         self.spec = spec
         self.dtype = dtype
         O, I, W0 = spec.out_step, spec.in_step, spec.init_frac_pos_w
@@ -216,10 +389,35 @@ class FracWholeExec(nn.Module):
         sk = np.zeros((O, D), dtype=np.float64)
         cols = (a - a[0])[:, None] + np.arange(fl)[None, :]
         sk[np.arange(O)[:, None], cols] = table[f]
-        parts, self.oz_scale = split_operator_host(np.ascontiguousarray(sk.T))
-        self.register_buffer("oz_parts", parts)
         self.D = D
         self.pad_l = max(0, -self.a0)
+        if engine == "auto":
+            engine = ("im2col" if dtype == torch.float32 and D <= 4 * I
+                      else "conv")
+        self.engine = engine
+        if engine == "ozaki":
+            _check_ozaki(dtype, precision)
+            parts, self.oz_scale = split_operator_host(
+                np.ascontiguousarray(sk.T))
+            self.register_buffer("oz_parts", parts)
+        elif engine == "im2col" or (engine == "conv"
+                                    and dtype == torch.float64):
+            if dtype not in (torch.float32, torch.float64):
+                raise TypeError(f"dtype must be float32 or float64, got "
+                                f"{dtype}")
+            if precision not in ("fast", "high"):
+                raise ValueError(f"precision must be 'fast' or 'high', got "
+                                 f"{precision!r}")
+            np_dt = np.float32 if dtype == torch.float32 else np.float64
+            skT = np.ascontiguousarray(sk.T)
+            self.register_buffer("skT", torch.from_numpy(skT.astype(np_dt)))
+            lo = None
+            if precision == "high" and dtype == torch.float32:
+                lo = torch.from_numpy((skT - skT.astype(np.float32).astype(
+                    np.float64)).astype(np.float32))
+            self.register_buffer("skT_lo", lo)
+        else:
+            raise _unported(f"{dtype} whole-stepping FracStage", engine)
 
     def out_len(self, n_in: int) -> int:
         return stage_out_len(self.spec, n_in)
@@ -232,20 +430,31 @@ class FracWholeExec(nn.Module):
         return self.D, self.spec.in_step, O, -(-M // O)
 
     def _frame(self, x: torch.Tensor, M: int, x_lo=None):
-        """(xp, sx, xl): the float32 signal padded so that xp[:, m*I :
-        m*I + D] is window m, its per-channel scales over the windows, and
-        the bfloat16 seam residual ``x_lo`` padded alike (or None)."""
+        """(xp, xl): the signal padded so that xp[:, m*I : m*I + D] is
+        window m (float32 for the ozaki engine, else the stage's dtype),
+        and the bfloat16 seam residual ``x_lo`` padded alike (or None)."""
         D, I, _O, n_cyc = self.geometry(M)
         need = self.a0 + (n_cyc + -(-D // I)) * I
         pad = (self.pad_l, max(0, need - x.shape[1]))
         start = self.a0 + self.pad_l
-        xp = F.pad(x.float(), pad)[:, start:]
+        dt = torch.float32 if self.engine == "ozaki" else self.dtype
+        xp = F.pad(x.to(dt), pad)[:, start:]
         xl = None if x_lo is None else F.pad(x_lo, pad)[:, start:]
-        return xp, channel_scale(xp[:, : (n_cyc - 1) * I + D]), xl
+        return xp, xl
+
+    def _scale(self, xp: torch.Tensor, M: int) -> torch.Tensor:
+        """Per-channel power-of-two scales over the windows (ozaki)."""
+        D, I, _O, n_cyc = self.geometry(M)
+        return channel_scale(xp[:, : (n_cyc - 1) * I + D])
 
     def _run(self, x: torch.Tensor, M: int) -> torch.Tensor:
-        xp, sx, _ = self._frame(x, M)
-        return ozaki_framed(xp, sx, self.oz_parts, *self.geometry(M))[:, :M]
+        xp, _ = self._frame(x, M)
+        if self.engine != "ozaki":
+            D, I, O, n_cyc = self.geometry(M)
+            return frac_whole(xp, self.skT, I, D, O, n_cyc,
+                              skT_lo=self.skT_lo)[:, :M]
+        return ozaki_framed(xp, self._scale(xp, M), self.oz_parts,
+                            *self.geometry(M))[:, :M]
 
     def apply_v(self, x: torch.Tensor, n_valid: int):
         """Valid-prefix seam protocol; latency-shifted specs slice to the
@@ -271,12 +480,14 @@ class FracWholeExec(nn.Module):
 
     def apply_df(self, h: torch.Tensor, l, n_valid=None,
                  emit_pair: bool = True):
-        """df32 carry (see ConvExec.apply_df).  As the last stage of a
-        chain it consumes the seam residual with one segmented bfloat16
-        pass (``framed_cheap``) while the kernel emits its (hi, lo) pair,
-        so the collapse hi + (lo + cheap) rounds once (adding the residual
-        to a collapsed output would round twice: -149.5 against -151.9 dB
-        on the flagship in the reference package)."""
+        """df32 carry (see ConvExec.apply_df).  In the ozaki engine, as
+        the last stage of a chain it consumes the seam residual with one
+        segmented bfloat16 pass (``framed_cheap``) while the kernel emits
+        its (hi, lo) pair, so the collapse hi + (lo + cheap) rounds once
+        (adding the residual to a collapsed output would round twice:
+        -149.5 against -151.9 dB on the flagship in the reference
+        package).  The other engines have no carry path: they collapse
+        the pair over the logical prefix first."""
         spec = self.spec
         C, N = h.shape
         if n_valid is None:
@@ -288,11 +499,18 @@ class FracWholeExec(nn.Module):
             l = None if l is None else l[:, spec.in_latency : n_valid]
         if M <= 0:
             return h.new_zeros((C, 0), dtype=self.dtype), None, 0
+        if self.engine != "ozaki":
+            # no carry path: collapse the pair over the logical prefix
+            # (the reference's _df_collapse_input)
+            nv = h.shape[1] if spec.in_latency else n_valid
+            x = h[:, :nv] if l is None else h[:, :nv] + l[:, :nv]
+            return self._run(x, M), None, M
         if l is None and not emit_pair:
             return self._run(h, M), None, M
         geo = self.geometry(M)
         _D, I, _O, n_cyc = geo
-        xp, sx, xl = self._frame(h, M, l)
+        xp, xl = self._frame(h, M, l)
+        sx = self._scale(xp, M)
         if not emit_pair:
             cheap = framed_cheap(xl, self.oz_parts[0], n_cyc, I)
             yh, yl = ozaki_framed(xp, sx, self.oz_parts, *geo, emit_pair=True)
@@ -304,12 +522,10 @@ class FracWholeExec(nn.Module):
 
 
 _ENGINE_ITEMS = {
-    "auto": "queue 1 item 3 (toeplitz and im2col engines)",
-    "toeplitz": "queue 1 item 3", "im2col": "queue 1 item 3",
-    "conv": "queue 1 item 3", "fft": "queue 1 item 8",
-    "pallas_fft": "queue 1 item 8", "pallas_fft4": "queue 1 item 8",
-    "pallas_fft5": "queue 1 item 8", "direct": "queue 1 item 11",
-    "toeplitz_sym": "queue 1 item 11", "pallas": "queue 1 item 11",
+    "toeplitz": "queue 1 item 3 (the float32 toeplitz engine)",
+    "conv": "queue 1 item 3 (the float32 conv engine)",
+    "direct": "queue 1 item 11", "toeplitz_sym": "queue 1 item 11",
+    "pallas": "queue 1 item 11",
 }
 
 
@@ -321,13 +537,11 @@ def _unported(what: str, engine: str):
 
 def build_exec(spec, dtype=torch.float32, precision: str = "fast",
                conv_engine: str = "auto", frac_engine: str = "auto"):
-    """The executor of one planned stage.  Only the ozaki engine of the
-    convolver and of the whole-stepping interpolator is ported; anything
-    else raises NotImplementedError naming its ROADMAP.md item."""
+    """The executor of one planned stage: ``ConvExec`` and
+    ``FracWholeExec`` with the engines they port; anything else raises
+    NotImplementedError naming its ROADMAP.md item."""
     if isinstance(spec, ConvStage):
-        if conv_engine != "ozaki":
-            raise _unported("ConvStage", conv_engine)
-        return ConvExec(spec, dtype, precision)
+        return ConvExec(spec, dtype, precision, engine=conv_engine)
     if isinstance(spec, (HBUpStage, HBDownStage)):
         raise NotImplementedError(
             f"{spec.kind} stages are not ported yet (ROADMAP.md queue 1 "
@@ -337,7 +551,5 @@ def build_exec(spec, dtype=torch.float32, precision: str = "fast",
             raise NotImplementedError(
                 "polynomial-mode interpolation is not ported yet (ROADMAP.md "
                 "queue 1 item 4; its ozaki products item 7)")
-        if frac_engine != "ozaki":
-            raise _unported("whole-stepping FracStage", frac_engine)
-        return FracWholeExec(spec, dtype, precision)
+        return FracWholeExec(spec, dtype, precision, engine=frac_engine)
     raise TypeError(spec)

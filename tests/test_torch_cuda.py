@@ -14,6 +14,8 @@ import torch
 from r8brain_torch import Resampler
 from r8brain_torch.ops import ozaki
 from r8brain_torch.ops.framing import _framed_matmul
+from r8brain_torch.ops.pallas_dfft import (DfFFTPlan, df_fft_conv,
+                                           df_fft_conv_ref)
 from r8brain_torch.ops.pallas_frac import frac_whole, frac_whole_ref
 from r8brain_torch.ops.pallas_ozaki import (mma_dot, ozaki_framed,
                                             ozaki_framed_ref)
@@ -203,3 +205,117 @@ def test_guarantee_chain_on_card(cuda_device, cfg, carry, monkeypatch):
     assert _rms_db(y - y_cpu) - _rms_db(y_cpu) < -150.0
     assert _rms_db(y - ref) - _rms_db(ref) < (-150.0 if carry == "1"
                                               else -141.0)
+
+
+# (mode, n, head, C, n_frames): every mode of df_fft_conv, one-CTA and
+# four-step sizes; C * n_frames is odd in frames and framed mode, so the
+# last transform packs one frame
+FFT_CASES = ([("frames", n, 0, 5, 3) for n in (512, 1024, 8192, 16384, 65536)]
+             + [("framed", n, n // 4, 3, 5) for n in (4096, 8192)]
+             + [("poly", n, n // 4, 3, 4) for n in (4096, 8192, 16384)])
+
+
+def fft_case(rng, mode, n, head, C, n_frames, K=701):
+    """Input u [C, L] (float64 values exact in float32; L ends inside the
+    last frame, so the kernel zero-fills past it), the kernel k, the plan,
+    and the float64 direct convolution of every frame (circular: the
+    frame's periodic extension against k)."""
+    K = min(K, n // 2)
+    hop = n - head
+    L = (n_frames - 1) * hop + n - 7
+    u = rng.uniform(-1.0, 1.0, (C, L)).astype(np.float32).astype(np.float64)
+    k = rng.standard_normal(K)
+    poly = mode == "poly"
+    ks = (k[0::2], k[1::2]) if poly else (k,)
+    plan = DfFFTPlan(n, *[np.fft.fft(kk, n) / n for kk in ks])
+    up = np.zeros((C, (n_frames - 1) * hop + n))
+    up[:, :L] = u
+    outs = []
+    for kk in ks:
+        o = np.zeros((C, n_frames, hop))
+        for c in range(C):
+            for f in range(n_frames):
+                fr = up[c, f * hop : f * hop + n]
+                o[c, f] = np.convolve(np.concatenate([fr, fr]),
+                                      kk)[n + head : 2 * n]
+        outs.append(o.reshape(C, -1))
+    ref = np.stack(outs, -1).reshape(C, -1) if poly else outs[0]
+    return u, plan, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FFT_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in FFT_CASES])
+def test_df_fft_conv_matches_plain(cuda_device, case):
+    """The FP64 FFT-convolution kernel in every mode against
+    df_fft_conv_ref (complex128 torch.fft, rounded to float32) on the
+    card: both round the same float64 convolution once, so they differ by
+    at most one float32 ulp, within 2^-22 of max |y|; and against the
+    float64 direct convolution at -150 dB relative (the float32 rounding
+    of the output alone is about -152 dB).  The input is a row-strided
+    view."""
+    mode, n, head, C, n_frames = case
+    rng = np.random.default_rng(n + head)
+    u, plan, ref = fft_case(rng, mode, n, head, C, n_frames)
+    plan = plan.to(cuda_device)
+    big = torch.zeros((C, u.shape[1] + 3), dtype=torch.float32,
+                      device=cuda_device)
+    big[:, 3:] = torch.from_numpy(u)
+    ut = big[:, 3:]
+    before = df_fft_conv.launches_by[(mode, n)]
+    y = df_fft_conv(ut, plan, n_frames, head)
+    r = df_fft_conv_ref(ut, plan, n_frames, head)
+    torch.cuda.synchronize()
+    assert df_fft_conv.launches_by[(mode, n)] == before + 1
+    assert y.shape == r.shape == ref.shape and y.dtype == torch.float32
+    y = y.cpu().double().numpy()
+    r = r.cpu().double().numpy()
+    assert np.abs(y - r).max() <= 2.0**-22 * np.abs(r).max()
+    assert _rms_db(y - ref) - _rms_db(ref) <= -150.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["frames", "poly"])
+def test_df_fft_conv_four_step_in_chunks(cuda_device, mode, monkeypatch):
+    """Above 8192 points the wrapper runs the transforms in chunks that fit
+    its float64 scratch; with the scratch cut to three transforms, n =
+    16384 takes several chunks (transform offsets g0 > 0) and still
+    matches the plain version."""
+    from r8brain_torch.ops import pallas_dfft
+
+    n = 16384
+    monkeypatch.setattr(pallas_dfft, "SCRATCH_BYTES", 3 * 16 * n)
+    head = 0 if mode == "frames" else n // 4
+    u, plan, ref = fft_case(np.random.default_rng(13), mode, n, head, 3, 3)
+    plan = plan.to(cuda_device)
+    ut = torch.tensor(u, dtype=torch.float32, device=cuda_device)
+    y = df_fft_conv(ut, plan, 3, head)
+    r = df_fft_conv_ref(ut, plan, 3, head)
+    torch.cuda.synchronize()
+    y = y.cpu().double().numpy()
+    r = r.cpu().double().numpy()
+    assert np.abs(y - r).max() <= 2.0**-22 * np.abs(r).max()
+    assert _rms_db(y - ref) - _rms_db(ref) <= -150.0
+
+
+FFT_ENGINES = ["pallas_fft5", "pallas_fft4", "pallas_fft", "fft"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", FFT_ENGINES)
+def test_fft_chain_on_card(cuda_device, engine):
+    """The df32-FFT guarantee chain on the card (conv stage on df_fft_conv,
+    or the df32 torch ops for "fft"; frac stage on frac_whole) against the
+    port's float64 CPU path at the -141 dB class."""
+    rng = np.random.default_rng(12)
+    x = rng.uniform(-1.0, 1.0, (3, 20000)).astype(np.float32)
+    rs = Resampler(44100, 96000, 2.0, 180.15, precision="high", fused=False,
+                   conv_engine=engine, device=cuda_device)
+    before = (df_fft_conv.launches, frac_whole.launches)
+    y = rs.oneshot(x)
+    torch.cuda.synchronize()
+    assert frac_whole.launches == before[1] + 1
+    assert df_fft_conv.launches == before[0] + (engine != "fft")
+    ref = Resampler(44100, 96000, 2.0, 180.15, dtype=torch.float64,
+                    device="cpu").oneshot(x.astype(np.float64)).numpy()
+    assert _rms_db(y.cpu().double().numpy() - ref) < -141.0

@@ -140,10 +140,10 @@ def test_cpu_chain_launches_no_kernel(monkeypatch):
 
 def test_unported_engines_raise():
     cpu = dict(device="cpu")
-    for kw in (dict(fused=False), dict(fused=False, conv_engine="ozaki"),
-               dict(conv_engine="ozaki"), dict(fused="poly"),
+    for kw in (dict(fused=False), dict(fused=False, conv_engine="direct"),
+               dict(conv_engine="toeplitz_sym"), dict(fused="poly"),
                dict(conv_engine="toeplitz"),
-               dict(fused=False, conv_engine="ozaki", frac_engine="im2col")):
+               dict(fused=False, conv_engine="ozaki", frac_engine="conv")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Resampler(44100, 96000, 2.0, 180.15, **kw, **cpu)
     # half-band and polynomial stages have no executor yet
@@ -154,5 +154,5 @@ def test_unported_engines_raise():
         Resampler(44100, 96000, 2.0, 180.15, dtype=torch.float64, **OZ,
                   **cpu)
     conv = Resampler(44100, 96000, device="cpu").plan.stages[0]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_exec(conv, conv_engine="fft")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        build_exec(conv, conv_engine="toeplitz")

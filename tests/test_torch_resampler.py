@@ -173,7 +173,7 @@ def test_unfusable_plan_raises(src, dst, item):
 
 def test_unported_options_raise(flagship):
     for kw in (dict(fused=False), dict(fused="poly"),
-               dict(conv_engine="fft"), dict(frac_engine="pallas")):
+               dict(conv_engine="toeplitz"), dict(frac_engine="pallas")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Resampler(*FLAG, **kw, **CPU)
     x = np.zeros((1, 3000), np.float32)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device-time breakdown of one port chain on the card, by kernel.
 
-    python tools/torch_profile_chain.py [--engine fast|ozaki] [--carry 1|0]
+    python tools/torch_profile_chain.py [--engine fast|ozaki|pallas_fft5]
+                                        [--carry 1|0]
 
 Runs ``Resampler(44100, 96000, 2, 180.15).oneshot`` on 1024 x 44100
 full-scale uniform float32 input (seed 0) through ``torch.profiler`` and
@@ -10,6 +11,8 @@ kernel time against the oneshot's wall time (CUDA events), whose
 difference is the device's idle share.  ``--engine ozaki`` is the
 guarantee chain (``precision="high"``, ``conv_engine="ozaki"``,
 ``frac_engine="ozaki"``); ``--carry 0`` sets ``R8BT_DF_CARRY=0`` for it.
+``--engine pallas_fft5`` is the df32-FFT guarantee chain
+(``precision="high"``, ``fused=False``, ``conv_engine="pallas_fft5"``).
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -28,7 +31,8 @@ REPS = 5         # profiled oneshots, after two warm-up calls
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--engine", choices=("fast", "ozaki"), default="ozaki")
+    ap.add_argument("--engine", choices=("fast", "ozaki", "pallas_fft5"),
+                    default="ozaki")
     ap.add_argument("--carry", choices=("1", "0"), default="1")
     args = ap.parse_args()
 
@@ -44,8 +48,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    kw = {} if args.engine == "fast" else dict(
-        precision="high", conv_engine="ozaki", frac_engine="ozaki")
+    kw = {"fast": {},
+          "ozaki": dict(precision="high", conv_engine="ozaki",
+                        frac_engine="ozaki"),
+          "pallas_fft5": dict(precision="high", fused=False,
+                              conv_engine="pallas_fft5")}[args.engine]
     rs = Resampler(44100, 96000, 2.0, 180.15, device=dev, **kw)
     x = torch.rand((CHANNELS, 44100), generator=torch.Generator(
         device=dev).manual_seed(0), device=dev) * 2 - 1
@@ -70,8 +77,8 @@ def main() -> int:
                      // REPS, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    label = args.engine if args.engine == "fast" else \
-        f"ozaki carry={args.carry}"
+    label = f"ozaki carry={args.carry}" if args.engine == "ozaki" else \
+        args.engine
     print(f"{torch.cuda.get_device_name(0)}: chain {label}, "
           f"{CHANNELS} x 44100, per oneshot:")
     for ms, n, key in rows:
