@@ -11,6 +11,7 @@ uniform float32 input:
 
 * the fast flagship, 44.1 kHz -> 96 kHz ``precision="fast"``, fused, on
   ``frac_whole``; checked at -141 dB against the port's float64 CPU path;
+  and the same fused path with ``precision="high"`` (the residual dot);
 * the guarantee chain, the same conversion with ``precision="high"``,
   ``conv_engine="ozaki"``, ``frac_engine="ozaki"``: conv and whole-frac
   stages on ``ozaki_framed`` with the df32 inter-stage carry, checked at
@@ -22,8 +23,8 @@ uniform float32 input:
   residual), ``"pallas_fft4"`` and ``"pallas_fft"`` (n=8192, head P), and
   96 kHz -> 44.1 kHz with ``"pallas_fft5"`` (framed, n=8192) and at
   ``trans_band=5``, ``atten=136.45`` (n=2048, the reference's unframed
-  kernel), each checked at -141 dB; and ``"fft"``, the df32 torch ops, on
-  64 channels.
+  kernel), and ``"fft"`` (the same kernel as ``"pallas_fft"``), each
+  checked at -141 dB.
 
 Before the guarantee chain it pins the exactness lemma the split-operand
 kernel rests on (a 256-deep tensor-core float32 accumulation of bf16 slice
@@ -71,9 +72,9 @@ OZ_LO_REL_TOL, OZ_PAIR_REL_TOL = 2.0**-22, 2.0**-28
 # df_fft_conv vs df_fft_conv_ref: both round one float64 convolution to
 # float32, so they differ by at most one ulp of the output
 FFT_REL_TOL = 2.0**-22
-N_FFT_TORCH = 64  # channels of the conv_engine="fft" run (df32 torch ops)
 # the FFT engines' paths: (label, src, dst, trans_band, atten,
-# conv_engine, expected df_fft_conv launch (mode, n), replaced TPU kernel)
+# conv_engine, expected df_fft_conv launch (mode, n), replaced TPU kernel
+# or None where the kernel call is the one of the path before)
 FFT_PATHS = (
     ("poly", 44100, 96000, 2.0, 180.15, "pallas_fft5", ("poly", 4096),
      "r8brain_tpu/ops/pallas_dfft5.py:763"),
@@ -84,20 +85,23 @@ FFT_PATHS = (
     ("framed5", 96000, 44100, 2.0, 180.15, "pallas_fft5", ("framed", 8192),
      "r8brain_tpu/ops/pallas_dfft5.py:693"),
     ("unframed5", 96000, 44100, 5.0, 136.45, "pallas_fft5",
-     ("framed", 2048), "r8brain_tpu/ops/pallas_dfft5.py:623"))
+     ("framed", 2048), "r8brain_tpu/ops/pallas_dfft5.py:623"),
+    ("xla_fft", 44100, 96000, 2.0, 180.15, "fft", ("framed", 8192), None))
 # df_fft_conv against its plain version at every mode and size class:
 # (mode, n, head, C, n_frames), C * n_frames odd outside poly mode
 FFT_CASES = ([("frames", n, 0, 5, 3) for n in (512, 1024, 8192, 16384, 65536)]
              + [("framed", n, n // 4, 3, 5) for n in (4096, 8192)]
              + [("poly", n, n // 4, 3, 4) for n in (4096, 8192, 16384)])
 
-# (fp32 CUDA-core, dense bf16 tensor-core, fp64 CUDA-core peak FLOP/s, HBM
-# bytes/s) by SKU, at the full power limit (NVIDIA data sheets).  Substring
-# match on the device name.
-PEAKS = (("H100 PCIe", 51.2e12, 756e12, 25.6e12, 2.0e12),
-         ("H100 NVL", 60.0e12, 835e12, 30.0e12, 3.9e12),
-         ("H100", 67.0e12, 989e12, 34.0e12, 3.35e12),
-         ("H200", 67.0e12, 989e12, 34.0e12, 4.8e12))
+# (fp32 CUDA-core, dense bf16 tensor-core, fp64 tensor-core peak FLOP/s,
+# HBM bytes/s) by SKU, at the full power limit (NVIDIA data sheets).  The
+# fp64 bound takes the tensor cores' rate, the card's highest for fp64 (an
+# FFT can run as small DFT products there); the CUDA cores' is half of it.
+# Substring match on the device name.
+PEAKS = (("H100 PCIe", 51.2e12, 756e12, 51.2e12, 2.0e12),
+         ("H100 NVL", 60.0e12, 835e12, 60.0e12, 3.9e12),
+         ("H100", 67.0e12, 989e12, 67.0e12, 3.35e12),
+         ("H200", 67.0e12, 989e12, 67.0e12, 4.8e12))
 
 
 class SmokeFailure(Exception):
@@ -444,13 +448,12 @@ def check_fft_cases(dev) -> None:
           f"(tol {FFT_REL_TOL:.2e})")
 
 
-def capture_calls(rs, x):
-    """Run rs.oneshot(x) once with the stage executors' df_fft_conv and
-    frac_whole recorded: the arguments each kernel gets on this path."""
-    from r8brain_torch.ops import stages
-
+def capture_calls(rs, x, module, names=("df_fft_conv", "frac_whole")):
+    """Run rs.oneshot(x) once with the kernel wrappers ``names`` that
+    ``module`` calls recorded: the arguments each kernel gets on this
+    path."""
     calls = {}
-    real = {k: getattr(stages, k) for k in ("df_fft_conv", "frac_whole")}
+    real = {k: getattr(module, k) for k in names}
 
     def recorder(k):
         def rec(*args, **kw):
@@ -460,23 +463,63 @@ def capture_calls(rs, x):
 
     try:
         for k in real:
-            setattr(stages, k, recorder(k))
+            setattr(module, k, recorder(k))
         rs.oneshot(x)
     finally:
         for k, fn in real.items():
-            setattr(stages, k, fn)
+            setattr(module, k, fn)
     return calls
+
+
+def rfft_conv(u, plan, n_frames: int, head: int):
+    """The library route of df_fft_conv's function: the frames in float64
+    through ``torch.fft.rfft``, the product by the real kernels' half
+    spectra (H_e and H_o in polyphase mode, split out of G = H_e + i*H_o
+    by Hermitian symmetry) and one batched ``torch.fft.irfft``.  Returns a
+    function of no arguments."""
+    import torch
+    import torch.nn.functional as F
+
+    from r8brain_torch.ops.framing import _frames
+
+    n, C = plan.n, u.shape[0]
+    hop, half = n - head, n // 2 + 1
+    G = plan.G
+    if plan.poly:
+        Gm = torch.roll(torch.flip(G, (0,)), 1).conj()  # conj(G[-k mod n])
+        Hr = torch.stack([(G + Gm) / 2, (G - Gm) / 2j])[:, :half]
+    else:
+        Hr = G[None, :half]
+    need = (n_frames - 1) * hop + n
+    pad = max(0, need - u.shape[1])
+
+    def run():
+        up = F.pad(u[:, :need], (0, pad)).double()
+        X = torch.fft.rfft(_frames(up, n_frames, hop, n))
+        w = torch.fft.irfft(X[:, :, None, :] * Hr, n=n, norm="forward")
+        w = w[..., head:].transpose(-1, -2) if plan.poly else w[..., 0, head:]
+        return w.reshape(C, -1).float()
+    return run
+
+
+def fft_flops(n: int, f_total: int, poly: bool) -> float:
+    """Floating-point operations the function needs: each real frame one
+    real-input transform forward (2.5 n log2 n), and for each of its one
+    or two kernels (poly) a product with a half spectrum (3n) and one
+    real-output inverse (2.5 n log2 n)."""
+    n_out = 2 if poly else 1
+    return f_total * (2.5 * n * math.log2(n) * (1 + n_out) + 3.0 * n * n_out)
 
 
 def fft_paths(dev, x, ref, skip, peaks, card):
     """The df32-FFT engines' paths: each counted (launches set to 0 just
     before, read just after), checked at -141 dB against the port's
-    float64 CPU path, timed with its kernel calls; the "fft" engine (torch
-    ops, no kernel of its own) on N_FFT_TORCH channels.  Returns the
-    kernel records."""
+    float64 CPU path and timed with its kernel calls.  Returns the kernel
+    records."""
     import torch
 
     from r8brain_torch import Resampler
+    from r8brain_torch.ops import stages
     from r8brain_torch.ops.pallas_dfft import df_fft_conv, df_fft_conv_ref
     from r8brain_torch.ops.pallas_frac import frac_whole
 
@@ -519,115 +562,151 @@ def fft_paths(dev, x, ref, skip, peaks, card):
         one_ms = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
         print(f"timing {card}: fft path {label} oneshot {one_ms:.3f} ms = "
               f"{1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
+        if replaces is None:
+            del rs
+            continue
 
-        calls = capture_calls(rs, x)
+        calls = capture_calls(rs, x, stages)
         (u, plan, n_frames, head), _kw = calls["df_fft_conv"]
         y = df_fft_conv(u, plan, n_frames, head)
         r = df_fft_conv_ref(u, plan, n_frames, head)
+        lib = rfft_conv(u, plan, n_frames, head)
+        rl = lib()
         torch.cuda.synchronize()
         rel = max_rel(y, r.double())
+        rel_lib = max_rel(rl, r.double())
         max_abs = float((y.double() - r.double()).abs().max().item())
         check(rel <= FFT_REL_TOL, f"df_fft_conv at the {label} path's shape: "
               f"max rel err {rel:.3e} vs plain")
+        check(rel_lib <= FFT_REL_TOL, f"the rfft route at the {label} "
+              f"path's shape: max rel err {rel_lib:.3e} vs plain")
+        del rl
         k_ms = cuda_ms(lambda: df_fft_conv(u, plan, n_frames, head), reps=20)
         p_ms = cuda_ms(lambda: df_fft_conv_ref(u, plan, n_frames, head),
                        reps=3, warmup=1)
+        lib_ms = cuda_ms(lib, reps=3, warmup=1)
         n = plan.n
         f_total = u.shape[0] * n_frames
-        n_tr = f_total if plan.poly else -(-f_total // 2)
-        flops = n_tr * (10.0 * n * math.log2(n) + 6.0 * n)
+        flops = fft_flops(n, f_total, plan.poly)
         span = min(u.shape[1], (n_frames - 1) * (n - head) + n)
         nbytes = 4.0 * u.shape[0] * span + 4.0 * y.numel() + 32.0 * n
         bound_ms, bound_by = bound(flops, nbytes, peak_f64, peak_bytes)
         mode = plan.mode(head)
         print(f"timing {card}: df_fft_conv {label} ({mode}, n={n}, head="
-              f"{head}, C={u.shape[0]}, {n_frames} frames a row, {n_tr} "
-              f"transforms) kernel {k_ms:.3f} ms ({flops / k_ms * 1e-9:.2f} "
-              f"fp64 TFLOP/s), bound {bound_ms:.3f} ms by {bound_by} "
-              f"({flops:.3e} flop, {nbytes / 1e9:.3f} GB), plain "
-              f"df_fft_conv_ref (cuFFT complex128 through torch.fft: also "
-              f"the library time) {p_ms:.3f} ms; max rel err vs plain "
-              f"{rel:.3e}")
+              f"{head}, C={u.shape[0]}, {n_frames} frames a row) kernel "
+              f"{k_ms:.3f} ms ({flops / k_ms * 1e-9:.2f} fp64 TFLOP/s of "
+              f"real-input work), bound {bound_ms:.3f} ms by {bound_by} "
+              f"({flops:.3e} flop over {peak_f64 * 1e-12:g} TFLOP/s, "
+              f"{nbytes / 1e9:.3f} GB), plain df_fft_conv_ref (complex128 "
+              f"torch.fft) {p_ms:.3f} ms, library route (float64 torch.fft."
+              f"rfft / irfft) {lib_ms:.3f} ms; max rel err vs plain "
+              f"{rel:.3e}, library route {rel_lib:.3e}")
         records.append({
             "name": f"df_fft_conv[{label}: {mode}, n={n}]", "route": "cuda",
             "source": "r8brain_torch/csrc/df_fft_conv.cu",
             "replaces": replaces, "launches": by.get(want, 0),
             "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": p_ms})
-        del y, r, u
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+        del y, r, u, lib
 
         if label == "poly":
-            records.append(frac_stage_record(calls["frac_whole"], n_fw,
-                                             peak_f32, peak_bytes, card))
+            records.append(frac_lo_record(
+                "frac_whole[frac stage, skT_lo]", calls["frac_whole"], n_fw,
+                peak_f32, peak_bytes, card))
         del calls, rs
         torch.cuda.empty_cache()
-
-    # "fft": the df32 torch ops (no kernel of their own), for accuracy and
-    # time
-    rs = Resampler(SRC, DST, TB, ATTEN, precision="high", fused=False,
-                   conv_engine="fft", device=dev)
-    xs = x[:N_FFT_TORCH]
-    out = rs.oneshot(xs)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out).all()), "fft (torch ops) not finite")
-    db = rms_db(out[:N_CMP].cpu().double().numpy()[:, skip:-skip]
-                - ref[:, skip:-skip])
-    t_ms = cuda_ms(lambda: rs.oneshot(xs), reps=3, warmup=1)
-    print(f"fft path torch-ops: conv_engine='fft' (df32 torch ops), "
-          f"{N_FFT_TORCH} x {N_IN}: {N_CMP} channels vs port f64 CPU path "
-          f"{db:.2f} dB re full scale; timing {card}: oneshot {t_ms:.3f} ms "
-          f"= {1e-6 * N_FFT_TORCH * N_IN / (t_ms * 1e-3):.1f} Mrops")
-    check(db <= CLASS_DB, f"fft (torch ops): {db:.2f} dB misses "
-          f"{CLASS_DB:g} dB")
     return records
 
 
-def frac_stage_record(call, launches, peak_f32, peak_bytes, card):
-    """frac_whole at the guarantee chains' frac stage (the operator
-    residual on): against its plain version in float64, timed beside the
-    f32 model and cuDNN conv1d.  The bound counts the operator's nonzero
-    entries (the stage's operator is banded; the kernel multiplies it
-    dense)."""
+def frac_lo_record(name, call, launches, peak_f32, peak_bytes, card):
+    """frac_whole with the operator residual at one path's call: against
+    its plain version in float64, timed at the call's fold length and at
+    the other one, beside the float32 model and float64 cuDNN conv1d.  The
+    bound counts the operator's nonzero entries (a whole-stepping stage's
+    operator is banded; the kernel multiplies it dense)."""
     import torch
     import torch.nn.functional as F
 
-    from r8brain_torch.ops.pallas_frac import frac_whole, frac_whole_ref
+    from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
+                                               frac_whole_ref)
 
     (xp, skT, I, D, O, n_win), kw = call
-    lo = kw.get("skT_lo")
-    y = frac_whole(xp, skT, I, D, O, n_win, skT_lo=lo)
+    lo, kc = kw["skT_lo"], kw.get("kc", KC)
+    y = frac_whole(xp, skT, I, D, O, n_win, skT_lo=lo, kc=kc)
     r64 = frac_whole_ref(xp.double(), skT.double(), I, D, O, n_win,
                          skT_lo=lo.double())
     torch.cuda.synchronize()
     err = max_rel(y, r64)
     max_abs = float((y.double() - r64).abs().max().item())
-    check(err <= KERNEL_REL_TOL, f"frac_whole frac stage rel err {err:.3e}")
-    del r64
-    k_ms = cuda_ms(lambda: frac_whole(xp, skT, I, D, O, n_win, skT_lo=lo),
-                   reps=20)
+    check(err <= KERNEL_REL_TOL, f"{name} rel err {err:.3e}")
+    del r64, y
+    ms = {k: cuda_ms(lambda: frac_whole(xp, skT, I, D, O, n_win, skT_lo=lo,
+                                        kc=k), reps=20)
+          for k in (KC_LO, KC)}
     p_ms = cuda_ms(lambda: frac_whole_ref(xp, skT, I, D, O, n_win,
-                                          skT_lo=lo), reps=3, warmup=1)
+                                          skT_lo=lo, kc=kc), reps=3,
+                   warmup=1)
     w = (skT.double() + lo.double()).T.contiguous()[:, None, :]
     xp64 = xp.double()[:, None, :]
     lib_ms = cuda_ms(lambda: F.conv1d(xp64, w, stride=I), reps=3, warmup=1)
-    del xp64
+    del xp64, w
     C = xp.shape[0]
     nnz = int((skT != 0).sum().item()) + int((lo != 0).sum().item())
     flops = 2.0 * C * n_win * nnz
     nbytes = 4.0 * (C * ((n_win - 1) * I + D) + 2 * D * O + C * n_win * O)
     bound_ms, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
-    print(f"timing {card}: frac_whole frac stage I={I} D={D} O={O} C={C} "
-          f"n_win={n_win} with skT_lo: kernel {k_ms:.3f} ms, bound "
+    print(f"timing {card}: {name} I={I} D={D} O={O} C={C} n_win={n_win}, "
+          f"fold {kc}: kernel {ms[kc]:.3f} ms (fold {KC_LO}: "
+          f"{ms[KC_LO]:.3f} ms, fold {KC}: {ms[KC]:.3f} ms), bound "
           f"{bound_ms:.3f} ms by {bound_by} ({flops:.3e} flop over the "
           f"{nnz} nonzeros of skT and skT_lo, {nbytes / 1e9:.3f} GB), plain "
           f"frac_whole_ref {p_ms:.3f} ms, f64 cuDNN conv1d {lib_ms:.3f} ms; "
           f"max rel err vs f64 plain {err:.3e} (tol {KERNEL_REL_TOL:g})")
-    return {"name": "frac_whole[frac stage, skT_lo]", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "r8brain_torch/csrc/frac_whole.cu",
             "replaces": "r8brain_tpu/ops/pallas_frac.py:111",
-            "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
+            "launches": launches, "max_abs_err": max_abs, "ms": ms[kc],
             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms}
+
+
+def fused_high_path(dev, x, ref, skip, peak_f32, peak_bytes, card):
+    """The fused flagship with precision="high" (the residual dot in the
+    same kernel): counted, held at -141 dB, timed; returns its kernel
+    record."""
+    import torch
+
+    from r8brain_torch import Resampler
+    from r8brain_torch.ops import fused
+    from r8brain_torch.ops.pallas_frac import frac_whole
+
+    rs = Resampler(SRC, DST, TB, ATTEN, precision="high", device=dev)
+    frac_whole.launches = 0
+    out = rs.oneshot(x)
+    torch.cuda.synchronize()
+    launches = frac_whole.launches
+    check(tuple(out.shape) == (CHANNELS, rs.default_out_len(N_IN)),
+          f"fused high oneshot shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "fused high output not finite")
+    check(launches >= 1, "the fused high path never launched frac_whole")
+    db = rms_db(out[:N_CMP].cpu().double().numpy()[:, skip:-skip]
+                - ref[:, skip:-skip])
+    print(f"fused high path: Resampler({SRC}, {DST}, {TB}, {ATTEN}, "
+          f"precision='high') {CHANNELS} x {N_IN} -> {tuple(out.shape)}; "
+          f"{N_CMP} channels vs port f64 CPU path {db:.2f} dB RMS (class "
+          f"{CLASS_DB:g}); frac_whole launches {launches}")
+    check(db <= CLASS_DB, f"fused high path {db:.2f} dB misses "
+          f"{CLASS_DB:g} dB")
+    del out
+    one_ms = cuda_ms(lambda: rs.oneshot(x), reps=10)
+    print(f"timing {card}: fused high oneshot {one_ms:.3f} ms = "
+          f"{1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
+    calls = capture_calls(rs, x, fused, ("frac_whole",))
+    rec = frac_lo_record("frac_whole[fused, skT_lo]", calls["frac_whole"],
+                         launches, peak_f32, peak_bytes, card)
+    del calls, rs
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -670,7 +749,8 @@ def main() -> int:
     skip = int(EDGE_S * DST)
 
     kernels = [fast_path(dev, x, ref, skip, (peak_f32, peak_bf16, peak_bytes),
-                         card)]
+                         card),
+               fused_high_path(dev, x, ref, skip, peak_f32, peak_bytes, card)]
 
     # the split-operand kernel: its lemma, then every variant vs plain at
     # the guarantee chain's two geometries and at an odd one

@@ -30,15 +30,16 @@
 //     are in flight while this slab's FMAs run.  The ragged edges in
 //     C*n_win, D and O are zero-filled, so C needs no alignment.
 //   * Accuracy: each output sums FOLD terms into a register partial, then
-//     folds it into a (hi, lo) pair with two_sum: FOLD = BK = KC = 32 in
-//     f32, and KC_LO = 8 when the residual dot is on (precision "high", the
-//     guarantee chains' interpolator, whose ~24 nonzero taps a column would
-//     otherwise share one partial: -146.1 against -148.8 dB on the 44.1k ->
-//     96k frac stage).  A single running f32 sum over 1027 terms reaches
-//     only about -132 dB on the fused operator; the chunked fold holds about
-//     -144 dB.  The residual dot (skT_lo, ~2^-24 of the main term) is a
-//     plain running sum added at the end as hi + (lo + residual).  Built
-//     without --use_fast_math so the fold is not reassociated.
+//     folds it into a (hi, lo) pair with two_sum.  FOLD is the caller's: 32
+//     (= BK = KC of the plain model) or 8 in f32, BK = 16 in f64.  A single
+//     running f32 sum over 1027 terms reaches only about -132 dB on the
+//     fused operator; 32-term partials hold about -144 dB.  A whole-stepping
+//     interpolator's column has only ~24 nonzero taps, which a 32-term fold
+//     leaves in one partial: its stage executor folds every 8 terms (KC_LO,
+//     -148.8 against -146.1 dB on the 44.1k -> 96k frac stage).  The
+//     residual dot (skT_lo, ~2^-24 of the main term) is a plain running sum
+//     added at the end as hi + (lo + residual).  Built without
+//     --use_fast_math so the fold is not reassociated.
 //   The plain PyTorch model of this exact chunking and fold is
 //   r8brain_torch/ops/pallas_frac.py::frac_whole_ref.
 
@@ -86,7 +87,8 @@ struct Smem {
       BM * sizeof(long long) + 2 * (A + B * (HAS_LO ? 2 : 1)) * sizeof(T);
 };
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool HAS_LO>
+template <typename T, int BM, int BN, int BK, int TM, int TN, int FOLD,
+          bool HAS_LO>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 frac_whole_kernel(const T* __restrict__ xp, long long ldx,
                   const T* __restrict__ skT, const T* __restrict__ skT_lo,
@@ -171,7 +173,6 @@ frac_whole_kernel(const T* __restrict__ xp, long long ldx,
   }
 
   // fold the partials into (hi, lo): two_sum(hi, acc) -> (hi, lo += err)
-  constexpr int FOLD = (HAS_LO && sizeof(T) == 4) ? 8 : BK;
   static_assert(BK % FOLD == 0, "fold within a slab");
   auto fold = [&]() {
 #pragma unroll
@@ -255,14 +256,15 @@ frac_whole_kernel(const T* __restrict__ xp, long long ldx,
   }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool HAS_LO>
+template <typename T, int BM, int BN, int BK, int TM, int TN, int FOLD,
+          bool HAS_LO>
 cudaError_t launch_one(unsigned blocks, cudaStream_t s, const T* xp,
                        long long ldx, const T* skT, const T* skT_lo, T* y,
                        long long R, int n_win, int I, int D, int O,
                        int n_col) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr size_t smem = Smem<T, BM, BN, BK, HAS_LO>::bytes;
-  auto* kern = frac_whole_kernel<T, BM, BN, BK, TM, TN, HAS_LO>;
+  auto* kern = frac_whole_kernel<T, BM, BN, BK, TM, TN, FOLD, HAS_LO>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -271,7 +273,7 @@ cudaError_t launch_one(unsigned blocks, cudaStream_t s, const T* xp,
   return cudaGetLastError();
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
+template <typename T, int BM, int BN, int BK, int TM, int TN, int FOLD>
 int launch(const T* xp, long long ldx, const T* skT, const T* skT_lo, T* y,
            int C, int n_win, int I, int D, int O, void* stream) {
   if (C < 0 || n_win < 1 || I < 1 || D < 1 || O < 1 || ldx < 0)
@@ -285,11 +287,10 @@ int launch(const T* xp, long long ldx, const T* skT, const T* skT_lo, T* y,
   const unsigned nb = static_cast<unsigned>(blocks);
   const cudaError_t e =
       skT_lo != nullptr
-          ? launch_one<T, BM, BN, BK, TM, TN, true>(nb, s, xp, ldx, skT, skT_lo,
-                                                    y, R, n_win, I, D, O, n_col)
-          : launch_one<T, BM, BN, BK, TM, TN, false>(nb, s, xp, ldx, skT,
-                                                     skT_lo, y, R, n_win, I, D,
-                                                     O, n_col);
+          ? launch_one<T, BM, BN, BK, TM, TN, FOLD, true>(
+                nb, s, xp, ldx, skT, skT_lo, y, R, n_win, I, D, O, n_col)
+          : launch_one<T, BM, BN, BK, TM, TN, FOLD, false>(
+                nb, s, xp, ldx, skT, skT_lo, y, R, n_win, I, D, O, n_col);
   return static_cast<int>(e);
 }
 
@@ -297,20 +298,26 @@ int launch(const T* xp, long long ldx, const T* skT, const T* skT_lo, T* y,
 
 // Launch on `stream` (a cudaStream_t); returns the launch's cudaError_t.
 // xp: [C, >= (n_win-1)*I + D] with row stride ldx elements; skT, skT_lo:
-// [D, O] row-major (skT_lo may be null); y: [C, n_win*O] row-major.
+// [D, O] row-major (skT_lo may be null); y: [C, n_win*O] row-major.  fold:
+// the terms of one register partial, 8 or 32 (the KC_LO and KC of the plain
+// model, frac_whole_ref).
 extern "C" int r8b_frac_whole_f32(const float* xp, long long ldx,
                                   const float* skT, const float* skT_lo,
                                   float* y, int C, int n_win, int I, int D,
-                                  int O, void* stream) {
-  // BK = 32 is the KC of the plain model (frac_whole_ref)
-  return launch<float, 128, 64, 32, 8, 4>(xp, ldx, skT, skT_lo, y, C, n_win,
-                                          I, D, O, stream);
+                                  int O, int fold, void* stream) {
+  if (fold == 8)
+    return launch<float, 128, 64, 32, 8, 4, 8>(xp, ldx, skT, skT_lo, y, C,
+                                               n_win, I, D, O, stream);
+  if (fold == 32)
+    return launch<float, 128, 64, 32, 8, 4, 32>(xp, ldx, skT, skT_lo, y, C,
+                                                n_win, I, D, O, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int r8b_frac_whole_f64(const double* xp, long long ldx,
                                   const double* skT, const double* skT_lo,
                                   double* y, int C, int n_win, int I, int D,
                                   int O, void* stream) {
-  return launch<double, 64, 64, 16, 4, 4>(xp, ldx, skT, skT_lo, y, C, n_win,
-                                          I, D, O, stream);
+  return launch<double, 64, 64, 16, 4, 4, 16>(xp, ldx, skT, skT_lo, y, C,
+                                              n_win, I, D, O, stream);
 }

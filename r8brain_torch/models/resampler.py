@@ -41,12 +41,6 @@ from .plan import Plan, make_plan
 
 __all__ = ["Resampler", "Resampler16", "Resampler16IR", "Resampler24"]
 
-#: The engines the port runs, by stage kind.
-CONV_ENGINES = ("auto", "ozaki", "fft", "pallas_fft", "pallas_fft4",
-                "pallas_fft5")
-FRAC_ENGINES = ("auto", "im2col", "ozaki")
-
-
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises when it names CUDA and CUDA is
     not available (the port never carries on quietly on the CPU)."""
@@ -79,9 +73,11 @@ class Resampler(nn.Module):
         conv_engine: "auto" (fused, or float64's "fft" unfused); "ozaki",
         the error-free split-operand guarantee engine (ops/ozaki.py); or
         the df32-FFT guarantee engines "pallas_fft5", "pallas_fft4",
-        "pallas_fft" (the FP64 overlap-save kernel of ops/pallas_dfft.py,
-        in the reference's geometry for each name) and "fft" (the df32
-        torch ops of ops/dfft.py under precision="high").
+        "pallas_fft" and "fft" (the FP64 overlap-save kernel of
+        ops/pallas_dfft.py, in the reference's geometry for each name;
+        "fft" under precision="high" only, else torch.fft).  The stage
+        executors (ops/stages.py) accept or reject an engine: an unported
+        one raises NotImplementedError naming its ROADMAP.md item.
 
         frac_engine: "auto" (the reference's rule: "im2col" in float32
         when the windows barely overlap), "im2col" (ops/pallas_frac.py)
@@ -97,14 +93,6 @@ class Resampler(nn.Module):
             raise NotImplementedError(
                 f"fused={fused!r} is not ported yet (ROADMAP.md queue 1 "
                 f"item 11, fused='poly'); 'auto' and False run")
-        for name, val, ported in (("conv_engine", conv_engine,
-                                   CONV_ENGINES),
-                                  ("frac_engine", frac_engine,
-                                   FRAC_ENGINES)):
-            if val not in ported:
-                raise NotImplementedError(
-                    f"{name}={val!r} is not ported yet (ROADMAP.md queue 1 "
-                    f"items 3 and 11); {', '.join(ported)} run")
         if plan is not None and not isinstance(plan, Plan):
             raise TypeError("plan must be an r8brain_torch Plan; convert a "
                             "reference plan with convert.plan_from_reference")

@@ -1,24 +1,13 @@
-"""Error-free transformations and two-float ("df32") arithmetic.
+"""Error-free transformation of two-float ("df32") arithmetic.
 
-Counterpart of the reference package's ``ops/dfloat.py``.  A df value is a
-``(hi, lo)`` pair of equal-shape float32 tensors with ``|lo| <=
-ulp(hi)/2``, about a 48-bit mantissa.  Every function needs only IEEE
-round-to-nearest add and multiply, no FMA: PyTorch runs each operation as
-its own kernel, so nothing is contracted or reassociated.
-
-Users: ``two_sum`` (the ozaki engine's compensated chunk fold and the df32
-inter-stage carry) and the df32 FFT of ``ops/dfft.py`` (the ``fft`` conv
-engine under ``precision="high"``).
+Counterpart of the reference package's ``ops/dfloat.py``; the port needs
+only ``two_sum`` so far (the ozaki engine's compensated chunk fold and the
+df32 inter-stage carry).
 """
 
 from __future__ import annotations
 
-__all__ = ["two_sum", "quick_two_sum", "two_prod", "df_neg", "df_add",
-           "df_sub", "df_mul_f"]
-
-#: Veltkamp splitting constant for float32 (2^12 + 1): splits a 24-bit
-#: mantissa into two 12-bit halves whose product is exact in float32.
-_SPLIT = 4097.0
+__all__ = ["two_sum"]
 
 
 def two_sum(a, b):
@@ -27,48 +16,3 @@ def two_sum(a, b):
     bb = s - a
     e = (a - (s - bb)) + (b - bb)
     return s, e
-
-
-def quick_two_sum(a, b):
-    """Error-free a + b = s + e assuming |a| >= |b|, 3 flops."""
-    s = a + b
-    e = b - (s - a)
-    return s, e
-
-
-def _split(a):
-    """Veltkamp split of a float32 into two 12-bit-mantissa halves."""
-    t = _SPLIT * a
-    hi = t - (t - a)
-    return hi, a - hi
-
-
-def two_prod(a, b):
-    """Error-free a * b = p + e (Dekker, FMA-free), 17 flops."""
-    p = a * b
-    ah, al = _split(a)
-    bh, bl = _split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
-
-
-def df_neg(a):
-    return -a[0], -a[1]
-
-
-def df_add(a, b):
-    """df + df (the accurate variant, ~20 flops)."""
-    s, e = two_sum(a[0], b[0])
-    e = e + (a[1] + b[1])
-    return quick_two_sum(s, e)
-
-
-def df_sub(a, b):
-    return df_add(a, df_neg(b))
-
-
-def df_mul_f(a, b):
-    """df * float32 (~22 flops)."""
-    p, e = two_prod(a[0], b)
-    e = e + a[1] * b
-    return quick_two_sum(p, e)

@@ -160,9 +160,11 @@ def df_fft_conv(u: torch.Tensor, plan: DfFFTPlan, n_frames: int,
 
     u: [C, L] float32 with unit stride along time (any row stride).  On a
     CUDA tensor this launches the kernel or raises; on a CPU tensor it is
-    ``df_fft_conv_ref``.  Each call on the card adds one to
+    ``df_fft_conv_ref``.  Every kernel launched adds one to
     ``df_fft_conv.launches`` and to ``df_fft_conv.launches_by[(mode,
-    n)]``, mode "frames" (head 0), "framed" or "poly"."""
+    n)]``, mode "frames" (head 0), "framed" or "poly": one launch a call
+    for n <= SMEM_MAX_N; above, three (the four-step's passes) for each
+    chunk of transforms that fits the scratch."""
     _check(u, plan, n_frames, head)
     if u.device.type == "cpu":
         return df_fft_conv_ref(u, plan, n_frames, head)
@@ -186,6 +188,7 @@ def df_fft_conv(u: torch.Tensor, plan: DfFFTPlan, n_frames: int,
         scratch = torch.empty((chunk, n), dtype=torch.complex128,
                               device=u.device)
     lib = _lib()
+    per_chunk, key = (1 if n <= SMEM_MAX_N else 3), (plan.mode(head), n)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         for g0 in range(0, n_tr, chunk):
@@ -197,8 +200,8 @@ def df_fft_conv(u: torch.Tensor, plan: DfFFTPlan, n_frames: int,
             if rc != 0:
                 raise RuntimeError(f"df_fft_conv kernel launch failed: CUDA "
                                    f"error {rc}")
-    df_fft_conv.launches += 1
-    df_fft_conv.launches_by[(plan.mode(head), n)] += 1
+            df_fft_conv.launches += per_chunk
+            df_fft_conv.launches_by[key] += per_chunk
     return out
 
 

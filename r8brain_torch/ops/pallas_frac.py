@@ -9,11 +9,11 @@ Counterpart of the reference package's ``ops/pallas_frac.py``
 against the f64->f32 operator residual that ``precision="high"`` passes.
 
 ``frac_whole`` launches ``csrc/frac_whole.cu`` on a CUDA tensor and runs
-``frac_whole_ref`` on a CPU tensor.  The kernel accumulates ``KC``-term
-partial sums in registers (``KC_LO``-term ones in float32 with the
-residual dot) and folds each into a (sum, compensation) pair with
-``two_sum``; ``frac_whole_ref`` in float32 reproduces that chunking and
-fold (each chunk one segmented matmul), so the CPU tests hold the kernel's
+``frac_whole_ref`` on a CPU tensor.  The kernel accumulates ``kc``-term
+partial sums in registers (``KC`` = 32, or ``KC_LO`` = 8 where the caller
+asks) and folds each into a (sum, compensation) pair with ``two_sum``;
+``frac_whole_ref`` in float32 reproduces that chunking and fold (each
+chunk one segmented matmul), so the CPU tests hold the kernel's
 accumulation scheme to the -141 dB class.  A single running f32 sum over D
 = 1027 terms reaches only about -132 dB on the flagship operator.
 """
@@ -33,14 +33,16 @@ __all__ = ["KC", "KC_LO", "frac_whole", "frac_whole_ref"]
 
 #: Terms per partial sum before the two_sum fold (float32 kernel and model).
 KC = 32
-#: The same with the residual dot (``skT_lo``, precision "high"): a
+#: The short fold the stage interpolator asks for under precision "high": a
 #: whole-stepping interpolator's ~24 nonzero taps a column would otherwise
 #: share one partial (-146.1 against -148.8 dB re full scale on the
 #: 44.1k -> 96k frac stage; tests/test_torch_fft_chain.py holds the chain).
 KC_LO = 8
 
 
-def _check(xp, skT, I, D, O, n_win, skT_lo):
+def _check(xp, skT, I, D, O, n_win, skT_lo, kc):
+    if kc not in (KC_LO, KC):
+        raise ValueError(f"kc must be {KC_LO} or {KC}, got {kc}")
     if xp.dim() != 2 or skT.shape != (D, O):
         raise ValueError(f"xp must be [C, L] and skT [D={D}, O={O}], got "
                          f"{tuple(xp.shape)} and {tuple(skT.shape)}")
@@ -64,15 +66,15 @@ def _two_sum_fold(hi, lo, acc):
 
 def frac_whole_ref(xp: torch.Tensor, skT: torch.Tensor, I: int, D: int,
                    O: int, n_win: int,
-                   skT_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   skT_lo: Optional[torch.Tensor] = None,
+                   kc: int = KC) -> torch.Tensor:
     """Plain PyTorch version of ``frac_whole``, on any device.
 
     float64: one framed contraction (segmented reshape views).
-    float32: the kernel's accuracy model -- ``KC``-term chunks over d
-    (``KC_LO`` with ``skT_lo``), each a segmented matmul, folded with
-    two_sum into (hi, lo); the residual dot is one more framed
-    contraction, added as hi + (lo + residual)."""
-    _check(xp, skT, I, D, O, n_win, skT_lo)
+    float32: the kernel's accuracy model -- ``kc``-term chunks over d, each
+    a segmented matmul, folded with two_sum into (hi, lo); the residual
+    dot is one more framed contraction, added as hi + (lo + residual)."""
+    _check(xp, skT, I, D, O, n_win, skT_lo, kc)
     C = xp.shape[0]
     if xp.dtype == torch.float64:
         y = _framed_matmul(xp, skT, n_win, I)
@@ -80,7 +82,6 @@ def frac_whole_ref(xp: torch.Tensor, skT: torch.Tensor, I: int, D: int,
             y = y + _framed_matmul(xp, skT_lo, n_win, I)
         return y.reshape(C, n_win * O)
     hi = lo = None
-    kc = KC if skT_lo is None else KC_LO
     for d0 in range(0, D, kc):
         d1 = min(D, d0 + kc)
         acc = torch.matmul(_frames(xp[:, d0:], n_win, I, d1 - d0), skT[d0:d1])
@@ -95,31 +96,38 @@ def frac_whole_ref(xp: torch.Tensor, skT: torch.Tensor, I: int, D: int,
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
 def _launcher(dtype):
+    """The entry point; the float32 one takes the fold length before the
+    stream."""
     lib = _cuda.load("frac_whole")
-    fn = lib.r8b_frac_whole_f32 if dtype == torch.float32 else \
-        lib.r8b_frac_whole_f64
-    fn.argtypes = _ARGTYPES
+    if dtype == torch.float32:
+        fn = lib.r8b_frac_whole_f32
+        fn.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = lib.r8b_frac_whole_f64
+        fn.argtypes = _ARGTYPES + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def frac_whole(xp: torch.Tensor, skT: torch.Tensor, I: int, D: int, O: int,
-               n_win: int, skT_lo: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+               n_win: int, skT_lo: Optional[torch.Tensor] = None,
+               kc: int = KC) -> torch.Tensor:
     """y [C, n_win*O]: y[c, m*O + j] = xp[c, m*I : m*I + D] . skT[:, j]
     (+ the same dot against ``skT_lo``).
 
     xp: [C, L] with L >= (n_win-1)*I + D and unit stride along time (any
-    row stride); skT, skT_lo: contiguous [D, O] of xp's dtype.  On a CUDA
-    tensor this launches the kernel (counted in ``frac_whole.launches``) or
-    raises; on a CPU tensor it is ``frac_whole_ref``."""
-    _check(xp, skT, I, D, O, n_win, skT_lo)
+    row stride); skT, skT_lo: contiguous [D, O] of xp's dtype; kc: terms a
+    float32 partial sums before its fold, ``KC`` or ``KC_LO`` (float64
+    ignores it).  On a CUDA tensor this launches the kernel (counted in
+    ``frac_whole.launches``) or raises; on a CPU tensor it is
+    ``frac_whole_ref``."""
+    _check(xp, skT, I, D, O, n_win, skT_lo, kc)
     if xp.device.type == "cpu":
-        return frac_whole_ref(xp, skT, I, D, O, n_win, skT_lo)
+        return frac_whole_ref(xp, skT, I, D, O, n_win, skT_lo, kc)
     if xp.device.type != "cuda":
         raise RuntimeError(f"frac_whole runs on cuda or cpu, not {xp.device}")
     ops = [skT] if skT_lo is None else [skT, skT_lo]
@@ -134,9 +142,12 @@ def frac_whole(xp: torch.Tensor, skT: torch.Tensor, I: int, D: int, O: int,
     fn = _launcher(xp.dtype)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        rc = fn(xp.data_ptr(), xp.stride(0), skT.data_ptr(),
+        args = [xp.data_ptr(), xp.stride(0), skT.data_ptr(),
                 None if skT_lo is None else skT_lo.data_ptr(), y.data_ptr(),
-                C, n_win, I, D, O, stream)
+                C, n_win, I, D, O]
+        if xp.dtype == torch.float32:
+            args.append(kc)
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"frac_whole kernel launch failed: CUDA error {rc}")
     frac_whole.launches += 1

@@ -19,15 +19,15 @@ Ported so far, for every [conv, whole-frac] plan:
 
 * ``ConvExec``: the ozaki (error-free split-operand) engine on
   ``ozaki_framed`` (ops/pallas_ozaki.py); the df32-FFT guarantee engines
-  ``pallas_fft5``, ``pallas_fft4`` and ``pallas_fft`` on ``df_fft_conv``
-  (ops/pallas_dfft.py), the FP64 overlap-save kernel, with the
-  reference's engine and geometry choices; and ``fft``: the df32 torch
-  ops of ops/dfft.py under ``precision="high"``, ``torch.fft.rfft`` in
-  float32 (hi + lo spectrum) or float64 otherwise.
+  ``pallas_fft5``, ``pallas_fft4``, ``pallas_fft`` and, under
+  ``precision="high"``, ``fft`` on ``df_fft_conv`` (ops/pallas_dfft.py),
+  the FP64 overlap-save kernel, with the reference's engine and geometry
+  choices; ``fft`` otherwise is ``torch.fft.rfft`` in float32 (hi + lo
+  spectrum) or float64.
 * ``FracWholeExec``: the ozaki engine, and the ``im2col`` engine (and the
   float64 ``conv`` engine, the same contraction) on ``frac_whole``
-  (ops/pallas_frac.py) with the float32 operator residual under
-  ``precision="high"``.
+  (ops/pallas_frac.py) with the float32 operator residual and 8-term
+  folds under ``precision="high"``.
 
 Each kernel wrapper runs the CUDA kernel on a CUDA tensor and its plain
 version on a CPU tensor.  Every other engine and stage kind raises
@@ -45,17 +45,16 @@ from torch import nn
 from ..models.lengths import stage_out_len
 from ..models.plan import ConvStage, FracStage, HBDownStage, HBUpStage
 from ..utils.trace import trace
-from .dfft import DfFFT, df_ols_convolve
 from .ozaki import channel_scale, framed_cheap, split_operator_host
 from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
-from .pallas_frac import frac_whole
+from .pallas_frac import KC, KC_LO, frac_whole
 from .pallas_ozaki import ozaki_framed
 
 __all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "build_exec",
            "FFT_ENGINES"]
 
-#: ConvExec's FFT engines; all but "fft" run the df_fft_conv kernel.
+#: ConvExec's FFT engines: df_fft_conv under precision "high".
 FFT_ENGINES = ("fft", "pallas_fft", "pallas_fft4", "pallas_fft5")
 
 
@@ -106,8 +105,10 @@ class ConvExec(nn.Module):
         against k_even and k_odd at nx, head nx/4), the framed mode (hop
         3n/4, head n/4) where ``framed_supported``, and its rename to
         ``pallas_fft4`` where ``supported_n`` fails.
-      * "fft": the same framing through the df32 torch ops under
-        ``precision="high"``, ``torch.fft.rfft`` otherwise.
+      * "fft": under ``precision="high"`` the same kernel at nfft, head
+        P (the reference's XLA df32 FFT, which computes the same function:
+        the float64 convolution rounded to float32); ``torch.fft.rfft``
+        otherwise.
       * "auto": "fft" in float64; float32's toeplitz engine is not ported.
     """
 
@@ -182,12 +183,7 @@ class ConvExec(nn.Module):
                 else:
                     trace("conv_pallas_fft5_fallback", nfft=nfft)
                     self.engine = "pallas_fft4"
-            if engine == "fft":
-                self.H_re = np.ascontiguousarray(Hfull.real)
-                self.H_im = np.ascontiguousarray(Hfull.imag)
-                self.dfft = DfFFT(nfft)
-            else:
-                self.dfft_plan = DfFFTPlan(nfft, Hfull)
+            self.dfft_plan = DfFFTPlan(nfft, Hfull)
         else:
             Hf = np.fft.rfft(k, n=nfft)
             if self.dtype == torch.float32:
@@ -291,7 +287,7 @@ class ConvExec(nn.Module):
         else:
             u = x.to(self.dtype)
         n_frames = -(-t_needed // hop)
-        if self.engine != "fft":
+        if self.precision == "high":
             # frames read straight from the padded signal: framed5's head
             # n/4, else the overlap P (the reference's frame tensor)
             head = nfft // 4 if self.framed5 else P
@@ -307,14 +303,11 @@ class ConvExec(nn.Module):
         chunks = F.pad(u, (P, pad_r)).reshape(C, n_frames + 1, hop)
         frames = torch.cat([chunks[:, :n_frames, :], chunks[:, 1:, :P]],
                            dim=-1)
-        if self.precision == "high":
-            W = df_ols_convolve(frames, self.H_re, self.H_im, self.dfft)
-        else:
-            X = torch.fft.rfft(frames, dim=-1)
-            Y = X * self.H_hi
-            if self.H_lo is not None:
-                Y = Y + X * self.H_lo
-            W = torch.fft.irfft(Y, n=nfft, dim=-1).to(self.dtype)
+        X = torch.fft.rfft(frames, dim=-1)
+        Y = X * self.H_hi
+        if self.H_lo is not None:
+            Y = Y + X * self.H_lo
+        W = torch.fft.irfft(Y, n=nfft, dim=-1).to(self.dtype)
         return W[:, :, P:].reshape(C, n_frames * hop)[:, pick]
 
     def apply_v(self, x: torch.Tensor, n_valid: int):
@@ -365,10 +358,11 @@ class FracWholeExec(nn.Module):
 
     Engines: "ozaki", the error-free split form on ``ozaki_framed``;
     "im2col" on ``frac_whole``, with the float32 residual of the operator
-    (``skT_lo``) under ``precision="high"``; "conv", the same contraction
-    in float64 (the reference's strided convolution; its float32 form is
-    not ported); "auto", the reference's rule: "im2col" in float32 when
-    D <= 4*I, else "conv"."""
+    (``skT_lo``) and 8-term folds (``KC_LO``: a column's ~24 nonzero taps
+    would otherwise share one partial) under ``precision="high"``; "conv",
+    the same contraction in float64 (the reference's strided convolution;
+    its float32 form is not ported); "auto", the reference's rule:
+    "im2col" in float32 when D <= 4*I, else "conv"."""
 
     def __init__(self, spec: FracStage, dtype=torch.float32,
                  precision: str = "high", engine: str = "ozaki"):
@@ -416,6 +410,7 @@ class FracWholeExec(nn.Module):
                 lo = torch.from_numpy((skT - skT.astype(np.float32).astype(
                     np.float64)).astype(np.float32))
             self.register_buffer("skT_lo", lo)
+            self.kc = KC if lo is None else KC_LO
         else:
             raise _unported(f"{dtype} whole-stepping FracStage", engine)
 
@@ -452,7 +447,7 @@ class FracWholeExec(nn.Module):
         if self.engine != "ozaki":
             D, I, O, n_cyc = self.geometry(M)
             return frac_whole(xp, self.skT, I, D, O, n_cyc,
-                              skT_lo=self.skT_lo)[:, :M]
+                              skT_lo=self.skT_lo, kc=self.kc)[:, :M]
         return ozaki_framed(xp, self._scale(xp, M), self.oz_parts,
                             *self.geometry(M))[:, :M]
 

@@ -14,9 +14,10 @@ import torch
 from r8brain_torch import Resampler
 from r8brain_torch.ops import ozaki
 from r8brain_torch.ops.framing import _framed_matmul
-from r8brain_torch.ops.pallas_dfft import (DfFFTPlan, df_fft_conv,
-                                           df_fft_conv_ref)
-from r8brain_torch.ops.pallas_frac import frac_whole, frac_whole_ref
+from r8brain_torch.ops.pallas_dfft import (SMEM_MAX_N, DfFFTPlan,
+                                           df_fft_conv, df_fft_conv_ref)
+from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
+                                           frac_whole_ref)
 from r8brain_torch.ops.pallas_ozaki import (mma_dot, ozaki_framed,
                                             ozaki_framed_ref)
 
@@ -62,6 +63,30 @@ def test_kernel_matches_plain(cuda_device, shape, dtype):
     assert frac_whole.launches == before + 1
     err = np.abs(y.cpu().double().numpy() - ref).max() / np.abs(ref).max()
     assert err < (1e-5 if dtype == torch.float32 else 1e-12), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc", [KC_LO, KC])
+def test_kernel_fold_lengths_match_plain(cuda_device, kc):
+    """Both fold lengths of the float32 kernel with skT_lo, at the
+    guarantee chains' frac-stage shape, against the float64 plain version
+    and against the float32 model of the same fold."""
+    I, D, O, C, n_win = 147, 170, 160, 13, 41
+    rng = np.random.default_rng(14)
+    xp = rng.uniform(-1.0, 1.0, (C, (n_win - 1) * I + D))
+    skT = rng.standard_normal((D, O))
+    skT_lo = rng.standard_normal((D, O)) * 2.0**-24
+    ref = frac_whole_ref(torch.from_numpy(xp), torch.from_numpy(skT), I, D,
+                         O, n_win, skT_lo=torch.from_numpy(skT_lo)).numpy()
+    args = [torch.tensor(a, dtype=torch.float32) for a in (xp, skT, skT_lo)]
+    model = frac_whole_ref(args[0], args[1], I, D, O, n_win, skT_lo=args[2],
+                           kc=kc).double().numpy()
+    xc, sc, lc = (a.to(cuda_device) for a in args)
+    y = frac_whole(xc, sc, I, D, O, n_win, skT_lo=lc, kc=kc)
+    y = y.cpu().double().numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(y - ref).max() / scale < 1e-5
+    assert np.abs(y - model).max() / scale < 2.0**-21
 
 
 @pytest.mark.cuda
@@ -266,7 +291,9 @@ def test_df_fft_conv_matches_plain(cuda_device, case):
     y = df_fft_conv(ut, plan, n_frames, head)
     r = df_fft_conv_ref(ut, plan, n_frames, head)
     torch.cuda.synchronize()
-    assert df_fft_conv.launches_by[(mode, n)] == before + 1
+    # one kernel, or the four-step's three in one chunk of transforms
+    assert df_fft_conv.launches_by[(mode, n)] == \
+        before + (1 if n <= SMEM_MAX_N else 3)
     assert y.shape == r.shape == ref.shape and y.dtype == torch.float32
     y = y.cpu().double().numpy()
     r = r.cpu().double().numpy()
@@ -289,9 +316,13 @@ def test_df_fft_conv_four_step_in_chunks(cuda_device, mode, monkeypatch):
     u, plan, ref = fft_case(np.random.default_rng(13), mode, n, head, 3, 3)
     plan = plan.to(cuda_device)
     ut = torch.tensor(u, dtype=torch.float32, device=cuda_device)
+    before = df_fft_conv.launches
     y = df_fft_conv(ut, plan, 3, head)
     r = df_fft_conv_ref(ut, plan, 3, head)
     torch.cuda.synchronize()
+    # 9 frames: 5 packed transforms (2 chunks) or 9 poly ones (3 chunks),
+    # three kernels a chunk
+    assert df_fft_conv.launches == before + 3 * (2 if mode == "frames" else 3)
     y = y.cpu().double().numpy()
     r = r.cpu().double().numpy()
     assert np.abs(y - r).max() <= 2.0**-22 * np.abs(r).max()
@@ -304,9 +335,9 @@ FFT_ENGINES = ["pallas_fft5", "pallas_fft4", "pallas_fft", "fft"]
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", FFT_ENGINES)
 def test_fft_chain_on_card(cuda_device, engine):
-    """The df32-FFT guarantee chain on the card (conv stage on df_fft_conv,
-    or the df32 torch ops for "fft"; frac stage on frac_whole) against the
-    port's float64 CPU path at the -141 dB class."""
+    """The df32-FFT guarantee chain on the card (conv stage on df_fft_conv
+    for every engine; frac stage on frac_whole) against the port's float64
+    CPU path at the -141 dB class."""
     rng = np.random.default_rng(12)
     x = rng.uniform(-1.0, 1.0, (3, 20000)).astype(np.float32)
     rs = Resampler(44100, 96000, 2.0, 180.15, precision="high", fused=False,
@@ -315,7 +346,7 @@ def test_fft_chain_on_card(cuda_device, engine):
     y = rs.oneshot(x)
     torch.cuda.synchronize()
     assert frac_whole.launches == before[1] + 1
-    assert df_fft_conv.launches == before[0] + (engine != "fft")
+    assert df_fft_conv.launches == before[0] + 1
     ref = Resampler(44100, 96000, 2.0, 180.15, dtype=torch.float64,
                     device="cpu").oneshot(x.astype(np.float64)).numpy()
     assert _rms_db(y.cpu().double().numpy() - ref) < -141.0

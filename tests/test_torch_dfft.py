@@ -1,5 +1,5 @@
-"""The port's FFT-convolution modules (r8brain_torch/ops/pallas_dfft.py and
-ops/dfft.py) against the reference package's df32-FFT kernels and ops.
+"""The port's FFT-convolution module (r8brain_torch/ops/pallas_dfft.py)
+against the reference package's df32-FFT kernels and ops.
 
 On the CPU ``df_fft_conv`` runs its plain version ``df_fft_conv_ref``
 (complex128 ``torch.fft``, rounded once to float32).  These tests hold it
@@ -25,7 +25,6 @@ from r8brain_tpu.ops.pallas_dfft import (HAVE_PALLAS, DfFFTConvPlan,
                                          df_ols_convolve_pallas)
 from r8brain_tpu.ops.pallas_dfft4 import (DfFFTConvPlan4,
                                           df_ols_convolve_pallas4)
-from r8brain_torch.ops import dfft
 from r8brain_torch.ops.pallas_dfft import (DfFFTPlan, df_fft_conv,
                                            framed_supported, supported_n)
 
@@ -226,38 +225,3 @@ def test_plan_and_wrapper_checks():
     assert y.shape == (2, 768)
     assert torch.equal(y[:, :600], torch.ones((2, 600)))
     assert y[:, 600:].abs().max() < 1e-12
-
-
-# -- ops/dfft.py, the df32 torch ops ----------------------------------------
-
-
-def test_df_fft_matches_reference():
-    """DfFFT.fft / ifft_unscaled and df_ols_convolve against the
-    reference's XLA forms on the same input, within 2^-23 of max |y|."""
-    rng = np.random.default_rng(7)
-    n = 1024
-    re = rng.standard_normal((3, n)).astype(np.float32)
-    im = rng.standard_normal((3, n)).astype(np.float32)
-    z = np.zeros_like(re)
-    ours = dfft.DfFFT(n)
-    theirs = ref_dfft.DfFFT(n)
-    for meth in ("fft", "ifft_unscaled"):
-        (a, b), (c, d) = getattr(ours, meth)(
-            (torch.from_numpy(re), torch.from_numpy(z)),
-            (torch.from_numpy(im), torch.from_numpy(z)))
-        (ra, rb), (rc, rd) = getattr(theirs, meth)(
-            (jnp.asarray(re), jnp.asarray(z)),
-            (jnp.asarray(im), jnp.asarray(z)))
-        for (h, lo), (rh, rl) in (((a, b), (ra, rb)), ((c, d), (rc, rd))):
-            v = h.double().numpy() + lo.double().numpy()
-            rv = np.asarray(rh, np.float64) + np.asarray(rl, np.float64)
-            assert _max_rel(v, rv) <= 2.0**-23
-    k = rng.standard_normal(300)
-    H = np.fft.fft(k, n) / n
-    y = dfft.df_ols_convolve(torch.from_numpy(re), H.real.copy(),
-                             H.imag.copy(), ours).double().numpy()
-    r = np.asarray(ref_dfft.df_ols_convolve(jnp.asarray(re), H.real.copy(),
-                                            H.imag.copy(), theirs), np.float64)
-    assert _max_rel(y, r) <= 2.0**-23
-    exact = np.fft.ifft(np.fft.fft(re.astype(np.float64)) * H * n).real
-    assert _max_rel(y, exact) <= 2.0**-23

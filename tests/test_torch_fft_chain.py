@@ -61,7 +61,7 @@ def test_conv_exec_geometry_matches_reference(cfg):
     for engine in FFT_ENGINES:
         ex = ConvExec(conv, torch.float32, "high", engine=engine)
         ref = RefConvExec(rconv, jnp.float32, precision="high", engine=engine)
-        n = ex.dfft.n if ex.engine == "fft" else ex.dfft_plan.n
+        n = ex.dfft_plan.n
         assert (ex.engine, ex.nfft, ex.hop, ex.framed5, ex.framed5_poly, n) \
             == (ref.engine, ref.nfft, ref.hop, ref.framed5, ref.framed5_poly,
                 ref.dfft_plan.n), engine
@@ -81,8 +81,9 @@ STAGES = [(96000, 44100, 10.0, 136.45), (96000, 44100, 5.0, 136.45),
 @pytest.mark.parametrize("cfg", STAGES, ids=_cfg_id)
 def test_conv_stage_vs_reference_f64(cfg):
     """The conv stage of each engine on a float32 signal against the
-    reference's float64 ConvExec (its fft engine) at -135 dB relative; the
-    pallas engines hold the output to its float32 rounding (-150 dB)."""
+    reference's float64 ConvExec (its fft engine): every engine rounds the
+    float64 convolution once, so it holds the float32 rounding of the
+    output (-150 dB relative; the reference's own bound is -135 dB)."""
     src, dst, tb, atten = cfg
     conv = make_plan(src, dst, tb, atten, 0).stages[0]
     rconv = ref_make_plan(src, dst, tb, atten, 0).stages[0]
@@ -96,8 +97,37 @@ def test_conv_stage_vs_reference_f64(cfg):
         ex = ConvExec(conv, torch.float32, "high", engine=engine)
         y = ex.apply(torch.from_numpy(x)).double().numpy()
         assert y.shape == y64.shape
-        assert _rel_db(y, y64) < (-135.0 if engine == "fft" else -150.0), \
-            engine
+        assert _rel_db(y, y64) < -150.0, engine
+
+
+@pytest.mark.parametrize("cfg", [(44100, 96000, 2.0, 180.15),
+                                 (96000, 44100, 5.0, 136.45),
+                                 (44100, 48000, 2.0, 206.91)], ids=_cfg_id)
+def test_fft_engine_under_high_is_the_kernel(cfg, monkeypatch):
+    """conv_engine="fft" under "high" runs df_fft_conv at nfft with head P:
+    the reference's XLA df32 FFT computes the float64 convolution rounded
+    to float32, so the stage equals pallas_fft's bit for bit and the
+    reference's fft stage within 2^-23 of max |y|."""
+    from r8brain_torch.ops import stages
+
+    src, dst, tb, atten = cfg
+    conv = make_plan(src, dst, tb, atten, 0).stages[0]
+    rconv = ref_make_plan(src, dst, tb, atten, 0).stages[0]
+    x = np.random.default_rng(8).uniform(-1, 1, (2, 3000)).astype(np.float32)
+    calls = []
+    real = stages.df_fft_conv
+    monkeypatch.setattr(stages, "df_fft_conv",
+                        lambda *a: calls.append(a[3]) or real(*a))
+    ex = ConvExec(conv, torch.float32, "high", engine="fft")
+    y = ex.apply(torch.from_numpy(x))
+    assert calls == [ex.K - 1] and ex.hop == ex.nfft - (ex.K - 1)
+    pf = ConvExec(conv, torch.float32, "high", engine="pallas_fft")
+    assert torch.equal(y, pf.apply(torch.from_numpy(x)))
+    ry = np.asarray(RefConvExec(rconv, jnp.float32, precision="high",
+                                engine="fft").apply(jnp.asarray(x)),
+                    np.float64)
+    y = y.double().numpy()
+    assert np.abs(y - ry).max() <= 2.0**-23 * np.abs(ry).max()
 
 
 def test_conv_fast_and_f64_engines():

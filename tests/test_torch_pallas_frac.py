@@ -18,7 +18,9 @@ import jax.numpy as jnp
 from r8brain_tpu.ops.pallas_frac import HAVE_PALLAS, frac_whole_pallas
 from r8brain_torch.ops.fused import FusedUpExec
 from r8brain_torch.models.plan import make_plan
-from r8brain_torch.ops.pallas_frac import KC, frac_whole, frac_whole_ref
+from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
+                                           frac_whole_ref)
+from r8brain_torch.ops.stages import FracWholeExec
 
 from .helpers import rms_db
 
@@ -144,6 +146,8 @@ def test_rejects_bad_arguments():
         frac_whole(xp, skT, 10, 40, 8, 2, skT_lo=torch.zeros(40, 7))
     with pytest.raises(RuntimeError, match="cuda or cpu"):
         frac_whole(xp.to("meta"), skT.to("meta"), 10, 40, 8, 2)
+    with pytest.raises(ValueError, match="kc"):
+        frac_whole(xp, skT, 10, 40, 8, 2, kc=16)
 
 
 def test_cpu_tensor_runs_plain_version_uncounted():
@@ -155,3 +159,37 @@ def test_cpu_tensor_runs_plain_version_uncounted():
                          171, 160, 3)
     assert torch.equal(y, ref)
     assert frac_whole.launches == before
+
+
+@pytest.fixture(scope="module")
+def frac_stage_exec():
+    """The im2col interpolator of 44.1k -> 96k under "high" (D=170, I=147,
+    O=160, ~24 nonzero taps a column)."""
+    frac = make_plan(44100, 96000, 2.0, 180.15, 0).stages[1]
+    return FracWholeExec(frac, torch.float32, "high", engine="im2col")
+
+
+@pytest.mark.parametrize("kc", [KC_LO, KC])
+def test_fold_length_on_the_frac_stage(frac_stage_exec, kc):
+    """Both fold lengths hold the -141 dB class on the frac stage's
+    operator against its float64 product; the stage's 8-term fold (what
+    its executor asks for) gains over 2 dB on the 32-term one (about 3 dB
+    measured, -149.8 against -146.8 dB re full scale)."""
+    ex = frac_stage_exec
+    assert ex.kc == KC_LO
+    D, I, O = ex.D, ex.spec.in_step, ex.spec.out_step
+    C, n_win = 2, 300
+    xp = np.random.default_rng(7).uniform(-1.0, 1.0, (C, (n_win - 1) * I + D))
+    x32 = torch.tensor(xp, dtype=torch.float32)
+    ref = frac_whole_ref(x32.double(), ex.skT.double(), I, D, O, n_win,
+                         skT_lo=ex.skT_lo.double())
+
+    def err_db(k):
+        y = frac_whole(x32, ex.skT, I, D, O, n_win, skT_lo=ex.skT_lo, kc=k)
+        return rms_db((y.double() - ref).numpy())
+
+    d = err_db(kc)
+    assert d < -141.0, d
+    if kc == KC_LO:
+        assert d < err_db(KC) - 2.0
+
