@@ -24,16 +24,26 @@ uniform float32 input:
   96 kHz -> 44.1 kHz with ``"pallas_fft5"`` (framed, n=8192) and at
   ``trans_band=5``, ``atten=136.45`` (n=2048, the reference's unframed
   kernel), and ``"fft"`` (the same kernel as ``"pallas_fft"``), each
-  checked at -141 dB.
+  checked at -141 dB;
+* the float32 stage chain, ``fused=False``: 44.1 kHz -> 96 kHz with
+  ``conv_engine`` ``"auto"`` (the banded operator on ``frac_whole``),
+  ``"toeplitz_sym"`` (the folded operators on ``sym_conv``), ``"pallas"``
+  (the B=64 mini-Toeplitz on ``frac_whole``) and ``"direct"`` (the
+  superkernel on ``frac_whole``), each under ``"fast"`` and ``"high"``, and
+  96 kHz -> 44.1 kHz with ``"toeplitz_sym"``, each checked at -141 dB
+  (``"direct"`` under ``"fast"`` at -139.97 dB, 1 dB above the reference
+  package's own chain on the CPU).
 
 Before the guarantee chain it pins the exactness lemma the split-operand
 kernel rests on (a 256-deep tensor-core float32 accumulation of bf16 slice
 products is exact); before the FFT engines it holds ``df_fft_conv`` in
 every mode and at every size class (one CTA, four-step) to its plain
-version.  Each path runs with the launch counts set to 0 just
-before it and read just after.  Then it times each path, each kernel at
-the path's shapes, its plain version and the one PyTorch call that
-computes the same function.  Every phase prints one line; the line before
+version; before the stage chains it holds ``sym_conv`` at every conv
+spec of the folded engine (float32 fast and high, float64) and the
+scouting GEMM ``dense_gemm`` to their plain versions.  Each path runs
+with the launch counts set to 0 just before it and read just after.
+Then it times each path, each kernel at the path's shapes, its plain
+version and the one PyTorch call that computes the same function.  Every phase prints one line; the line before
 the last is the per-kernel JSON record and the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line,
 when CUDA is unavailable, a kernel does not build or launch, or any check
@@ -92,6 +102,39 @@ FFT_PATHS = (
 FFT_CASES = ([("frames", n, 0, 5, 3) for n in (512, 1024, 8192, 16384, 65536)]
              + [("framed", n, n // 4, 3, 5) for n in (4096, 8192)]
              + [("poly", n, n // 4, 3, 4) for n in (4096, 8192, 16384)])
+
+# sym_conv vs sym_conv_ref, in ulps of max |y|: the kernel and the
+# model's matmuls add each 32-term chunk in their own order
+SYM_ULPS = {"float32": 4, "float64": 16}
+# sym_conv's specs: the first conv stage of each (src, dst, trans_band,
+# atten) (tests/test_toeplitz_sym.py's specs and 96k -> 44.1k at tb 5)
+SYM_CFGS = ((44100, 96001, 2.0, 180.15), (96000, 44100, 2.0, 180.15),
+            (44100, 96000, 2.0, 180.15), (96000, 44100, 5.0, 136.45))
+DENSE_REL_TOL = 1e-5  # dense_gemm (f32) vs the float64 product, of max |C|
+# the scouting GEMM's shape: the conv stage's Toeplitz product (the
+# reference tools' defaults, tools/exp_pallas_gemm.py)
+GEMM_M, GEMM_K, GEMM_N, GEMM_HOP = 175104, 704, 512, 256
+# the float32 stage chains: (label, src, dst, trans_band, atten,
+# conv_engine, precision, {kernel: launches a oneshot}, bound dB)
+MATMUL_PATHS = tuple(
+    (f"{e}/{p}", 44100, 96000, 2.0, 180.15, e, p, n,
+     -139.97 if (e, p) == ("direct", "fast") else CLASS_DB)
+    for e, n in (("auto", {"frac_whole": 2, "sym_conv": 0}),
+                 ("toeplitz_sym", {"frac_whole": 1, "sym_conv": 1}),
+                 ("pallas", {"frac_whole": 2, "sym_conv": 0}),
+                 ("direct", {"frac_whole": 2, "sym_conv": 0}))
+    for p in ("fast", "high")) + (
+    ("toeplitz_sym/fast 96k", 96000, 44100, 2.0, 180.15, "toeplitz_sym",
+     "fast", {"frac_whole": 1, "sym_conv": 1}, CLASS_DB),)
+# the paths whose conv-stage kernel call gets a record: label -> (kernel,
+# record name)
+MATMUL_RECORDS = {
+    "auto/fast": ("frac_whole", "frac_whole[toeplitz conv stage]"),
+    "toeplitz_sym/fast": ("sym_conv", "sym_conv[44.1k->96k fast]"),
+    "toeplitz_sym/high": ("sym_conv", "sym_conv[44.1k->96k high]"),
+    "toeplitz_sym/fast 96k": ("sym_conv", "sym_conv[96k->44.1k fast]"),
+    "pallas/fast": ("frac_whole", "frac_whole[mini-Toeplitz conv stage]"),
+    "direct/fast": ("frac_whole", "frac_whole[direct conv stage]")}
 
 # (fp32 CUDA-core, dense bf16 tensor-core, fp64 tensor-core peak FLOP/s,
 # HBM bytes/s) by SKU, at the full power limit (NVIDIA data sheets).  The
@@ -154,7 +197,8 @@ def bound(flops: float, nbytes: float, peak_flops: float,
 def build_kernels() -> None:
     from r8brain_torch.ops import _cuda
 
-    names = ["frac_whole", "ozaki_framed", "df_fft_conv"]
+    names = ["frac_whole", "ozaki_framed", "df_fft_conv", "sym_conv",
+             "dense_gemm"]
     t0 = time.perf_counter()
     _cuda.build(names)
     print(f"build: {', '.join(names)} {time.perf_counter() - t0:.1f} s")
@@ -709,6 +753,304 @@ def fused_high_path(dev, x, ref, skip, peak_f32, peak_bytes, card):
     return rec
 
 
+def ulps_of_max(y, r) -> float:
+    """max |y - r| in ulps of max |r| (the ulp of r's dtype at max |r|)."""
+    import torch
+
+    m = float(r.abs().max().item())
+    bits = 23 if r.dtype == torch.float32 else 52
+    ulp = 2.0 ** (math.floor(math.log2(m)) - bits)
+    return float((y.double() - r.double()).abs().max().item()) / ulp
+
+
+def check_sym_cases(dev) -> None:
+    """sym_conv at every conv spec of the folded engine, float32 fast and
+    high and float64, C = 13 and 37 frames (no multiple of any tile), on a
+    row-strided input, against sym_conv_ref on the card."""
+    import torch
+
+    from r8brain_torch.models.plan import make_plan
+    from r8brain_torch.ops.pallas_symconv import sym_conv, sym_conv_ref
+    from r8brain_torch.ops.stages import ConvExec
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    worst = {}
+    for cfg in SYM_CFGS:
+        st = make_plan(*cfg, 0).stages[0]
+        for dt, prec in ((torch.float32, "fast"), (torch.float32, "high"),
+                         (torch.float64, "fast")):
+            ex = ConvExec(st, dt, prec, engine="toeplitz_sym").to(dev)
+            C, nb, hop = 13, 37, 256 * st.down
+            L = (nb - 1) * hop + max(ex.sym_Lf)
+            xp = (torch.rand((C, L + 3), generator=g, device=dev, dtype=dt)
+                  * 2 - 1)[:, 3:]
+            args = (xp, ex.sym_ops, ex.sym_Lf, nb, hop, ex.sym_lo,
+                    ex.sym_lo_rows)
+            y, r = sym_conv(*args), sym_conv_ref(*args)
+            torch.cuda.synchronize()
+            u = ulps_of_max(y, r)
+            key = str(dt).replace("torch.", "")
+            check(u <= SYM_ULPS[key], f"sym_conv {cfg} {key} {prec}: "
+                  f"{u:.2f} ulps of max |y| from plain")
+            worst[(key, prec)] = max(worst.get((key, prec), 0.0), u)
+    print(f"sym_conv: {len(SYM_CFGS)} conv specs x (f32 fast, f32 high, "
+          f"f64), C=13, 37 frames, row-strided input, vs sym_conv_ref: max "
+          f"ulps of max |y| {worst} (tol {SYM_ULPS})")
+
+
+def check_dense_cases(dev) -> None:
+    """dense_gemm at a ragged shape, both M tiles, one K loop and hop
+    segments, against the float64 product on the card."""
+    import torch
+
+    from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    A = torch.randn((1000, 700), generator=g, device=dev)
+    B = torch.randn((700, 130), generator=g, device=dev)
+    errs = {}
+    for mt in M_TILES:
+        for hop in (None, GEMM_HOP):
+            c, r = dense_gemm(A, B, mt, hop), dense_gemm_ref(A, B, mt, hop)
+            torch.cuda.synchronize()
+            errs[(mt, hop)] = max_rel(c, r)
+            check(errs[(mt, hop)] <= DENSE_REL_TOL, f"dense_gemm mt={mt} "
+                  f"hop={hop}: max rel err {errs[(mt, hop)]:.3e}")
+    print(f"dense_gemm 1000x700 @ 700x130 vs the f64 product: max rel err "
+          f"by (mt, hop) {errs} (tol {DENSE_REL_TOL:g})")
+
+
+def conv_library(ex, x_in, n_cyc: int):
+    """The one PyTorch call that computes a conv stage's function on its
+    input x_in: ``F.conv1d`` of x_in (shifted by s_min) with the
+    superkernel rows at stride down, float32, TF32 off ([C, up, n_cyc],
+    the phases not interleaved).  Returns a function of no arguments."""
+    import torch
+    import torch.nn.functional as F
+
+    from r8brain_torch.ops.stages import _shifted
+
+    down = ex.spec.down
+    xp = _shifted(x_in, ex.s_min, (n_cyc - 1) * down + ex.D_direct,
+                  torch.float32)
+    w = ex.skT_direct.T.contiguous()[:, None, :]
+    return lambda: F.conv1d(xp[:, None, :], w, stride=down)[:, :, :n_cyc]
+
+
+def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
+                  card):
+    """One conv-stage kernel call of a float32 stage chain (x_in: the
+    stage's input): the kernel against its plain version at the path's
+    shape, timed beside the plain version and F.conv1d; the bound counts
+    the operator's nonzero entries (the dense count printed beside)."""
+    import torch
+
+    from r8brain_torch.ops.pallas_frac import frac_whole, frac_whole_ref
+    from r8brain_torch.ops.pallas_symconv import sym_conv, sym_conv_ref
+
+    peak_f32, peak_bytes = peaks
+    args, kw = call
+    xp, C = args[0], args[0].shape[0]
+    if kernel == "sym_conv":
+        fn, ref = sym_conv, sym_conv_ref
+        _xp, ops, L_fs, nb, hop = args[:5]
+        lo, rows = kw.get("lo"), kw.get("lo_rows")
+        y, r = fn(*args, **kw), ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = ulps_of_max(y, r)
+        check(err <= SYM_ULPS["float32"], f"{name}: {err:.2f} ulps of max "
+              f"|y| from plain")
+        tol = f"{err:.2f} ulps of max |y| (tol {SYM_ULPS['float32']})"
+        Hps = [(L + 1) // 2 for L in L_fs]
+        nnz = sum(int((ops[j, :, :hp] != 0).sum().item())
+                  for j, hp in enumerate(Hps))
+        dense = sum(2 * hp * ops.shape[3] for hp in Hps)
+        if lo is not None:  # the fold-error dots and the residual rows
+            nnz += nnz + int((lo != 0).sum().item())
+            dense += dense + sum(n for ph in rows for _r0, n in ph) * \
+                ops.shape[3]
+        per_frame = 2.0 * C * nb
+        span = (nb - 1) * hop + max(L_fs)
+        op_bytes = 4.0 * (ops.numel() + (0 if lo is None else lo.numel()))
+        n_out = nb * 256 * len(L_fs)
+    else:
+        fn, ref = frac_whole, frac_whole_ref
+        _xp, skT, I, D, O, n_win = args
+        lo = kw.get("skT_lo")
+        y = fn(*args, **kw)
+        r = ref(xp.double(), skT.double(), I, D, O, n_win, skT_lo=None
+                if lo is None else lo.double())
+        torch.cuda.synchronize()
+        err = max_rel(y, r)
+        check(err <= KERNEL_REL_TOL, f"{name}: max rel err {err:.3e} vs "
+              f"f64 plain")
+        tol = f"max rel err {err:.3e} vs f64 plain (tol {KERNEL_REL_TOL:g})"
+        nnz = int((skT != 0).sum().item())
+        nnz += 0 if lo is None else int((lo != 0).sum().item())
+        dense = D * O * (1 if lo is None else 2)
+        per_frame = 2.0 * C * n_win
+        span = (n_win - 1) * I + D
+        op_bytes = 4.0 * skT.numel() * (1 if lo is None else 2)
+        n_out = n_win * O
+    max_abs = float((y.double() - r.double()).abs().max().item())
+    lib = conv_library(ex, x_in, -(-n_out // ex.spec.up))
+    if kernel == "frac_whole":
+        # the library call's accuracy beside the kernel's, both against
+        # the float64 plain version (the direct engine's route choice)
+        yl = lib().transpose(1, 2).reshape(C, -1)
+        torch.cuda.synchronize()
+        tol += (f"; vs f64 plain, RMS dB re full scale: kernel "
+                f"{rms_db(y.double() - r):.2f}, F.conv1d "
+                f"{rms_db(yl.double() - r):.2f}")
+        del yl
+    del y, r
+    k_ms = cuda_ms(lambda: fn(*args, **kw), reps=10)
+    p_ms = cuda_ms(lambda: ref(*args, **kw), reps=2, warmup=1)
+    lib_ms = cuda_ms(lib, reps=3, warmup=1)
+    flops, dflops = per_frame * nnz, per_frame * dense
+    nbytes = 4.0 * C * span + op_bytes + 4.0 * C * n_out
+    bound_ms, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
+    dense_ms = bound(dflops, nbytes, peak_f32, peak_bytes)[0]
+    print(f"timing {card}: {name} ({label}, C={C}) kernel {k_ms:.3f} ms "
+          f"({dflops / k_ms * 1e-9:.1f} TFLOP/s of dense work), bound "
+          f"{bound_ms:.3f} ms by {bound_by} ({flops:.3e} flop over the "
+          f"operators' {nnz} nonzeros, {nbytes / 1e9:.3f} GB; dense "
+          f"{dflops:.3e} flop, {dense_ms:.3f} ms), plain {p_ms:.3f} ms, "
+          f"F.conv1d (f32, TF32 off) {lib_ms:.3f} ms; {tol}")
+    src = {"sym_conv": "r8brain_torch/csrc/sym_conv.cu",
+           "frac_whole": "r8brain_torch/csrc/frac_whole.cu"}[kernel]
+    rep = {"sym_conv": "r8brain_tpu/ops/pallas_symconv.py:166",
+           "frac_whole": "r8brain_tpu/ops/pallas_frac.py:111"}[kernel]
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+def matmul_paths(dev, x, ref, skip, peaks, card):
+    """The float32 stage chains (fused=False): each counted (launches set
+    to 0 just before, read just after, and held to the engine's counts),
+    checked against the port's float64 CPU path and timed; the conv-stage
+    kernel call of the paths in MATMUL_RECORDS gets a kernel record."""
+    import torch
+
+    from r8brain_torch import Resampler
+    from r8brain_torch.ops import stages
+    from r8brain_torch.ops.pallas_frac import frac_whole
+    from r8brain_torch.ops.pallas_symconv import sym_conv
+
+    refs = {(SRC, DST, TB, ATTEN): (ref, skip)}
+    x4 = x[:N_CMP].cpu().double()
+    counters = {"frac_whole": frac_whole, "sym_conv": sym_conv}
+    records = []
+    for label, src, dst, tb, atten, engine, prec, want, bound_db in \
+            MATMUL_PATHS:
+        key = (src, dst, tb, atten)
+        if key not in refs:
+            r64 = Resampler(src, dst, tb, atten, dtype=torch.float64,
+                            device="cpu").oneshot(x4).numpy()
+            refs[key] = (r64, int(EDGE_S * dst))
+        r64, sk = refs[key]
+        rs = Resampler(src, dst, tb, atten, precision=prec, fused=False,
+                       conv_engine=engine, device=dev)
+        for fn in counters.values():
+            fn.launches = 0
+        out = rs.oneshot(x)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counters.items()}
+        check(tuple(out.shape) == (CHANNELS, rs.default_out_len(N_IN)),
+              f"{label} oneshot shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{label} output not finite")
+        check(got == want, f"path {label} launched {got}, want {want}")
+        db = rms_db(out[:N_CMP].cpu().double().numpy()[:, sk:-sk]
+                    - r64[:, sk:-sk])
+        print(f"matmul path {label}: Resampler({src}, {dst}, {tb}, {atten}, "
+              f"precision='{prec}', fused=False, conv_engine='{engine}') "
+              f"{CHANNELS} x {N_IN} -> {tuple(out.shape)}; engines "
+              f"{[e.engine for e in rs.execs]}; {N_CMP} channels vs port f64 "
+              f"CPU path {db:.2f} dB re full scale (bound {bound_db:g}, "
+              f"{EDGE_S * 1e3:g} ms edge skip); launches {got}")
+        check(db <= bound_db, f"matmul path {label}: {db:.2f} dB misses "
+              f"{bound_db:g} dB")
+        del out
+        reps = 2 if engine == "direct" else 5
+        one_ms = cuda_ms(lambda: rs.oneshot(x), reps=reps, warmup=1)
+        print(f"timing {card}: matmul path {label} oneshot {one_ms:.3f} ms "
+              f"= {1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
+        if label in MATMUL_RECORDS:
+            kernel, name = MATMUL_RECORDS[label]
+            calls = capture_calls(rs, x, stages, (kernel,))
+            T = max(N_IN, rs.in_len_for_out(rs.default_out_len(N_IN)))
+            x_in = torch.nn.functional.pad(x, (0, T - N_IN))
+            records.append(matmul_record(label, kernel, name, calls[kernel],
+                                         rs.execs[0], x_in, got[kernel],
+                                         peaks, card))
+            del calls, x_in
+        del rs
+        torch.cuda.empty_cache()
+    return records
+
+
+def gemm_records(dev, peaks, card):
+    """The scouting GEMM at the conv stage's Toeplitz shape, at both M
+    tiles and with hop segments, beside its float64 plain version, float32
+    torch.matmul (TF32 off) and the chain's own formulation (the toeplitz
+    engine's frac_whole call on the un-materialized frames: C=1024, 171
+    blocks at hop 256, L_f = K)."""
+    import torch
+
+    from r8brain_torch.ops.pallas_frac import frac_whole
+    from r8brain_torch.ops.scout import dense_gemm, dense_gemm_ref
+
+    peak_f32, peak_bytes = peaks
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    M, K, N = GEMM_M, GEMM_K, GEMM_N
+    A = torch.randn((M, K), generator=g, device=dev)
+    B = torch.randn((K, N), generator=g, device=dev)
+    flops = 2.0 * M * K * N
+    nbytes = 4.0 * (M * K + K * N + M * N)
+    bound_ms, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
+    lib_ms = cuda_ms(lambda: torch.matmul(A, B), reps=10)
+    nb = M // CHANNELS
+    xp = torch.randn((CHANNELS, (nb - 1) * GEMM_HOP + K), generator=g,
+                     device=dev)
+    fw_ms = cuda_ms(lambda: frac_whole(xp, B, GEMM_HOP, K, N, nb), reps=10)
+    print(f"timing {card}: GEMM {M}x{K} @ {K}x{N} ({flops:.3e} flop): "
+          f"torch.matmul f32 (TF32 off) {lib_ms:.3f} ms "
+          f"({flops / lib_ms * 1e-9:.1f} TFLOP/s); frac_whole on the "
+          f"un-materialized frames (C={CHANNELS}, {nb} blocks, hop "
+          f"{GEMM_HOP}) {fw_ms:.3f} ms ({flops / fw_ms * 1e-9:.1f} TFLOP/s)")
+    del xp
+    ref = dense_gemm_ref(A, B)
+    p_ms = cuda_ms(lambda: dense_gemm_ref(A, B), reps=3, warmup=1)
+    records = []
+    for mt, hop, rep in ((512, None, "tools/exp_pallas_gemm.py:70"),
+                         (176, None, "tools/exp_framed_kernel.py:99"),
+                         (512, GEMM_HOP, "tools/exp_framed_kernel.py:99")):
+        c = dense_gemm(A, B, mt, hop)
+        torch.cuda.synchronize()
+        err = max_rel(c, ref)
+        check(err <= DENSE_REL_TOL, f"dense_gemm mt={mt} hop={hop} at the "
+              f"conv shape: max rel err {err:.3e}")
+        max_abs = float((c.double() - ref).abs().max().item())
+        del c
+        k_ms = cuda_ms(lambda: dense_gemm(A, B, mt, hop), reps=10)
+        seg = "" if hop is None else f", K in hop-{hop} segments"
+        print(f"timing {card}: dense_gemm mt={mt}{seg}: kernel {k_ms:.3f} "
+              f"ms ({flops / k_ms * 1e-9:.1f} TFLOP/s), bound {bound_ms:.3f} "
+              f"ms by {bound_by}, plain (f64 torch.matmul) {p_ms:.3f} ms; "
+              f"max rel err {err:.3e} (tol {DENSE_REL_TOL:g})")
+        records.append({
+            "name": f"dense_gemm[mt={mt}{'' if hop is None else ', seg'}]",
+            "route": "cuda", "source": "r8brain_torch/csrc/dense_gemm.cu",
+            "replaces": rep, "launches": 0, "max_abs_err": max_abs,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms})
+    del A, B, ref
+    torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -852,6 +1194,14 @@ def main() -> int:
     check_fft_cases(dev)
     kernels += fft_paths(dev, x, ref, skip, (peak_f32, peak_f64, peak_bytes),
                          card)
+
+    # the float32 stage chains: the folded kernel and the scouting GEMM
+    # against their plain versions, then each chain counted, checked and
+    # timed with its conv-stage kernel call; then the scouting GEMM
+    check_sym_cases(dev)
+    check_dense_cases(dev)
+    kernels += matmul_paths(dev, x, ref, skip, (peak_f32, peak_bytes), card)
+    kernels += gemm_records(dev, (peak_f32, peak_bytes), card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,14 +10,16 @@ The zero-flush semantics of the reference's oneshot (CDSPResampler.h:
 of zeros whose outputs cover ``out_len`` (models/lengths.py inverse
 emission algebra).
 
-Ported: plans that fuse into one [conv(up), whole-frac] composite (e.g.
-44.1k -> 96k, 44.1k -> 48k; the default engines), and every [conv,
-whole-frac] plan stage by stage with the guarantee engines: the ozaki
-chain (``conv_engine="ozaki"`` + ``frac_engine="ozaki"``, with the df32
-inter-stage carry under ``precision="high"``) and the df32-FFT conv
-engines (``"fft"``, ``"pallas_fft"``, ``"pallas_fft4"``,
-``"pallas_fft5"``) before the ``im2col`` interpolator.  Any other plan or
-engine and streaming
+Ported: every [conv, whole-frac] plan.  Plans that fuse into one [conv(up),
+whole-frac] composite (e.g. 44.1k -> 96k, 44.1k -> 48k) run fused with the
+default engines; ``fused=False`` or any other engine runs the stages one by
+one: the float32 matmul conv engines (``"toeplitz"``, the unfused float32
+default, ``"toeplitz_sym"``, ``"pallas"``, ``"direct"``), the ozaki chain
+(``conv_engine="ozaki"`` + ``frac_engine="ozaki"``, with the df32
+inter-stage carry under ``precision="high"``) and the df32-FFT conv engines
+(``"fft"``, ``"pallas_fft"``, ``"pallas_fft4"``, ``"pallas_fft5"``), before
+the ``im2col``, ``pallas``, ``conv`` or ``ozaki`` interpolator.  Half-band
+and polynomial plans, ``fused="poly"`` and streaming
 (``oneshot(max_chunk=...)`` beyond one chunk) raise NotImplementedError
 naming the ROADMAP.md item that ports them; nothing falls back to another
 path.
@@ -70,21 +72,28 @@ class Resampler(nn.Module):
         operator (ops/fused.py) when both engines are "auto"; False runs
         the stages one by one.
 
-        conv_engine: "auto" (fused, or float64's "fft" unfused); "ozaki",
-        the error-free split-operand guarantee engine (ops/ozaki.py); or
-        the df32-FFT guarantee engines "pallas_fft5", "pallas_fft4",
+        conv_engine: "auto" (fused; unfused, "toeplitz" in float32 and
+        "fft" in float64); the float32 matmul engines "toeplitz" (the
+        banded operator on frac_whole), "toeplitz_sym" (the folded
+        operators on sym_conv, half the FMAs; a kernel that is not
+        symmetric falls back to "toeplitz" under the
+        conv_toeplitz_sym_fallback trace), "pallas" (the B=64
+        mini-Toeplitz on frac_whole; no fallback) and "direct" (the
+        superkernel's strided product on frac_whole); "ozaki", the
+        error-free split-operand guarantee engine (ops/ozaki.py); or the
+        df32-FFT guarantee engines "pallas_fft5", "pallas_fft4",
         "pallas_fft" and "fft" (the FP64 overlap-save kernel of
         ops/pallas_dfft.py, in the reference's geometry for each name;
         "fft" under precision="high" only, else torch.fft).  The stage
-        executors (ops/stages.py) accept or reject an engine: an unported
-        one raises NotImplementedError naming its ROADMAP.md item.
+        executors (ops/stages.py) accept or reject an engine.
 
         frac_engine: "auto" (the reference's rule: "im2col" in float32
-        when the windows barely overlap), "im2col" (ops/pallas_frac.py)
-        or "ozaki".  With conv_engine="ozaki", precision="high" and
-        float32 the stages hand (hi, lo) pairs across their seams (the
-        df32 carry: only the final output rounds) unless the environment
-        sets R8BT_DF_CARRY=0.
+        when the windows barely overlap, else "conv"); "im2col",
+        "pallas" and "conv" (one frac_whole call, ops/pallas_frac.py); or
+        "ozaki".  With conv_engine="ozaki", precision="high" and float32
+        the stages hand (hi, lo) pairs across their seams (the df32 carry:
+        only the final output rounds) unless the environment sets
+        R8BT_DF_CARRY=0.
 
         device: where the operators live and the contraction runs; "cuda"
         (the default) raises RuntimeError when CUDA is not available."""
@@ -138,15 +147,34 @@ class Resampler(nn.Module):
         if self.df_carry:
             return self._chain_df(x)
         n = x.shape[1]
-        for e in self.execs:
+        need = self._seam_needs(n)
+        for i, e in enumerate(self.execs):
             if hasattr(e, "apply_v"):
-                x, n = e.apply_v(x, n)
+                x, n = e.apply_v(x, n, min_out=need[i + 1])
             else:
                 if x.shape[1] != n:
                     x = x[:, :n]
                 x = e(x)
                 n = x.shape[1]
         return x if x.shape[1] == n else x[:, :n]
+
+    def _seam_needs(self, n: int):
+        """need[i]: the physical input columns stage i asks of stage i-1
+        so that its framing needs no right pad (``phys_in_need``), from a
+        backward pass over the logical lengths; all None unless the
+        environment sets R8BT_SEAM_MINOUT=1 (the reference's default is
+        off: the surplus blocks cost more than the pads they save)."""
+        need = [None] * (len(self.execs) + 1)
+        if os.environ.get("R8BT_SEAM_MINOUT", "0") != "1":
+            return need
+        n_log = [n]
+        for e in self.execs:
+            n_log.append(e.out_len(n_log[-1]))
+        for i in range(len(self.execs) - 1, -1, -1):
+            if hasattr(self.execs[i], "phys_in_need"):
+                need[i] = self.execs[i].phys_in_need(n_log[i],
+                                                     min_out=need[i + 1])
+        return need
 
     def _chain_df(self, x: torch.Tensor) -> torch.Tensor:
         """The guarantee chain's df32 carry: stages thread raw (hi float32,

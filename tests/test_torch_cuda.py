@@ -20,6 +20,8 @@ from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
                                            frac_whole_ref)
 from r8brain_torch.ops.pallas_ozaki import (mma_dot, ozaki_framed,
                                             ozaki_framed_ref)
+from r8brain_torch.ops.pallas_symconv import sym_conv, sym_conv_ref
+from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
 
 # (label, I, D, O): tests/test_pallas.py's two shapes and the flagship's
 SHAPES = [("aligned", 64, 772, 128), ("unaligned", 147, 171, 160),
@@ -350,3 +352,95 @@ def test_fft_chain_on_card(cuda_device, engine):
     ref = Resampler(44100, 96000, 2.0, 180.15, dtype=torch.float64,
                     device="cpu").oneshot(x.astype(np.float64)).numpy()
     assert _rms_db(y.cpu().double().numpy() - ref) < -141.0
+
+
+# the conv stages of the folded engine's specs: (src, dst, trans_band,
+# atten) of tests/test_torch_toeplitz.py's CONFIGS (their first conv stage)
+SYM_CFGS = [(44100, 96001, 2.0, 180.15), (96000, 44100, 2.0, 180.15),
+            (44100, 96000, 2.0, 180.15), (96000, 44100, 5.0, 136.45)]
+# (dtype, precision, tolerance against the plain version in ulps of max
+# |y|): the kernel's sums and the model's matmuls add each 32-term chunk in
+# their own order (0-1.5 ulps measured on the H100)
+SYM_VARIANTS = [(torch.float32, "fast", 4), (torch.float32, "high", 4),
+                (torch.float64, "fast", 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", SYM_VARIANTS,
+                         ids=["f32_fast", "f32_high", "f64"])
+@pytest.mark.parametrize("cfg", SYM_CFGS, ids=lambda c: "{}-{}-tb{:g}".format(
+    *c[:3]))
+def test_sym_conv_matches_plain(cuda_device, cfg, variant):
+    """sym_conv against sym_conv_ref on the card, C = 13 and 37 frames (no
+    multiple of any tile), on a row-strided view of the input."""
+    from r8brain_torch.models.plan import make_plan
+    from r8brain_torch.ops.stages import ConvExec
+
+    dtype, precision, ulps = variant
+    st = make_plan(*cfg, 0).stages[0]
+    ex = ConvExec(st, dtype, precision, engine="toeplitz_sym").to(cuda_device)
+    C, nb, hop = 13, 37, 256 * st.down
+    L = (nb - 1) * hop + max(ex.sym_Lf)
+    rng = np.random.default_rng(15)
+    big = torch.tensor(rng.uniform(-1, 1, (C, L + 3)), dtype=dtype,
+                       device=cuda_device)
+    args = (big[:, 3:], ex.sym_ops, ex.sym_Lf, nb, hop, ex.sym_lo,
+            ex.sym_lo_rows)
+    before = sym_conv.launches
+    y = sym_conv(*args)
+    r = sym_conv_ref(*args)
+    torch.cuda.synchronize()
+    assert sym_conv.launches == before + 1
+    m = r.abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(m)) - (23 if dtype == torch.float32
+                                          else 52))
+    assert (y.double() - r.double()).abs().max().item() <= ulps * ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [None, 256])
+@pytest.mark.parametrize("mt", M_TILES)
+def test_dense_gemm_matches_plain(cuda_device, mt, hop):
+    """The scouting GEMM at a ragged shape (M, K, N no multiple of the
+    tiles) against the float64 product: within 1e-5 of max |C|."""
+    rng = np.random.default_rng(mt)
+    A = torch.tensor(rng.standard_normal((1000, 700)), dtype=torch.float32,
+                     device=cuda_device)
+    B = torch.tensor(rng.standard_normal((700, 130)), dtype=torch.float32,
+                     device=cuda_device)
+    before = dense_gemm.launches
+    c = dense_gemm(A, B, mt, hop)
+    r = dense_gemm_ref(A, B, mt, hop)
+    torch.cuda.synchronize()
+    assert dense_gemm.launches == before + 1
+    assert ((c.double() - r).abs().max() / r.abs().max()).item() < 1e-5
+
+
+# (conv_engine, frac_whole launches, sym_conv launches) of one oneshot
+MATMUL_CHAINS = [("auto", 2, 0), ("toeplitz_sym", 1, 1), ("pallas", 2, 0),
+                 ("direct", 2, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fast", "high"])
+@pytest.mark.parametrize("chain", MATMUL_CHAINS, ids=[c[0] for c in
+                                                      MATMUL_CHAINS])
+def test_matmul_chain_on_card(cuda_device, chain, precision):
+    """The float32 stage chain (fused=False) on the card through its
+    kernels, against the port's float64 CPU path: the -141 dB class
+    (-140 dB for "direct" under "fast", which the reference's chain
+    misses too)."""
+    engine, n_fw, n_sym = chain
+    rng = np.random.default_rng(16)
+    x = rng.uniform(-1.0, 1.0, (3, 20000)).astype(np.float32)
+    rs = Resampler(44100, 96000, 2.0, 180.15, precision=precision,
+                   fused=False, conv_engine=engine, device=cuda_device)
+    before = (frac_whole.launches, sym_conv.launches)
+    y = rs.oneshot(x)
+    torch.cuda.synchronize()
+    assert (frac_whole.launches - before[0],
+            sym_conv.launches - before[1]) == (n_fw, n_sym)
+    ref = Resampler(44100, 96000, 2.0, 180.15, dtype=torch.float64,
+                    device="cpu").oneshot(x.astype(np.float64)).numpy()
+    bound = -140.0 if (engine, precision) == ("direct", "fast") else -141.0
+    assert _rms_db(y.cpu().double().numpy() - ref) < bound

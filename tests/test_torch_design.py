@@ -74,7 +74,7 @@ def test_port_imports_no_jax():
 
     root = Path(__file__).resolve().parent.parent
     code = ("import sys, r8brain_torch, r8brain_torch.convert, chip_smoke, "
-            "r8brain_torch.ops.pallas_dfft; "
+            "r8brain_torch.ops.pallas_dfft, r8brain_torch.ops.scout; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'r8brain_tpu'))]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -139,20 +139,22 @@ def test_cpu_chain_launches_no_kernel(monkeypatch):
 
 
 def test_unported_engines_raise():
+    """What is still unported raises, naming its ROADMAP.md item:
+    fused="poly", the half-band and polynomial stages (on every engine);
+    the ozaki engine in float64 raises too, and an unknown engine name is
+    a ValueError."""
     cpu = dict(device="cpu")
-    for kw in (dict(fused=False), dict(fused=False, conv_engine="direct"),
-               dict(conv_engine="toeplitz_sym"), dict(fused="poly"),
-               dict(conv_engine="toeplitz"),
-               dict(fused=False, conv_engine="ozaki", frac_engine="conv")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Resampler(44100, 96000, 2.0, 180.15, **kw, **cpu)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Resampler(44100, 96000, 2.0, 180.15, fused="poly", **cpu)
     # half-band and polynomial stages have no executor yet
-    for dst in (176400, 96001):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Resampler(44100, dst, 2.0, 180.15, **OZ, **cpu)
+    for dst, item in ((176400, "item 3"), (96001, "item 4")):
+        for kw in (OZ, dict(fused=False), dict(conv_engine="toeplitz_sym")):
+            with pytest.raises(NotImplementedError, match=item):
+                Resampler(44100, dst, 2.0, 180.15, **kw, **cpu)
     with pytest.raises(NotImplementedError, match="float32"):
         Resampler(44100, 96000, 2.0, 180.15, dtype=torch.float64, **OZ,
                   **cpu)
     conv = Resampler(44100, 96000, device="cpu").plan.stages[0]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_exec(conv, conv_engine="toeplitz")
+    assert build_exec(conv, conv_engine="toeplitz").engine == "toeplitz"
+    with pytest.raises(ValueError, match="unknown conv engine"):
+        build_exec(conv, conv_engine="toeplitz_asym")

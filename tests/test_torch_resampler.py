@@ -172,10 +172,19 @@ def test_unfusable_plan_raises(src, dst, item):
 
 
 def test_unported_options_raise(flagship):
-    for kw in (dict(fused=False), dict(fused="poly"),
-               dict(conv_engine="toeplitz"), dict(frac_engine="pallas")):
+    """fused="poly", the half-band and polynomial plans and streaming are
+    still unported; the stage engines are not (fused=False and any engine
+    build the stage chain)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Resampler(*FLAG, fused="poly", **CPU)
+    for dst in (176400, 96001):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Resampler(*FLAG, **kw, **CPU)
+            Resampler(44100, dst, 2.0, 180.15, fused=False, **CPU)
+    for kw in (dict(fused=False), dict(conv_engine="toeplitz"),
+               dict(frac_engine="pallas")):
+        rs = Resampler(*FLAG, **kw, **CPU)
+        assert [type(e).__name__ for e in rs.execs] == ["ConvExec",
+                                                        "FracWholeExec"]
     x = np.zeros((1, 3000), np.float32)
     with pytest.raises(NotImplementedError, match="streaming"):
         flagship.oneshot(x, max_chunk=1000)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Device-time breakdown of one port chain on the card, by kernel.
 
-    python tools/torch_profile_chain.py [--engine fast|ozaki|pallas_fft5]
-                                        [--carry 1|0]
+    python tools/torch_profile_chain.py
+        [--engine fast|ozaki|pallas_fft5|toeplitz|toeplitz_sym] [--carry 1|0]
 
 Runs ``Resampler(44100, 96000, 2, 180.15).oneshot`` on 1024 x 44100
 full-scale uniform float32 input (seed 0) through ``torch.profiler`` and
@@ -12,7 +12,10 @@ difference is the device's idle share.  ``--engine ozaki`` is the
 guarantee chain (``precision="high"``, ``conv_engine="ozaki"``,
 ``frac_engine="ozaki"``); ``--carry 0`` sets ``R8BT_DF_CARRY=0`` for it.
 ``--engine pallas_fft5`` is the df32-FFT guarantee chain
-(``precision="high"``, ``fused=False``, ``conv_engine="pallas_fft5"``).
+(``precision="high"``, ``fused=False``, ``conv_engine="pallas_fft5"``);
+``--engine toeplitz`` and ``--engine toeplitz_sym`` are the float32 stage
+chain (``precision="fast"``, ``fused=False``) with the banded operator on
+``frac_whole`` and with the folded operators on ``sym_conv``.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -31,7 +34,8 @@ REPS = 5         # profiled oneshots, after two warm-up calls
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--engine", choices=("fast", "ozaki", "pallas_fft5"),
+    ap.add_argument("--engine", choices=("fast", "ozaki", "pallas_fft5",
+                                         "toeplitz", "toeplitz_sym"),
                     default="ozaki")
     ap.add_argument("--carry", choices=("1", "0"), default="1")
     args = ap.parse_args()
@@ -52,7 +56,10 @@ def main() -> int:
           "ozaki": dict(precision="high", conv_engine="ozaki",
                         frac_engine="ozaki"),
           "pallas_fft5": dict(precision="high", fused=False,
-                              conv_engine="pallas_fft5")}[args.engine]
+                              conv_engine="pallas_fft5"),
+          "toeplitz": dict(fused=False, conv_engine="toeplitz"),
+          "toeplitz_sym": dict(fused=False,
+                               conv_engine="toeplitz_sym")}[args.engine]
     rs = Resampler(44100, 96000, 2.0, 180.15, device=dev, **kw)
     x = torch.rand((CHANNELS, 44100), generator=torch.Generator(
         device=dev).manual_seed(0), device=dev) * 2 - 1
