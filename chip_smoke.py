@@ -31,16 +31,17 @@ uniform float32 input:
   (the B=64 mini-Toeplitz on ``frac_whole``) and ``"direct"`` (the
   superkernel on ``frac_whole``), each under ``"fast"`` and ``"high"``, and
   96 kHz -> 44.1 kHz with ``"toeplitz_sym"``, each checked at -141 dB
-  (``"direct"`` under ``"fast"`` at -139.97 dB, 1 dB above the reference
-  package's own chain on the CPU).
+  under ``"fast"`` (``"direct"`` at -139.97 dB, 1 dB above the reference
+  package's own chain on the CPU) and at -143 dB under ``"high"``.
 
 Before the guarantee chain it pins the exactness lemma the split-operand
 kernel rests on (a 256-deep tensor-core float32 accumulation of bf16 slice
 products is exact); before the FFT engines it holds ``df_fft_conv`` in
 every mode and at every size class (one CTA, four-step) to its plain
 version; before the stage chains it holds ``sym_conv`` at every conv
-spec of the folded engine (float32 fast and high, float64) and the
-scouting GEMM ``dense_gemm`` to their plain versions.  Each path runs
+spec of the folded engine (float32 fast and high, float64, and the gain
+of ``"high"`` against its float64 function) and the scouting GEMM
+``dense_gemm`` to their plain versions.  Each path runs
 with the launch counts set to 0 just before it and read just after.
 Then it times each path, each kernel at the path's shapes, its plain
 version and the one PyTorch call that computes the same function.  Every phase prints one line; the line before
@@ -106,6 +107,14 @@ FFT_CASES = ([("frames", n, 0, 5, 3) for n in (512, 1024, 8192, 16384, 65536)]
 # sym_conv vs sym_conv_ref, in ulps of max |y|: the kernel and the
 # model's matmuls add each 32-term chunk in their own order
 SYM_ULPS = {"float32": 4, "float64": 16}
+# precision "high" moves sym_conv's output by about an ulp, inside
+# SYM_ULPS, so it is held by its gain: the drop, in dB, of the RMS error
+# against the float64 function of "high" (sym_ops_high) from the fast
+# output to the high one, on full-mantissa input.  The model gains 0.47 to
+# 0.54 dB at every spec (0.28 from the fold errors, 0.2 from the residual
+# rows); the kernel's gain must be within SYM_GAIN_TOL_DB of the model's,
+# so a kernel missing either part fails
+SYM_GAIN_MIN_DB, SYM_GAIN_TOL_DB = 0.3, 0.1
 # sym_conv's specs: the first conv stage of each (src, dst, trans_band,
 # atten) (tests/test_toeplitz_sym.py's specs and 96k -> 44.1k at tb 5)
 SYM_CFGS = ((44100, 96001, 2.0, 180.15), (96000, 44100, 2.0, 180.15),
@@ -115,10 +124,15 @@ DENSE_REL_TOL = 1e-5  # dense_gemm (f32) vs the float64 product, of max |C|
 # reference tools' defaults, tools/exp_pallas_gemm.py)
 GEMM_M, GEMM_K, GEMM_N, GEMM_HOP = 175104, 704, 512, 256
 # the float32 stage chains: (label, src, dst, trans_band, atten,
-# conv_engine, precision, {kernel: launches a oneshot}, bound dB)
+# conv_engine, precision, {kernel: launches a oneshot}, bound dB).  Under
+# "high" the bound is -143 dB, between the fast chains (-142.34 to -142.45
+# on the H100) and the high ones (-143.61 to -146.36), so a chain whose
+# residual terms were dropped fails
+HIGH_CHAIN_DB = -143.0
 MATMUL_PATHS = tuple(
     (f"{e}/{p}", 44100, 96000, 2.0, 180.15, e, p, n,
-     -139.97 if (e, p) == ("direct", "fast") else CLASS_DB)
+     HIGH_CHAIN_DB if p == "high" else
+     -139.97 if e == "direct" else CLASS_DB)
     for e, n in (("auto", {"frac_whole": 2, "sym_conv": 0}),
                  ("toeplitz_sym", {"frac_whole": 1, "sym_conv": 1}),
                  ("pallas", {"frac_whole": 2, "sym_conv": 0}),
@@ -763,10 +777,45 @@ def ulps_of_max(y, r) -> float:
     return float((y.double() - r.double()).abs().max().item()) / ulp
 
 
+def full_mantissa(g, shape, dtype, dev):
+    """Uniform [-1, 1) samples drawn in float64 and rounded to ``dtype``.
+    float32 ``torch.rand`` gives multiples of 2^-24, whose fold a + r is
+    exact, so "high"'s fold errors would be zero."""
+    import torch
+
+    u = torch.rand(shape, generator=g, device=dev, dtype=torch.float64)
+    return (u * 2 - 1).to(dtype)
+
+
+def sym_high_gain(label, xp, ops, L_fs, nb, hop, lo, rows):
+    """The gain of precision "high" on xp, kernel and model: the drop of
+    each one's RMS error against the float64 function of "high" from its
+    fast output to its high one, dB re full scale.  Checks that the model gains at least
+    SYM_GAIN_MIN_DB and the kernel within SYM_GAIN_TOL_DB of the model;
+    returns (kernel gain, model gain, kernel high dB)."""
+    from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
+                                                  sym_ops_high)
+
+    want = sym_conv_ref(xp.double(), sym_ops_high(ops, lo, rows), L_fs, nb,
+                        hop)
+    db = {fn: (rms_db(fn(xp, ops, L_fs, nb, hop) - want),
+               rms_db(fn(xp, ops, L_fs, nb, hop, lo, rows) - want))
+          for fn in (sym_conv, sym_conv_ref)}
+    gk = db[sym_conv][0] - db[sym_conv][1]
+    gp = db[sym_conv_ref][0] - db[sym_conv_ref][1]
+    check(gp >= SYM_GAIN_MIN_DB, f"sym_conv_ref {label}: 'high' gains "
+          f"{gp:.3f} dB, under {SYM_GAIN_MIN_DB} dB")
+    check(abs(gk - gp) <= SYM_GAIN_TOL_DB, f"sym_conv {label}: 'high' gains "
+          f"{gk:.3f} dB ({db[sym_conv][0]:.3f} -> {db[sym_conv][1]:.3f}), "
+          f"the plain model {gp:.3f} dB (tol {SYM_GAIN_TOL_DB} dB)")
+    return gk, gp, db[sym_conv][1]
+
+
 def check_sym_cases(dev) -> None:
     """sym_conv at every conv spec of the folded engine, float32 fast and
     high and float64, C = 13 and 37 frames (no multiple of any tile), on a
-    row-strided input, against sym_conv_ref on the card."""
+    row-strided full-mantissa input, against sym_conv_ref on the card;
+    under "high" also its gain (sym_high_gain)."""
     import torch
 
     from r8brain_torch.models.plan import make_plan
@@ -774,7 +823,7 @@ def check_sym_cases(dev) -> None:
     from r8brain_torch.ops.stages import ConvExec
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    worst = {}
+    worst, gains = {}, []
     for cfg in SYM_CFGS:
         st = make_plan(*cfg, 0).stages[0]
         for dt, prec in ((torch.float32, "fast"), (torch.float32, "high"),
@@ -782,8 +831,7 @@ def check_sym_cases(dev) -> None:
             ex = ConvExec(st, dt, prec, engine="toeplitz_sym").to(dev)
             C, nb, hop = 13, 37, 256 * st.down
             L = (nb - 1) * hop + max(ex.sym_Lf)
-            xp = (torch.rand((C, L + 3), generator=g, device=dev, dtype=dt)
-                  * 2 - 1)[:, 3:]
+            xp = full_mantissa(g, (C, L + 3), dt, dev)[:, 3:]
             args = (xp, ex.sym_ops, ex.sym_Lf, nb, hop, ex.sym_lo,
                     ex.sym_lo_rows)
             y, r = sym_conv(*args), sym_conv_ref(*args)
@@ -793,9 +841,14 @@ def check_sym_cases(dev) -> None:
             check(u <= SYM_ULPS[key], f"sym_conv {cfg} {key} {prec}: "
                   f"{u:.2f} ulps of max |y| from plain")
             worst[(key, prec)] = max(worst.get((key, prec), 0.0), u)
+            if ex.sym_lo is not None:
+                gk, gp, _db = sym_high_gain(str(cfg), *args)
+                gains.append(f"{gk:.3f}/{gp:.3f}")
     print(f"sym_conv: {len(SYM_CFGS)} conv specs x (f32 fast, f32 high, "
-          f"f64), C=13, 37 frames, row-strided input, vs sym_conv_ref: max "
-          f"ulps of max |y| {worst} (tol {SYM_ULPS})")
+          f"f64), C=13, 37 frames, row-strided full-mantissa input, vs "
+          f"sym_conv_ref: max ulps of max |y| {worst} (tol {SYM_ULPS}); "
+          f"'high' gain kernel/model dB {', '.join(gains)} (model >= "
+          f"{SYM_GAIN_MIN_DB}, kernel within {SYM_GAIN_TOL_DB})")
 
 
 def check_dense_cases(dev) -> None:
@@ -861,6 +914,16 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
         check(err <= SYM_ULPS["float32"], f"{name}: {err:.2f} ulps of max "
               f"|y| from plain")
         tol = f"{err:.2f} ulps of max |y| (tol {SYM_ULPS['float32']})"
+        if lo is not None:
+            # the path's input is a multiple of 2^-24 (exact folds): hold
+            # the gain at the path's shape on a full-mantissa input
+            g = torch.Generator(device=xp.device).manual_seed(SEED)
+            gk, gp, db = sym_high_gain(
+                name, full_mantissa(g, tuple(xp.shape), xp.dtype, xp.device),
+                ops, L_fs, nb, hop, lo, rows)
+            tol += (f"; 'high' gain on full-mantissa input {gk:.3f} dB "
+                    f"(model {gp:.3f}, tol {SYM_GAIN_TOL_DB}), high "
+                    f"{db:.2f} dB re full scale vs its f64 function")
         Hps = [(L + 1) // 2 for L in L_fs]
         nnz = sum(int((ops[j, :, :hp] != 0).sum().item())
                   for j, hp in enumerate(Hps))

@@ -147,34 +147,15 @@ class Resampler(nn.Module):
         if self.df_carry:
             return self._chain_df(x)
         n = x.shape[1]
-        need = self._seam_needs(n)
-        for i, e in enumerate(self.execs):
+        for e in self.execs:
             if hasattr(e, "apply_v"):
-                x, n = e.apply_v(x, n, min_out=need[i + 1])
+                x, n = e.apply_v(x, n)
             else:
                 if x.shape[1] != n:
                     x = x[:, :n]
                 x = e(x)
                 n = x.shape[1]
         return x if x.shape[1] == n else x[:, :n]
-
-    def _seam_needs(self, n: int):
-        """need[i]: the physical input columns stage i asks of stage i-1
-        so that its framing needs no right pad (``phys_in_need``), from a
-        backward pass over the logical lengths; all None unless the
-        environment sets R8BT_SEAM_MINOUT=1 (the reference's default is
-        off: the surplus blocks cost more than the pads they save)."""
-        need = [None] * (len(self.execs) + 1)
-        if os.environ.get("R8BT_SEAM_MINOUT", "0") != "1":
-            return need
-        n_log = [n]
-        for e in self.execs:
-            n_log.append(e.out_len(n_log[-1]))
-        for i in range(len(self.execs) - 1, -1, -1):
-            if hasattr(self.execs[i], "phys_in_need"):
-                need[i] = self.execs[i].phys_in_need(n_log[i],
-                                                     min_out=need[i + 1])
-        return need
 
     def _chain_df(self, x: torch.Tensor) -> torch.Tensor:
         """The guarantee chain's df32 carry: stages thread raw (hi float32,

@@ -36,7 +36,7 @@ from .dfloat import two_sum
 from .framing import _frames
 from .pallas_frac import KC
 
-__all__ = ["BH", "sym_conv", "sym_conv_ref"]
+__all__ = ["BH", "sym_conv", "sym_conv_ref", "sym_ops_high"]
 
 #: Columns of each half of a folded block (the reference pins B at 256).
 BH = 128
@@ -134,6 +134,19 @@ def sym_conv_ref(xp: torch.Tensor, ops: torch.Tensor, L_fs: Sequence[int],
         s, e = two_sum(he, -ho)
         y[:, :, BH:, j] = (s + (e + tm)).flip(-1)
     return y.reshape(C, nb * 2 * BH * up)
+
+
+def sym_ops_high(ops: torch.Tensor, lo: torch.Tensor,
+                 lo_rows: LoRows) -> torch.Tensor:
+    """The float64 operators that precision "high" computes with: ops plus
+    the residual rows of lo at lo_rows.  ``sym_conv_ref`` in float64 on
+    them, with the input in float64 (the fold then exact), is the function
+    that ``sym_conv(..., lo, lo_rows)`` approximates."""
+    eff = ops.double().clone()
+    for j, ph in enumerate(lo_rows):
+        for i, (r0, n) in enumerate(ph):
+            eff[j, i, r0 : r0 + n] += lo[j, i, :n].double()
+    return eff
 
 
 def _launcher(dtype):

@@ -7,8 +7,8 @@ Counterpart of the reference package's TPU scouting GEMMs
 (``tools/exp_pallas_gemm.py`` ``pallas_gemm`` and
 ``tools/exp_framed_kernel.py`` ``make_gemm``): M tiles of 512 or 176 rows,
 and the variant that sums K in ``hop``-row segments.  No stage executor
-calls it; ``tools/torch_exp_pallas_gemm.py`` and
-``tools/torch_exp_framed_kernel.py`` time it.  ``dense_gemm`` launches
+calls it; ``chip_smoke.py`` and ``tools/torch_exp_framed_kernel.py`` time
+it.  ``dense_gemm`` launches
 ``csrc/dense_gemm.cu`` on a CUDA tensor and runs ``dense_gemm_ref`` on a
 CPU tensor.
 """

@@ -4,14 +4,12 @@ Counterparts of the reference package's ``ops/stages.py``.  Each planned
 stage gets a batched executor: ``apply(x[C, N]) -> y[C, M]`` with
 M = stage_out_len(spec, N), plus the two seam protocols of the chain:
 
-* ``apply_v(x, n_valid, min_out)``: the valid-prefix protocol.
+* ``apply_v(x, n_valid)``: the valid-prefix protocol.
   ``x[:, :n_valid]`` is the logical input and columns beyond it are a
   previous stage's raw framing surplus; returns ``(buf, m)`` with the
   logical output in ``buf[:, :m]``.  For every kept output the banded
   operator reads only the valid prefix, so the surplus never reaches the
-  result.  ``min_out`` asks the toeplitz engine for at least that many
-  physical output columns (``phys_in_need`` of the next stage), so that
-  the next stage needs no right pad.
+  result.
 * ``apply_df(h, l, n_valid, emit_pair)``: the df32 inter-stage carry of
   the guarantee chain.  Stages hand raw (hi float32, lo bfloat16) pair
   buffers plus the logical count across the seams, so the per-seam
@@ -43,8 +41,6 @@ flagship runs through the fused executor (ops/fused.py) instead.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -149,13 +145,10 @@ class ConvExec(nn.Module):
 
     Engines:
       * "toeplitz" (float32's "auto"): B cycles form one banded Toeplitz
-        operator [L_f, B*up] (B = 256, halved while B*down > 2*D;
-        ``R8BT_TOEP_B`` overrides it), applied at hop B*down on
-        ``frac_whole`` with 32-term folds; under ``precision="high"`` the
-        row-truncated float32 residual of the operator rides the same
-        call (``skT_lo``).  ``R8BT_TOEP_COLTILE=<cols>`` splits the
-        columns into row-windowed tiles that skip the band's zero
-        corners, one call each.
+        operator [L_f, B*up] (B = 256, halved while B*down > 2*D),
+        applied at hop B*down on ``frac_whole`` with 32-term folds; under
+        ``precision="high"`` the row-truncated float32 residual of the
+        operator rides the same call (``skT_lo``).
       * "toeplitz_sym": for a symmetric kernel each phase's operator is
         centrosymmetric and folds into Te, To of half the rows and columns
         (``sym_conv``: half the FMAs); under "high" with the fold-error
@@ -326,22 +319,10 @@ class ConvExec(nn.Module):
             T[t*down + d, t*up + j] = SK[j, d]
 
         built from the float64 superkernel over all D taps (the
-        reference's single chunk), its truncated residual ``toep_lo`` =
-        (r0, rows) under "high", and the column tiles ``toep_tiles`` =
-        [(c0, r0, T_tile, residual)] where R8BT_TOEP_COLTILE asks for
-        them."""
-        spec = self.spec
-        up, down = spec.up, spec.down
+        reference's single chunk) and its truncated residual ``toep_lo`` =
+        (r0, rows) under "high"."""
+        down = self.spec.down
         D = self.D_direct
-        env_b = os.environ.get("R8BT_TOEP_B")
-        if env_b is not None:
-            try:
-                B = int(env_b)
-            except ValueError as e:
-                raise ValueError(f"R8BT_TOEP_B={env_b!r} is not an int") \
-                    from e
-            if B < 16:
-                raise ValueError(f"R8BT_TOEP_B={B} must be >= 16")
         while B * down > 2 * D and B > 128:
             B //= 2
         np_dt = self._np_dtype()
@@ -357,29 +338,6 @@ class ConvExec(nn.Module):
         self.register_buffer("T_toep", torch.from_numpy(Thi))
         self.register_buffer("T_toep_lo", None if Tlo is None else
                              _placed(Tlo[1], Tlo[0], T.shape[0]))
-        # R8BT_TOEP_COLTILE=<tile cols>: the nonzeros of a tile of tc
-        # output columns span only D + (tc/up - 1)*down rows, so
-        # row-windowed per-tile products skip the band's zero corners
-        tc = int(os.environ.get("R8BT_TOEP_COLTILE", "0") or 0)
-        self.toep_tiles = None
-        if tc and tc % up == 0 and (B * up) % tc == 0 and tc < B * up:
-            per = []
-            for i, c0 in enumerate(range(0, B * up, tc)):
-                r0 = (c0 // up) * down
-                r1 = ((c0 + tc) // up - 1) * down + D
-                Tt = np.ascontiguousarray(Thi[r0:r1, c0 : c0 + tc])
-                Tlo_t = None
-                if self.precision == "high":
-                    Tlo_t = truncate_residual(
-                        (T[r0:r1, c0 : c0 + tc]
-                         - Tt.astype(np.float64)).astype(np_dt),
-                        float(np.abs(Thi).max()))
-                per.append((c0, r0, Tt, Tlo_t))
-                self.register_buffer(f"T_tile{i}", torch.from_numpy(Tt))
-                self.register_buffer(
-                    f"T_tile_lo{i}", None if Tlo_t is None else
-                    _placed(Tlo_t[1], Tlo_t[0], r1 - r0))
-            self.toep_tiles = per
 
     def _build_toeplitz_sym(self) -> bool:
         """Centrosymmetry-folded operators (the reference's
@@ -590,60 +548,20 @@ class ConvExec(nn.Module):
         W = torch.fft.irfft(Y, n=nfft, dim=-1).to(self.dtype)
         return W[:, :, P:].reshape(C, n_frames * hop)[:, pick]
 
-    def _toep_blocks(self, M: int, min_out=None) -> int:
-        """Blocks of B_toep cycles behind M outputs, or behind ``min_out``
-        physical columns where that asks for more."""
-        up, B = self.spec.up, self.B_toep
-        n_blocks = -(-(-(-M // up)) // B)
-        if min_out is not None:
-            n_blocks = max(n_blocks, -(-(-(-min_out // up)) // B))
-        return n_blocks
-
-    def _toep_need(self, n_blocks: int) -> int:
-        """Columns of the toeplitz engine's input from s_min: the
-        reference's framing-buffer extent (n_blocks + n_seg) * hop of the
-        operator and of each column tile (from its row offset)."""
-        hop = self.B_toep * self.spec.down
-        ops = [(0, self.T_toep.shape[0])]
-        if self.toep_tiles is not None:
-            ops += [(r0, Tt.shape[0]) for _c0, r0, Tt, _lo in
-                    self.toep_tiles]
-        return max(r0 + (n_blocks - (-L // hop)) * hop for r0, L in ops)
-
-    def _apply_toeplitz(self, x: torch.Tensor, M: int, raw: bool = False,
-                        min_out=None) -> torch.Tensor:
+    def _apply_toeplitz(self, x: torch.Tensor, M: int,
+                        raw: bool = False) -> torch.Tensor:
         """The banded operator on frac_whole: I = hop = B*down, D = L_f, O
         = B*up, one window a block; the output [C, n_blocks*B*up] is in
         the stage's order.  ``raw`` returns every block's columns."""
         up, down, B = self.spec.up, self.spec.down, self.B_toep
-        C = x.shape[0]
-        n_blocks = self._toep_blocks(M, min_out)
+        L_f = self.T_toep.shape[0]
+        n_blocks = -(-(-(-M // up)) // B)
         hop = B * down
-        xp = _shifted(x, self.s_min, self._toep_need(n_blocks), self.dtype)
-        if self.toep_tiles is None:
-            y = frac_whole(xp, self.T_toep, hop, self.T_toep.shape[0], B * up,
-                           n_blocks, skT_lo=self.T_toep_lo, kc=KC)
-        else:
-            parts = []
-            for i, (_c0, r0, _Tt, _lo) in enumerate(self.toep_tiles):
-                T = getattr(self, f"T_tile{i}")
-                lo = getattr(self, f"T_tile_lo{i}")
-                yt = frac_whole(xp[:, r0:], T, hop, T.shape[0], T.shape[1],
-                                n_blocks, skT_lo=lo, kc=KC)
-                parts.append(yt.reshape(C, n_blocks, T.shape[1]))
-            y = torch.cat(parts, dim=2).reshape(C, n_blocks * B * up)
+        xp = _shifted(x, self.s_min, (n_blocks - (-L_f // hop)) * hop,
+                      self.dtype)
+        y = frac_whole(xp, self.T_toep, hop, L_f, B * up, n_blocks,
+                       skT_lo=self.T_toep_lo, kc=KC)
         return y if raw else y[:, :M]
-
-    def phys_in_need(self, n_valid: int, min_out=None):
-        """Physical input columns that make the toeplitz engine's right
-        pad vanish under the seam protocol, or None (other engines, or a
-        left extension s_min != 0, which pads regardless)."""
-        if self.engine != "toeplitz" or self.s_min != 0:
-            return None
-        M = self.out_len(n_valid)
-        if M <= 0:
-            return None
-        return self._toep_need(self._toep_blocks(M, min_out))
 
     def _apply_toeplitz_sym(self, x: torch.Tensor, M: int) -> torch.Tensor:
         """The folded operators on sym_conv, every phase in one launch:
@@ -679,10 +597,10 @@ class ConvExec(nn.Module):
         return frac_whole(xp, self.skT_direct, down, D, up, n_cyc, skT_lo=lo,
                           kc=KC if lo is None else KC_LO)[:, :M]
 
-    def apply_v(self, x: torch.Tensor, n_valid: int, min_out=None):
+    def apply_v(self, x: torch.Tensor, n_valid: int):
         M = self.out_len(n_valid)
         if M > 0 and self.engine == "toeplitz":
-            return self._apply_toeplitz(x, M, raw=True, min_out=min_out), M
+            return self._apply_toeplitz(x, M, raw=True), M
         if M > 0 and self.engine == "ozaki":
             return self._apply_ozaki(x, M, raw=True), M
         if M > 0:
@@ -821,10 +739,9 @@ class FracWholeExec(nn.Module):
         return frac_whole(xp, self.skT, I, D, O, n_cyc, skT_lo=self.skT_lo,
                           kc=self.kc)[:, :M]
 
-    def apply_v(self, x: torch.Tensor, n_valid: int, min_out=None):
+    def apply_v(self, x: torch.Tensor, n_valid: int):
         """Valid-prefix seam protocol; latency-shifted specs slice to the
-        logical prefix first (the latency folds into window positions).
-        ``min_out`` is the toeplitz engine's and is not needed here."""
+        logical prefix first (the latency folds into window positions)."""
         M = stage_out_len(self.spec, n_valid)
         if self.spec.in_latency or M <= 0:
             xl = x if x.shape[1] == n_valid else x[:, :n_valid]

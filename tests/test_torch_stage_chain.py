@@ -11,7 +11,6 @@ and every chain no more than 1 dB above the reference's same chain
 against the oracle, and within -135 dB of it.
 """
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -123,52 +122,23 @@ def test_frac_engines_are_one_contraction(cfg, frac_engine):
     assert np.array_equal(y, y_auto)
 
 
+@pytest.mark.parametrize("conv_engine", ["auto", "toeplitz_sym"])
 @pytest.mark.parametrize("precision", ["fast", "high"])
 @pytest.mark.parametrize("cfg", CHAINS, ids=_cfg_id)
-def test_seam_minout_is_bit_equal(cfg, precision, monkeypatch):
-    """R8BT_SEAM_MINOUT=1 (the backward pass asking each stage with a
-    toeplitz framing for its physical input need) changes no sample of
-    the toeplitz chain; the need it hands the conv stage is the stage's
-    own phys_in_need (None where a left extension pads regardless)."""
-    kw = dict(precision=precision, conv_engine="toeplitz")
-    _rs, y_off = _run(cfg, **kw)
-    monkeypatch.setenv("R8BT_SEAM_MINOUT", "1")
-    rs, y_on = _run(cfg, **kw)
-    assert np.array_equal(y_on, y_off)
+def test_raw_seam_equals_sliced_stages(cfg, precision, conv_engine):
+    """The chain hands the conv stage's raw buffer (the toeplitz engine's
+    whole blocks, past the logical length) to the interpolator: bit-equal
+    to running each stage on its predecessor's logical output."""
     x, out_len, _orc, _skip = _case(cfg)
+    rs, y = _run(cfg, precision=precision, conv_engine=conv_engine)
     T = max(x.shape[1], rs.in_len_for_out(out_len))
-    need = rs._seam_needs(T)
+    v = torch.nn.functional.pad(torch.from_numpy(x), (0, T - x.shape[1]))
     conv, frac = rs.execs
-    assert need[2] is None and need[1] is None  # the frac stage has none
-    assert need[0] == conv.phys_in_need(T)
-    assert (need[0] is None) == (conv.s_min != 0)
-
-
-@pytest.mark.parametrize("cfg", CHAINS, ids=_cfg_id)
-def test_seam_minout_overproduces_for_a_toeplitz_consumer(cfg):
-    """A toeplitz consumer without a left extension (offset K-1 makes
-    s_min 0, as a later conv stage of a polynomial plan may have) asks
-    its producer for phys_in_need columns: the producer overproduces whole
-    blocks, and neither stage's output changes."""
-    st = make_plan(*cfg, 0).stages[0]
-    first = ConvExec(st, torch.float32, "fast", engine="toeplitz")
-    second = ConvExec(dataclasses.replace(st, offset=st.filt.kernel.shape[0]
-                                          - 1), torch.float32, "fast",
-                      engine="toeplitz")
-    assert second.s_min == 0
-    x = torch.from_numpy(np.random.default_rng(3).uniform(
-        -1, 1, (2, 5000)).astype(np.float32))
-    n1 = first.out_len(5000)
-    need = second.phys_in_need(n1)
-    assert need == second._toep_need(second._toep_blocks(
-        second.out_len(n1)))
-    y1, m1 = first.apply_v(x, 5000)
-    y1b, m1b = first.apply_v(x, 5000, min_out=need)
-    assert m1 == m1b and y1b.shape[1] >= need
-    assert torch.equal(y1b[:, :m1], y1[:, :m1])
-    ya, ma = second.apply_v(y1, m1)
-    yb, mb = second.apply_v(y1b, m1b)
-    assert ma == mb and torch.equal(ya[:, :ma], yb[:, :mb])
+    raw, m = conv.apply_v(v, T)
+    assert m == conv.out_len(T)
+    assert (raw.shape[1] > m) == (conv.engine == "toeplitz")
+    y_sliced = frac.apply(conv.apply(v))[:, :out_len]
+    assert np.array_equal(y_sliced.double().numpy(), y)
 
 
 GOLDENS = [c for c in load_manifest()

@@ -21,7 +21,8 @@ import jax.numpy as jnp
 
 from r8brain_tpu.ops.stages import ConvExec as RefConvExec
 from r8brain_torch.ops.framing import _framed_matmul
-from r8brain_torch.ops.pallas_symconv import BH, sym_conv, sym_conv_ref
+from r8brain_torch.ops.pallas_symconv import (BH, sym_conv, sym_conv_ref,
+                                               sym_ops_high)
 from r8brain_torch.ops.stages import ConvExec
 
 from .helpers import lcg_uniform, rms_db
@@ -136,6 +137,39 @@ def test_high_terms_move_the_result_by_their_size():
     assert 0 < np.abs((high - fast).numpy()).max() / m < 2.0**-20
     assert rms_db(high.double().numpy() - want) \
         < rms_db(fast.double().numpy() - want)
+
+
+@pytest.mark.parametrize("pair", SPECS, ids=IDS)
+def test_high_gain_at_every_spec(pair):
+    """chip_smoke.py holds the kernel's "high" by its gain: the drop of the
+    RMS error against the float64 function of "high" (sym_ops_high) from
+    the fast output to the high one, on full-mantissa input.  The model
+    gains at least 0.3 dB at every spec, and the fold errors and the
+    residual rows each give at least 0.15 of it, so a kernel missing
+    either part misses the model's gain by more than the 0.1 dB allowed.
+    On samples that are multiples of 2^-24 (float32 ``torch.rand``) the
+    fold is exact and the fold errors give nothing."""
+    st, _rst = pair
+    ex = ConvExec(st, torch.float32, "high", engine="toeplitz_sym")
+    C, nb, hop = 13, 37, 256 * st.down
+    L = (nb - 1) * hop + max(ex.sym_Lf)
+    x64 = np.random.default_rng(5).uniform(-1, 1, (C, L))
+    ops, lo, rows = ex.sym_ops, ex.sym_lo, ex.sym_lo_rows
+    args = (ops, ex.sym_Lf, nb, hop)
+
+    def gains(xp):
+        want = sym_conv_ref(xp.double(), sym_ops_high(ops, lo, rows),
+                            *args[1:]).numpy()
+        db = {k: rms_db(sym_conv_ref(xp, *args, *kw).double().numpy()
+                        - want)
+              for k, kw in (("fast", ()), ("high", (lo, rows)),
+                            ("fold", (torch.zeros_like(lo), rows)))}
+        return db["fast"] - db["high"], db["fast"] - db["fold"]
+
+    full, fold = gains(torch.from_numpy(x64.astype(np.float32)))
+    assert full >= 0.3 and fold >= 0.15 and full - fold >= 0.15, (full, fold)
+    grid = torch.from_numpy(np.round(x64 * 2.0**23) * 2.0**-23).float()
+    assert gains(grid)[1] == 0.0
 
 
 def test_argument_checks():

@@ -27,7 +27,7 @@ from r8brain_tpu.models.plan import make_plan as ref_make_plan
 from r8brain_tpu.ops.stages import ConvExec as RefConvExec
 from r8brain_torch.models.plan import ConvStage, make_plan
 from r8brain_torch.ops import stages
-from r8brain_torch.ops.pallas_frac import frac_whole
+from r8brain_torch.ops.pallas_frac import KC, frac_whole
 from r8brain_torch.ops.pallas_symconv import sym_conv
 from r8brain_torch.ops.stages import MATMUL_ENGINES, ConvExec
 
@@ -194,66 +194,51 @@ def test_min_phase_falls_back_visibly(precision, monkeypatch):
 
 
 @pytest.mark.parametrize("pair", SPECS, ids=IDS)
-def test_apply_v_raw_and_phys_in_need(pair):
+def test_apply_v_raw(pair):
     """The toeplitz engine's seam protocol: apply_v on a raw buffer with
     surplus columns returns the reference's raw block count and logical
-    length, and its prefix equals apply on the prefix; phys_in_need (with
-    and without min_out) equals the reference's."""
+    length, and its prefix equals apply on the prefix."""
     st, rst = pair
     ex = ConvExec(st, torch.float32, "fast", engine="toeplitz")
     ref = RefConvExec(rst, jnp.float32, precision="fast", engine="toeplitz")
     x = np.random.default_rng(2).uniform(-1, 1, (2, 4000)).astype(np.float32)
     for n_valid in (2900, 3500):
-        for min_out in (None, 6000, 12000):
-            y, m = ex.apply_v(torch.from_numpy(x), n_valid, min_out=min_out)
-            ry, rm = ref.apply_v(jnp.asarray(x), n_valid, min_out=min_out)
-            assert m == rm and y.shape == ry.shape
-            assert torch.equal(y[:, :m], ex.apply(torch.from_numpy(
-                x[:, :n_valid])))
-            assert ex.phys_in_need(n_valid, min_out) \
-                == ref.phys_in_need(n_valid, min_out)
-    for e in ("toeplitz_sym", "pallas", "direct"):
-        assert ConvExec(st, torch.float32, engine=e).phys_in_need(2900) \
-            is None
+        y, m = ex.apply_v(torch.from_numpy(x), n_valid)
+        ry, rm = ref.apply_v(jnp.asarray(x), n_valid)
+        assert m == rm and y.shape == ry.shape
+        assert torch.equal(y[:, :m], ex.apply(torch.from_numpy(
+            x[:, :n_valid])))
 
 
-@pytest.mark.parametrize("env", [("R8BT_TOEP_B", "128"),
-                                 ("R8BT_TOEP_B", "512"),
-                                 ("R8BT_TOEP_COLTILE", "256"),
-                                 ("R8BT_TOEP_COLTILE", "128")],
-                         ids=lambda e: f"{e[0]}={e[1]}")
 @pytest.mark.parametrize("precision", PRECISIONS)
-def test_env_variants_vs_reference(env, precision, monkeypatch):
-    """R8BT_TOEP_B and R8BT_TOEP_COLTILE: the reference's block count,
-    tiles (row offsets, operators, truncated residuals) and seam need, and
-    the stage within 2^-19 of max |y| of the reference's (one frac_whole
-    call per tile)."""
-    monkeypatch.setenv(*env)
-    st, rst = SPECS[2]  # 44.1k -> 96k, up 2
+@pytest.mark.parametrize("pair", SPECS, ids=IDS)
+def test_toeplitz_is_one_call_at_reference_geometry(pair, precision,
+                                                    monkeypatch):
+    """The toeplitz engine makes one frac_whole call: hop B*down, D = L_f,
+    O = B*up, the reference's block count, 32-term folds and the placed
+    residual under "high", on an input that covers the reference's
+    framing extent (n_blocks + n_seg) * hop."""
+    st, rst = pair
     ex = ConvExec(st, torch.float32, precision, engine="toeplitz")
     ref = RefConvExec(rst, jnp.float32, precision=precision,
                       engine="toeplitz")
-    assert ex.B_toep == ref.B_toep
-    assert (ex.toep_tiles is None) == (ref.toep_tiles is None)
-    if ref.toep_tiles is not None:
-        (rd0, rper), = ref.toep_tiles
-        per = ex.toep_tiles
-        assert rd0 == 0 and len(per) == len(rper) > 1
-        for (c0, r0, Tt, lo), (rc0, rr0, rTt, rlo) in zip(per, rper):
-            assert (c0, r0) == (rc0, rr0) and np.array_equal(Tt, rTt)
-            assert _lo_equal(lo, rlo)
-    assert ex.phys_in_need(2900) == ref.phys_in_need(2900)
     x = np.random.default_rng(9).uniform(-1, 1, (2, 3000)).astype(np.float32)
     calls = []
     real = stages.frac_whole
-    monkeypatch.setattr(stages, "frac_whole",
-                        lambda *a, **k: calls.append(a[4]) or real(*a, **k))
-    y = ex.apply(torch.from_numpy(x)).double().numpy()
-    n_tiles = 1 if ex.toep_tiles is None else len(ex.toep_tiles)
-    assert len(calls) == n_tiles
-    ry = np.asarray(ref.apply(jnp.asarray(x)), np.float64)
-    assert y.shape == ry.shape
-    assert np.abs(y - ry).max() <= 2.0**-19 * np.abs(ry).max()
+    monkeypatch.setattr(stages, "frac_whole", lambda *a, **k: calls.append(
+        (a[0].shape[1], a[1], a[2:6], k)) or real(*a, **k))
+    y, m = ex.apply_v(torch.from_numpy(x), 3000)
+    ry, rm = ref.apply_v(jnp.asarray(x), 3000)
+    assert (m, y.shape) == (rm, ry.shape)
+    B, down, up = ref.B_toep, rst.down, rst.up
+    L_f = ref.toep_chunks[0][1].shape[0]
+    n_blocks = ry.shape[1] // (B * up)
+    assert len(calls) == 1
+    width, T, geo, kw = calls[0]
+    assert T is ex.T_toep and geo == (B * down, L_f, B * up, n_blocks)
+    assert kw == dict(skT_lo=ex.T_toep_lo, kc=KC)
+    assert (kw["skT_lo"] is None) == (precision == "fast")
+    assert width >= (n_blocks + -(-L_f // (B * down))) * B * down
 
 
 @functools.lru_cache(maxsize=None)

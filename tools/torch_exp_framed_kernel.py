@@ -5,11 +5,14 @@ formulation against plain dense GEMMs of the same size.
     python tools/torch_exp_framed_kernel.py [--c 1024] [--nb 171]
         [--hop 256] [--k 704] [--n 512] [--iters 20]
 
-Counterpart of the reference package's tools/exp_framed_kernel.py, with
-its shapes and its question: how far is the chain's real formulation (the
-toeplitz engine's frac_whole call, windows read straight from the signal
-at stride hop, no frame tensor) from a plain dense GEMM ceiling?  Times
-with CUDA events after a warm-up, in float32 with TF32 off:
+Counterpart of the reference package's tools/exp_framed_kernel.py and
+tools/exp_pallas_gemm.py, with their shapes and their questions: does a
+plain dense GEMM kernel (no Toeplitz logic) trail the library's on the
+[M = C*nb, K, N] problem of the conv stage, and how far is the chain's
+real formulation (the toeplitz engine's frac_whole call, windows read
+straight from the signal at stride hop, no frame tensor) from that
+ceiling?  Times with CUDA events after a warm-up (chip_smoke.cuda_ms), in
+float32 with TF32 off:
 
   frac_whole_chain  frac_whole on the un-materialized frames
                     (ops/pallas_frac.py, the toeplitz engine's call)
@@ -31,7 +34,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from torch_exp_pallas_gemm import cuda_ms  # noqa: E402
+from chip_smoke import cuda_ms  # noqa: E402
 
 
 def main(argv=None) -> int:
