@@ -10,8 +10,9 @@ version on the card, and drives the port's paths through
 uniform float32 input:
 
 * the fast flagship, 44.1 kHz -> 96 kHz ``precision="fast"``, fused, on
-  ``frac_whole``; checked at -141 dB against the port's float64 CPU path;
-  and the same fused path with ``precision="high"`` (the residual dot);
+  ``frac_whole`` (the exact three-slice bf16 split on the tensor cores);
+  checked at -141 dB against the port's float64 CPU path; and the same
+  fused path with ``precision="high"`` (the residual slice);
 * the guarantee chain, the same conversion with ``precision="high"``,
   ``conv_engine="ozaki"``, ``frac_engine="ozaki"``: conv and whole-frac
   stages on ``ozaki_framed`` with the df32 inter-stage carry, checked at
@@ -34,9 +35,16 @@ uniform float32 input:
   under ``"fast"`` (``"direct"`` at -139.97 dB, 1 dB above the reference
   package's own chain on the CPU) and at -143 dB under ``"high"``.
 
-Before the guarantee chain it pins the exactness lemma the split-operand
-kernel rests on (a 256-deep tensor-core float32 accumulation of bf16 slice
-products is exact); before the FFT engines it holds ``df_fft_conv`` in
+First it pins how the tensor cores add bf16 products into float32
+(``accumulation_pin``: 16- and 32-term sums through ``frac_whole``'s own
+wgmma chain on the slices of real data), and holds every ``frac_whole``
+call to its plain model (within 2^-21 of max |y|) and to its float64
+product, and the residual slice of each ``"high"`` call's shape (fused,
+frac stage, ``direct``) with a planted ``skT_lo`` large enough that a
+kernel which drops or misplaces the slice fails (``check_residual``).
+Before the guarantee chain it pins the exactness lemma the
+split-operand kernel rests on (a 256-deep tensor-core float32
+accumulation of bf16 slice products is exact); before the FFT engines it holds ``df_fft_conv`` in
 every mode and at every size class (one CTA, four-step) to its plain
 version; before the stage chains it holds ``sym_conv`` at every conv
 spec of the folded engine (float32 fast and high, float64, and the gain
@@ -67,7 +75,18 @@ N_CMP = 4              # channels held against the float64 CPU path
 EDGE_S = 0.05          # edge skip of that comparison, seconds
 CLASS_DB = -141.0      # the reference's golden-equality class
 KERNEL_REL_TOL = 1e-5  # frac_whole (f32) vs frac_whole_ref (f64), max rel err
+# frac_whole (f32) vs its plain model frac_whole_ref (f32), of max |y|: the
+# tensor cores sum each chunk in their own order (a few ulps of a partial)
+MODEL_REL_TOL = 2.0**-21
 F64_REL_TOL = 1e-12    # frac_whole (f64) vs frac_whole_ref (f64)
+# frac_whole's residual slice x0*bf16(skT_lo): the real residual moves y by
+# ~2^-25 of its size, inside MODEL_REL_TOL, so it is held at each "high"
+# call's shape with an skT_lo planted at RESIDUAL_SCALE of the call's
+# operator: that moves the model by at least RESIDUAL_MOVE * MODEL_REL_TOL
+# of max |y|, and the kernel's own contribution (with the slice minus
+# without) must match the model's within RESIDUAL_REL_TOL of it.  The
+# 8-column tile's ride-along pairs x1*skT_lo stay ~2^-24 of y
+RESIDUAL_SCALE, RESIDUAL_MOVE, RESIDUAL_REL_TOL = 2.0**-15, 8.0, 0.25
 # guarantee chain vs the float64 path, relative to the reference signal's
 # RMS: with the df32 carry and without (tests/test_ozaki.py:284)
 OZ_CARRY_DB, OZ_NOCARRY_DB = -150.0, -141.0
@@ -149,6 +168,10 @@ MATMUL_RECORDS = {
     "toeplitz_sym/fast 96k": ("sym_conv", "sym_conv[96k->44.1k fast]"),
     "pallas/fast": ("frac_whole", "frac_whole[mini-Toeplitz conv stage]"),
     "direct/fast": ("frac_whole", "frac_whole[direct conv stage]")}
+# the paths whose conv-stage frac_whole call gets the residual check (the
+# 8-column tile's residual slice; the fused and frac-stage calls get it
+# with their records)
+RESIDUAL_PATHS = ("direct/high",)
 
 # (fp32 CUDA-core, dense bf16 tensor-core, fp64 tensor-core peak FLOP/s,
 # HBM bytes/s) by SKU, at the full power limit (NVIDIA data sheets).  The
@@ -208,6 +231,29 @@ def bound(flops: float, nbytes: float, peak_flops: float,
     return max(t_op, t_by) * 1e3, "operations" if t_op >= t_by else "bytes"
 
 
+def frac_bounds(R, nnz, nnz_lo, io_bytes, D, O, peaks):
+    """The least time of a frac_whole call, the smaller of its two forms':
+    float32 FMA on the CUDA cores (2 R nnz flop, plus the residual dot's,
+    over the fp32 peak; the operator read in float32) and the split form
+    on the tensor cores (6 bf16 products a term, and one more over the
+    residual's nonzeros, over the bf16 peak; the operator read as 3 or 4
+    bf16 slices), each the larger of its operations and bytes time.
+    nnz_lo is None without skT_lo.  Returns ((ms, by, form), the CUDA-core
+    (ms, by), the split (ms, by))."""
+    peak_f32, peak_bf16, peak_bytes = peaks
+    lo = nnz_lo is not None
+    simt = bound(2.0 * R * (nnz + (nnz_lo or 0)),
+                 io_bytes + 4.0 * D * O * (2 if lo else 1), peak_f32,
+                 peak_bytes)
+    split = bound(2.0 * R * (6 * nnz + (nnz_lo or 0)),
+                  io_bytes + 2.0 * D * O * (4 if lo else 3), peak_bf16,
+                  peak_bytes)
+    best = min(simt + ("CUDA cores",), split + ("bf16 split",))
+    if simt == split:  # both bound by the same bytes
+        best = simt + ("either form",)
+    return best, simt, split
+
+
 def build_kernels() -> None:
     from r8brain_torch.ops import _cuda
 
@@ -219,60 +265,141 @@ def build_kernels() -> None:
     for name in names:
         for line in _cuda.build_logs.get(name, "").splitlines():
             if any(k in line for k in ("entry function", "registers",
-                                       "spill")):
+                                       "spill", "C75", "arning")):
                 print(f"  ptxas {name}: {line.strip()}")
 
 
+def check_frac_model(label, y, model, ref64):
+    """frac_whole's float32 output y against its plain model (within
+    MODEL_REL_TOL of max |y|) and the float64 product (KERNEL_REL_TOL);
+    returns (max abs err vs float64, rel err vs model, rel err vs f64)."""
+    scale = float(ref64.abs().max().item())
+    err_m = float((y.double() - model.double()).abs().max().item()) / scale
+    max_abs = float((y.double() - ref64).abs().max().item())
+    check(err_m <= MODEL_REL_TOL, f"{label}: {err_m:.3e} of max |y| from "
+          f"the plain model (tol {MODEL_REL_TOL:.2e})")
+    check(max_abs / scale <= KERNEL_REL_TOL, f"{label}: max rel err "
+          f"{max_abs / scale:.3e} vs f64 plain")
+    return max_abs, err_m, max_abs / scale
+
+
+# the executors' operator buffers: (packed operator, skT, skT_lo)
+OPERATOR_BUFFERS = (("sk_parts", "skT", "skT_lo"),
+                    ("T_toep_parts", "T_toep", "T_toep_lo"),
+                    ("T_pal_parts", "T_pal", "T_pal_lo"),
+                    ("skT_direct_parts", "skT_direct", "skT_direct_lo"))
+
+
+def exec_operator(ex, parts):
+    """(skT, skT_lo) of the executor ``ex`` whose packed operator buffer a
+    path's frac_whole call got as ``parts``: the float64 checks and the
+    residual check read the operator that the executor packed."""
+    for p, hi, lo in OPERATOR_BUFFERS:
+        if getattr(ex, p, None) is parts:
+            return getattr(ex, hi), getattr(ex, lo)
+    raise SmokeFailure("a frac_whole call got an operator that is no "
+                       "buffer of its executor")
+
+
+def check_residual(label, xp, skT, I, D, O, n_win, kc):
+    """frac_whole's residual slice at one call's shape: the call's input
+    and operator with an skT_lo planted at RESIDUAL_SCALE of it (Gaussian
+    factors).  The kernel with the slice against its model within
+    MODEL_REL_TOL of max |y|, the slice moving the model by at least
+    RESIDUAL_MOVE times that, and the kernel's own contribution of the
+    slice (with minus without) against the model's within
+    RESIDUAL_REL_TOL.  A kernel that drops or misplaces the slice fails."""
+    import torch
+
+    from r8brain_torch.ops.pallas_frac import (frac_whole, frac_whole_ref,
+                                               operator_parts)
+
+    g = torch.Generator(device=xp.device).manual_seed(SEED)
+    lo = skT * torch.randn(skT.shape, generator=g, device=xp.device)
+    with_lo = operator_parts(skT, lo * RESIDUAL_SCALE)
+    bare = operator_parts(skT)
+    y = frac_whole(xp, with_lo, I, D, O, n_win, kc=kc).double()
+    dy = y - frac_whole(xp, bare, I, D, O, n_win, kc=kc).double()
+    m = frac_whole_ref(xp, with_lo, I, D, O, n_win, kc=kc).double()
+    dm = m - frac_whole_ref(xp, bare, I, D, O, n_win, kc=kc).double()
+    torch.cuda.synchronize()
+    scale = float(m.abs().max().item())
+    moved = float(dm.abs().max().item())
+    err = float((y - m).abs().max().item()) / scale
+    err_d = float((dy - dm).abs().max().item()) / moved
+    print(f"frac_whole residual slice at {label} (I={I} D={D} O={O} C="
+          f"{xp.shape[0]} n_win={n_win} fold {kc}), skT_lo planted at "
+          f"{RESIDUAL_SCALE:g} of skT: moves the model by {moved / scale:.3e}"
+          f" of max |y| (>= {RESIDUAL_MOVE:g} x {MODEL_REL_TOL:.2e}); kernel "
+          f"{err:.3e} of max |y| from the model, its own contribution "
+          f"{err_d:.3e} of the model's (tol {RESIDUAL_REL_TOL:g})")
+    check(moved >= RESIDUAL_MOVE * MODEL_REL_TOL * scale,
+          f"{label}: the planted residual moves y by only "
+          f"{moved / scale:.3e} of max |y|")
+    check(err <= MODEL_REL_TOL, f"{label} with the planted residual: "
+          f"{err:.3e} of max |y| from the model")
+    check(err_d <= RESIDUAL_REL_TOL, f"{label}: the kernel's residual "
+          f"contribution is {err_d:.3e} off the model's")
+
+
 def fast_path(dev, x, ref, skip, peaks, card):
-    """The fast flagship's phases: frac_whole vs its plain version, the
-    path itself (counted), its accuracy and timings.  Returns the kernel
+    """The fast flagship's phases: frac_whole vs its plain model and the
+    float64 product (both folds, with their dB on the card), the path
+    itself (counted), its accuracy and timings.  Returns the kernel
     record."""
     import torch
     import torch.nn.functional as F
 
     from r8brain_torch import Resampler
-    from r8brain_torch.ops.pallas_frac import frac_whole, frac_whole_ref
+    from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
+                                               frac_whole_ref, operator_parts)
 
-    peak_flops, _bf16, peak_bytes = peaks
     rs = Resampler(SRC, DST, TB, ATTEN, device=dev)
     ex = rs.execs[0]
-    I, D, O = ex.p_in, ex.D, ex.p_out
+    I, D, O, parts = ex.p_in, ex.D, ex.p_out, ex.sk_parts
     # the window count oneshot gives the kernel (its zero-flush pad)
     T = max(N_IN, rs.in_len_for_out(rs.default_out_len(N_IN)))
     n_win = -(-rs.out_len_for_in(T) // O)
     L = (n_win - 1) * I + D
     g = torch.Generator(device=dev).manual_seed(SEED)
     xp = torch.rand((CHANNELS, L), generator=g, device=dev) * 2 - 1
-    y = frac_whole(xp, ex.skT, I, D, O, n_win)
-    ref64 = frac_whole_ref(xp.double(), ex.skT.double(), I, D, O, n_win)
-    ref32 = frac_whole_ref(xp, ex.skT, I, D, O, n_win)
-    torch.cuda.synchronize()
-    err = max_rel(y, ref64)
-    max_abs = float((y.double() - ref64).abs().max().item())
-    err32 = max_rel(y, ref32.double())
-    print(f"frac_whole flagship I={I} D={D} O={O} C={CHANNELS} "
-          f"n_win={n_win}: max rel err {err:.3e} vs f64 plain (tol "
-          f"{KERNEL_REL_TOL:g}), max abs {max_abs:.3e}; {err32:.3e} vs f32 "
-          f"plain model")
-    check(err <= KERNEL_REL_TOL, f"flagship kernel rel err {err:.3e}")
-    del ref32, ref64
+    ref64 = frac_whole_ref(xp.double(), operator_parts(ex.skT.double()), I,
+                           D, O, n_win)
+    for kc in (KC_LO, KC):
+        y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
+        model = frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc)
+        torch.cuda.synchronize()
+        m_abs, err_m, err = check_frac_model(f"flagship fold {kc}", y, model,
+                                             ref64)
+        if kc == KC:
+            max_abs = m_abs
+        print(f"frac_whole flagship I={I} D={D} O={O} C={CHANNELS} "
+              f"n_win={n_win}, fold {kc}: {rms_db(y.double() - ref64):.2f} "
+              f"dB re full scale vs f64 plain (model "
+              f"{rms_db(model.double() - ref64):.2f}); max rel err "
+              f"{err:.3e} (tol {KERNEL_REL_TOL:g}), {err_m:.3e} of max |y| "
+              f"from the model (tol {MODEL_REL_TOL:.2e})")
+        del y, model
+    del ref64
 
     Io, Do, Oo, Co, no = 147, 171, 160, 13, 37
     xo = torch.rand((Co, (no - 1) * Io + Do + 5), generator=g, device=dev)
     xo = xo * 2 - 1
     so = torch.randn((Do, Oo), generator=g, device=dev)
     slo = torch.randn((Do, Oo), generator=g, device=dev) * 2.0**-24
-    yo = frac_whole(xo, so, Io, Do, Oo, no, skT_lo=slo)
-    ro = frac_whole_ref(xo.double(), so.double(), Io, Do, Oo, no,
-                        skT_lo=slo.double())
-    yo64 = frac_whole(xo.double(), so.double(), Io, Do, Oo, no,
-                      skT_lo=slo.double())
+    po = operator_parts(so, slo)
+    yo = frac_whole(xo, po, Io, Do, Oo, no)
+    mo = frac_whole_ref(xo, po, Io, Do, Oo, no)
+    po64 = operator_parts(so.double(), slo.double())
+    ro = frac_whole_ref(xo.double(), po64, Io, Do, Oo, no)
+    yo64 = frac_whole(xo.double(), po64, Io, Do, Oo, no)
     torch.cuda.synchronize()
-    erro, erro64 = max_rel(yo, ro), max_rel(yo64, ro)
+    _a, erro_m, erro = check_frac_model("odd geometry", yo, mo, ro)
+    erro64 = max_rel(yo64, ro)
     print(f"frac_whole odd I={Io} D={Do} O={Oo} C={Co} n_win={no} with "
           f"skT_lo: max rel err f32 {erro:.3e} (tol {KERNEL_REL_TOL:g}), "
-          f"f64 {erro64:.3e} (tol {F64_REL_TOL:g})")
-    check(erro <= KERNEL_REL_TOL, f"odd-geometry kernel rel err {erro:.3e}")
+          f"{erro_m:.3e} from the model, f64 {erro64:.3e} (tol "
+          f"{F64_REL_TOL:g})")
     check(erro64 <= F64_REL_TOL, f"odd-geometry f64 kernel err {erro64:.3e}")
 
     frac_whole.launches = 0
@@ -298,25 +425,104 @@ def fast_path(dev, x, ref, skip, peaks, card):
     mrops = 1e-6 * CHANNELS * N_IN / (one_ms * 1e-3)
     print(f"timing {card}: fast oneshot {one_ms:.3f} ms = {mrops:.1f} Mrops "
           f"(1e-6 x channels x input samples / s)")
-    k_ms = cuda_ms(lambda: frac_whole(xp, ex.skT, I, D, O, n_win), reps=20)
-    p_ms = cuda_ms(lambda: frac_whole_ref(xp, ex.skT, I, D, O, n_win),
-                   reps=5, warmup=1)
+    ms = {k: cuda_ms(lambda: frac_whole(xp, parts, I, D, O, n_win, kc=k),
+                     reps=20)
+          for k in (KC_LO, KC)}
+    p_ms = cuda_ms(lambda: frac_whole_ref(xp, parts, I, D, O, n_win),
+                   reps=3, warmup=1)
     w = ex.skT.T.contiguous()[:, None, :]
     lib_ms = cuda_ms(lambda: F.conv1d(xp[:, None, :], w, stride=I), reps=10)
-    flops = 2.0 * CHANNELS * n_win * D * O
-    nbytes = 4.0 * (CHANNELS * L + D * O + CHANNELS * n_win * O)
-    bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bytes)
-    print(f"timing {card}: frac_whole kernel {k_ms:.3f} ms "
-          f"({flops / k_ms * 1e-9:.1f} TFLOP/s), bound {bound_ms:.3f} ms by "
-          f"{bound_by} ({flops:.3e} flop, {nbytes / 1e9:.3f} GB), plain "
-          f"frac_whole_ref {p_ms:.3f} ms, cuDNN conv1d (TF32 off) "
-          f"{lib_ms:.3f} ms")
+    R = CHANNELS * n_win
+    io = 4.0 * (CHANNELS * L + R * O)
+    # the operator's nonzero entries: the work the function needs (the
+    # kernel multiplies the operator dense)
+    nnz = int((ex.skT != 0).sum().item())
+    (bound_ms, bound_by, form), simt, split = frac_bounds(R, nnz, None, io,
+                                                          D, O, peaks)
+    dense = frac_bounds(R, D * O, None, io, D, O, peaks)
+    flops, dflops = 2.0 * R * nnz, 2.0 * R * D * O
+    print(f"timing {card}: frac_whole kernel {ms[KC]:.3f} ms "
+          f"({flops / ms[KC] * 1e-9:.1f} TFLOP/s of the function's nonzero "
+          f"products, {dflops / ms[KC] * 1e-9:.1f} dense; fold {KC_LO}: "
+          f"{ms[KC_LO]:.3f} ms), bound {bound_ms:.3f} ms by {bound_by} "
+          f"({form}; CUDA cores {simt[0]:.3f} ms by {simt[1]}, bf16 split "
+          f"{split[0]:.3f} ms by {split[1]}; {flops:.3e} flop over the "
+          f"operator's {nnz} nonzeros of {D * O}, {io / 1e9:.3f} GB of "
+          f"signal in and out; dense: {dense[0][0]:.3f} ms, CUDA cores "
+          f"{dense[1][0]:.3f}), plain frac_whole_ref {p_ms:.3f} ms, cuDNN "
+          f"conv1d (TF32 off) {lib_ms:.3f} ms")
     return {"name": "frac_whole", "route": "cuda",
             "source": "r8brain_torch/csrc/frac_whole.cu",
             "replaces": "r8brain_tpu/ops/pallas_frac.py:111",
-            "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
+            "launches": launches, "max_abs_err": max_abs, "ms": ms[KC],
             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms}
+
+
+def accumulation_pin(dev, skT) -> None:
+    """How the tensor cores add bf16 x bf16 products into float32: 16- and
+    32-term accumulations through the kernel's own wgmma chain (input and
+    operator bf16-exact, so every pair but x0*s0 is zero and each output
+    is one fold's partial), on the split slices of real data -- the
+    flagship operator's s0, 16 or 32 consecutive taps at a time, against
+    full-scale uniform x0 -- held to the float64 sum: max and RMS error in
+    float32 ulps of sum |products| (the scale the accumulation works at;
+    the sum itself may cancel), how many outputs equal the float64 sum
+    rounded once to float32, and which way the inexact outputs round.
+    Fails if an output leaves the bound of a recursive float32 sum that
+    truncates, (terms - 1) * 2^-23 * sum |products|."""
+    import torch
+
+    from r8brain_torch.ops.pallas_frac import (frac_whole, operator_parts,
+                                               split3)
+
+    s0 = split3(skT)[0]
+    D, O = s0.shape
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    C, n_win = 16, 128
+    for terms in (16, 32):
+        x0 = split3(torch.rand((C, n_win * terms), generator=g,
+                               device=dev) * 2 - 1)[0]
+        xw = x0.double().reshape(C, n_win, terms)
+        n = n_all = n_exact = n_rn = n_inexact = n_down = 0
+        worst, sq = 0.0, 0.0
+        for d0 in range(0, D - terms + 1, terms):
+            op = s0[d0 : d0 + terms].contiguous()
+            y = frac_whole(x0, operator_parts(op), terms, terms, O, n_win,
+                           kc=terms)
+            y = y.double().reshape(C, n_win, O)
+            exact = xw @ op.double()
+            mag = xw.abs() @ op.double().abs()
+            check(bool(((y - exact).abs()
+                        <= (terms - 1) * 2.0**-23 * mag).all()),
+                  f"accumulation pin: {terms}-term sum at taps {d0}.. "
+                  f"outside the truncating float32 bound")
+            rn = exact.float().double()
+            keep = mag != 0
+            ulp = torch.exp2(torch.floor(torch.log2(mag[keep])) - 23)
+            e = (y - exact)[keep] / ulp
+            worst = max(worst, float(e.abs().max().item()))
+            sq += float(e.square().sum().item())
+            n += int(keep.sum().item())
+            inexact = y != exact
+            n_inexact += int(inexact.sum().item())
+            n_down += int((inexact & (y.abs() < exact.abs())).sum().item())
+            n_rn += int((y == rn).sum().item())
+            n_all += y.numel()
+            n_exact += int((exact == rn).sum().item())
+        share_down = n_down / max(1, n_inexact)
+        nearest = n_rn / n_all
+        mode = ("truncating (toward zero)" if share_down > 0.9 else
+                "to nearest (errors symmetric)"
+                if 0.4 <= share_down <= 0.6 else "neither")
+        print(f"accumulation pin: {terms}-term wgmma bf16 -> f32 sums, "
+              f"{n} outputs (flagship s0 x uniform x0): vs the f64 sum, "
+              f"max {worst:.3f} ulps of sum |products|, RMS "
+              f"{math.sqrt(sq / max(1, n)):.4f}; {100 * nearest:.3f} % "
+              f"equal to it rounded once to f32 "
+              f"({100 * n_exact / n_all:.3f} % of the f64 sums exact in "
+              f"f32); of the {n_inexact} inexact outputs "
+              f"{100 * share_down:.2f} % toward zero: {mode}")
 
 
 def lemma_pin(dev) -> None:
@@ -581,7 +787,7 @@ def fft_paths(dev, x, ref, skip, peaks, card):
     from r8brain_torch.ops.pallas_dfft import df_fft_conv, df_fft_conv_ref
     from r8brain_torch.ops.pallas_frac import frac_whole
 
-    peak_f32, peak_f64, peak_bytes = peaks
+    peak_f32, peak_bf16, peak_f64, peak_bytes = peaks
     refs = {(SRC, DST, TB, ATTEN): (ref, skip)}
     x4 = x[:N_CMP].cpu().double()
     records = []
@@ -669,57 +875,68 @@ def fft_paths(dev, x, ref, skip, peaks, card):
 
         if label == "poly":
             records.append(frac_lo_record(
-                "frac_whole[frac stage, skT_lo]", calls["frac_whole"], n_fw,
-                peak_f32, peak_bytes, card))
+                "frac_whole[frac stage, skT_lo]", calls["frac_whole"],
+                rs.execs[1], n_fw, (peak_f32, peak_bf16, peak_bytes), card))
         del calls, rs
         torch.cuda.empty_cache()
     return records
 
 
-def frac_lo_record(name, call, launches, peak_f32, peak_bytes, card):
-    """frac_whole with the operator residual at one path's call: against
-    its plain version in float64, timed at the call's fold length and at
-    the other one, beside the float32 model and float64 cuDNN conv1d.  The
-    bound counts the operator's nonzero entries (a whole-stepping stage's
+def frac_lo_record(name, call, ex, launches, peaks, card):
+    """frac_whole with the operator residual at one path's call (``ex``:
+    the executor that made it): against its plain model and its float64
+    product, its residual slice held with a planted skT_lo
+    (check_residual), timed at the call's fold length and at the other
+    one, beside the plain model and float64 cuDNN conv1d.  The bound
+    counts the operator's nonzero entries (a whole-stepping stage's
     operator is banded; the kernel multiplies it dense)."""
     import torch
     import torch.nn.functional as F
 
     from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
-                                               frac_whole_ref)
+                                               frac_whole_ref, operator_parts)
 
-    (xp, skT, I, D, O, n_win), kw = call
-    lo, kc = kw["skT_lo"], kw.get("kc", KC)
-    y = frac_whole(xp, skT, I, D, O, n_win, skT_lo=lo, kc=kc)
-    r64 = frac_whole_ref(xp.double(), skT.double(), I, D, O, n_win,
-                         skT_lo=lo.double())
+    (xp, parts, I, D, O, n_win), kw = call
+    kc = kw.get("kc", KC)
+    skT, lo = exec_operator(ex, parts)
+    check(lo is not None, f"{name}: the call has no skT_lo")
+    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
+    model = frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc)
+    r64 = frac_whole_ref(xp.double(), operator_parts(skT.double(),
+                                                     lo.double()),
+                         I, D, O, n_win)
     torch.cuda.synchronize()
-    err = max_rel(y, r64)
-    max_abs = float((y.double() - r64).abs().max().item())
-    check(err <= KERNEL_REL_TOL, f"{name} rel err {err:.3e}")
-    del r64, y
-    ms = {k: cuda_ms(lambda: frac_whole(xp, skT, I, D, O, n_win, skT_lo=lo,
-                                        kc=k), reps=20)
+    max_abs, err_m, err = check_frac_model(name, y, model, r64)
+    db = rms_db(y.double() - r64)
+    del r64, y, model
+    check_residual(name, xp, skT, I, D, O, n_win, kc)
+    torch.cuda.empty_cache()
+    ms = {k: cuda_ms(lambda: frac_whole(xp, parts, I, D, O, n_win, kc=k),
+                     reps=20)
           for k in (KC_LO, KC)}
-    p_ms = cuda_ms(lambda: frac_whole_ref(xp, skT, I, D, O, n_win,
-                                          skT_lo=lo, kc=kc), reps=3,
-                   warmup=1)
+    p_ms = cuda_ms(lambda: frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc),
+                   reps=3, warmup=1)
     w = (skT.double() + lo.double()).T.contiguous()[:, None, :]
     xp64 = xp.double()[:, None, :]
     lib_ms = cuda_ms(lambda: F.conv1d(xp64, w, stride=I), reps=3, warmup=1)
     del xp64, w
     C = xp.shape[0]
-    nnz = int((skT != 0).sum().item()) + int((lo != 0).sum().item())
-    flops = 2.0 * C * n_win * nnz
-    nbytes = 4.0 * (C * ((n_win - 1) * I + D) + 2 * D * O + C * n_win * O)
-    bound_ms, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
+    R = C * n_win
+    nnz, nnz_lo = int((skT != 0).sum().item()), int((lo != 0).sum().item())
+    io = 4.0 * (C * ((n_win - 1) * I + D) + R * O)
+    (bound_ms, bound_by, form), simt, split = frac_bounds(R, nnz, nnz_lo, io,
+                                                          D, O, peaks)
     print(f"timing {card}: {name} I={I} D={D} O={O} C={C} n_win={n_win}, "
           f"fold {kc}: kernel {ms[kc]:.3f} ms (fold {KC_LO}: "
           f"{ms[KC_LO]:.3f} ms, fold {KC}: {ms[KC]:.3f} ms), bound "
-          f"{bound_ms:.3f} ms by {bound_by} ({flops:.3e} flop over the "
-          f"{nnz} nonzeros of skT and skT_lo, {nbytes / 1e9:.3f} GB), plain "
-          f"frac_whole_ref {p_ms:.3f} ms, f64 cuDNN conv1d {lib_ms:.3f} ms; "
-          f"max rel err vs f64 plain {err:.3e} (tol {KERNEL_REL_TOL:g})")
+          f"{bound_ms:.3f} ms by {bound_by} ({form}; CUDA cores "
+          f"{simt[0]:.3f} ms by {simt[1]}, bf16 split {split[0]:.3f} ms by "
+          f"{split[1]}; over the {nnz} + {nnz_lo} nonzeros of skT and "
+          f"skT_lo of {D * O} each), plain frac_whole_ref {p_ms:.3f} ms, "
+          f"f64 cuDNN conv1d {lib_ms:.3f} ms; {db:.2f} dB re full scale vs "
+          f"f64 plain, max rel err {err:.3e} (tol {KERNEL_REL_TOL:g}), "
+          f"{err_m:.3e} of max |y| from the model (tol "
+          f"{MODEL_REL_TOL:.2e})")
     return {"name": name, "route": "cuda",
             "source": "r8brain_torch/csrc/frac_whole.cu",
             "replaces": "r8brain_tpu/ops/pallas_frac.py:111",
@@ -728,7 +945,7 @@ def frac_lo_record(name, call, launches, peak_f32, peak_bytes, card):
             "library_ms": lib_ms}
 
 
-def fused_high_path(dev, x, ref, skip, peak_f32, peak_bytes, card):
+def fused_high_path(dev, x, ref, skip, peaks, card):
     """The fused flagship with precision="high" (the residual dot in the
     same kernel): counted, held at -141 dB, timed; returns its kernel
     record."""
@@ -761,7 +978,7 @@ def fused_high_path(dev, x, ref, skip, peak_f32, peak_bytes, card):
           f"{1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
     calls = capture_calls(rs, x, fused, ("frac_whole",))
     rec = frac_lo_record("frac_whole[fused, skT_lo]", calls["frac_whole"],
-                         launches, peak_f32, peak_bytes, card)
+                         rs.execs[0], launches, peaks, card)
     del calls, rs
     torch.cuda.empty_cache()
     return rec
@@ -894,14 +1111,17 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
                   card):
     """One conv-stage kernel call of a float32 stage chain (x_in: the
     stage's input): the kernel against its plain version at the path's
-    shape, timed beside the plain version and F.conv1d; the bound counts
-    the operator's nonzero entries (the dense count printed beside)."""
+    shape (frac_whole: its float32 model and its float64 product), timed
+    beside the plain version and F.conv1d; the bound counts the operator's
+    nonzero entries (the dense count printed beside; frac_whole's the
+    smaller of its CUDA-core and split forms', frac_bounds)."""
     import torch
 
-    from r8brain_torch.ops.pallas_frac import frac_whole, frac_whole_ref
+    from r8brain_torch.ops.pallas_frac import (frac_whole, frac_whole_ref,
+                                               operator_parts)
     from r8brain_torch.ops.pallas_symconv import sym_conv, sym_conv_ref
 
-    peak_f32, peak_bytes = peaks
+    peak_f32, _bf16, peak_bytes = peaks
     args, kw = call
     xp, C = args[0], args[0].shape[0]
     if kernel == "sym_conv":
@@ -938,18 +1158,21 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
         n_out = nb * 256 * len(L_fs)
     else:
         fn, ref = frac_whole, frac_whole_ref
-        _xp, skT, I, D, O, n_win = args
-        lo = kw.get("skT_lo")
-        y = fn(*args, **kw)
-        r = ref(xp.double(), skT.double(), I, D, O, n_win, skT_lo=None
-                if lo is None else lo.double())
+        _xp, parts, I, D, O, n_win = args
+        skT, lo = exec_operator(ex, parts)
+        y, model = fn(*args, **kw), ref(*args, **kw)
+        r = ref(xp.double(), operator_parts(
+            skT.double(), None if lo is None else lo.double()), I, D, O,
+            n_win)
         torch.cuda.synchronize()
-        err = max_rel(y, r)
-        check(err <= KERNEL_REL_TOL, f"{name}: max rel err {err:.3e} vs "
-              f"f64 plain")
-        tol = f"max rel err {err:.3e} vs f64 plain (tol {KERNEL_REL_TOL:g})"
-        nnz = int((skT != 0).sum().item())
-        nnz += 0 if lo is None else int((lo != 0).sum().item())
+        _a, err_m, err = check_frac_model(name, y, model, r)
+        del model
+        tol = (f"max rel err {err:.3e} vs f64 plain (tol "
+               f"{KERNEL_REL_TOL:g}), {err_m:.3e} of max |y| from the "
+               f"model (tol {MODEL_REL_TOL:.2e})")
+        nnz_main = int((skT != 0).sum().item())
+        nnz_lo = None if lo is None else int((lo != 0).sum().item())
+        nnz = nnz_main + (nnz_lo or 0)
         dense = D * O * (1 if lo is None else 2)
         per_frame = 2.0 * C * n_win
         span = (n_win - 1) * I + D
@@ -974,10 +1197,17 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
     nbytes = 4.0 * C * span + op_bytes + 4.0 * C * n_out
     bound_ms, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
     dense_ms = bound(dflops, nbytes, peak_f32, peak_bytes)[0]
+    form = "fp32 FMA"
+    if kernel == "frac_whole":
+        io = 4.0 * C * span + 4.0 * C * n_out
+        (bound_ms, bound_by, form), simt, split = frac_bounds(
+            C * n_win, nnz_main, nnz_lo, io, D, O, peaks)
+        form += (f"; CUDA cores {simt[0]:.3f} ms by {simt[1]}, bf16 split "
+                 f"{split[0]:.3f} ms by {split[1]}")
     print(f"timing {card}: {name} ({label}, C={C}) kernel {k_ms:.3f} ms "
           f"({dflops / k_ms * 1e-9:.1f} TFLOP/s of dense work), bound "
-          f"{bound_ms:.3f} ms by {bound_by} ({flops:.3e} flop over the "
-          f"operators' {nnz} nonzeros, {nbytes / 1e9:.3f} GB; dense "
+          f"{bound_ms:.3f} ms by {bound_by} ({form}; {flops:.3e} flop over "
+          f"the operators' {nnz} nonzeros, {nbytes / 1e9:.3f} GB; dense fp32 "
           f"{dflops:.3e} flop, {dense_ms:.3f} ms), plain {p_ms:.3f} ms, "
           f"F.conv1d (f32, TF32 off) {lib_ms:.3f} ms; {tol}")
     src = {"sym_conv": "r8brain_torch/csrc/sym_conv.cu",
@@ -999,7 +1229,7 @@ def matmul_paths(dev, x, ref, skip, peaks, card):
 
     from r8brain_torch import Resampler
     from r8brain_torch.ops import stages
-    from r8brain_torch.ops.pallas_frac import frac_whole
+    from r8brain_torch.ops.pallas_frac import KC, frac_whole
     from r8brain_torch.ops.pallas_symconv import sym_conv
 
     refs = {(SRC, DST, TB, ATTEN): (ref, skip)}
@@ -1040,6 +1270,13 @@ def matmul_paths(dev, x, ref, skip, peaks, card):
         one_ms = cuda_ms(lambda: rs.oneshot(x), reps=reps, warmup=1)
         print(f"timing {card}: matmul path {label} oneshot {one_ms:.3f} ms "
               f"= {1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
+        if label in RESIDUAL_PATHS:
+            (xp, parts, I, D, O, n_win), kw = capture_calls(
+                rs, x, stages, ("frac_whole",))["frac_whole"]
+            skT, _lo = exec_operator(rs.execs[0], parts)
+            check_residual(f"the {label} conv stage", xp, skT, I, D, O,
+                           n_win, kw.get("kc", KC))
+            del xp, parts
         if label in MATMUL_RECORDS:
             kernel, name = MATMUL_RECORDS[label]
             calls = capture_calls(rs, x, stages, (kernel,))
@@ -1062,10 +1299,10 @@ def gemm_records(dev, peaks, card):
     blocks at hop 256, L_f = K)."""
     import torch
 
-    from r8brain_torch.ops.pallas_frac import frac_whole
+    from r8brain_torch.ops.pallas_frac import frac_whole, operator_parts
     from r8brain_torch.ops.scout import dense_gemm, dense_gemm_ref
 
-    peak_f32, peak_bytes = peaks
+    peak_f32, _bf16, peak_bytes = peaks
     g = torch.Generator(device=dev).manual_seed(SEED)
     M, K, N = GEMM_M, GEMM_K, GEMM_N
     A = torch.randn((M, K), generator=g, device=dev)
@@ -1077,13 +1314,16 @@ def gemm_records(dev, peaks, card):
     nb = M // CHANNELS
     xp = torch.randn((CHANNELS, (nb - 1) * GEMM_HOP + K), generator=g,
                      device=dev)
-    fw_ms = cuda_ms(lambda: frac_whole(xp, B, GEMM_HOP, K, N, nb), reps=10)
+    parts = operator_parts(B)
+    fw_ms = cuda_ms(lambda: frac_whole(xp, parts, GEMM_HOP, K, N, nb),
+                    reps=10)
     print(f"timing {card}: GEMM {M}x{K} @ {K}x{N} ({flops:.3e} flop): "
           f"torch.matmul f32 (TF32 off) {lib_ms:.3f} ms "
           f"({flops / lib_ms * 1e-9:.1f} TFLOP/s); frac_whole on the "
           f"un-materialized frames (C={CHANNELS}, {nb} blocks, hop "
-          f"{GEMM_HOP}) {fw_ms:.3f} ms ({flops / fw_ms * 1e-9:.1f} TFLOP/s)")
-    del xp
+          f"{GEMM_HOP}; the bf16 split form) {fw_ms:.3f} ms "
+          f"({flops / fw_ms * 1e-9:.1f} TFLOP/s of the function)")
+    del xp, parts
     ref = dense_gemm_ref(A, B)
     p_ms = cuda_ms(lambda: dense_gemm_ref(A, B), reps=3, warmup=1)
     records = []
@@ -1153,9 +1393,11 @@ def main() -> int:
     ref = rs64.oneshot(x[:N_CMP].cpu().double()).numpy()
     skip = int(EDGE_S * DST)
 
-    kernels = [fast_path(dev, x, ref, skip, (peak_f32, peak_bf16, peak_bytes),
-                         card),
-               fused_high_path(dev, x, ref, skip, peak_f32, peak_bytes, card)]
+    peaks = (peak_f32, peak_bf16, peak_bytes)
+    accumulation_pin(dev, Resampler(SRC, DST, TB, ATTEN,
+                                    device=dev).execs[0].skT)
+    kernels = [fast_path(dev, x, ref, skip, peaks, card),
+               fused_high_path(dev, x, ref, skip, peaks, card)]
 
     # the split-operand kernel: its lemma, then every variant vs plain at
     # the guarantee chain's two geometries and at an odd one
@@ -1255,16 +1497,16 @@ def main() -> int:
     # the df32-FFT engines: the kernel at every mode and size, then each
     # path counted, checked and timed with its kernels
     check_fft_cases(dev)
-    kernels += fft_paths(dev, x, ref, skip, (peak_f32, peak_f64, peak_bytes),
-                         card)
+    kernels += fft_paths(dev, x, ref, skip,
+                         (peak_f32, peak_bf16, peak_f64, peak_bytes), card)
 
     # the float32 stage chains: the folded kernel and the scouting GEMM
     # against their plain versions, then each chain counted, checked and
     # timed with its conv-stage kernel call; then the scouting GEMM
     check_sym_cases(dev)
     check_dense_cases(dev)
-    kernels += matmul_paths(dev, x, ref, skip, (peak_f32, peak_bytes), card)
-    kernels += gemm_records(dev, (peak_f32, peak_bytes), card)
+    kernels += matmul_paths(dev, x, ref, skip, peaks, card)
+    kernels += gemm_records(dev, peaks, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Framed matmul of the fused 44.1k->96k chain (and of every whole-stepping
-// interpolator), for sm_90a:
+// interpolator and matmul conv stage), for sm_90a:
 //
 //     y[c, m*O + j] = sum_{d<D} xp[c, m*I + d] * skT[d, j]
 //                   (+ sum_{d<D} xp[c, m*I + d] * skT_lo[d, j])
@@ -8,51 +8,96 @@
 // r8brain_tpu/ops/pallas_frac.py::frac_whole_pallas (its pallas_call and
 // kernel body: the main HIGHEST dot and the optional residual dot).
 //
+// float32: an exact three-slice bfloat16 split on the tensor cores (wgmma).
+//
 // What bounds it: operations.  The flagship (C=1024, n_win=150, D=1027,
-// O=640) is 2.0e11 flop against 0.57 GB of compulsory traffic, ~350 flop per
-// byte, far above the fp32 CUDA-core ridge of the H100 (~20 flop/byte).
-// The accuracy class (-141 dB against the f64 oracle) rules out TF32 tensor
-// cores (10-bit mantissa), so this first kernel is an FMA kernel on the
-// CUDA cores; tensor cores with an exact split form are later work.
+// O=640) is 2.0e11 flop of the function against 0.57 GB of compulsory
+// traffic.  The -141 dB class rules out TF32 (10-bit mantissa); a float32
+// FMA kernel on the CUDA cores is bound at 3.0 ms (67 TFLOP/s).  The split
+// form runs 6 bf16 products per term (7 with skT_lo) at 989 TFLOP/s: a
+// 1.23 ms bound (1.43 with skT_lo).
+//
+// Arithmetic (the plain model is r8brain_torch/ops/pallas_frac.py::
+// frac_whole_ref):
+//   * x = x0 + x1 + x2, each slice the nearest bf16 to the residual the
+//     ones before left (exact for float32 in bf16's normal range); the
+//     operator comes split the same way, once, by its executor (s0, s1,
+//     s2, and under "high" bf16(skT_lo)).  Every slice product is exact in
+//     float32 (8 x 8 significant bits).
+//   * Kept pairs: p+q <= 2 (and x0 * bf16(skT_lo)); the dropped ones are
+//     below 2^-26 of a product.
+//   * The big pair x0*s0 sums into a partial that each fold starts fresh
+//     (wgmma scale-d = 0) over FOLD = 16 or 32 terms (one or two k16
+//     steps), and is folded into (hi, lo) with two_sum on the CUDA cores.
+//     The small pairs accumulate straight into the lo fragment, so an
+//     output holds three fragments, not four.  y = hi + lo, rounded once.
+//     The fold is plain __f*_rn arithmetic (no --use_fast_math), so nothing
+//     is contracted or reassociated.
 //
 // Design:
-//   * Rows r = c*n_win + m of an implicit im2col matrix A[r, d] =
-//     xp[c, m*I + d] against B = skT [D, O].  Each block computes a BM x BN
-//     tile of y (which is exactly the [R, O] row-major layout of y, so the
-//     output needs no reshape); one 1-D grid walks (row tile, col tile)
-//     with the column tile fastest, so the blocks of one row tile run
-//     together and share the window rows in L2.
-//   * The windows overlap (I < D) and start at unaligned offsets (I=294):
-//     each block stages its BK-column slab of A from the rows' own start
-//     offsets (64-bit, kept in shared memory), with coalesced element-wise
-//     cp.async copies, transposed into shared memory so that each thread
-//     reads its TM rows as one vector.  Two stages: the next slab's copies
-//     are in flight while this slab's FMAs run.  The ragged edges in
-//     C*n_win, D and O are zero-filled, so C needs no alignment.
-//   * Accuracy: each output sums FOLD terms into a register partial, then
-//     folds it into a (hi, lo) pair with two_sum.  FOLD is the caller's: 32
-//     (= BK = KC of the plain model) or 8 in f32, BK = 16 in f64.  A single
-//     running f32 sum over 1027 terms reaches only about -132 dB on the
-//     fused operator; 32-term partials hold about -144 dB.  A whole-stepping
-//     interpolator's column has only ~24 nonzero taps, which a 32-term fold
-//     leaves in one partial: its stage executor folds every 8 terms (KC_LO,
-//     -148.8 against -146.1 dB on the 44.1k -> 96k frac stage).  The
-//     residual dot (skT_lo, ~2^-24 of the main term) is a plain running sum
-//     added at the end as hi + (lo + residual).  Built without
-//     --use_fast_math so the fold is not reassociated.
-//   The plain PyTorch model of this exact chunking and fold is
-//   r8brain_torch/ops/pallas_frac.py::frac_whole_ref.
+//   * Rows r = c*n_win + m of an implicit im2col matrix A[r, d] = xp[c,
+//     m*I + d] against the operator slices.  A block is two warpgroups,
+//     each 64 rows x BN columns (BN = 128 where O is a multiple of 128 or
+//     above 192, 64 otherwise, 8 for O <= 2: the direct stage's), so
+//     a 128 x BN tile of y (exactly the [R, O] row-major layout of y); one
+//     1-D grid walks (row tile, column tile) with the column tile fastest,
+//     so the blocks of one row tile share the window rows in L2.  The
+//     wide tile halves the input each block re-reads from L2 and the
+//     splitting per output; three fragments of 64 floats fit a thread's
+//     registers (8 warps an SM: no producer warp, whose ninth warp would
+//     cap the registers at 168).
+//   * The operator is packed on the host as one contiguous,
+//     128-byte-swizzled block per (column tile, 64-deep k-tile)
+//     (operator_parts), so thread 0 moves a whole stage with one TMA bulk
+//     copy into an mbarrier ring (3 stages; 2 at BN = 128, whose stage of
+//     four slices is 64 KB), refilling a slot once both warpgroups have
+//     freed it, and wgmma reads B straight from it (K-major, 128B swizzle
+//     descriptors).
+//   * A from registers: the windows start at m*I, unaligned for I = 294,
+//     147 and 1, so neither a TMA tile nor a swizzled A tile fits them.
+//     Each warpgroup stages its own 64 rows of the k-tile in float32 with
+//     cp.async, a warp a row (per-row 64-bit starts kept in shared memory,
+//     zero-filled edges; 16-byte copies where xp, I and the row stride
+//     allow, else 8-byte on rows that start 8-byte aligned, 4-byte on the
+//     others), rows padded to 72 floats so that the fragment reads are
+//     free of bank conflicts, behind a named barrier.  Each thread reads
+//     its fragment as float pairs and splits them into the three bf16
+//     fragment sets in registers.
+//   * The 8-column tile (O <= 2) multiplies the slices side by side: one
+//     tile [s0 | s1 | s2 | bf16(skT_lo)], so a k16 step is 3 MMAs, not 6
+//     or 7 (x1*s2 and the like ride along, below 2^-26 of a product);
+//     the small-pair columns sum per fold into lo and across the quad at
+//     the end.  At I = 1 a step splits 2 of its 4 float pairs (the
+//     windows are shifted copies: row g+8 at column c is row g at c+8).
+//     With I <= 64 it stages stretches instead of rows:
+//     channel-aligned row tiles, and per k-tile one contiguous stretch a
+//     warpgroup (63*I + 64 samples: 127 at I = 1, against 64 rows of 64),
+//     so two blocks fit an SM.
+//   * A fold is: split its A, fence, its 6 (7) MMAs a k16 step, commit,
+//     wait, two_sum.  All of a fold's input registers are written before
+//     its MMAs start, so ptxas keeps them asynchronous (a pipeline that
+//     split the next step under the MMAs in flight was serialized by
+//     ptxas, C7513/C7518).  The fold of one warpgroup runs on the CUDA
+//     cores while the other's MMAs run (making them take turns through
+//     an mbarrier pair was slower on the H100).  Folds that lie wholly in
+//     the zero padding past D are skipped.
+//
+// float64: an FMA kernel on the CUDA cores (the port's f64 path), 64 x 64
+// tiles, 16-term partials folded with two_sum.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
 #include <climits>
+#include <cstdint>
+#include <cstring>
 
 namespace {
 
-__device__ __forceinline__ float fma_t(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_t(double a, double b, double c) {
-  return fma(a, b, c);
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 // Asynchronous copy of one element global -> shared (cp.async, sm_80+);
@@ -60,15 +105,23 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
 template <typename T>
 __device__ __forceinline__ void cp_async_elem(T* smem, const T* gmem,
                                               bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int src_bytes = pred ? static_cast<int>(sizeof(T)) : 0;
   if constexpr (sizeof(T) == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(smem)),
                  "l"(gmem), "r"(src_bytes));
   } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_u32(smem)),
                  "l"(gmem), "r"(src_bytes));
   }
+}
+// 16 bytes, of which the first src_bytes are read and the rest zeroed
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -76,6 +129,565 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
+  s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+}
+
+// ---------------------------------------------------------------------------
+// float32: the split form on the tensor cores
+
+namespace split {
+
+constexpr int BM = 128;            // rows a block: two warpgroups of 64
+constexpr int TK = 64;             // d a k-tile (one 128-byte bf16 row)
+constexpr int APITCH = TK + 8;     // floats a staged row: 8 mod 32 banks
+// k-tiles in flight: 3, or 2 for the 128-column tile (a stage of its four
+// operator slices is 64 KB)
+template <int BN>
+constexpr int STAGES = BN == 128 ? 2 : 3;
+constexpr int NT = 256;            // two warpgroups (8 warps: 255 registers)
+constexpr int A_ROWS = BM * APITCH;  // floats of an A stage staged by row
+constexpr int MAX_STRETCH_I = 64;    // the 8-column tile stages stretches
+
+// Ablation, for tools/torch_frac_ablation.py only: a build with
+// -DR8B_ABLATE=mask drops parts of the work (its output is then wrong) so
+// that the rest can be timed.  Bits: 1 the two_sum fold (one add instead),
+// 2 the split (x1 = x2 = x0), 4 the small-pair MMAs, 8 the input staging.
+#ifndef R8B_ABLATE
+#define R8B_ABLATE 0
+#endif
+constexpr bool kNoFold = R8B_ABLATE & 1;
+constexpr bool kNoSplit = R8B_ABLATE & 2;
+constexpr bool kNoSmall = R8B_ABLATE & 4;
+constexpr bool kNoStage = R8B_ABLATE & 8;
+
+// Shared memory: STAGES operator stages (P swizzled tiles each), STAGES A
+// stages of a_stage floats (by row, A_ROWS; or two stretches), the full
+// and empty barriers, the rows' starts.
+template <int BN, int P>
+struct Smem {
+  static constexpr int ST = STAGES<BN>;
+  // the 8-column tile (O <= 2) holds one more tile: the slices side by side
+  static constexpr int PT = BN == 8 ? P + 1 : P;
+  static constexpr int B_STAGE = PT * BN * TK * 2;  // bytes
+  static constexpr size_t a_off = ST * B_STAGE;
+  static_assert((BN * TK * 2) % 1024 == 0, "swizzle atoms are 1 KB");
+  static constexpr size_t bytes(int a_stage) {
+    return a_off + ST * a_stage * 4 + 2 * ST * 8 + BM * 8 +
+           1024;  // + alignment
+  }
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// wait for the phase of parity `parity` to complete; a phase that never
+// completes (a lost arrival) traps after ~2^34 cycles instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > (1LL << 34)) __trap();
+  }
+}
+// one TMA bulk copy global -> shared, completing on `bar`'s transaction count
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void named_bar_sync(unsigned id, unsigned count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of r across the wgmma fences
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma descriptor of a K-major, 128-byte-swizzled bf16 tile: rows of 64
+// k-values (128 bytes), 8-row atoms 1024 bytes apart; a k16 step within
+// the row is a 32-byte advance of the start address
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |           // LBO (unused here)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |   // SBO: 8 rows
+         (static_cast<uint64_t>(1) << 62);            // 128-byte swizzle
+}
+
+// d (64 x BN, float32) (+)= A (64 x 16, bf16, registers) * B (16 x BN,
+// bf16, shared memory); scale_d = 0 ignores d's old value
+template <int BN>
+struct Mma;
+template <>
+struct Mma<64> {
+  __device__ __forceinline__ static void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+template <>
+struct Mma<128> {
+  __device__ __forceinline__ static void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+template <>
+struct Mma<8> {
+  __device__ __forceinline__ static void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+  uint32_t u;
+  memcpy(&u, &h, 4);
+  return u;
+}
+
+// the three bf16 slices of a float pair, as packed fragment registers (the
+// lower column in the low half): x0 = bf16_rn(v), x1 = bf16_rn(v - x0), x2
+// = bf16_rn(v - x0 - x1), each difference exact
+__device__ __forceinline__ void split3(float2 v, uint32_t& a0, uint32_t& a1,
+                                       uint32_t& a2) {
+  const __nv_bfloat162 h0 = __float22bfloat162_rn(v);
+  if constexpr (kNoSplit) {
+    a0 = a1 = a2 = bits(h0);
+    return;
+  }
+  const float2 f0 = __bfloat1622float2(h0);
+  const float2 r = make_float2(__fsub_rn(v.x, f0.x), __fsub_rn(v.y, f0.y));
+  const __nv_bfloat162 h1 = __float22bfloat162_rn(r);
+  const float2 f1 = __bfloat1622float2(h1);
+  const __nv_bfloat162 h2 = __float22bfloat162_rn(
+      make_float2(__fsub_rn(r.x, f1.x), __fsub_rn(r.y, f1.y)));
+  a0 = bits(h0);
+  a1 = bits(h1);
+  a2 = bits(h2);
+}
+
+// 8 bytes, of which the first src_bytes are read and the rest zeroed
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+
+// n_mt > 0 (8-column tile, I <= MAX_STRETCH_I): stretch mode.  Row tiles
+// are channel-aligned (n_mt a channel) and each warpgroup stages, per
+// k-tile, the one contiguous stretch its 64 windows cover (63*I + 64
+// samples: 127 at I = 1, against 4096 by row); row i reads it at i*I.
+template <int BN, int FOLD, int P>
+__global__ void __launch_bounds__(NT, BN == 8 ? 2 : 1)
+frac_split_kernel(const float* __restrict__ xp, long long ldx,
+                  const bf16* __restrict__ parts, float* __restrict__ y,
+                  long long R, int n_win, int I, int D, int O, int n_kt,
+                  int n_col_tiles, int vec, int a_stage, int n_mt) {
+  using S = Smem<BN, P>;
+  constexpr int ST = S::ST;
+  constexpr int NR = BN / 2;     // accumulator floats a thread, a fragment
+  constexpr int KS = FOLD / 16;  // k16 steps a fold
+  constexpr int TILE = BN * TK;  // bf16 elements of one slice's tile
+  static_assert(TK % FOLD == 0 && FOLD % 16 == 0, "folds tile the k-tile");
+
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle atoms need 1024-byte alignment (offset kept on smem_raw so
+  // that the compiler still sees shared-memory accesses)
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* Bs = reinterpret_cast<bf16*>(base);               // [ST][P][BN][TK]
+  float* As = reinterpret_cast<float*>(base + S::a_off);  // [ST][a_stage]
+  uint64_t* full = reinterpret_cast<uint64_t*>(As + ST * a_stage);
+  uint64_t* empty = full + ST;
+  long long* row_base = reinterpret_cast<long long*>(empty + ST);
+
+  const bool stretch = BN == 8 && n_mt > 0;
+  const int tid = threadIdx.x;
+  const long long tile = blockIdx.x;
+  const int col_t = static_cast<int>(tile % n_col_tiles);
+  // the tile's first output row and the end of its rows
+  long long r0, r_end = R, c0 = 0;
+  int m0 = 0;
+  if (stretch) {
+    const long long rt = tile / n_col_tiles;
+    c0 = rt / n_mt;
+    m0 = static_cast<int>(rt % n_mt) * BM;
+    r0 = c0 * n_win + m0;
+    r_end = (c0 + 1) * n_win;
+  } else {
+    r0 = (tile / n_col_tiles) * BM;
+  }
+  if (tid < BM) {
+    const long long r = r0 + tid;
+    long long b = -1;
+    if (r < r_end) {
+      const long long c = r / n_win;
+      b = c * ldx + (r - c * n_win) * static_cast<long long>(I);
+    }
+    row_base[tid] = b;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 moves the operator: one bulk copy a k-tile into its slot, the
+  // first ST now, each later one once both warpgroups freed the slot
+  constexpr int PT = S::PT;
+  const bf16* b_src = parts + static_cast<long long>(col_t) * n_kt * PT * TILE;
+  auto load_b = [&](int t) {
+    const int slot = t % ST;
+    mbar_expect_tx(full + slot, S::B_STAGE);
+    bulk_g2s(Bs + slot * PT * TILE,
+             b_src + static_cast<long long>(t) * PT * TILE, S::B_STAGE,
+             full + slot);
+  };
+  if (tid == 0) {
+    for (int t = 0; t < ST && t < n_kt; ++t) load_b(t);
+  }
+
+  const int wg = tid >> 7, tw = tid & 127;
+  const int wq = tw >> 5, lane = tw & 31, g = lane >> 2, tq = lane & 3;
+  const long long* rb = row_base + wg * 64;
+  const int sw = a_stage / 2;  // floats of one warpgroup's stretch
+  float* Aw = As + wg * (stretch ? sw : 64 * APITCH);
+  const int rs = stretch ? I : APITCH;  // row stride of the staged A
+
+  // this warpgroup's 64 rows of k-tile t into its slot, zero past D and R:
+  // warp wq stages rows 16wq..16wq+15, one row (two with 16-byte copies)
+  // an instruction, 8-byte copies on rows whose start is 8-byte aligned
+  auto stage_a = [&](int t) {
+    if constexpr (kNoStage) return;
+    float* dst = Aw + (t % ST) * a_stage;
+    const int d0 = t * TK;
+    if (stretch) {
+      // positions in channel c0; past the windows' extent zero
+      const long long p0 = static_cast<long long>(m0 + 64 * wg) * I + d0;
+      const long long ext = static_cast<long long>(n_win - 1) * I + D;
+      const float* src = xp + c0 * ldx + p0;
+      for (int e = tw; e < sw; e += 128) {
+        const bool ok = p0 + e < ext;
+        cp_async_elem(dst + e, ok ? src + e : xp, ok);
+      }
+    } else if (vec) {
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        const int i = wq * 16 + it * 2 + (lane >> 4);
+        const int d = d0 + 4 * (lane & 15);
+        const long long b = rb[i];
+        const int n = b < 0 ? 0 : max(0, min(4, D - d));
+        cp_async16(dst + i * APITCH + 4 * (lane & 15),
+                   n > 0 ? xp + b + d : xp, 4 * n);
+      }
+    } else {
+      const int d = d0 + 2 * lane;
+#pragma unroll 4
+      for (int it = 0; it < 16; ++it) {
+        const int i = wq * 16 + it;
+        const long long b = rb[i];
+        const int n = b < 0 ? 0 : max(0, min(2, D - d));
+        const float* src = n > 0 ? xp + b + d : xp;
+        float* to = dst + i * APITCH + 2 * lane;
+        if ((reinterpret_cast<uintptr_t>(xp + b + d0) & 7) == 0) {
+          cp_async8(to, src, 4 * n);
+        } else {
+          cp_async_elem(to, src, n > 0);
+          cp_async_elem(to + 1, n > 1 ? src + 1 : xp, n > 1);
+        }
+      }
+    }
+  };
+
+  // Accumulators: the big pair's partial of the fold in flight (tensor
+  // cores), its folded sum hi (CUDA cores), and lo, into which the tensor
+  // cores add the small pairs and the fold its errors (never both at once)
+  float acc[NR], hi[NR], lo[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) acc[i] = hi[i] = lo[i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < n_kt) stage_a(s);
+    cp_async_commit();
+  }
+
+  for (int t = 0; t < n_kt; ++t) {
+    // k-tile t staged by the whole warpgroup, which is also done reading
+    // the slot that the next copies refill
+    cp_async_wait<ST - 2>();
+    named_bar_sync(1 + wg, 128);
+    if (t + ST - 1 < n_kt) stage_a(t + ST - 1);
+    cp_async_commit();
+    const int slot = t % ST;
+    mbar_wait(full + slot, (t / ST) & 1);
+    const float* a_s = Aw + slot * a_stage + (wq * 16 + g) * rs + 2 * tq;
+    const unsigned b_s = smem_u32(Bs + slot * PT * TILE);
+
+#pragma unroll
+    for (int f = 0; f < TK / FOLD; ++f) {
+      if (t * TK + f * FOLD >= D) break;  // all padding: adds nothing
+      // the fold's A fragments, split into three bf16 sets: all written
+      // before its MMAs start (no register of an MMA in flight changes)
+      uint32_t a[KS][3][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const float* p0 = a_s + (f * KS + ks) * 16;
+        const float* p1 = p0 + 8 * rs;
+        if (stretch && I == 1) {
+          // unit stride: row g+8 at column c is row g at c+8 (pair 1 is
+          // pair 2), and pair 0 is the step before's pair 3
+          float2 v1 = make_float2(p1[0], p1[1]);
+          float2 v3 = make_float2(p1[8], p1[9]);
+#pragma unroll
+          for (int q = 1; q < 4; q += 2) {
+            split3(q == 1 ? v1 : v3, a[ks][0][q], a[ks][1][q], a[ks][2][q]);
+          }
+#pragma unroll
+          for (int p = 0; p < 3; ++p) a[ks][p][2] = a[ks][p][1];
+          if (ks == 0) {
+            split3(make_float2(p0[0], p0[1]), a[ks][0][0], a[ks][1][0],
+                   a[ks][2][0]);
+          } else {
+#pragma unroll
+            for (int p = 0; p < 3; ++p) a[ks][p][0] = a[ks > 0 ? ks - 1 : 0][p][3];
+          }
+          continue;
+        }
+        float2 v[4];
+        if (stretch) {  // a row may start at any float
+          v[0] = make_float2(p0[0], p0[1]);
+          v[1] = make_float2(p1[0], p1[1]);
+          v[2] = make_float2(p0[8], p0[9]);
+          v[3] = make_float2(p1[8], p1[9]);
+        } else {
+          v[0] = *reinterpret_cast<const float2*>(p0);
+          v[1] = *reinterpret_cast<const float2*>(p1);
+          v[2] = *reinterpret_cast<const float2*>(p0 + 8);
+          v[3] = *reinterpret_cast<const float2*>(p1 + 8);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split3(v[q], a[ks][0][q], a[ks][1][q], a[ks][2][q]);
+      }
+      reg_fence(acc);
+      reg_fence(lo);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const unsigned kb = b_s + (f * KS + ks) * 32;
+        if constexpr (BN == 8) {
+          // [s0 | s1 | s2 | bf16(skT_lo)], two columns each: column block
+          // 0 of x0's product is the big pair, the rest small pairs
+          const uint64_t sc = desc_sw128(kb + P * BN * TK * 2);
+          Mma<BN>::run(acc, a[ks][0], sc, ks);  // fresh on the fold's first
+          if constexpr (!kNoSmall) {
+            Mma<BN>::run(lo, a[ks][1], sc, 1);
+            Mma<BN>::run(lo, a[ks][2], sc, 1);
+          }
+        } else {
+          const uint64_t s0 = desc_sw128(kb);
+          const uint64_t s1 = desc_sw128(kb + BN * TK * 2);
+          const uint64_t s2 = desc_sw128(kb + 2 * BN * TK * 2);
+          Mma<BN>::run(acc, a[ks][0], s0, ks);  // fresh on the fold's first
+          if constexpr (!kNoSmall) {
+            Mma<BN>::run(lo, a[ks][0], s1, 1);
+            Mma<BN>::run(lo, a[ks][1], s0, 1);
+            Mma<BN>::run(lo, a[ks][0], s2, 1);
+            Mma<BN>::run(lo, a[ks][1], s1, 1);
+            Mma<BN>::run(lo, a[ks][2], s0, 1);
+            if constexpr (P == 4)
+              Mma<BN>::run(lo, a[ks][0], desc_sw128(kb + 3 * BN * TK * 2), 1);
+          }
+        }
+      }
+      wg_commit();
+      wg_wait0();
+      reg_fence(acc);
+      reg_fence(lo);
+      if (BN != 8 || tq == 0) {  // the 8-column tile: columns 0, 1
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          if constexpr (kNoFold) {
+            hi[i] = __fadd_rn(hi[i], acc[i]);
+          } else {
+            float sum, e;
+            two_sum(hi[i], acc[i], sum, e);
+            hi[i] = sum;
+            lo[i] = __fadd_rn(lo[i], e);
+          }
+        }
+      } else {  // small pairs of the 8-column tile: sum per fold
+#pragma unroll
+        for (int i = 0; i < NR; ++i) lo[i] = __fadd_rn(lo[i], acc[i]);
+      }
+    }
+    // this warpgroup is done with the slot; thread 0 refills it with
+    // tile t + ST once the other warpgroup is too
+    mbar_arrive(empty + slot);
+    if (tid == 0 && t + ST < n_kt) {
+      mbar_wait(empty + slot, (t / ST) & 1);
+      load_b(t + ST);
+    }
+  }
+
+  // accumulator layout: fragment j holds columns 8j..8j+7; rows g and g+8
+  // of the warp's 16
+  const int row0 = wg * 64 + wq * 16 + g;
+  if constexpr (BN == 8) {
+    // a row's small-pair sums lie across the quad (column 2tq + j holds
+    // slice tq's): add them to the thread that holds columns 0, 1
+#pragma unroll
+    for (int e = 0; e < NR; ++e) {
+      float v = lo[e];
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      lo[e] = v;
+    }
+    if (tq != 0) return;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long r = r0 + row0 + (e >> 1) * 8;
+      const int col = col_t * BN + 8 * j + 2 * tq + (e & 1);
+      if (r < r_end && col < O)
+        y[r * O + col] = __fadd_rn(hi[4 * j + e], lo[4 * j + e]);
+    }
+  }
+}
+
+template <int BN, int FOLD, int P>
+cudaError_t launch_split(cudaStream_t s, const float* xp, long long ldx,
+                         const bf16* parts, float* y, int C, int n_win, int I,
+                         int D, int O, int n_kt) {
+  const long long R = static_cast<long long>(C) * n_win;
+  const int n_col = (O + BN - 1) / BN;
+  const bool stretch = BN == 8 && I <= MAX_STRETCH_I;
+  const int n_mt = stretch ? (n_win + BM - 1) / BM : 0;
+  const long long row_tiles =
+      stretch ? static_cast<long long>(C) * n_mt : (R + BM - 1) / BM;
+  const long long blocks = row_tiles * n_col;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  // one warpgroup's stretch, rounded to whole 16-byte rows
+  const int a_stage = stretch ? 2 * ((63 * I + TK + 3) / 4 * 4) : A_ROWS;
+  const int vec = reinterpret_cast<uintptr_t>(xp) % 16 == 0 && ldx % 4 == 0 &&
+                  I % 4 == 0;
+  const size_t smem = Smem<BN, P>::bytes(a_stage);
+  auto* kern = frac_split_kernel<BN, FOLD, P>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(blocks), NT, smem, s>>>(
+      xp, ldx, parts, y, R, n_win, I, D, O, n_kt, n_col, vec, a_stage, n_mt);
+  return cudaGetLastError();
+}
+
+}  // namespace split
+
+// ---------------------------------------------------------------------------
+// float64: FMA on the CUDA cores
+
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
 }
 
 template <typename T, int BM, int BN, int BK, bool HAS_LO>
@@ -297,23 +909,44 @@ int launch(const T* xp, long long ldx, const T* skT, const T* skT_lo, T* y,
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t); returns the launch's cudaError_t.
-// xp: [C, >= (n_win-1)*I + D] with row stride ldx elements; skT, skT_lo:
-// [D, O] row-major (skT_lo may be null); y: [C, n_win*O] row-major.  fold:
-// the terms of one register partial, 8 or 32 (the KC_LO and KC of the plain
-// model, frac_whole_ref).
+// xp: [C, >= (n_win-1)*I + D] float32 with row stride ldx elements; parts:
+// the packed bf16 operator slices [n_col_tiles, n_kt, n_parts, bn, 64]
+// (ops/pallas_frac.py::operator_parts; n_parts 3, or 4 with bf16(skT_lo));
+// y: [C, n_win*O] row-major.  fold: the terms of one big-pair partial, 16
+// or 32.
 extern "C" int r8b_frac_whole_f32(const float* xp, long long ldx,
-                                  const float* skT, const float* skT_lo,
-                                  float* y, int C, int n_win, int I, int D,
-                                  int O, int fold, void* stream) {
-  if (fold == 8)
-    return launch<float, 128, 64, 32, 8, 4, 8>(xp, ldx, skT, skT_lo, y, C,
-                                               n_win, I, D, O, stream);
-  if (fold == 32)
-    return launch<float, 128, 64, 32, 8, 4, 32>(xp, ldx, skT, skT_lo, y, C,
-                                                n_win, I, D, O, stream);
+                                  const void* parts, int n_parts, int bn,
+                                  int n_kt, float* y, int C, int n_win, int I,
+                                  int D, int O, int fold, void* stream) {
+  using split::TK;
+  if (C < 0 || n_win < 1 || I < 1 || D < 1 || O < 1 || ldx < 0 ||
+      n_kt * TK < D || n_kt > D / TK + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (C == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* pb = static_cast<const bf16*>(parts);
+#define R8B_SPLIT(BN_, FOLD_, P_)                                    \
+  if (bn == BN_ && fold == FOLD_ && n_parts == P_)                   \
+    return static_cast<int>(split::launch_split<BN_, FOLD_, P_>(     \
+        s, xp, ldx, pb, y, C, n_win, I, D, O, n_kt));
+  R8B_SPLIT(128, 32, 3)
+  R8B_SPLIT(128, 32, 4)
+  R8B_SPLIT(128, 16, 3)
+  R8B_SPLIT(128, 16, 4)
+  R8B_SPLIT(64, 32, 3)
+  R8B_SPLIT(64, 32, 4)
+  R8B_SPLIT(64, 16, 3)
+  R8B_SPLIT(64, 16, 4)
+  R8B_SPLIT(8, 32, 3)
+  R8B_SPLIT(8, 32, 4)
+  R8B_SPLIT(8, 16, 3)
+  R8B_SPLIT(8, 16, 4)
+#undef R8B_SPLIT
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// xp: [C, >= (n_win-1)*I + D] float64 with row stride ldx; skT, skT_lo:
+// [D, O] row-major (skT_lo may be null); y: [C, n_win*O] row-major.
 extern "C" int r8b_frac_whole_f64(const double* xp, long long ldx,
                                   const double* skT, const double* skT_lo,
                                   double* y, int C, int n_win, int I, int D,

@@ -33,7 +33,7 @@ from torch import nn
 from ..models.lengths import chain_out_len
 from ..models.plan import ConvStage, FracStage, Plan
 from ..parallel.sharding import chain_shift_period
-from .pallas_frac import frac_whole
+from .pallas_frac import frac_whole, operator_parts
 
 __all__ = ["can_fuse", "fuse_stage_list", "FusedUpExec"]
 
@@ -213,6 +213,9 @@ class FusedUpExec(nn.Module):
                 (sk.T - hi.astype(np.float64)).astype(np.float32))))
         else:
             self.skT_lo = None
+        # the operator in the kernel's form (float32: bf16 slices), once
+        self.register_buffer("sk_parts", operator_parts(self.skT,
+                                                        self.skT_lo))
 
     def out_len(self, n_in: int) -> int:
         return chain_out_len(self.stages, n_in)
@@ -234,8 +237,7 @@ class FusedUpExec(nn.Module):
         s0 = max(0, self.a0)
         if N > s0:
             xp[:, s0 - self.a0 : N - self.a0] = x[:, s0:]
-        y = frac_whole(xp, self.skT, p_in, self.D, p_out, n_cyc,
-                       skT_lo=self.skT_lo)
+        y = frac_whole(xp, self.sk_parts, p_in, self.D, p_out, n_cyc)
         if self.corr_js is not None:
             qw = self.corr.shape[1]
             xw = x[:, :qw]

@@ -32,7 +32,7 @@ Ported, for every [conv, whole-frac] plan:
   geometry.
 * ``FracWholeExec``: the ozaki engine, and the ``im2col``, ``pallas`` and
   ``conv`` engines, all one contraction on ``frac_whole`` (with the
-  float32 operator residual and 8-term folds under ``precision="high"``).
+  float32 operator residual and 16-term folds under ``precision="high"``).
 
 Each kernel wrapper runs the CUDA kernel on a CUDA tensor and its plain
 version on a CPU tensor.  Half-band and polynomial stages raise
@@ -53,7 +53,7 @@ from ..utils.trace import trace
 from .ozaki import channel_scale, framed_cheap, split_operator_host
 from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
-from .pallas_frac import KC, KC_LO, frac_whole
+from .pallas_frac import KC, KC_LO, frac_whole, operator_parts
 from .pallas_ozaki import ozaki_framed
 from .pallas_symconv import BH, sym_conv
 
@@ -163,7 +163,7 @@ class ConvExec(nn.Module):
         back.
       * "direct": the strided product of x with SK itself (no band), on
         ``frac_whole`` at I = down, D = D_direct, O = up with 32-term folds
-        and, under "high", the residual ``skT_direct_lo`` and 8-term
+        and, under "high", the residual ``skT_direct_lo`` and 16-term
         folds.  The reference ran an XLA convolution; cuDNN's float32
         ``F.conv1d`` sums the taps without folds and misses the -141 dB
         class (chip_smoke.py prints both on the card; PERF.md).
@@ -307,6 +307,8 @@ class ConvExec(nn.Module):
             lo = torch.from_numpy(np.ascontiguousarray((sk - sk.astype(
                 np.float32).astype(np.float64)).astype(np.float32).T))
         self.register_buffer("skT_direct_lo", lo)
+        self.register_buffer("skT_direct_parts", operator_parts(
+            self.skT_direct, lo) if self.engine == "direct" else None)
 
     def _np_dtype(self):
         return np.float32 if self.dtype == torch.float32 else np.float64
@@ -338,6 +340,8 @@ class ConvExec(nn.Module):
         self.register_buffer("T_toep", torch.from_numpy(Thi))
         self.register_buffer("T_toep_lo", None if Tlo is None else
                              _placed(Tlo[1], Tlo[0], T.shape[0]))
+        self.register_buffer("T_toep_parts",
+                             operator_parts(self.T_toep, self.T_toep_lo))
 
     def _build_toeplitz_sym(self) -> bool:
         """Centrosymmetry-folded operators (the reference's
@@ -462,6 +466,8 @@ class ConvExec(nn.Module):
             self.T_pallas if self.dtype == torch.float32 else T))
         self.register_buffer("T_pal_lo", None if self.T_pallas_lo is None
                              else torch.from_numpy(self.T_pallas_lo))
+        self.register_buffer("T_pal_parts",
+                             operator_parts(self.T_pal, self.T_pal_lo))
 
     def _build_ozaki(self, B: int):
         """Split form of the banded-Toeplitz operator (ops/ozaki.py): the
@@ -559,8 +565,8 @@ class ConvExec(nn.Module):
         hop = B * down
         xp = _shifted(x, self.s_min, (n_blocks - (-L_f // hop)) * hop,
                       self.dtype)
-        y = frac_whole(xp, self.T_toep, hop, L_f, B * up, n_blocks,
-                       skT_lo=self.T_toep_lo, kc=KC)
+        y = frac_whole(xp, self.T_toep_parts, hop, L_f, B * up, n_blocks,
+                       kc=KC)
         return y if raw else y[:, :M]
 
     def _apply_toeplitz_sym(self, x: torch.Tensor, M: int) -> torch.Tensor:
@@ -581,12 +587,12 @@ class ConvExec(nn.Module):
         n_grp = -(-(-(-M // up)) // B)
         L_f = self.Lf_pallas
         xp = _shifted(x, self.s_min, (n_grp - 1) * B * down + L_f, self.dtype)
-        return frac_whole(xp, self.T_pal, B * down, L_f, B * up, n_grp,
-                          skT_lo=self.T_pal_lo, kc=KC)[:, :M]
+        return frac_whole(xp, self.T_pal_parts, B * down, L_f, B * up, n_grp,
+                          kc=KC)[:, :M]
 
     def _apply_direct(self, x: torch.Tensor, M: int) -> torch.Tensor:
         """The superkernel's strided product on frac_whole: I = down, D =
-        D_direct, O = up, one window a cycle; under "high" with 8-term
+        D_direct, O = up, one window a cycle; under "high" with 16-term
         folds, the counterpart of the reference's compensated 128-tap
         chunks (tests/test_torch_stage_chain.py holds the chain at
         -141 dB)."""
@@ -594,7 +600,7 @@ class ConvExec(nn.Module):
         n_cyc = -(-M // up)
         lo = self.skT_direct_lo
         xp = _shifted(x, self.s_min, (n_cyc - 1) * down + D, self.dtype)
-        return frac_whole(xp, self.skT_direct, down, D, up, n_cyc, skT_lo=lo,
+        return frac_whole(xp, self.skT_direct_parts, down, D, up, n_cyc,
                           kc=KC if lo is None else KC_LO)[:, :M]
 
     def apply_v(self, x: torch.Tensor, n_valid: int):
@@ -649,7 +655,7 @@ class FracWholeExec(nn.Module):
 
     Engines: "ozaki", the error-free split form on ``ozaki_framed``;
     "im2col" on ``frac_whole``, with the float32 residual of the operator
-    (``skT_lo``) and 8-term folds (``KC_LO``: a column's ~24 nonzero taps
+    (``skT_lo``) and 16-term folds (``KC_LO``: a column's ~24 nonzero taps
     would otherwise share one partial) under ``precision="high"``;
     "pallas" and "conv", the same call (the reference's pallas tile
     constraint is the TPU's, and its strided convolution computes the same
@@ -701,6 +707,8 @@ class FracWholeExec(nn.Module):
         self.register_buffer("skT", torch.from_numpy(skT.astype(np_dt)))
         self.register_buffer("skT_lo", None if lo is None else
                              torch.from_numpy(lo))
+        self.register_buffer("sk_parts", operator_parts(self.skT,
+                                                        self.skT_lo))
         self.kc = KC if lo is None else KC_LO
 
     def out_len(self, n_in: int) -> int:
@@ -736,7 +744,7 @@ class FracWholeExec(nn.Module):
         if self.engine == "ozaki":
             return ozaki_framed(xp, self._scale(xp, M), self.oz_parts, D, I,
                                 O, n_cyc)[:, :M]
-        return frac_whole(xp, self.skT, I, D, O, n_cyc, skT_lo=self.skT_lo,
+        return frac_whole(xp, self.sk_parts, I, D, O, n_cyc,
                           kc=self.kc)[:, :M]
 
     def apply_v(self, x: torch.Tensor, n_valid: int):

@@ -17,7 +17,8 @@ from r8brain_torch.ops.framing import _framed_matmul
 from r8brain_torch.ops.pallas_dfft import (SMEM_MAX_N, DfFFTPlan,
                                            df_fft_conv, df_fft_conv_ref)
 from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
-                                           frac_whole_ref)
+                                           frac_whole_ref, operator_parts,
+                                           split3)
 from r8brain_torch.ops.pallas_ozaki import (mma_dot, ozaki_framed,
                                             ozaki_framed_ref)
 from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
@@ -54,14 +55,16 @@ def test_kernel_matches_plain(cuda_device, shape, dtype):
     xp = rng.standard_normal((C, (n_win - 1) * I + D))
     skT = rng.standard_normal((D, O))
     skT_lo = rng.standard_normal((D, O)) * 2.0**-24
-    ref = frac_whole_ref(torch.from_numpy(xp), torch.from_numpy(skT), I, D,
-                         O, n_win, skT_lo=torch.from_numpy(skT_lo)).numpy()
+    ref = frac_whole_ref(torch.from_numpy(xp), operator_parts(
+        torch.from_numpy(skT), torch.from_numpy(skT_lo)), I, D, O,
+        n_win).numpy()
     dev = dict(dtype=dtype, device=cuda_device)
     big = torch.zeros((C, xp.shape[1] + 3), **dev)
     big[:, 3:] = torch.from_numpy(xp)
     before = frac_whole.launches
-    y = frac_whole(big[:, 3:], torch.tensor(skT, **dev), I, D, O, n_win,
-                   skT_lo=torch.tensor(skT_lo, **dev))
+    y = frac_whole(big[:, 3:], operator_parts(torch.tensor(skT, **dev),
+                                              torch.tensor(skT_lo, **dev)),
+                   I, D, O, n_win)
     torch.cuda.synchronize()
     assert frac_whole.launches == before + 1
     err = np.abs(y.cpu().double().numpy() - ref).max() / np.abs(ref).max()
@@ -79,17 +82,101 @@ def test_kernel_fold_lengths_match_plain(cuda_device, kc):
     xp = rng.uniform(-1.0, 1.0, (C, (n_win - 1) * I + D))
     skT = rng.standard_normal((D, O))
     skT_lo = rng.standard_normal((D, O)) * 2.0**-24
-    ref = frac_whole_ref(torch.from_numpy(xp), torch.from_numpy(skT), I, D,
-                         O, n_win, skT_lo=torch.from_numpy(skT_lo)).numpy()
-    args = [torch.tensor(a, dtype=torch.float32) for a in (xp, skT, skT_lo)]
-    model = frac_whole_ref(args[0], args[1], I, D, O, n_win, skT_lo=args[2],
+    ref = frac_whole_ref(torch.from_numpy(xp), operator_parts(
+        torch.from_numpy(skT), torch.from_numpy(skT_lo)), I, D, O,
+        n_win).numpy()
+    x32 = torch.tensor(xp, dtype=torch.float32)
+    parts = operator_parts(*(torch.tensor(a, dtype=torch.float32)
+                             for a in (skT, skT_lo)))
+    model = frac_whole_ref(x32, parts, I, D, O, n_win,
                            kc=kc).double().numpy()
-    xc, sc, lc = (a.to(cuda_device) for a in args)
-    y = frac_whole(xc, sc, I, D, O, n_win, skT_lo=lc, kc=kc)
+    y = frac_whole(x32.to(cuda_device), parts.to(cuda_device), I, D, O,
+                   n_win, kc=kc)
     y = y.cpu().double().numpy()
     scale = np.abs(ref).max()
     assert np.abs(y - ref).max() / scale < 1e-5
     assert np.abs(y - model).max() / scale < 2.0**-21
+
+
+# (label, I, D, O): SHAPES and the float32 chains' other frac_whole calls:
+# the toeplitz conv stage, the direct conv stage (O = 2: the 8-column tile
+# with the side-by-side slices, staged as stretches) and the interpolator
+# of the frac stage; and a narrow one staged by row (I > 64, O = 1)
+MODEL_SHAPES = SHAPES + [("toeplitz", 256, 964, 512), ("direct", 1, 709, 2),
+                         ("frac", 147, 170, 160), ("narrow", 100, 331, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo", [False, True], ids=["main", "skT_lo"])
+@pytest.mark.parametrize("kc", [KC_LO, KC])
+@pytest.mark.parametrize("shape", MODEL_SHAPES,
+                         ids=[s[0] for s in MODEL_SHAPES])
+def test_split_kernel_matches_model(cuda_device, shape, kc, lo):
+    """The tensor-core kernel against its plain model (the same split and
+    folds, summed in another order) within 2^-21 of max |y|, and against
+    the float64 product within 1e-5, at every geometry the chains give it,
+    both folds, with and without skT_lo, C = 67 (no multiple of 64) on a
+    row-strided view of xp; each call is one counted launch.  skT_lo is
+    drawn at 2^-15 of skT, so that its slice moves the model by more than
+    8 times the tolerance: a kernel that drops or misplaces it fails (the
+    real residual, ~2^-25 of y, hides inside the tolerance)."""
+    _label, I, D, O = shape
+    C, n_win = 67, 23
+    rng = np.random.default_rng(D + O + kc)
+    L = (n_win - 1) * I + D
+    big = torch.tensor(rng.uniform(-1, 1, (C, L + 3)), dtype=torch.float32,
+                       device=cuda_device)
+    xp = big[:, 3:]
+    skT = torch.tensor(rng.standard_normal((D, O)), dtype=torch.float32,
+                       device=cuda_device)
+    skT_lo = (torch.tensor(rng.standard_normal((D, O)) * 2.0**-15,
+                           dtype=torch.float32, device=cuda_device)
+              if lo else None)
+    parts = operator_parts(skT, skT_lo)
+    before = frac_whole.launches
+    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
+    torch.cuda.synchronize()
+    assert frac_whole.launches == before + 1
+    model = frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc).double()
+    ref = frac_whole_ref(xp.double(), operator_parts(
+        skT.double(), skT_lo.double() if lo else None), I, D, O, n_win)
+    scale = ref.abs().max().item()
+    assert (y.double() - model).abs().max().item() <= 2.0**-21 * scale
+    assert (y.double() - ref).abs().max().item() <= 1e-5 * scale
+    if lo:
+        bare = frac_whole_ref(xp, operator_parts(skT), I, D, O, n_win, kc=kc)
+        moved = (model - bare.double()).abs().max().item()
+        assert moved >= 8 * 2.0**-21 * scale, moved / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms", [16, 32])
+def test_tensor_core_accumulation_pin(cuda_device, terms):
+    """16- and 32-term bf16 x bf16 -> float32 accumulations through the
+    kernel's own wgmma chain (bf16-exact input and operator, so only the
+    big pair is nonzero and y is one fold's partial) on the slices of the
+    flagship operator and uniform input: every output within the error
+    bound of a recursive float32 sum that truncates, (terms - 1) * 2^-23 *
+    sum |products|."""
+    from r8brain_torch.models.plan import make_plan
+    from r8brain_torch.ops.fused import FusedUpExec
+
+    skT = FusedUpExec(make_plan(44100, 96000, 2.0, 180.15, 0),
+                      torch.float32).skT
+    s0 = split3(skT)[0]
+    rng = np.random.default_rng(17)
+    C, n_win = 8, 64
+    x0 = split3(torch.tensor(rng.uniform(-1, 1, (C, n_win * terms)),
+                             dtype=torch.float32))[0].to(cuda_device)
+    for d0 in range(0, skT.shape[0] - terms, 8 * terms):
+        op = s0[d0 : d0 + terms].to(cuda_device)
+        y = frac_whole(x0, operator_parts(op), terms, terms, op.shape[1],
+                       n_win, kc=terms)
+        xw = x0.double().reshape(C, n_win, terms)
+        exact = (xw @ op.double()).reshape(C, -1)
+        mag = (xw.abs() @ op.double().abs()).reshape(C, -1)
+        err = (y.double() - exact).abs()
+        assert bool((err <= (terms - 1) * 2.0**-23 * mag).all()), d0
 
 
 @pytest.mark.cuda

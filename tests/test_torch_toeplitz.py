@@ -9,7 +9,7 @@ kernels are held to.  Bounds: every operator bit-equal to the
 reference's; float64 "toeplitz_sym" within 1e-13 (relative to max |y|) of
 float64 "toeplitz"; each float32 stage no more than 0.5 dB above the
 reference's stage against the float64 stage (the port folds its sums
-every 32 or 8 terms, the reference's XLA:CPU dots do not), and within
+every 32 or 16 terms, the reference's XLA:CPU dots do not), and within
 2^-19 of max |y| of the reference's output.
 """
 
@@ -215,9 +215,10 @@ def test_apply_v_raw(pair):
 def test_toeplitz_is_one_call_at_reference_geometry(pair, precision,
                                                     monkeypatch):
     """The toeplitz engine makes one frac_whole call: hop B*down, D = L_f,
-    O = B*up, the reference's block count, 32-term folds and the placed
-    residual under "high", on an input that covers the reference's
-    framing extent (n_blocks + n_seg) * hop."""
+    O = B*up, the reference's block count, 32-term folds, and the
+    operator as the executor packed it once (its bf16 slices, with the
+    placed residual's slice under "high"), on an input that covers the
+    reference's framing extent (n_blocks + n_seg) * hop."""
     st, rst = pair
     ex = ConvExec(st, torch.float32, precision, engine="toeplitz")
     ref = RefConvExec(rst, jnp.float32, precision=precision,
@@ -235,9 +236,10 @@ def test_toeplitz_is_one_call_at_reference_geometry(pair, precision,
     n_blocks = ry.shape[1] // (B * up)
     assert len(calls) == 1
     width, T, geo, kw = calls[0]
-    assert T is ex.T_toep and geo == (B * down, L_f, B * up, n_blocks)
-    assert kw == dict(skT_lo=ex.T_toep_lo, kc=KC)
-    assert (kw["skT_lo"] is None) == (precision == "fast")
+    assert T is ex.T_toep_parts and geo == (B * down, L_f, B * up, n_blocks)
+    assert kw == dict(kc=KC)
+    assert (ex.T_toep_lo is None) == (precision == "fast")
+    assert T.shape[2] == (3 if precision == "fast" else 4)
     assert width >= (n_blocks + -(-L_f // (B * down))) * B * down
 
 

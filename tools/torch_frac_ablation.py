@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Where frac_whole's float32 kernel spends its time: the kernel against
+builds of it with parts of the work taken out, and its 64-column tile
+against the 128-column one, on the card.
+
+    python tools/torch_frac_ablation.py [--iters 10]
+
+Builds csrc/frac_whole.cu as it is and, from the same source with
+-DR8B_ABLATE=mask (the kernel's ablation switches), variants that drop
+parts of the work (their outputs are wrong; only their times are read):
+
+  no_fold         the two_sum fold becomes one add
+  no_split        x1 and x2 are copies of x0 (one cvt a float pair)
+  only_big        the small-pair MMAs go (the big pair alone)
+  no_stage        the input is never staged into shared memory
+  mma_only        no fold, no split, no staging: MMAs, operator loads and
+                  the output
+  nofold_nostage  no fold and no staging
+
+and times each with CUDA events (chip_smoke.cuda_ms) at the fused
+flagship's call (C=1024, I=294, D=1027, O=640, 150 windows, 32-term folds)
+and the direct conv stage's (C=1024, I=1, D=709, O=2, 44106 windows).
+Then it times the kernel as built with the operator packed for the
+64-column tile (no register spill) against the 128-column tile the
+executors use (255 registers, spilling), at the flagship's call and at the
+toeplitz conv stage's (C=1024, I=256, D=964, O=512, 173 blocks).  Prints
+one line a variant and the card's name.  Needs a CUDA device and nvcc;
+exits non-zero without them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import cuda_ms  # noqa: E402
+
+# the kernel's R8B_ABLATE bits
+FOLD, SPLIT, SMALL, STAGE = 1, 2, 4, 8
+VARIANTS = {"base": 0, "no_fold": FOLD, "no_split": SPLIT,
+            "only_big": SMALL, "no_stage": STAGE,
+            "mma_only": FOLD | SPLIT | STAGE, "nofold_nostage": FOLD | STAGE}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_frac_ablation: CUDA is not available", file=sys.stderr)
+        return 2
+    from r8brain_torch import Resampler
+    from r8brain_torch.ops import _cuda
+    from r8brain_torch.ops.pallas_frac import (_F32_ARGS, _pack, _slices,
+                                               operator_parts)
+
+    flags = [f for f in _cuda.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    src = ROOT / "r8brain_torch" / "csrc" / "frac_whole.cu"
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=_cuda.BUILD_DIR))
+    procs = {}
+    for name, mask in VARIANTS.items():
+        procs[name] = subprocess.Popen(
+            [_cuda._nvcc(), *flags, f"-DR8B_ABLATE={mask}", "-o",
+             str(tmp / f"{name}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            print(f"build of {name} failed:\n{log}", file=sys.stderr)
+            return 1
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    ex = Resampler(44100, 96000, 2.0, 180.15, device=dev).execs[0]
+    C = 1024
+    shapes = {"flagship": (ex.p_in, ex.D, ex.p_out, 150, ex.sk_parts),
+              "direct": (1, 709, 2, 44106, None)}
+    calls = {}
+    for label, (I, D, O, n_win, parts) in shapes.items():
+        xp = torch.rand((C, (n_win - 1) * I + D), generator=g,
+                        device=dev) * 2 - 1
+        if parts is None:
+            parts = operator_parts(torch.randn((D, O), generator=g,
+                                               device=dev))
+        y = torch.empty((C, n_win * O), device=dev)
+        calls[label] = (xp, parts, I, D, O, n_win, y)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def timed(fn, name, label, xp, parts, I, D, O, n_win, y):
+        Nt, Kt, P, BN, _ = parts.shape
+
+        def run():
+            rc = fn(xp.data_ptr(), xp.stride(0), parts.data_ptr(),
+                    P - (BN == 8), BN, Kt, y.data_ptr(), C, n_win, I, D, O,
+                    32, stream)
+            if rc != 0:
+                raise RuntimeError(f"{name} {label}: CUDA error {rc}")
+        return f"{label} {cuda_ms(run, args.iters):8.3f} ms"
+
+    lib = {}
+    for name in VARIANTS:
+        fn = ctypes.CDLL(str(tmp / f"{name}.so")).r8b_frac_whole_f32
+        fn.argtypes, fn.restype = _F32_ARGS, ctypes.c_int
+        lib[name] = fn
+        print(f"{name:15s} " + "   ".join(
+            timed(fn, name, label, *call) for label, call in calls.items()))
+
+    # the 64-column tile against the 128-column one, as built
+    cx = Resampler(44100, 96000, 2.0, 180.15, fused=False,
+                   device=dev).execs[0]
+    B, down, up = cx.B_toep, cx.spec.down, cx.spec.up
+    L_f, n_blk = cx.T_toep.shape[0], 173
+    xt = torch.rand((C, (n_blk - 1) * B * down + L_f), generator=g,
+                    device=dev) * 2 - 1
+    xf, _p, If, Df, Of, nf, _y = calls["flagship"]
+    wide = {"flagship": (xf, If, Df, Of, nf, ex.skT),
+            "toeplitz": (xt, B * down, L_f, B * up, n_blk, cx.T_toep)}
+    for label, (xp, I, D, O, n_win, skT) in wide.items():
+        y = torch.empty((C, n_win * O), device=dev)
+        times = [timed(lib["base"], f"bn{bn}", f"{label} BN={bn}", xp,
+                       _pack(_slices(skT, None), bn), I, D, O, n_win, y)
+                 for bn in (128, 64)]
+        print(f"{'tile ' + label:15s} " + "   ".join(times))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"card: {smi}")
+    for f in tmp.iterdir():
+        os.remove(f)
+    tmp.rmdir()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
