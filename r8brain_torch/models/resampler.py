@@ -68,9 +68,10 @@ class Resampler(nn.Module):
         plan: a plan of this package (``make_plan``), or one converted from
         the reference package with ``convert.plan_from_reference``.
 
-        fused: "auto" composes a [conv(up), whole-frac] plan into one
-        operator (ops/fused.py) when both engines are "auto"; False runs
-        the stages one by one.
+        fused: "auto" composes each [conv(up), whole-frac] pair of the
+        plan into one operator (ops/fused.py) when both engines are
+        "auto", and runs the other stages (a lone conv stage) one by one;
+        False runs every stage one by one.
 
         conv_engine: "auto" (fused; unfused, "toeplitz" in float32 and
         "fft" in float64); the float32 matmul engines "toeplitz" (the
@@ -112,10 +113,11 @@ class Resampler(nn.Module):
         self.precision = precision
         trace_plan(self.plan, context=f"resampler dtype={dtype} "
                                       f"precision={precision}")
+        execs = None
         if fused == "auto" and conv_engine == "auto" \
                 and frac_engine == "auto":
             execs = fuse_stage_list(self.plan, dtype, precision)
-        else:
+        if execs is None:
             execs = [build_exec(s, dtype, precision, conv_engine, frac_engine)
                      for s in self.plan.stages]
         self.execs = nn.ModuleList(execs)

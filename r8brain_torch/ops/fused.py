@@ -34,6 +34,7 @@ from ..models.lengths import chain_out_len
 from ..models.plan import ConvStage, FracStage, Plan
 from ..parallel.sharding import chain_shift_period
 from .pallas_frac import frac_whole, operator_parts
+from .stages import build_exec
 
 __all__ = ["can_fuse", "fuse_stage_list", "FusedUpExec"]
 
@@ -51,21 +52,16 @@ def can_fuse(plan: Plan) -> bool:
     return len(s) == 2 and _pair_fusable(s[0], s[1])
 
 
-def unported_plan_item(plan: Plan) -> str:
-    """The ROADMAP.md queue-1 item that ports the executors ``plan`` needs
-    beyond the fused pair."""
-    if any(isinstance(s, FracStage) and not s.is_whole for s in plan.stages):
-        return "ROADMAP.md queue 1 item 4 (polynomial mode)"
-    return "ROADMAP.md queue 1 item 3 (the other rational chains)"
-
-
 def fuse_stage_list(plan: Plan, dtype, precision):
-    """Executor list for a plan made only of [conv(up, down=1), whole-frac]
-    pairs, each replaced by a FusedUpExec.  Any other stage has no
-    executor in the port yet and raises NotImplementedError naming the
-    ROADMAP item that ports it."""
+    """Executor list for the plan with every adjacent [conv(up, down=1),
+    whole-frac] pair replaced by a FusedUpExec and every other stage
+    given its own executor (``build_exec``, which raises
+    NotImplementedError naming the ROADMAP item of a stage the port does
+    not run yet).  Returns None if nothing fuses: the caller then builds
+    the stages one by one."""
     stages = plan.stages
     execs = []
+    fused_any = False
     i = 0
     while i < len(stages):
         if i + 1 < len(stages) and _pair_fusable(stages[i], stages[i + 1]):
@@ -74,13 +70,12 @@ def fuse_stage_list(plan: Plan, dtype, precision):
                        (stages[i], stages[i + 1]),
                        stages[i + 1].latency_frac_out)
             execs.append(FusedUpExec(sub, dtype, precision))
+            fused_any = True
             i += 2
         else:
-            raise NotImplementedError(
-                f"{plan.src_rate:g} -> {plan.dst_rate:g}: stage {i} "
-                f"({stages[i].kind}) does not fuse into a FusedUpExec; its "
-                f"executor is {unported_plan_item(plan)}")
-    return execs
+            execs.append(build_exec(stages[i], dtype, precision))
+            i += 1
+    return execs if fused_any else None
 
 
 class FusedUpExec(nn.Module):

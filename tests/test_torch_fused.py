@@ -185,8 +185,13 @@ def test_fuse_stage_list_rejects_unported_stages():
     fused = fuse_stage_list(make_plan(44100, 96000, 2.0, 180.15, 0),
                             torch.float32, "fast")
     assert len(fused) == 1 and isinstance(fused[0], FusedUpExec)
+    # a lone conv stage fuses with nothing: the caller builds the stages
+    assert fuse_stage_list(make_plan(44100, 22050, 2.0, 180.15, 0),
+                           torch.float32, "fast") is None
+    # [conv, frac, conv, hb_up]: the pair fuses, the half-band stage has
+    # no executor yet
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        fuse_stage_list(make_plan(44100, 22050, 2.0, 180.15, 0),
+        fuse_stage_list(make_plan(44100, 192000, 2.0, 180.15, 0),
                         torch.float32, "fast")
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         fuse_stage_list(make_plan(44100, 96001, 2.0, 180.15, 0),
