@@ -44,7 +44,8 @@ frac stage, ``direct``) with a planted ``skT_lo`` large enough that a
 kernel which drops or misplaces the slice fails (``check_residual``).
 Before the guarantee chain it pins the exactness lemma the
 split-operand kernel rests on (a 256-deep tensor-core float32
-accumulation of bf16 slice products is exact); before the FFT engines it holds ``df_fft_conv`` in
+accumulation of bf16 slice products is exact), on the kernel's own wgmma
+path and on mma.sync; before the FFT engines it holds ``df_fft_conv`` in
 every mode and at every size class (one CTA, four-step) to its plain
 version; before the stage chains it holds ``sym_conv`` at every conv
 spec of the folded engine (float32 fast and high, float64, and the gain
@@ -527,44 +528,44 @@ def accumulation_pin(dev, skT) -> None:
 
 def lemma_pin(dev) -> None:
     """The exactness lemma on the card's tensor cores: for every kept
-    slice pair (p, q), a 256-deep mma.sync float32 accumulation of bf16
-    slices equals the float64 product bit for bit, for worst-case slices
-    (all +-256 units, all one sign and random signs), uniform random
-    integer slices and the split of Gaussian data."""
-    import numpy as np
+    slice pair (p, q) and every operand kind of
+    ``pallas_ozaki.lemma_operands`` (worst case: every product 256 x 256
+    units, rows of one sign summing to exactly 2^24; random units; the
+    split of Gaussian data; mixed magnitude: one 2^16 product among
+    products of 1), a 256-deep float32 accumulation of bf16 slice
+    products equals the float64 product bit for bit: on ozaki_framed's own
+    wgmma path (``wgmma_dot``: the packed operator through a bulk copy, A
+    from registers, m64n128k16, 16 k16 steps chained into one
+    accumulator) and on mma.sync m16n8k16 (``mma_dot``)."""
     import torch
 
     from r8brain_torch.ops import ozaki
-    from r8brain_torch.ops.pallas_ozaki import mma_dot
+    from r8brain_torch.ops.pallas_ozaki import (lemma_operands, mma_dot,
+                                                wgmma_dot)
 
-    rng = np.random.default_rng(SEED)
-    K, M, N = ozaki.K0, 64, 64
-    xparts, _ = ozaki.split_input(torch.from_numpy(rng.standard_normal((M, K))))
-    tparts, _ = ozaki.split_operator_host(rng.standard_normal((K, N)))
-    cases = {"all +256": (np.ones((M, K)), np.ones((K, N))),
-             "+-256": tuple(rng.choice([-1.0, 1.0], s)
-                            for s in ((M, K), (K, N))),
-             "random units": tuple(rng.integers(-256, 257, s) / 256.0
-                                   for s in ((M, K), (K, N)))}
     n = 0
     for p in range(ozaki.N_PARTS):
         for q in range(ozaki.N_DIAG - p):
-            # slice p's grid step is 2^-8(p+1): 256 units = 2^-8p
-            grid = {k: (torch.from_numpy(a * 2.0**(-8 * p)).bfloat16(),
-                        torch.from_numpy(b * 2.0**(-8 * q)).bfloat16())
-                    for k, (a, b) in cases.items()}
-            grid["gaussian split"] = (xparts[p], tparts[q])
-            for what, (a, b) in grid.items():
+            for kind, (a, b) in lemma_operands(SEED, p, q).items():
                 want = a.double() @ b.double()
-                got = mma_dot(a.to(dev), b.to(dev)).double().cpu()
-                check(torch.equal(got, want),
-                      f"lemma pin: mma.sync accumulation inexact at slice "
-                      f"pair ({p}, {q}), {what}: max |diff| "
-                      f"{(got - want).abs().max().item():.3e}")
+                parts = torch.zeros((ozaki.N_PARTS, *b.shape),
+                                    dtype=torch.bfloat16)
+                parts[q] = b
+                got = {"wgmma": wgmma_dot(a.to(dev), parts.to(dev))[q],
+                       "mma.sync": mma_dot(a.to(dev), b.to(dev))}
+                for probe, y in got.items():
+                    y = y.double().cpu()
+                    check(torch.equal(y, want),
+                          f"lemma pin: {probe} accumulation inexact at "
+                          f"slice pair ({p}, {q}), {kind}: max |diff| "
+                          f"{(y - want).abs().max().item():.3e}")
                 n += 1
+    M, K = a.shape
     print(f"lemma pin: {n} cases (10 slice pairs x 4 operand kinds, "
-          f"{M}x{K} @ {K}x{N}), mma.sync m16n8k16 bf16 -> f32 accumulation "
-          f"bit-equal to the f64 product")
+          f"{M}x{K} @ {K}x{b.shape[1]}), wgmma m64n128k16 (16 k16 steps "
+          f"chained into one accumulator, the kernel's path) and mma.sync "
+          f"m16n8k16 bf16 -> f32 accumulation, each bit-equal to the f64 "
+          f"product")
 
 
 def ozaki_case(dev, g, C, L_f, hop, Kcols, n_blocks, parts):
@@ -588,9 +589,10 @@ def ozaki_case(dev, g, C, L_f, hop, Kcols, n_blocks, parts):
 VARIANTS = ((False, False), (False, True), (True, False), (True, True))
 
 
-def check_ozaki_variants(label, geo, case, parts):
-    """Every (has_lo, emit_pair) variant of ozaki_framed against
-    ozaki_framed_ref on the card and against the float64 product.
+def check_ozaki_variants(label, geo, case, parts, packed):
+    """Every (has_lo, emit_pair) variant of ozaki_framed (on the operator
+    as ``packed``) against ozaki_framed_ref on the card and against the
+    float64 product.
     Returns {variant: max |kernel - plain|}."""
     import torch
 
@@ -602,7 +604,7 @@ def check_ozaki_variants(label, geo, case, parts):
     for has_lo, emit in VARIANTS:
         lo = xl if has_lo else None
         args = (xp, sx, parts, L_f, hop, Kcols, n_blocks)
-        y = ozaki_framed(*args, x_lo=lo, emit_pair=emit)
+        y = ozaki_framed(*args, x_lo=lo, emit_pair=emit, packed=packed)
         r = ozaki_framed_ref(*args, x_lo=lo, emit_pair=emit)
         torch.cuda.synchronize()
         ys = y if emit else (y,)
@@ -1366,7 +1368,9 @@ def main() -> int:
     from r8brain_torch import Resampler
     from r8brain_torch.ops.ozaki import (N_PARTS, framed_cheap,
                                          split_operator_host)
-    from r8brain_torch.ops.pallas_ozaki import ozaki_framed, ozaki_framed_ref
+    from r8brain_torch.ops.pallas_ozaki import (ozaki_framed,
+                                                ozaki_framed_ref,
+                                                pack_operator)
 
     # full fp32 everywhere: TF32 cannot hold the -141 dB class
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1409,6 +1413,7 @@ def main() -> int:
     M1 = conv.out_len(T_in)
     geos = {"conv": conv.geometry(M1), "frac": frac.geometry(frac.out_len(M1))}
     parts = {"conv": conv.oz_parts, "frac": frac.oz_parts}
+    packs = {"conv": conv.oz_packed, "frac": frac.oz_packed}
     g = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     t_odd = np.sinc((np.arange(599)[:, None] - 300
@@ -1417,12 +1422,12 @@ def main() -> int:
     odd_geo = (599, 301, 100, 9)
     check_ozaki_variants("odd", odd_geo,
                          ozaki_case(dev, g, 13, *odd_geo, odd_parts),
-                         odd_parts)
+                         odd_parts, pack_operator(odd_parts))
     cases, errs = {}, {}
     for k in ("conv", "frac"):
         cases[k] = ozaki_case(dev, g, CHANNELS, *geos[k], parts[k])
         errs[k] = check_ozaki_variants(f"{k} (guarantee chain shape)",
-                                       geos[k], cases[k], parts[k])
+                                       geos[k], cases[k], parts[k], packs[k])
 
     # every path's launches: each stage of each chain went through the kernel
     paths = {  # (stage, emit_pair): (run, replaced TPU kernel)
@@ -1454,8 +1459,8 @@ def main() -> int:
                          warmup=1)
         del xp64
         for emit in (True, False):
-            k_ms = cuda_ms(lambda: ozaki_framed(*args, emit_pair=emit),
-                           reps=10)
+            k_ms = cuda_ms(lambda: ozaki_framed(*args, emit_pair=emit,
+                                                packed=packs[k]), reps=10)
             p_ms = cuda_ms(lambda: ozaki_framed_ref(*args, emit_pair=emit),
                            reps=2, warmup=1)
             # the operator is banded: the bound counts the slice products

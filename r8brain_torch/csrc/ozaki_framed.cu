@@ -1,4 +1,5 @@
-// Split-operand (Ozaki) framed matmul on the tensor cores, for sm_90a:
+// Split-operand (Ozaki) framed matmul on Hopper's tensor cores (wgmma),
+// for sm_90a:
 //
 //     y[c, b*Kcols + k] = sum_{l < L_f} xp[c, b*hop + l] * T[l, k]
 //
@@ -12,74 +13,132 @@
 // the two_sum-normalized (hi float32, lo bfloat16) pair.
 //
 // What bounds it: operations.  At the 44.1k->96k conv stage (C=1024,
-// n_blocks=174, L_f=964, Kcols=512) the 10 slice products are 1.75e12
-// flop against 0.73 GB of compulsory traffic (~2400 flop per byte), far
-// above the bf16 tensor-core ridge (~295 flop per byte); so the products
-// go to the tensor cores (mma.sync m16n8k16, bf16 x bf16 -> f32).
+// n_blocks=174, L_f=964, Kcols=512) the 10 slice products over the banded
+// operator's nonzeros are 1.25e12 flop against 0.73 GB of compulsory
+// traffic, far above the bf16 tensor-core ridge (~295 flop per byte).
 //
 // Exactness.  Each x value is split on the grid of its channel's power of
 // two sx into 4 slices of <= 8 significant bits (|integer| <= 256), each
 // exact in bf16; the operator comes pre-split per column.  A slice-pair
-// product is an integer < 2^16 on a common grid per (row, column), and a
-// sum of <= K0 = 256 of them stays <= 2^24, so its float32 accumulation is
-// exact as long as the accumulator keeps 24 bits (chip_smoke.py pins this
-// for mma.sync on the card with mma_dot).  Every (p, q) pair therefore
-// gets one fresh accumulator per K0-deep chunk; after each chunk the 10
-// exact chunk results are folded in the reference's order (chunk, then p,
-// then q): d = p+q = 0 by two_sum into (hi, lo), d >= 1 added into rest.
-// The arithmetic outside the products uses __f*_rn intrinsics, so nothing
-// is contracted or reassociated (the build has no --use_fast_math).
+// product is an integer < 2^16 on a common grid per (row, column), and
+// every partial sum of <= K0 = 256 of them is an integer <= 2^24, exact in
+// float32 whatever the order or the rounding of the accumulator
+// (chip_smoke.py pins this on the card for this kernel's wgmma chain and
+// for mma.sync).  So each (p, q) chunk value o_pq is the same in any order
+// of computation, and what fixes the output bits is only the fold: after
+// each K0-deep chunk, in the reference's order (p, then q), d = p+q = 0 by
+// two_sum into (hi, lo), d >= 1 added into rest.  The arithmetic outside
+// the products uses __f*_rn intrinsics, so nothing is contracted or
+// reassociated (the build has no --use_fast_math).
 //
-// Design (a first, simple kernel; wgmma, TMA and deeper pipelining are
-// later work):
+// Design:
 //   * Rows r = c*n_blocks + b of an implicit im2col matrix A[r, l] =
 //     xp[c, b*hop + l] (64-bit row starts, any alignment, any hop),
-//     against T [L_f, Kcols].  A block computes a BM x BN tile of y, which
-//     is exactly the [C, n_blocks*Kcols] row-major layout.
-//   * Per BK-deep slab, the block loads its x window slab (float32) and
-//     the 4 operator slices (bf16) into registers, splits x into 4 bf16
-//     slices, and stores everything to shared memory; two stages, so the
-//     next slab's global loads are in flight while this slab multiplies.
-//     The ragged edges in rows, l and Kcols are zero-filled.
-//   * 8 warps, each a 16 x 16 piece of the tile: per 16-deep step it
-//     loads the 4 x-slice fragments and 4 operator-slice fragments with
-//     ldmatrix and issues the 10 pair products (x 2 n8 fragments) into
-//     their own accumulators, plus the x_lo product under HAS_LO.
+//     against T [L_f, Kcols].  A block is two warpgroups of 64 rows and
+//     one 32-column tile: a 128 x 32 tile of y, which is exactly the [C,
+//     n_blocks*Kcols] row-major layout.  The grid walks (row tile, column
+//     tile) with the column tile fastest, so the blocks of a row tile
+//     share its windows in L2.
+//   * The operator is packed on the host, once, by its executor
+//     (pallas_ozaki.pack_operator): per (column tile, 64-deep k-tile) one
+//     contiguous 16 KB block [slice 0 | slice 1 | slice 2 | slice 3], each
+//     slice a K-major [32, 64] bf16 tile, 128-byte swizzled.  Thread 0
+//     moves a k-tile with one TMA bulk copy into an mbarrier ring.  The
+//     four slices stacked are one K-major [128, 64] operand, so
+//
+//         A_0 x [s0|s1|s2|s3]   (m64n128k16: pairs (0,0)..(0,3))
+//         A_1 x [s0|s1|s2]      (m64n96k16:  pairs (1,0)..(1,2))
+//         A_2 x [s0|s1]         (m64n64k16:  pairs (2,0), (2,1))
+//         A_3 x [s0]            (m64n32k16:  pair  (3,0))
+//
+//     read B through one descriptor: four wgmmas a k16 step make all 10
+//     pairs, 320 columns of product for every split input fragment.  A
+//     k-tile is read only where the column tile's operator has nonzeros:
+//     the packing records each column tile's first and last nonzero
+//     k-tile (the conv operator is banded), and the kernel skips the rest,
+//     which leaves out exact zeros only.
+//   * A from registers: each warpgroup stages its 64 rows of a k-tile in
+//     float32 with cp.async (16-byte copies where xp, hop and the row
+//     stride allow, else 8- or 4-byte), rows padded to 72 floats so that
+//     the fragment reads are free of bank conflicts, behind a named
+//     barrier; each thread splits its fragment into the four bf16 slice
+//     fragments in registers, once for all 10 pairs.  All of a step's
+//     input registers are written before its wgmmas start (ptxas keeps
+//     them asynchronous); the other warpgroup's split runs under them.
+//   * The 10 chunk accumulators (160 floats a thread) live in registers;
+//     hi, lo and rest (and cheap under HAS_LO) live in shared memory, one
+//     word per thread and element, touched once a chunk by the fold.
+//   * x_lo (HAS_LO, off the resampler's main paths) is read straight
+//     from global memory into its fragment, a bf16 at a time, and
+//     multiplied against slice 0 (m64n32k16) into its own chunk
+//     accumulator, which the fold adds into cheap.
 //   * The output combine runs in registers: one float32 store (and one
 //     bf16 store when EMIT_PAIR).
 // The plain PyTorch model of this exact split, chunking and fold is
 // r8brain_torch/ops/pallas_ozaki.py::ozaki_framed_ref.
+//
+// r8b_ozaki_wgmma_dot is the lemma probe of this kernel's own wgmma path
+// (A from registers, the packed operator through a bulk copy, 16 k16
+// steps chained into one accumulator); r8b_ozaki_mma_dot the one of
+// mma.sync.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int N_PARTS = 4;
-constexpr int N_DIAG = 4;
-constexpr int N_PAIRS = 10;  // (p, q) with p + q < N_DIAG
 constexpr int K0 = 256;
-constexpr int BM = 64, BN = 32, BK = 32;
-constexpr int NT = 256;           // 8 warps: 4 along rows x 2 along columns
-constexpr int LDA = BK + 8;       // bf16 row pitch of an x-slice tile
-constexpr int LDB = BN + 8;       // bf16 row pitch of an operator tile
-constexpr int S_X = N_PARTS * BM * LDA;
-constexpr int S_T = N_PARTS * BK * LDB;
-constexpr int S_L = BM * LDA;
-static_assert(K0 % BK == 0 && BK % 16 == 0, "slabs tile the chunks");
-static_assert((LDA * 2) % 16 == 0 && (LDB * 2) % 16 == 0, "ldmatrix rows");
+constexpr int BM = 128;             // rows a block: two warpgroups of 64
+constexpr int BN = 32;              // columns a tile, of each slice
+constexpr int TK = 64;              // l a k-tile (one 128-byte bf16 row)
+constexpr int KT_CHUNK = K0 / TK;   // k-tiles a chunk
+constexpr int APITCH = TK + 8;      // floats a staged row: 8 mod 32 banks
+constexpr int ST = 3;               // k-tiles in flight
+constexpr int NT = 256;             // two warpgroups
+constexpr int NR = BN / 2;          // accumulator floats a thread, a slice
+constexpr int B_STAGE = N_PARTS * BN * TK * 2;  // bytes of a packed k-tile
+constexpr int A_STAGE = BM * APITCH;            // floats of a staged k-tile
+static_assert(K0 % TK == 0, "k-tiles tile the chunks");
+static_assert((BN * TK * 2) % 1024 == 0, "swizzle atoms are 1 KB");
 
+// Ablation, for tools/torch_ozaki_ablation.py only: a build with
+// -DR8B_ABLATE=mask drops parts of the work (its output is then wrong) so
+// that the rest can be timed.  Bits: 1 the fold (one add instead), 2 the
+// split (all four slices are bf16(x)), 4 the small pairs (only the
+// A_0 x [s0|s1|s2|s3] wgmma), 8 the input staging, 16 the banded k-tile
+// skip (every k-tile is read).
+#ifndef R8B_ABLATE
+#define R8B_ABLATE 0
+#endif
+constexpr bool kNoFold = R8B_ABLATE & 1;
+constexpr bool kNoSplit = R8B_ABLATE & 2;
+constexpr bool kNoSmall = R8B_ABLATE & 4;
+constexpr bool kNoStage = R8B_ABLATE & 8;
+constexpr bool kNoSkip = R8B_ABLATE & 16;
+
+// shared memory: the operator ring, the staged rows, the fold state
+// (hi, lo, rest and under HAS_LO cheap: [state][NR][NT] floats), the
+// full and empty barriers, the rows' starts, reciprocals and scales
 template <bool HAS_LO>
 struct Smem {
-  static constexpr int stage = S_X + S_T + (HAS_LO ? S_L : 0);  // elements
-  static constexpr size_t head = BM * (2 * sizeof(long long) + 2 * sizeof(float));
-  static constexpr size_t bytes = head + 2 * stage * sizeof(bf16);
+  static constexpr int n_state = HAS_LO ? 4 : 3;
+  static constexpr size_t a_off = ST * B_STAGE;
+  static constexpr size_t s_off = a_off + ST * A_STAGE * 4;
+  static constexpr size_t bar_off = s_off + n_state * NR * NT * 4;
+  static constexpr size_t row_off = bar_off + 2 * ST * 8;
+  static constexpr size_t bytes = row_off + BM * (2 * 8 + 2 * 4) + 1024;
 };
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
   s = __fadd_rn(a, b);
@@ -87,23 +146,608 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
   e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// asynchronous copies global -> shared of 4, 8 or 16 bytes, of which the
+// first src_bytes are read and the rest zeroed
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// wait for the phase of parity `parity` to complete; a phase that never
+// completes (a lost arrival) traps after ~2^34 cycles instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > (1LL << 34)) __trap();
+  }
+}
+// one TMA bulk copy global -> shared, completing on `bar`'s transaction count
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void named_bar_sync(unsigned id, unsigned count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of r across the wgmma fences
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma descriptor of a K-major, 128-byte-swizzled bf16 tile: rows of 64
+// k-values (128 bytes), 8-row atoms 1024 bytes apart; a k16 step within
+// the row is a 32-byte advance of the start address
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |           // LBO (unused here)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |   // SBO: 8 rows
+         (static_cast<uint64_t>(1) << 62);            // 128-byte swizzle
+}
+
+// d (64 x N, float32) (+)= A (64 x 16, bf16, registers) * B (16 x N, bf16,
+// shared memory); scale_d = 0 ignores d's old value
+template <int N>
+struct Mma;
+template <>
+struct Mma<32> {
+  __device__ __forceinline__ static void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+template <>
+struct Mma<64> {
+  __device__ __forceinline__ static void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+template <>
+struct Mma<96> {
+  __device__ __forceinline__ static void run(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+template <>
+struct Mma<128> {
+  __device__ __forceinline__ static void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+  uint32_t u;
+  memcpy(&u, &h, 4);
+  return u;
+}
+
+// The four slices of a float pair already divided by the channel's scale,
+// as packed fragment registers a[p][k] (the lower column in the low half):
+// the reference kernel's arithmetic, per slice round-half-even of
+// r * 256^(p+1), times 2^-8(p+1), residual r - q; every step exact.
+__device__ __forceinline__ void split4(float v0, float v1,
+                                       uint32_t (&a)[N_PARTS][4], int k) {
+  if constexpr (kNoSplit) {
+    const uint32_t u = bits(__floats2bfloat162_rn(v0, v1));
+#pragma unroll
+    for (int p = 0; p < N_PARTS; ++p) a[p][k] = u;
+    return;
+  }
+  float up = 256.0f, step = 0.00390625f;
+#pragma unroll
+  for (int p = 0; p < N_PARTS; ++p) {
+    const float q0 = __fmul_rn(rintf(__fmul_rn(v0, up)), step);
+    const float q1 = __fmul_rn(rintf(__fmul_rn(v1, up)), step);
+    a[p][k] = bits(__floats2bfloat162_rn(q0, q1));
+    v0 = __fsub_rn(v0, q0);
+    v1 = __fsub_rn(v1, q1);
+    up *= 256.0f;
+    step *= 0.00390625f;
+  }
+}
+
+template <bool HAS_LO, bool EMIT_PAIR>
+__global__ void __launch_bounds__(NT, 1)
+ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
+                    const float* __restrict__ sx,
+                    const bf16* __restrict__ tiles,
+                    const int* __restrict__ bands,
+                    const bf16* __restrict__ xl, long long ldxl,
+                    float* __restrict__ y, bf16* __restrict__ yl, long long R,
+                    int n_blocks, int hop, int L_f, int Kcols, int n_ct,
+                    int n_kt, int vec) {
+  using S = Smem<HAS_LO>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle atoms need 1024-byte alignment (offset kept on smem_raw so
+  // that the compiler still sees shared-memory accesses)
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* Bs = reinterpret_cast<bf16*>(base);                   // [ST][4][BN][TK]
+  float* As = reinterpret_cast<float*>(base + S::a_off);      // [ST][BM][APITCH]
+  float* state = reinterpret_cast<float*>(base + S::s_off);   // [n_state*NR][NT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::bar_off);
+  uint64_t* empty = full + ST;
+  long long* row_base = reinterpret_cast<long long*>(base + S::row_off);
+  long long* row_base_lo = row_base + BM;
+  float* row_inv = reinterpret_cast<float*>(row_base_lo + BM);
+  float* row_sx = row_inv + BM;
+  // a 16-byte-aligned source for copies that read nothing
+  const float* zsrc = reinterpret_cast<const float*>(tiles);
+
+  const int tid = threadIdx.x;
+  const long long tile = blockIdx.x;
+  const int ct = static_cast<int>(tile % n_ct);
+  const long long r0 = (tile / n_ct) * BM;
+  // the column tile's nonzero k-tiles [kb, ke): the rest multiply zeros
+  int kb = 0, ke = n_kt;
+  if constexpr (!kNoSkip) {
+    kb = bands[2 * ct];
+    ke = bands[2 * ct + 1];
+  }
+  const int n_t = ke - kb;
+
+  if (tid < BM) {
+    const long long r = r0 + tid;
+    if (r < R) {
+      const long long c = r / n_blocks;
+      const long long b = r - c * n_blocks;
+      row_base[tid] = c * ldx + b * hop;
+      row_base_lo[tid] = c * ldxl + b * hop;
+      const float s = sx[c];
+      row_sx[tid] = s;
+      row_inv[tid] = __fdiv_rn(1.0f, s);  // exact: s is a power of two
+    } else {
+      row_base[tid] = -1;
+      row_base_lo[tid] = -1;
+      row_sx[tid] = 1.0f;
+      row_inv[tid] = 1.0f;
+    }
+  }
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+#pragma unroll
+  for (int i = 0; i < S::n_state * NR; ++i) state[i * NT + tid] = 0.0f;
+  __syncthreads();
+
+  // thread 0 moves the operator: one bulk copy a k-tile into its slot, the
+  // first ST now, each later one once both warpgroups freed the slot
+  constexpr int B_ELEMS = B_STAGE / 2;
+  const bf16* b_src =
+      tiles + (static_cast<long long>(ct) * n_kt + kb) * B_ELEMS;
+  auto load_b = [&](int u) {
+    const int slot = u % ST;
+    mbar_expect_tx(full + slot, B_STAGE);
+    bulk_g2s(Bs + slot * B_ELEMS, b_src + static_cast<long long>(u) * B_ELEMS,
+             B_STAGE, full + slot);
+  };
+  if (tid == 0) {
+    for (int u = 0; u < ST && u < n_t; ++u) load_b(u);
+  }
+
+  const int wg = tid >> 7, tw = tid & 127;
+  const int wq = tw >> 5, lane = tw & 31, g = lane >> 2, tq = lane & 3;
+  const long long* rb = row_base + wg * 64;
+  float* Aw = As + wg * 64 * APITCH;
+
+  // this warpgroup's 64 rows of the u-th k-tile into its slot, zero past
+  // L_f and R: warp wq stages rows 16wq..16wq+15, one row (two with
+  // 16-byte copies) an instruction, 8-byte copies on rows whose start is
+  // 8-byte aligned
+  auto stage_a = [&](int u) {
+    if constexpr (kNoStage) return;
+    float* dst = Aw + (u % ST) * A_STAGE;
+    const int d0 = (kb + u) * TK;
+    if (vec) {
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        const int i = wq * 16 + it * 2 + (lane >> 4);
+        const int d = d0 + 4 * (lane & 15);
+        const long long b = rb[i];
+        const int n = b < 0 ? 0 : max(0, min(4, L_f - d));
+        cp_async16(dst + i * APITCH + 4 * (lane & 15),
+                   n > 0 ? xp + b + d : zsrc, 4 * n);
+      }
+    } else {
+      const int d = d0 + 2 * lane;
+#pragma unroll 4
+      for (int it = 0; it < 16; ++it) {
+        const int i = wq * 16 + it;
+        const long long b = rb[i];
+        const int n = b < 0 ? 0 : max(0, min(2, L_f - d));
+        float* to = dst + i * APITCH + 2 * lane;
+        if (b >= 0 && (reinterpret_cast<uintptr_t>(xp + b + d0) & 7) == 0) {
+          cp_async8(to, n > 0 ? xp + b + d : zsrc, 4 * n);
+        } else {
+          cp_async4(to, n > 0 ? xp + b + d : zsrc, n > 0 ? 4 : 0);
+          cp_async4(to + 1, n > 1 ? xp + b + d + 1 : zsrc, n > 1 ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  // the chunk accumulators of the four passes (pairs (p, q) at column
+  // block q of acc_p) and, under HAS_LO, of the x_lo pass
+  float acc0[4 * NR], acc1[3 * NR], acc2[2 * NR], acc3[NR];
+  float accl[HAS_LO ? NR : 1];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    acc0[i] = acc0[NR + i] = acc0[2 * NR + i] = acc0[3 * NR + i] = 0.0f;
+    acc1[i] = acc1[NR + i] = acc1[2 * NR + i] = 0.0f;
+    acc2[i] = acc2[NR + i] = acc3[i] = 0.0f;
+    if constexpr (HAS_LO) accl[i] = 0.0f;
+  }
+
+  // the fold of a chunk's exact pair values, in the reference's order:
+  // (0,0) by two_sum into (hi, lo); (0,1), (0,2), (0,3), (1,0), (1,1),
+  // (1,2), (2,0), (2,1), (3,0) added into rest; x_lo's into cheap
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      float* st = state + i * NT + tid;
+      float hi = st[0], lo = st[NR * NT], rest = st[2 * NR * NT];
+      if constexpr (kNoFold) {
+        hi = __fadd_rn(hi, acc0[i]);
+      } else {
+        float s, e;
+        two_sum(hi, acc0[i], s, e);
+        hi = s;
+        lo = __fadd_rn(lo, e);
+        rest = __fadd_rn(rest, acc0[NR + i]);
+        rest = __fadd_rn(rest, acc0[2 * NR + i]);
+        rest = __fadd_rn(rest, acc0[3 * NR + i]);
+        rest = __fadd_rn(rest, acc1[i]);
+        rest = __fadd_rn(rest, acc1[NR + i]);
+        rest = __fadd_rn(rest, acc1[2 * NR + i]);
+        rest = __fadd_rn(rest, acc2[i]);
+        rest = __fadd_rn(rest, acc2[NR + i]);
+        rest = __fadd_rn(rest, acc3[i]);
+      }
+      st[0] = hi;
+      st[NR * NT] = lo;
+      st[2 * NR * NT] = rest;
+      if constexpr (HAS_LO) st[3 * NR * NT] = __fadd_rn(st[3 * NR * NT], accl[i]);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < n_t) stage_a(s);
+    cp_async_commit();
+  }
+
+  const int row0 = wg * 64 + wq * 16 + g;  // this thread's rows: +0, +8
+  const float inv0 = row_inv[row0], inv1 = row_inv[row0 + 8];
+  const long long xb0 = row_base_lo[row0], xb1 = row_base_lo[row0 + 8];
+  const bool ok0 = row_base[row0] >= 0, ok1 = row_base[row0 + 8] >= 0;
+  const unsigned short* xlu = reinterpret_cast<const unsigned short*>(xl);
+  // one bf16 of x_lo as fragment bits (zero past L_f and R)
+  auto xlo = [&](long long rowb, bool ok, int d) -> uint32_t {
+    return (ok && d < L_f) ? static_cast<uint32_t>(__ldg(xlu + rowb + d)) : 0u;
+  };
+
+  int scale_d = 0;  // 0 on a chunk's first step: its accumulators start fresh
+  for (int u = 0; u < n_t; ++u) {
+    const int t = kb + u;
+    // k-tile u staged by the whole warpgroup, which is also done reading
+    // the slot that the next copies refill
+    cp_async_wait<ST - 2>();
+    named_bar_sync(1 + wg, 128);
+    if (u + ST - 1 < n_t) stage_a(u + ST - 1);
+    cp_async_commit();
+    const int slot = u % ST;
+    mbar_wait(full + slot, (u / ST) & 1);
+    const float* a_s = Aw + slot * A_STAGE + (wq * 16 + g) * APITCH + 2 * tq;
+    const unsigned b_s = smem_u32(Bs + slot * B_ELEMS);
+
+#pragma unroll
+    for (int ks = 0; ks < TK / 16; ++ks) {
+      if (t * TK + ks * 16 >= L_f) break;  // all padding: adds nothing
+      // the step's A fragments, split into the four slices: all written
+      // before its wgmmas start
+      uint32_t a[N_PARTS][4];
+      const float* p0 = a_s + ks * 16;
+      const float* p1 = p0 + 8 * APITCH;
+      const float2 v0 = *reinterpret_cast<const float2*>(p0);
+      const float2 v1 = *reinterpret_cast<const float2*>(p1);
+      const float2 v2 = *reinterpret_cast<const float2*>(p0 + 8);
+      const float2 v3 = *reinterpret_cast<const float2*>(p1 + 8);
+      split4(__fmul_rn(v0.x, inv0), __fmul_rn(v0.y, inv0), a, 0);
+      split4(__fmul_rn(v1.x, inv1), __fmul_rn(v1.y, inv1), a, 1);
+      split4(__fmul_rn(v2.x, inv0), __fmul_rn(v2.y, inv0), a, 2);
+      split4(__fmul_rn(v3.x, inv1), __fmul_rn(v3.y, inv1), a, 3);
+      uint32_t al[4];
+      if constexpr (HAS_LO) {
+        const int d = t * TK + ks * 16 + 2 * tq;
+        al[0] = xlo(xb0, ok0, d) | xlo(xb0, ok0, d + 1) << 16;
+        al[1] = xlo(xb1, ok1, d) | xlo(xb1, ok1, d + 1) << 16;
+        al[2] = xlo(xb0, ok0, d + 8) | xlo(xb0, ok0, d + 9) << 16;
+        al[3] = xlo(xb1, ok1, d + 8) | xlo(xb1, ok1, d + 9) << 16;
+      }
+      reg_fence(acc0);
+      reg_fence(acc1);
+      reg_fence(acc2);
+      reg_fence(acc3);
+      if constexpr (HAS_LO) reg_fence(accl);
+      wg_fence();
+      const uint64_t desc = desc_sw128(b_s + ks * 32);
+      Mma<4 * BN>::run(acc0, a[0], desc, scale_d);
+      if constexpr (!kNoSmall) {
+        Mma<3 * BN>::run(acc1, a[1], desc, scale_d);
+        Mma<2 * BN>::run(acc2, a[2], desc, scale_d);
+        Mma<BN>::run(acc3, a[3], desc, scale_d);
+      }
+      if constexpr (HAS_LO) Mma<BN>::run(accl, al, desc, scale_d);
+      wg_commit();
+      wg_wait0();
+      reg_fence(acc0);
+      reg_fence(acc1);
+      reg_fence(acc2);
+      reg_fence(acc3);
+      if constexpr (HAS_LO) reg_fence(accl);
+      scale_d = 1;
+    }
+    // end of a K0-deep chunk (or of the column tile's nonzero k-tiles)
+    if ((t + 1) % KT_CHUNK == 0 || u + 1 == n_t) {
+      fold();
+      scale_d = 0;
+    }
+    // this warpgroup is done with the slot; thread 0 refills it with
+    // k-tile u + ST once the other warpgroup is too
+    mbar_arrive(empty + slot);
+    if (tid == 0 && u + ST < n_t) {
+      mbar_wait(empty + slot, (u / ST) & 1);
+      load_b(u + ST);
+    }
+  }
+
+  // output combines of the reference kernel (pallas_ozaki.py:141-154);
+  // accumulator layout: n8 block j holds columns 8j..8j+7, rows g and g+8
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int j = i >> 2, e = i & 3;
+    const int rloc = row0 + (e >> 1) * 8;
+    const long long r = r0 + rloc;
+    const int col = ct * BN + 8 * j + 2 * tq + (e & 1);
+    if (r >= R || col >= Kcols) continue;
+    const float* st = state + i * NT + tid;
+    const float hi = st[0], s = row_sx[rloc];
+    const float small = __fadd_rn(st[NR * NT], st[2 * NR * NT]);
+    const long long o = r * Kcols + col;
+    if constexpr (!EMIT_PAIR) {
+      if constexpr (HAS_LO)
+        y[o] = __fadd_rn(__fmul_rn(hi, s),
+                         __fadd_rn(__fmul_rn(small, s), st[3 * NR * NT]));
+      else
+        y[o] = __fmul_rn(__fadd_rn(hi, small), s);
+    } else {
+      float sm = __fmul_rn(small, s);
+      if constexpr (HAS_LO) sm = __fadd_rn(sm, st[3 * NR * NT]);
+      float H, L;
+      two_sum(__fmul_rn(hi, s), sm, H, L);
+      y[o] = H;
+      yl[o] = __float2bfloat16_rn(L);
+    }
+  }
+}
+
+template <bool HAS_LO, bool EMIT_PAIR>
+cudaError_t launch_one(unsigned blocks, cudaStream_t s, const float* xp,
+                       long long ldx, const float* sx, const bf16* tiles,
+                       const int* bands, const bf16* xl, long long ldxl,
+                       float* y, bf16* yl, long long R, int n_blocks, int hop,
+                       int L_f, int Kcols, int n_ct, int n_kt, int vec) {
+  constexpr size_t smem = Smem<HAS_LO>::bytes;
+  auto* kern = ozaki_framed_kernel<HAS_LO, EMIT_PAIR>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<blocks, NT, smem, s>>>(xp, ldx, sx, tiles, bands, xl, ldxl, y, yl, R,
+                                n_blocks, hop, L_f, Kcols, n_ct, n_kt, vec);
+  return cudaGetLastError();
+}
+
+// The wgmma lemma probe: out[q, m, n] = sum_k a[m, k] * T_q[k, n] for the
+// four slices of one packed column tile (n_kt k-tiles), a [64, 64*n_kt]
+// bf16 row-major.  One warpgroup: the operator through bulk copies into
+// shared memory, A from registers, the kernel's m64n128k16 over
+// [s0|s1|s2|s3], every k16 step chained into one accumulator (the first
+// fresh).
+__global__ void __launch_bounds__(128, 1)
+wgmma_dot_kernel(const bf16* __restrict__ a, const bf16* __restrict__ tiles,
+                 float* __restrict__ out, int n_kt) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* Bs = reinterpret_cast<bf16*>(base);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + n_kt * B_STAGE);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, n_kt * B_STAGE);
+    for (int t = 0; t < n_kt; ++t)
+      bulk_g2s(Bs + t * (B_STAGE / 2), tiles + t * (B_STAGE / 2), B_STAGE,
+               bar);
+  }
+  mbar_wait(bar, 0);
+  const int wq = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int K = n_kt * TK;
+  const uint32_t* ar = reinterpret_cast<const uint32_t*>(a);
+  const int rA = (wq * 16 + g) * (K / 2), rB = rA + 8 * (K / 2);
+  float acc[4 * NR];
+#pragma unroll
+  for (int i = 0; i < 4 * NR; ++i) acc[i] = 0.0f;
+  const unsigned b0 = smem_u32(Bs);
+  for (int s = 0; s < K / 16; ++s) {
+    const int c = (s * 16 + 2 * tq) / 2;
+    const uint32_t af[4] = {ar[rA + c], ar[rB + c], ar[rA + c + 4],
+                            ar[rB + c + 4]};
+    reg_fence(acc);
+    wg_fence();
+    Mma<4 * BN>::run(acc, af,
+                     desc_sw128(b0 + (s / 4) * B_STAGE + (s % 4) * 32),
+                     s > 0);
+    wg_commit();
+    wg_wait0();
+    reg_fence(acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * NR; ++i) {
+    const int q = i / NR, j = (i % NR) >> 2, e = i & 3;
+    const int m = wq * 16 + g + (e >> 1) * 8, n = 8 * j + 2 * tq + (e & 1);
+    out[(q * 64 + m) * BN + n] = acc[i];
+  }
 }
 
 // d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
@@ -114,277 +758,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <bool HAS_LO, bool EMIT_PAIR>
-__global__ void __launch_bounds__(NT, 1)
-ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
-                    const float* __restrict__ sx, const bf16* __restrict__ T,
-                    const bf16* __restrict__ xl, long long ldxl,
-                    float* __restrict__ y, bf16* __restrict__ yl, long long R,
-                    int n_blocks, int hop, int L_f, int Kcols,
-                    int n_col_tiles) {
-  using S = Smem<HAS_LO>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  long long* row_base = reinterpret_cast<long long*>(smem_raw);  // [BM]
-  long long* row_base_lo = row_base + BM;                          // [BM]
-  float* row_inv = reinterpret_cast<float*>(row_base_lo + BM);     // [BM]
-  float* row_sx = row_inv + BM;                                    // [BM]
-  bf16* stages = reinterpret_cast<bf16*>(smem_raw + S::head);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp & 3;   // 16-row piece of the tile
-  const int wn = warp >> 2;  // 16-column piece of the tile
-  const long long tile = blockIdx.x;
-  const int j0 = static_cast<int>(tile % n_col_tiles) * BN;
-  const long long r0 = (tile / n_col_tiles) * BM;
-
-  for (int i = tid; i < BM; i += NT) {
-    const long long r = r0 + i;
-    if (r < R) {
-      const long long c = r / n_blocks;
-      const long long b = r - c * n_blocks;
-      row_base[i] = c * ldx + b * hop;
-      row_base_lo[i] = c * ldxl + b * hop;
-      const float s = sx[c];
-      row_sx[i] = s;
-      row_inv[i] = __fdiv_rn(1.0f, s);  // exact: s is a power of two
-    } else {
-      row_base[i] = -1;
-      row_base_lo[i] = -1;
-      row_sx[i] = 1.0f;
-      row_inv[i] = 1.0f;
-    }
-  }
-  __syncthreads();
-
-  // register staging of one slab: each thread moves pairs of neighbouring
-  // elements (coalesced along l for x, along k for T)
-  constexpr int XP = BM * BK / 2 / NT;            // x (and x_lo) pairs
-  constexpr int TP = N_PARTS * BK * BN / 2 / NT;  // operator pairs
-  float xr[XP][2];
-  bf16 lr[HAS_LO ? XP : 1][2];
-  bf16 tr[TP][2];
-  const bf16 zero = __float2bfloat16_rn(0.0f);
-
-  auto load_regs = [&](int d0) {
-#pragma unroll
-    for (int it = 0; it < XP; ++it) {
-      const int e2 = it * NT + tid;
-      const int i = e2 / (BK / 2);
-      const int l = d0 + 2 * (e2 % (BK / 2));
-      const long long base = row_base[i];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const bool ok = base >= 0 && l + h < L_f;
-        xr[it][h] = ok ? xp[base + l + h] : 0.0f;
-        if constexpr (HAS_LO)
-          lr[it][h] = ok ? xl[row_base_lo[i] + l + h] : zero;
-      }
-    }
-#pragma unroll
-    for (int it = 0; it < TP; ++it) {
-      const int e2 = it * NT + tid;
-      const int q = e2 / (BK * BN / 2);
-      const int rem = e2 % (BK * BN / 2);
-      const int l = d0 + rem / (BN / 2);
-      const int j = j0 + 2 * (rem % (BN / 2));
-      const long long row = (static_cast<long long>(q) * L_f + l) * Kcols;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        tr[it][h] = (l < L_f && j + h < Kcols) ? T[row + j + h] : zero;
-    }
-  };
-
-  // split the staged x into its 4 bf16 slices (the reference kernel's
-  // arithmetic: multiply by 1/sx, then per slice round-half-even of
-  // r * 256^(p+1), times 2^-8(p+1), residual r - q; every step exact)
-  auto store_smem = [&](bf16* st) {
-    bf16* xs = st;
-    bf16* ts = st + S_X;
-#pragma unroll
-    for (int it = 0; it < XP; ++it) {
-      const int e2 = it * NT + tid;
-      const int i = e2 / (BK / 2);
-      const int kk = 2 * (e2 % (BK / 2));
-      const float inv = row_inv[i];
-      float v0 = __fmul_rn(xr[it][0], inv);
-      float v1 = __fmul_rn(xr[it][1], inv);
-      float up = 256.0f, step = 0.00390625f;
-#pragma unroll
-      for (int p = 0; p < N_PARTS; ++p) {
-        const float q0 = __fmul_rn(rintf(__fmul_rn(v0, up)), step);
-        const float q1 = __fmul_rn(rintf(__fmul_rn(v1, up)), step);
-        *reinterpret_cast<__nv_bfloat162*>(xs + (p * BM + i) * LDA + kk) =
-            __floats2bfloat162_rn(q0, q1);
-        v0 = __fsub_rn(v0, q0);
-        v1 = __fsub_rn(v1, q1);
-        up *= 256.0f;
-        step *= 0.00390625f;
-      }
-      if constexpr (HAS_LO)
-        *reinterpret_cast<__nv_bfloat162*>(st + S_X + S_T + i * LDA + kk) =
-            __halves2bfloat162(lr[it][0], lr[it][1]);
-    }
-#pragma unroll
-    for (int it = 0; it < TP; ++it) {
-      const int e2 = it * NT + tid;
-      const int q = e2 / (BK * BN / 2);
-      const int rem = e2 % (BK * BN / 2);
-      const int kk = rem / (BN / 2);
-      const int jj = 2 * (rem % (BN / 2));
-      *reinterpret_cast<__nv_bfloat162*>(ts + (q * BK + kk) * LDB + jj) =
-          __halves2bfloat162(tr[it][0], tr[it][1]);
-    }
-  };
-
-  float acc[N_PAIRS][2][4];
-  float accl[2][4];
-  float hi[2][4], lo[2][4], rest[2][4], cheap[2][4];
-#pragma unroll
-  for (int nf = 0; nf < 2; ++nf) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-#pragma unroll
-      for (int k = 0; k < N_PAIRS; ++k) acc[k][nf][e] = 0.0f;
-      accl[nf][e] = hi[nf][e] = lo[nf][e] = rest[nf][e] = cheap[nf][e] = 0.0f;
-    }
-  }
-
-  const int n_slabs = (L_f + BK - 1) / BK;
-  load_regs(0);
-  store_smem(stages);
-  __syncthreads();
-  for (int t = 0; t < n_slabs; ++t) {
-    const bf16* st = stages + (t & 1) * S::stage;
-    if (t + 1 < n_slabs) load_regs((t + 1) * BK);
-
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[N_PARTS][4], b[N_PARTS][4];
-#pragma unroll
-      for (int p = 0; p < N_PARTS; ++p)
-        ldmatrix_x4(a[p], st + (p * BM + wm * 16 + (lane & 15)) * LDA +
-                              ks * 16 + (lane >> 4) * 8);
-      // b[q]: {k 0-7, k 8-15} of n8 fragment 0, then of fragment 1
-#pragma unroll
-      for (int q = 0; q < N_PARTS; ++q)
-        ldmatrix_x4_trans(
-            b[q], st + S_X +
-                      (q * BK + ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                          LDB +
-                      wn * 16 + (lane >> 4) * 8);
-      int k = 0;
-#pragma unroll
-      for (int p = 0; p < N_PARTS; ++p) {
-#pragma unroll
-        for (int q = 0; q < N_DIAG - p; ++q) {
-#pragma unroll
-          for (int nf = 0; nf < 2; ++nf)
-            mma_16816(acc[k][nf], a[p], b[q][2 * nf], b[q][2 * nf + 1]);
-          ++k;
-        }
-      }
-      if constexpr (HAS_LO) {
-        uint32_t al[4];
-        ldmatrix_x4(al, st + S_X + S_T + (wm * 16 + (lane & 15)) * LDA +
-                            ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int nf = 0; nf < 2; ++nf)
-          mma_16816(accl[nf], al, b[0][2 * nf], b[0][2 * nf + 1]);
-      }
-    }
-
-    if (t + 1 < n_slabs)
-      store_smem(stages + ((t + 1) & 1) * S::stage);
-
-    // end of a K0-deep chunk (or of L_f): fold its exact pair results
-    if (((t + 1) * BK) % K0 == 0 || t + 1 == n_slabs) {
-      int k = 0;
-#pragma unroll
-      for (int p = 0; p < N_PARTS; ++p) {
-#pragma unroll
-        for (int q = 0; q < N_DIAG - p; ++q) {
-#pragma unroll
-          for (int nf = 0; nf < 2; ++nf) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float o = acc[k][nf][e];
-              if (p + q == 0) {
-                float s, err;
-                two_sum(hi[nf][e], o, s, err);
-                hi[nf][e] = s;
-                lo[nf][e] = __fadd_rn(lo[nf][e], err);
-              } else {
-                rest[nf][e] = __fadd_rn(rest[nf][e], o);
-              }
-              acc[k][nf][e] = 0.0f;
-            }
-          }
-          ++k;
-        }
-      }
-      if constexpr (HAS_LO) {
-#pragma unroll
-        for (int nf = 0; nf < 2; ++nf) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            cheap[nf][e] = __fadd_rn(cheap[nf][e], accl[nf][e]);
-            accl[nf][e] = 0.0f;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // output combines of the reference kernel (pallas_ozaki.py:141-154)
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int nf = 0; nf < 2; ++nf) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = wm * 16 + g + (e >> 1) * 8;
-      const long long r = r0 + i;
-      const int j = j0 + wn * 16 + nf * 8 + tq * 2 + (e & 1);
-      if (r >= R || j >= Kcols) continue;
-      const float s = row_sx[i];
-      const float small = __fadd_rn(lo[nf][e], rest[nf][e]);
-      const long long o = r * Kcols + j;
-      if constexpr (!EMIT_PAIR) {
-        if constexpr (HAS_LO)
-          y[o] = __fadd_rn(__fmul_rn(hi[nf][e], s),
-                           __fadd_rn(__fmul_rn(small, s), cheap[nf][e]));
-        else
-          y[o] = __fmul_rn(__fadd_rn(hi[nf][e], small), s);
-      } else {
-        float sm = __fmul_rn(small, s);
-        if constexpr (HAS_LO) sm = __fadd_rn(sm, cheap[nf][e]);
-        float H, L;
-        two_sum(__fmul_rn(hi[nf][e], s), sm, H, L);
-        y[o] = H;
-        yl[o] = __float2bfloat16_rn(L);
-      }
-    }
-  }
-}
-
-template <bool HAS_LO, bool EMIT_PAIR>
-cudaError_t launch_one(unsigned blocks, cudaStream_t s, const float* xp,
-                       long long ldx, const float* sx, const bf16* T,
-                       const bf16* xl, long long ldxl, float* y, bf16* yl,
-                       long long R, int n_blocks, int hop, int L_f, int Kcols,
-                       int n_col) {
-  constexpr size_t smem = Smem<HAS_LO>::bytes;
-  auto* kern = ozaki_framed_kernel<HAS_LO, EMIT_PAIR>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kern<<<blocks, NT, smem, s>>>(xp, ldx, sx, T, xl, ldxl, y, yl, R, n_blocks,
-                                hop, L_f, Kcols, n_col);
-  return cudaGetLastError();
 }
 
 // One warp per 16 x 8 output tile, fragments straight from global memory,
@@ -429,41 +802,65 @@ __global__ void mma_dot_kernel(const bf16* __restrict__ a,
 
 // Launch on `stream` (a cudaStream_t); returns the launch's cudaError_t.
 // xp: [C, >= (n_blocks-1)*hop + L_f] float32, row stride ldx; sx: [C]
-// float32 powers of two; T: [4, L_f, Kcols] bf16 row-major; xl (may be
-// null): bf16, row stride ldxl; y: [C, n_blocks*Kcols] float32; yl (null
-// unless the pair is wanted): [C, n_blocks*Kcols] bf16.
+// float32 powers of two; tiles, bands: the operator as
+// pallas_ozaki.pack_operator packs it, bf16 [n_ct, n_kt, 4, bn, 64] and
+// int32 [n_ct, 2] (refused unless bn, n_kt and n_ct are this kernel's
+// tiling of L_f x Kcols); xl (may be null): bf16, row stride ldxl; y: [C,
+// n_blocks*Kcols] float32; yl (null unless the pair is wanted): [C,
+// n_blocks*Kcols] bf16.
 extern "C" int r8b_ozaki_framed(const float* xp, long long ldx,
-                                const float* sx, const void* T, const void* xl,
-                                long long ldxl, float* y, void* yl, int C,
-                                int n_blocks, int hop, int L_f, int Kcols,
-                                void* stream) {
+                                const float* sx, const void* tiles,
+                                const int* bands, int n_ct, int n_kt, int bn,
+                                const void* xl, long long ldxl, float* y,
+                                void* yl, int C, int n_blocks, int hop,
+                                int L_f, int Kcols, void* stream) {
   if (C < 0 || n_blocks < 1 || hop < 1 || L_f < 1 || Kcols < 1 || ldx < 0 ||
-      ldxl < 0)
+      ldxl < 0 || bn != BN || n_kt != (L_f + TK - 1) / TK ||
+      n_ct != (Kcols + BN - 1) / BN)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long R = static_cast<long long>(C) * n_blocks;
   if (R == 0) return 0;
-  const int n_col = (Kcols + BN - 1) / BN;
-  const long long blocks = ((R + BM - 1) / BM) * n_col;
+  const long long blocks = ((R + BM - 1) / BM) * n_ct;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned nb = static_cast<unsigned>(blocks);
-  const bf16* Tb = static_cast<const bf16*>(T);
+  const bf16* tb = static_cast<const bf16*>(tiles);
   const bf16* xlb = static_cast<const bf16*>(xl);
   bf16* ylb = static_cast<bf16*>(yl);
+  const int vec = reinterpret_cast<uintptr_t>(xp) % 16 == 0 && ldx % 4 == 0 &&
+                  hop % 4 == 0;
+#define R8B_OZ(LO_, PAIR_)                                                 \
+  launch_one<LO_, PAIR_>(nb, s, xp, ldx, sx, tb, bands, xlb, ldxl, y, ylb, \
+                         R, n_blocks, hop, L_f, Kcols, n_ct, n_kt, vec)
   cudaError_t e;
   if (xl != nullptr && yl != nullptr)
-    e = launch_one<true, true>(nb, s, xp, ldx, sx, Tb, xlb, ldxl, y, ylb, R,
-                               n_blocks, hop, L_f, Kcols, n_col);
+    e = R8B_OZ(true, true);
   else if (xl != nullptr)
-    e = launch_one<true, false>(nb, s, xp, ldx, sx, Tb, xlb, ldxl, y, ylb, R,
-                                n_blocks, hop, L_f, Kcols, n_col);
+    e = R8B_OZ(true, false);
   else if (yl != nullptr)
-    e = launch_one<false, true>(nb, s, xp, ldx, sx, Tb, xlb, ldxl, y, ylb, R,
-                                n_blocks, hop, L_f, Kcols, n_col);
+    e = R8B_OZ(false, true);
   else
-    e = launch_one<false, false>(nb, s, xp, ldx, sx, Tb, xlb, ldxl, y, ylb, R,
-                                 n_blocks, hop, L_f, Kcols, n_col);
+    e = R8B_OZ(false, false);
+#undef R8B_OZ
   return static_cast<int>(e);
+}
+
+// out [4, 64, 32] float32: out[q] = a [64, 64*n_kt] @ T_q through the
+// kernel's wgmma path (tiles: one packed column tile of n_kt k-tiles,
+// n_kt <= 4); the lemma probe.
+extern "C" int r8b_ozaki_wgmma_dot(const void* a, const void* tiles,
+                                   float* out, int n_kt, void* stream) {
+  if (n_kt < 1 || n_kt > KT_CHUNK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = n_kt * B_STAGE + 8 + 1024;
+  const cudaError_t e = cudaFuncSetAttribute(
+      wgmma_dot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wgmma_dot_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(tiles), out,
+      n_kt);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out [M, N] float32 = a [M, K] @ b [K, N] (bf16, row-major) through

@@ -54,7 +54,7 @@ from .ozaki import channel_scale, framed_cheap, split_operator_host
 from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
 from .pallas_frac import KC, KC_LO, frac_whole, operator_parts
-from .pallas_ozaki import ozaki_framed
+from .pallas_ozaki import ozaki_framed, pack_operator
 from .pallas_symconv import BH, sym_conv
 
 __all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "build_exec",
@@ -132,6 +132,16 @@ def _shifted(x: torch.Tensor, start: int, need: int, dtype) -> torch.Tensor:
     if pad_l or pad_r:
         x = F.pad(x, (pad_l, pad_r))
     return x[:, start + pad_l :]
+
+
+def _register_ozaki(ex: nn.Module, parts: torch.Tensor) -> None:
+    """The ozaki engine's operator as buffers of ``ex``: the slices
+    ``oz_parts`` (the plain version's) and their packing for the kernel,
+    ``oz_tiles`` and ``oz_bands`` (``pack_operator``), built once."""
+    ex.register_buffer("oz_parts", parts)
+    tiles, bands = pack_operator(parts)
+    ex.register_buffer("oz_tiles", tiles)
+    ex.register_buffer("oz_bands", bands)
 
 
 class ConvExec(nn.Module):
@@ -478,9 +488,14 @@ class ConvExec(nn.Module):
             B //= 2
         T = _banded(self._sk64, B, down)
         parts, self.oz_scale = split_operator_host(T)
-        self.register_buffer("oz_parts", parts)
+        _register_ozaki(self, parts)
         self.oz_Lf = T.shape[0]
         self.B_toep = B
+
+    @property
+    def oz_packed(self):
+        """The ozaki engine's operator as the kernel takes it."""
+        return self.oz_tiles, self.oz_bands
 
     def geometry(self, M: int):
         """(L_f, hop, Kcols, n_blocks) of the framed product behind M
@@ -499,7 +514,7 @@ class ConvExec(nn.Module):
             xl = _shifted(x_lo, self.s_min, need, x_lo.dtype)
         sx = channel_scale(xp[:, : (n_blocks - 1) * hop + L_f])
         res = ozaki_framed(xp, sx, self.oz_parts, L_f, hop, Kcols, n_blocks,
-                           x_lo=xl, emit_pair=pair)
+                           x_lo=xl, emit_pair=pair, packed=self.oz_packed)
         if pair:
             yh, yl = res
             return (yh, yl) if raw else (yh[:, :M], yl[:, :M])
@@ -693,7 +708,7 @@ class FracWholeExec(nn.Module):
             _check_ozaki(dtype, precision)
             parts, self.oz_scale = split_operator_host(
                 np.ascontiguousarray(sk.T))
-            self.register_buffer("oz_parts", parts)
+            _register_ozaki(self, parts)
             return
         _check_dtype(dtype)
         _check_precision(precision)
@@ -713,6 +728,11 @@ class FracWholeExec(nn.Module):
 
     def out_len(self, n_in: int) -> int:
         return stage_out_len(self.spec, n_in)
+
+    @property
+    def oz_packed(self):
+        """The ozaki engine's operator as the kernel takes it."""
+        return self.oz_tiles, self.oz_bands
 
     def geometry(self, M: int):
         """(L_f, hop, Kcols, n_blocks) of the framed product behind M
@@ -743,7 +763,7 @@ class FracWholeExec(nn.Module):
         D, I, O, n_cyc = self.geometry(M)
         if self.engine == "ozaki":
             return ozaki_framed(xp, self._scale(xp, M), self.oz_parts, D, I,
-                                O, n_cyc)[:, :M]
+                                O, n_cyc, packed=self.oz_packed)[:, :M]
         return frac_whole(xp, self.sk_parts, I, D, O, n_cyc,
                           kc=self.kc)[:, :M]
 
@@ -804,11 +824,12 @@ class FracWholeExec(nn.Module):
         sx = self._scale(xp, M)
         if not emit_pair:
             cheap = framed_cheap(xl, self.oz_parts[0], n_cyc, I)
-            yh, yl = ozaki_framed(xp, sx, self.oz_parts, *geo, emit_pair=True)
+            yh, yl = ozaki_framed(xp, sx, self.oz_parts, *geo, emit_pair=True,
+                                  packed=self.oz_packed)
             y = yh + (yl.float() + cheap.reshape(C, -1))
             return y[:, :M], None, M
         yh, yl = ozaki_framed(xp, sx, self.oz_parts, *geo, x_lo=xl,
-                              emit_pair=True)
+                              emit_pair=True, packed=self.oz_packed)
         return yh[:, :M], yl[:, :M], M
 
 

@@ -19,8 +19,9 @@ from r8brain_torch.ops.pallas_dfft import (SMEM_MAX_N, DfFFTPlan,
 from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
                                            frac_whole_ref, operator_parts,
                                            split3)
-from r8brain_torch.ops.pallas_ozaki import (mma_dot, ozaki_framed,
-                                            ozaki_framed_ref)
+from r8brain_torch.ops.pallas_ozaki import (lemma_operands, mma_dot,
+                                            ozaki_framed, ozaki_framed_ref,
+                                            pack_operator, wgmma_dot)
 from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
                                                sym_ops_high)
 from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
@@ -200,10 +201,11 @@ def test_resampler_on_card_holds_class(cuda_device, precision):
 
 
 # (label, C, L_f, hop, Kcols, n_blocks): the guarantee chain's conv and frac
-# geometries at a few blocks, and an odd one (C and Kcols no multiple of 8
-# or 32, L_f no multiple of 16 and three K0 chunks, hop odd)
+# geometries at a few blocks, an odd one (C and Kcols no multiple of 8 or
+# 32, L_f no multiple of 16 and three K0 chunks, hop odd) and a ragged one
+# (rows, Kcols and L_f short of one tile: 21 rows, 40 columns, 70 deep)
 OZ_SHAPES = [("conv", 13, 964, 256, 512, 5), ("frac", 13, 170, 147, 160, 40),
-             ("odd", 13, 599, 301, 100, 9)]
+             ("odd", 13, 599, 301, 100, 9), ("ragged", 3, 70, 33, 40, 7)]
 OZ_CHAIN = dict(precision="high", conv_engine="ozaki", frac_engine="ozaki")
 
 
@@ -258,22 +260,60 @@ def test_ozaki_kernel_matches_plain(cuda_device, shape, has_lo, emit_pair):
 
 
 @pytest.mark.cuda
-def test_ozaki_lemma_on_tensor_cores(cuda_device):
-    """A 256-deep mma.sync float32 accumulation of the bf16 slices equals
-    the float64 product bit for bit, for every kept slice pair, on the
-    split of random data and on worst-case slices (all +256 units)."""
-    rng = np.random.default_rng(10)
-    K = ozaki.K0
-    xparts, _ = ozaki.split_input(torch.from_numpy(rng.standard_normal((48, K))))
-    tparts, _ = ozaki.split_operator_host(rng.standard_normal((K, 40)))
+@pytest.mark.parametrize("probe", ["wgmma", "mma_sync"])
+def test_ozaki_lemma_on_tensor_cores(cuda_device, probe):
+    """A 256-deep float32 tensor-core accumulation of the bf16 slices
+    equals the float64 product bit for bit, for every kept slice pair and
+    every operand kind of lemma_operands (worst case, random units,
+    Gaussian split, mixed magnitude): on the kernel's own wgmma path (16
+    k16 steps chained into one accumulator) and on mma.sync."""
     for p in range(ozaki.N_PARTS):
         for q in range(ozaki.N_DIAG - p):
-            full = (torch.full((48, K), 2.0**(-8 * p)).bfloat16(),
-                    torch.full((K, 40), 2.0**(-8 * q)).bfloat16())
-            for a, b in ((xparts[p], tparts[q]), full):
-                got = mma_dot(a.to(cuda_device), b.to(cuda_device))
-                assert torch.equal(got.double().cpu(),
-                                   a.double() @ b.double()), (p, q)
+            for kind, (a, b) in lemma_operands(10, p, q).items():
+                want = a.double() @ b.double()
+                if probe == "wgmma":
+                    # b as slice q of a packed operator (the others zero)
+                    parts = torch.zeros((ozaki.N_PARTS, *b.shape),
+                                        dtype=torch.bfloat16)
+                    parts[q] = b
+                    got = wgmma_dot(a.to(cuda_device),
+                                    parts.to(cuda_device))[q]
+                else:
+                    got = mma_dot(a.to(cuda_device), b.to(cuda_device))
+                assert torch.equal(got.double().cpu(), want), (p, q, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", [True, False], ids=["pair", "plain"])
+def test_ozaki_kernel_on_chain_operators(cuda_device, carry):
+    """The guarantee chain's own banded conv and frac operators (whose
+    packing skips the all-zero k-tiles of each column tile) through the
+    executors' packed buffers: bit-equal to ozaki_framed_ref."""
+    rs = Resampler(44100, 96000, 2.0, 180.15, **OZ_CHAIN, device=cuda_device)
+    rng = np.random.default_rng(12)
+    for ex in rs.execs:
+        L_f, hop, Kcols, nb = ex.geometry(7 * ex.geometry(1)[2])
+        xp = torch.tensor(rng.uniform(-1, 1, (5, (nb - 1) * hop + L_f)),
+                          dtype=torch.float32, device=cuda_device)
+        sx = ozaki.channel_scale(xp)
+        args = (xp, sx, ex.oz_parts, L_f, hop, Kcols, nb)
+        y = ozaki_framed(*args, emit_pair=carry, packed=ex.oz_packed)
+        r = ozaki_framed_ref(*args, emit_pair=carry)
+        ys, rs_ = (y, r) if carry else ((y,), (r,))
+        assert all(torch.equal(a, b) for a, b in zip(ys, rs_))
+
+
+@pytest.mark.cuda
+def test_ozaki_kernel_refuses_other_tiling(cuda_device):
+    parts, _ = ozaki.split_operator_host(
+        np.random.default_rng(13).standard_normal((100, 64)))
+    parts = parts.to(cuda_device)
+    xp = torch.zeros((2, 400), device=cuda_device)
+    sx = torch.ones((2, 1), device=cuda_device)
+    tiles, bands = pack_operator(parts)
+    with pytest.raises(ValueError, match="another tiling"):
+        ozaki_framed(xp, sx, parts, 100, 50, 64, 3,
+                     packed=(tiles[:, :1].contiguous(), bands))
 
 
 @pytest.mark.cuda
