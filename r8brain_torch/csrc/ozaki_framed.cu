@@ -110,7 +110,8 @@ static_assert((BN * TK * 2) % 1024 == 0, "swizzle atoms are 1 KB");
 
 // Ablation, for tools/torch_ozaki_ablation.py only: a build with
 // -DR8B_ABLATE=mask drops parts of the work (its output is then wrong) so
-// that the rest can be timed.  Bits: 1 the fold (one add instead), 2 the
+// that the rest can be timed.  Bits: 1 the fold (the 10 pair values added
+// into hi, no two_sum, in no order), 2 the
 // split (all four slices are bf16(x)), 4 the small pairs (only the
 // A_0 x [s0|s1|s2|s3] wgmma), 8 the input staging, 16 the banded k-tile
 // skip (every k-tile is read).
@@ -122,6 +123,16 @@ constexpr bool kNoSplit = R8B_ABLATE & 2;
 constexpr bool kNoSmall = R8B_ABLATE & 4;
 constexpr bool kNoStage = R8B_ABLATE & 8;
 constexpr bool kNoSkip = R8B_ABLATE & 16;
+
+// k16 steps a thread splits before it issues their wgmmas and waits for
+// them (its A registers: 16 a step, 20 under HAS_LO, whose 255-register
+// budget takes one step)
+#ifndef R8B_OZ_KS
+#define R8B_OZ_KS 2
+#endif
+template <bool HAS_LO>
+constexpr int kSteps = HAS_LO ? 1 : R8B_OZ_KS;
+static_assert((TK / 16) % R8B_OZ_KS == 0, "batches tile the k-tile");
 
 // shared memory: the operator ring, the staged rows, the fold state
 // (hi, lo, rest and under HAS_LO cheap: [state][NR][NT] floats), the
@@ -366,8 +377,12 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
 
 // The four slices of a float pair already divided by the channel's scale,
 // as packed fragment registers a[p][k] (the lower column in the low half):
-// the reference kernel's arithmetic, per slice round-half-even of
-// r * 256^(p+1), times 2^-8(p+1), residual r - q; every step exact.
+// the reference kernel's slices, round-half-even of r to the grid
+// 2^-8(p+1) with residual r - q.  Adding M_p = 1.5 * 2^(15-8p) rounds r to
+// that grid, half to even (|r| < 2^(14-8p)), and subtracting it is exact,
+// so every step is exact and runs at the full rate of float adds (rintf
+// is a conversion, a quarter of it).  A slice has <= 8 significant bits,
+// so its bf16 is the top half of its float32: one byte permute a pair.
 __device__ __forceinline__ void split4(float v0, float v1,
                                        uint32_t (&a)[N_PARTS][4], int k) {
   if constexpr (kNoSplit) {
@@ -376,16 +391,16 @@ __device__ __forceinline__ void split4(float v0, float v1,
     for (int p = 0; p < N_PARTS; ++p) a[p][k] = u;
     return;
   }
-  float up = 256.0f, step = 0.00390625f;
+  constexpr float M[N_PARTS] = {49152.0f, 192.0f, 0.75f, 0.0029296875f};
 #pragma unroll
   for (int p = 0; p < N_PARTS; ++p) {
-    const float q0 = __fmul_rn(rintf(__fmul_rn(v0, up)), step);
-    const float q1 = __fmul_rn(rintf(__fmul_rn(v1, up)), step);
-    a[p][k] = bits(__floats2bfloat162_rn(q0, q1));
-    v0 = __fsub_rn(v0, q0);
-    v1 = __fsub_rn(v1, q1);
-    up *= 256.0f;
-    step *= 0.00390625f;
+    const float q0 = __fsub_rn(__fadd_rn(v0, M[p]), M[p]);
+    const float q1 = __fsub_rn(__fadd_rn(v1, M[p]), M[p]);
+    a[p][k] = __byte_perm(__float_as_uint(q0), __float_as_uint(q1), 0x7632);
+    if (p + 1 < N_PARTS) {
+      v0 = __fsub_rn(v0, q0);
+      v1 = __fsub_rn(v1, q1);
+    }
   }
 }
 
@@ -400,6 +415,7 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
                     int n_blocks, int hop, int L_f, int Kcols, int n_ct,
                     int n_kt, int vec) {
   using S = Smem<HAS_LO>;
+  constexpr int KS = kSteps<HAS_LO>;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle atoms need 1024-byte alignment (offset kept on smem_raw so
   // that the compiler still sees shared-memory accesses)
@@ -407,7 +423,8 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* Bs = reinterpret_cast<bf16*>(base);                   // [ST][4][BN][TK]
   float* As = reinterpret_cast<float*>(base + S::a_off);      // [ST][BM][APITCH]
-  float* state = reinterpret_cast<float*>(base + S::s_off);   // [n_state*NR][NT]
+  // [n_state][NR / 4][NT] float4
+  float4* state = reinterpret_cast<float4*>(base + S::s_off);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + S::bar_off);
   uint64_t* empty = full + ST;
   long long* row_base = reinterpret_cast<long long*>(base + S::row_off);
@@ -454,7 +471,8 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 #pragma unroll
-  for (int i = 0; i < S::n_state * NR; ++i) state[i * NT + tid] = 0.0f;
+  for (int i = 0; i < S::n_state * NR / 4; ++i)
+    state[i * NT + tid] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   __syncthreads();
 
   // thread 0 moves the operator: one bulk copy a k-tile into its slot, the
@@ -529,31 +547,48 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
   // (0,0) by two_sum into (hi, lo); (0,1), (0,2), (0,3), (1,0), (1,1),
   // (1,2), (2,0), (2,1), (3,0) added into rest; x_lo's into cheap
   auto fold = [&]() {
+    constexpr int Q = NR / 4;  // float4s of one state a thread
 #pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      float* st = state + i * NT + tid;
-      float hi = st[0], lo = st[NR * NT], rest = st[2 * NR * NT];
-      if constexpr (kNoFold) {
-        hi = __fadd_rn(hi, acc0[i]);
-      } else {
-        float s, e;
-        two_sum(hi, acc0[i], s, e);
-        hi = s;
-        lo = __fadd_rn(lo, e);
-        rest = __fadd_rn(rest, acc0[NR + i]);
-        rest = __fadd_rn(rest, acc0[2 * NR + i]);
-        rest = __fadd_rn(rest, acc0[3 * NR + i]);
-        rest = __fadd_rn(rest, acc1[i]);
-        rest = __fadd_rn(rest, acc1[NR + i]);
-        rest = __fadd_rn(rest, acc1[2 * NR + i]);
-        rest = __fadd_rn(rest, acc2[i]);
-        rest = __fadd_rn(rest, acc2[NR + i]);
-        rest = __fadd_rn(rest, acc3[i]);
+    for (int i4 = 0; i4 < Q; ++i4) {
+      float4* st = state + i4 * NT + tid;
+      float4 h4 = st[0], l4 = st[Q * NT], r4 = st[2 * Q * NT];
+      float* hi = &h4.x;
+      float* lo = &l4.x;
+      float* rest = &r4.x;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = 4 * i4 + c;
+        if constexpr (kNoFold) {  // plain adds, no two_sum, no order
+          hi[c] += ((acc0[i] + acc0[NR + i]) + (acc0[2 * NR + i] +
+                    acc0[3 * NR + i])) + ((acc1[i] + acc1[NR + i]) +
+                    (acc1[2 * NR + i] + acc2[i])) + (acc2[NR + i] + acc3[i]);
+        } else {
+          float s, e;
+          two_sum(hi[c], acc0[i], s, e);
+          hi[c] = s;
+          lo[c] = __fadd_rn(lo[c], e);
+          float r = __fadd_rn(rest[c], acc0[NR + i]);
+          r = __fadd_rn(r, acc0[2 * NR + i]);
+          r = __fadd_rn(r, acc0[3 * NR + i]);
+          r = __fadd_rn(r, acc1[i]);
+          r = __fadd_rn(r, acc1[NR + i]);
+          r = __fadd_rn(r, acc1[2 * NR + i]);
+          r = __fadd_rn(r, acc2[i]);
+          r = __fadd_rn(r, acc2[NR + i]);
+          rest[c] = __fadd_rn(r, acc3[i]);
+        }
       }
-      st[0] = hi;
-      st[NR * NT] = lo;
-      st[2 * NR * NT] = rest;
-      if constexpr (HAS_LO) st[3 * NR * NT] = __fadd_rn(st[3 * NR * NT], accl[i]);
+      st[0] = h4;
+      st[Q * NT] = l4;
+      st[2 * Q * NT] = r4;
+      if constexpr (HAS_LO) {
+        float4 c4 = st[3 * Q * NT];
+        float* cheap = &c4.x;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          cheap[c] = __fadd_rn(cheap[c], accl[4 * i4 + c]);
+        st[3 * Q * NT] = c4;
+      }
     }
   };
 
@@ -587,12 +622,10 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
     const float* a_s = Aw + slot * A_STAGE + (wq * 16 + g) * APITCH + 2 * tq;
     const unsigned b_s = smem_u32(Bs + slot * B_ELEMS);
 
-#pragma unroll
-    for (int ks = 0; ks < TK / 16; ++ks) {
-      if (t * TK + ks * 16 >= L_f) break;  // all padding: adds nothing
-      // the step's A fragments, split into the four slices: all written
-      // before its wgmmas start
-      uint32_t a[N_PARTS][4];
+    // step ks of the k-tile: its A fragments split into the four slices
+    // (and x_lo's), then its wgmmas (sd: 0 on a chunk's first step)
+    auto split_step = [&](int ks, uint32_t (&a)[N_PARTS][4],
+                          uint32_t (&al)[4]) {
       const float* p0 = a_s + ks * 16;
       const float* p1 = p0 + 8 * APITCH;
       const float2 v0 = *reinterpret_cast<const float2*>(p0);
@@ -603,7 +636,6 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
       split4(__fmul_rn(v1.x, inv1), __fmul_rn(v1.y, inv1), a, 1);
       split4(__fmul_rn(v2.x, inv0), __fmul_rn(v2.y, inv0), a, 2);
       split4(__fmul_rn(v3.x, inv1), __fmul_rn(v3.y, inv1), a, 3);
-      uint32_t al[4];
       if constexpr (HAS_LO) {
         const int d = t * TK + ks * 16 + 2 * tq;
         al[0] = xlo(xb0, ok0, d) | xlo(xb0, ok0, d + 1) << 16;
@@ -611,27 +643,45 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
         al[2] = xlo(xb0, ok0, d + 8) | xlo(xb0, ok0, d + 9) << 16;
         al[3] = xlo(xb1, ok1, d + 8) | xlo(xb1, ok1, d + 9) << 16;
       }
+    };
+    auto issue_step = [&](int ks, const uint32_t (&a)[N_PARTS][4],
+                          const uint32_t (&al)[4], int sd) {
+      const uint64_t desc = desc_sw128(b_s + ks * 32);
+      Mma<4 * BN>::run(acc0, a[0], desc, sd);
+      if constexpr (!kNoSmall) {
+        Mma<3 * BN>::run(acc1, a[1], desc, sd);
+        Mma<2 * BN>::run(acc2, a[2], desc, sd);
+        Mma<BN>::run(acc3, a[3], desc, sd);
+      }
+      if constexpr (HAS_LO) Mma<BN>::run(accl, al, desc, sd);
+    };
+    auto fence_acc = [&]() {
       reg_fence(acc0);
       reg_fence(acc1);
       reg_fence(acc2);
       reg_fence(acc3);
       if constexpr (HAS_LO) reg_fence(accl);
+    };
+    // the k-tile's steps that reach into [0, L_f)
+    const int n_s = min(TK / 16, (L_f - t * TK + 15) / 16);
+    // KS steps split, then their wgmmas issued and waited for: all of a
+    // batch's input registers are written before its wgmmas start (a
+    // build that split the next step under this one's wgmmas, into a
+    // second buffer, ran no faster)
+#pragma unroll
+    for (int k0 = 0; k0 < TK / 16; k0 += KS) {
+      if (k0 >= n_s) break;
+      uint32_t a[KS][N_PARTS][4], al[KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) split_step(k0 + ks, a[ks], al[ks]);
+      fence_acc();
       wg_fence();
-      const uint64_t desc = desc_sw128(b_s + ks * 32);
-      Mma<4 * BN>::run(acc0, a[0], desc, scale_d);
-      if constexpr (!kNoSmall) {
-        Mma<3 * BN>::run(acc1, a[1], desc, scale_d);
-        Mma<2 * BN>::run(acc2, a[2], desc, scale_d);
-        Mma<BN>::run(acc3, a[3], desc, scale_d);
-      }
-      if constexpr (HAS_LO) Mma<BN>::run(accl, al, desc, scale_d);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        issue_step(k0 + ks, a[ks], al[ks], ks > 0 ? 1 : scale_d);
       wg_commit();
       wg_wait0();
-      reg_fence(acc0);
-      reg_fence(acc1);
-      reg_fence(acc2);
-      reg_fence(acc3);
-      if constexpr (HAS_LO) reg_fence(accl);
+      fence_acc();
       scale_d = 1;
     }
     // end of a K0-deep chunk (or of the column tile's nonzero k-tiles)
@@ -650,6 +700,8 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
 
   // output combines of the reference kernel (pallas_ozaki.py:141-154);
   // accumulator layout: n8 block j holds columns 8j..8j+7, rows g and g+8
+  // (state i is float i % 4 of float4 i / 4)
+  const float* stf = reinterpret_cast<const float*>(state);
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
     const int j = i >> 2, e = i & 3;
@@ -657,19 +709,20 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
     const long long r = r0 + rloc;
     const int col = ct * BN + 8 * j + 2 * tq + (e & 1);
     if (r >= R || col >= Kcols) continue;
-    const float* st = state + i * NT + tid;
+    constexpr int QS = NR * NT;  // floats of one state
+    const float* st = stf + 4 * ((i >> 2) * NT + tid) + (i & 3);
     const float hi = st[0], s = row_sx[rloc];
-    const float small = __fadd_rn(st[NR * NT], st[2 * NR * NT]);
+    const float small = __fadd_rn(st[QS], st[2 * QS]);
     const long long o = r * Kcols + col;
     if constexpr (!EMIT_PAIR) {
       if constexpr (HAS_LO)
         y[o] = __fadd_rn(__fmul_rn(hi, s),
-                         __fadd_rn(__fmul_rn(small, s), st[3 * NR * NT]));
+                         __fadd_rn(__fmul_rn(small, s), st[3 * QS]));
       else
         y[o] = __fmul_rn(__fadd_rn(hi, small), s);
     } else {
       float sm = __fmul_rn(small, s);
-      if constexpr (HAS_LO) sm = __fadd_rn(sm, st[3 * NR * NT]);
+      if constexpr (HAS_LO) sm = __fadd_rn(sm, st[3 * QS]);
       float H, L;
       two_sum(__fmul_rn(hi, s), sm, H, L);
       y[o] = H;
