@@ -62,12 +62,18 @@
 //     stride allow, else 8- or 4-byte), rows padded to 72 floats so that
 //     the fragment reads are free of bank conflicts, behind a named
 //     barrier; each thread splits its fragment into the four bf16 slice
-//     fragments in registers, once for all 10 pairs.  All of a step's
-//     input registers are written before its wgmmas start (ptxas keeps
-//     them asynchronous); the other warpgroup's split runs under them.
+//     fragments in registers (float adds of magic constants, see split4),
+//     once for all 10 pairs.  Two k16 steps are split, then their eight
+//     wgmmas issued and waited for: all of a batch's input registers are
+//     written before its wgmmas start (ptxas keeps them asynchronous).
 //   * The 10 chunk accumulators (160 floats a thread) live in registers;
-//     hi, lo and rest (and cheap under HAS_LO) live in shared memory, one
-//     word per thread and element, touched once a chunk by the fold.
+//     hi, lo and rest (and cheap under HAS_LO) live in shared memory, a
+//     float4 per thread and four elements, touched once a chunk by the
+//     fold.
+//   * Where the time goes (tools/torch_ozaki_ablation.py, PERF.md): at
+//     the conv shape the wgmmas alone take about 55 % of the kernel's
+//     time; staging the windows and splitting them add most of the rest,
+//     and do not hide under the other warpgroup's wgmmas.
 //   * x_lo (HAS_LO, off the resampler's main paths) is read straight
 //     from global memory into its fragment, a bf16 at a time, and
 //     multiplied against slice 0 (m64n32k16) into its own chunk
@@ -125,14 +131,10 @@ constexpr bool kNoStage = R8B_ABLATE & 8;
 constexpr bool kNoSkip = R8B_ABLATE & 16;
 
 // k16 steps a thread splits before it issues their wgmmas and waits for
-// them (its A registers: 16 a step, 20 under HAS_LO, whose 255-register
-// budget takes one step)
-#ifndef R8B_OZ_KS
-#define R8B_OZ_KS 2
-#endif
+// them: two (one at a time was slower), one under HAS_LO, whose 255
+// registers hold no second step's A fragments
 template <bool HAS_LO>
-constexpr int kSteps = HAS_LO ? 1 : R8B_OZ_KS;
-static_assert((TK / 16) % R8B_OZ_KS == 0, "batches tile the k-tile");
+constexpr int kSteps = HAS_LO ? 1 : 2;
 
 // shared memory: the operator ring, the staged rows, the fold state
 // (hi, lo, rest and under HAS_LO cheap: [state][NR][NT] floats), the

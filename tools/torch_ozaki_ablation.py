@@ -17,11 +17,6 @@ parts of the work (their outputs are wrong; only their times are read):
   mma_only    no fold, no split, no staging: the wgmmas, the operator's
               bulk copies and the output
 
-and, with all of its work, a build that splits, issues and waits for one
-k16 step at a time (-DR8B_OZ_KS=1) in place of two:
-
-  one_step    a wait on every step's four wgmmas
-
 and times each with CUDA events (chip_smoke.cuda_ms) at the guarantee
 chain's two calls, on its own operators: the conv stage (C=1024, L_f=964,
 hop=256, Kcols=512, 174 blocks) and the frac stage (D=170, stride 147,
@@ -47,11 +42,9 @@ from chip_smoke import cuda_ms  # noqa: E402
 
 # the kernel's R8B_ABLATE bits
 FOLD, SPLIT, SMALL, STAGE, SKIP = 1, 2, 4, 8, 16
-VARIANTS = {name: [f"-DR8B_ABLATE={mask}"] for name, mask in (
-    ("base", 0), ("no_fold", FOLD), ("no_split", SPLIT),
-    ("only_big", SMALL), ("no_stage", STAGE), ("no_skip", SKIP),
-    ("mma_only", FOLD | SPLIT | STAGE))}
-VARIANTS["one_step"] = ["-DR8B_OZ_KS=1"]
+VARIANTS = {"base": 0, "no_fold": FOLD, "no_split": SPLIT,
+            "only_big": SMALL, "no_stage": STAGE, "no_skip": SKIP,
+            "mma_only": FOLD | SPLIT | STAGE}
 
 
 def main(argv=None) -> int:
@@ -74,9 +67,9 @@ def main(argv=None) -> int:
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=_cuda.BUILD_DIR))
     procs = {}
-    for name, defs in VARIANTS.items():
+    for name, mask in VARIANTS.items():
         procs[name] = subprocess.Popen(
-            [_cuda._nvcc(), *flags, *defs, "-o",
+            [_cuda._nvcc(), *flags, f"-DR8B_ABLATE={mask}", "-o",
              str(tmp / f"{name}.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, p in procs.items():
