@@ -605,9 +605,12 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
   const long long xb0 = row_base_lo[row0], xb1 = row_base_lo[row0 + 8];
   const bool ok0 = row_base[row0] >= 0, ok1 = row_base[row0 + 8] >= 0;
   const unsigned short* xlu = reinterpret_cast<const unsigned short*>(xl);
-  // one bf16 of x_lo as fragment bits (zero past L_f and R)
+  // one bf16 of x_lo as fragment bits (zero past L_f and R), loaded
+  // without a branch (a divergent load made ptxas serialize the wgmmas)
   auto xlo = [&](long long rowb, bool ok, int d) -> uint32_t {
-    return (ok && d < L_f) ? static_cast<uint32_t>(__ldg(xlu + rowb + d)) : 0u;
+    const bool in = ok && d < L_f;
+    const uint32_t v = __ldg(xlu + (in ? rowb + d : 0));
+    return in ? v : 0u;
   };
 
   int scale_d = 0;  // 0 on a chunk's first step: its accumulators start fresh
