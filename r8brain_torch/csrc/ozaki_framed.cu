@@ -88,12 +88,9 @@
 // steps chained into one accumulator); r8b_ozaki_mma_dot the one of
 // mma.sync.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <climits>
-#include <cstdint>
-#include <cstring>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -148,234 +145,6 @@ struct Smem {
   static constexpr size_t row_off = bar_off + 2 * ST * 8;
   static constexpr size_t bytes = row_off + BM * (2 * 8 + 2 * 4) + 1024;
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
-  s = __fadd_rn(a, b);
-  const float bb = __fsub_rn(s, a);
-  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
-}
-
-// asynchronous copies global -> shared of 4, 8 or 16 bytes, of which the
-// first src_bytes are read and the rest zeroed
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// wait for the phase of parity `parity` to complete; a phase that never
-// completes (a lost arrival) traps after ~2^34 cycles instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > (1LL << 34)) __trap();
-  }
-}
-// one TMA bulk copy global -> shared, completing on `bar`'s transaction count
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void named_bar_sync(unsigned id, unsigned count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accesses of r across the wgmma fences
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma descriptor of a K-major, 128-byte-swizzled bf16 tile: rows of 64
-// k-values (128 bytes), 8-row atoms 1024 bytes apart; a k16 step within
-// the row is a 32-byte advance of the start address
-__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |           // LBO (unused here)
-         (static_cast<uint64_t>(1024 >> 4) << 32) |   // SBO: 8 rows
-         (static_cast<uint64_t>(1) << 62);            // 128-byte swizzle
-}
-
-// d (64 x N, float32) (+)= A (64 x 16, bf16, registers) * B (16 x N, bf16,
-// shared memory); scale_d = 0 ignores d's old value
-template <int N>
-struct Mma;
-template <>
-struct Mma<32> {
-  __device__ __forceinline__ static void run(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
-  }
-};
-template <>
-struct Mma<64> {
-  __device__ __forceinline__ static void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
-  }
-};
-template <>
-struct Mma<96> {
-  __device__ __forceinline__ static void run(float (&d)[48],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47}, "
-        "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
-  }
-};
-template <>
-struct Mma<128> {
-  __device__ __forceinline__ static void run(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
-  }
-};
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
-  uint32_t u;
-  memcpy(&u, &h, 4);
-  return u;
-}
 
 // The four slices of a float pair already divided by the channel's scale,
 // as packed fragment registers a[p][k] (the lower column in the low half):
@@ -526,8 +295,8 @@ ozaki_framed_kernel(const float* __restrict__ xp, long long ldx,
         if (b >= 0 && (reinterpret_cast<uintptr_t>(xp + b + d0) & 7) == 0) {
           cp_async8(to, n > 0 ? xp + b + d : zsrc, 4 * n);
         } else {
-          cp_async4(to, n > 0 ? xp + b + d : zsrc, n > 0 ? 4 : 0);
-          cp_async4(to + 1, n > 1 ? xp + b + d + 1 : zsrc, n > 1 ? 4 : 0);
+          cp_async_elem(to, n > 0 ? xp + b + d : zsrc, n > 0);
+          cp_async_elem(to + 1, n > 1 ? xp + b + d + 1 : zsrc, n > 1);
         }
       }
     }

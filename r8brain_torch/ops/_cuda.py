@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface, ``_build/<name>-<hash>.so`` inside the package, keyed on
-a hash of the source and the flags, and loaded with ``ctypes``.  Nothing is
+a hash of the source, the shared headers ``csrc/*.cuh`` and the flags, and
+loaded with ``ctypes``.  Nothing is
 built when a module is imported: the first launch builds, or a caller
 builds every kernel at once with ``build`` (one ``nvcc`` per source, all
 started together).  A failed build raises; there is no fallback.
@@ -40,7 +41,9 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the kernels' shared headers (csrc/*.cuh) count as part of each source
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
