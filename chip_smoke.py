@@ -28,7 +28,8 @@ uniform float32 input:
   checked at -141 dB;
 * the float32 stage chain, ``fused=False``: 44.1 kHz -> 96 kHz with
   ``conv_engine`` ``"auto"`` (the banded operator on ``frac_whole``),
-  ``"toeplitz_sym"`` (the folded operators on ``sym_conv``), ``"pallas"``
+  ``"toeplitz_sym"`` (the folded operators on ``sym_conv``, the same
+  bf16 split on the tensor cores), ``"pallas"``
   (the B=64 mini-Toeplitz on ``frac_whole``) and ``"direct"`` (the
   superkernel on ``frac_whole``), each under ``"fast"`` and ``"high"``, and
   96 kHz -> 44.1 kHz with ``"toeplitz_sym"``, each checked at -141 dB
@@ -48,9 +49,10 @@ accumulation of bf16 slice products is exact), on the kernel's own wgmma
 path and on mma.sync; before the FFT engines it holds ``df_fft_conv`` in
 every mode and at every size class (one CTA, four-step) to its plain
 version; before the stage chains it holds ``sym_conv`` at every conv
-spec of the folded engine (float32 fast and high, float64, and the gain
-of ``"high"`` against its float64 function) and the scouting GEMM
-``dense_gemm`` to their plain versions.  Each path runs
+spec of the folded engine (float32 fast and high on the tensor cores,
+float64, the gain of ``"high"`` against its float64 function, and a
+packing of another tiling refused) and the scouting GEMM ``dense_gemm``
+to their plain versions.  Each path runs
 with the launch counts set to 0 just before it and read just after.
 Then it times each path, each kernel at the path's shapes, its plain
 version and the one PyTorch call that computes the same function.  Every phase prints one line; the line before
@@ -124,16 +126,18 @@ FFT_CASES = ([("frames", n, 0, 5, 3) for n in (512, 1024, 8192, 16384, 65536)]
              + [("framed", n, n // 4, 3, 5) for n in (4096, 8192)]
              + [("poly", n, n // 4, 3, 4) for n in (4096, 8192, 16384)])
 
-# sym_conv vs sym_conv_ref, in ulps of max |y|: the kernel and the
-# model's matmuls add each 32-term chunk in their own order
+# sym_conv vs sym_conv_ref, in ulps of max |y|: float32, the tensor cores
+# sum each chunk of exact slice products in their own order, truncating
+# (frac_whole's MODEL_REL_TOL); float64, the FMA kernel and the model's
+# matmuls add the terms in their own order
 SYM_ULPS = {"float32": 4, "float64": 16}
 # precision "high" moves sym_conv's output by about an ulp, inside
 # SYM_ULPS, so it is held by its gain: the drop, in dB, of the RMS error
 # against the float64 function of "high" (sym_ops_high) from the fast
-# output to the high one, on full-mantissa input.  The model gains 0.47 to
-# 0.54 dB at every spec (0.28 from the fold errors, 0.2 from the residual
-# rows); the kernel's gain must be within SYM_GAIN_TOL_DB of the model's,
-# so a kernel missing either part fails
+# output to the high one, on full-mantissa input.  The split model gains
+# 2.6 to 3.4 dB at every spec with the "high" executor's 16-term folds
+# (the fold errors give about half); the kernel's gain must be within
+# SYM_GAIN_TOL_DB of the model's, so a kernel missing either part fails
 SYM_GAIN_MIN_DB, SYM_GAIN_TOL_DB = 0.3, 0.1
 # sym_conv's specs: the first conv stage of each (src, dst, trans_band,
 # atten) (tests/test_toeplitz_sym.py's specs and 96k -> 44.1k at tb 5)
@@ -232,6 +236,14 @@ def bound(flops: float, nbytes: float, peak_flops: float,
     return max(t_op, t_by) * 1e3, "operations" if t_op >= t_by else "bytes"
 
 
+def best_form(simt, split):
+    """(ms, by, form): the smaller of a kernel's CUDA-core and split-form
+    bounds, each (ms, by)."""
+    if simt == split:  # both bound by the same bytes
+        return simt + ("either form",)
+    return min(simt + ("CUDA cores",), split + ("bf16 split",))
+
+
 def frac_bounds(R, nnz, nnz_lo, io_bytes, D, O, peaks):
     """The least time of a frac_whole call, the smaller of its two forms':
     float32 FMA on the CUDA cores (2 R nnz flop, plus the residual dot's,
@@ -249,10 +261,26 @@ def frac_bounds(R, nnz, nnz_lo, io_bytes, D, O, peaks):
     split = bound(2.0 * R * (6 * nnz + (nnz_lo or 0)),
                   io_bytes + 2.0 * D * O * (4 if lo else 3), peak_bf16,
                   peak_bytes)
-    best = min(simt + ("CUDA cores",), split + ("bf16 split",))
-    if simt == split:  # both bound by the same bytes
-        best = simt + ("either form",)
-    return best, simt, split
+    return best_form(simt, split), simt, split
+
+
+def sym_bounds(R, nnz, nnz_lo, io_bytes, op_elems, packed_elems, peaks):
+    """The least time of a sym_conv call (R frames, nnz nonzero entries of
+    the folded operators), the smaller of its two forms': float32 FMA on
+    the CUDA cores (2 R nnz flop, under "high" (nnz_lo not None) plus the
+    fold-error dots over the operators and the residual rows' nonzeros,
+    over the fp32 peak; the operators read in float32) and the split form
+    on the tensor cores (6 bf16 products a nonzero term, under "high" one
+    more for the fold errors and one for the residual rows, over the bf16
+    peak; the packed bf16 slices read).  Returns ((ms, by, form), the
+    CUDA-core (ms, by), the split (ms, by))."""
+    peak_f32, peak_bf16, peak_bytes = peaks
+    extra = 0 if nnz_lo is None else nnz + nnz_lo
+    simt = bound(2.0 * R * (nnz + extra), io_bytes + 4.0 * op_elems,
+                 peak_f32, peak_bytes)
+    split = bound(2.0 * R * (6 * nnz + extra), io_bytes + 2.0 * packed_elems,
+                  peak_bf16, peak_bytes)
+    return best_form(simt, split), simt, split
 
 
 def build_kernels() -> None:
@@ -1006,19 +1034,23 @@ def full_mantissa(g, shape, dtype, dev):
     return (u * 2 - 1).to(dtype)
 
 
-def sym_high_gain(label, xp, ops, L_fs, nb, hop, lo, rows):
-    """The gain of precision "high" on xp, kernel and model: the drop of
-    each one's RMS error against the float64 function of "high" from its
-    fast output to its high one, dB re full scale.  Checks that the model gains at least
-    SYM_GAIN_MIN_DB and the kernel within SYM_GAIN_TOL_DB of the model;
-    returns (kernel gain, model gain, kernel high dB)."""
+def sym_high_gain(label, xp, ex, L_fs, nb, hop, kc):
+    """The gain of precision "high" on xp, kernel and model, for the
+    "high" executor ``ex``: the drop of each one's RMS error against the
+    float64 function of "high" from its fast output (the operators packed
+    without the residual) to its high one (``ex.sym_parts``), dB re full
+    scale.  Checks that the model gains at least SYM_GAIN_MIN_DB and the
+    kernel within SYM_GAIN_TOL_DB of the model; returns (kernel gain,
+    model gain, kernel high dB)."""
     from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
-                                                  sym_ops_high)
+                                                  sym_ops_high, sym_parts)
 
+    ops, lo, rows = ex.sym_ops, ex.sym_lo, ex.sym_lo_rows
     want = sym_conv_ref(xp.double(), sym_ops_high(ops, lo, rows), L_fs, nb,
                         hop)
-    db = {fn: (rms_db(fn(xp, ops, L_fs, nb, hop) - want),
-               rms_db(fn(xp, ops, L_fs, nb, hop, lo, rows) - want))
+    fast = sym_parts(ops)
+    db = {fn: (rms_db(fn(xp, fast, L_fs, nb, hop, kc) - want),
+               rms_db(fn(xp, ex.sym_parts, L_fs, nb, hop, kc) - want))
           for fn in (sym_conv, sym_conv_ref)}
     gk = db[sym_conv][0] - db[sym_conv][1]
     gp = db[sym_conv_ref][0] - db[sym_conv_ref][1]
@@ -1034,11 +1066,13 @@ def check_sym_cases(dev) -> None:
     """sym_conv at every conv spec of the folded engine, float32 fast and
     high and float64, C = 13 and 37 frames (no multiple of any tile), on a
     row-strided full-mantissa input, against sym_conv_ref on the card;
-    under "high" also its gain (sym_high_gain)."""
+    under "high" also its gain (sym_high_gain); and a packing of another
+    tiling refused."""
     import torch
 
     from r8brain_torch.models.plan import make_plan
-    from r8brain_torch.ops.pallas_symconv import sym_conv, sym_conv_ref
+    from r8brain_torch.ops.pallas_symconv import (SYM_KC, sym_conv,
+                                                  sym_conv_ref)
     from r8brain_torch.ops.stages import ConvExec
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1051,8 +1085,7 @@ def check_sym_cases(dev) -> None:
             C, nb, hop = 13, 37, 256 * st.down
             L = (nb - 1) * hop + max(ex.sym_Lf)
             xp = full_mantissa(g, (C, L + 3), dt, dev)[:, 3:]
-            args = (xp, ex.sym_ops, ex.sym_Lf, nb, hop, ex.sym_lo,
-                    ex.sym_lo_rows)
+            args = (xp, ex.sym_parts, ex.sym_Lf, nb, hop, SYM_KC[prec])
             y, r = sym_conv(*args), sym_conv_ref(*args)
             torch.cuda.synchronize()
             u = ulps_of_max(y, r)
@@ -1061,13 +1094,23 @@ def check_sym_cases(dev) -> None:
                   f"{u:.2f} ulps of max |y| from plain")
             worst[(key, prec)] = max(worst.get((key, prec), 0.0), u)
             if ex.sym_lo is not None:
-                gk, gp, _db = sym_high_gain(str(cfg), *args)
+                gk, gp, _db = sym_high_gain(str(cfg), xp, ex, *args[2:])
                 gains.append(f"{gk:.3f}/{gp:.3f}")
+            if dt == torch.float32:
+                other = ex.sym_parts[:, :2].contiguous()
+                try:
+                    sym_conv(xp, other, *args[2:])
+                except ValueError:
+                    pass
+                else:
+                    raise SmokeFailure("sym_conv took a packing of another "
+                                       "tiling")
     print(f"sym_conv: {len(SYM_CFGS)} conv specs x (f32 fast, f32 high, "
           f"f64), C=13, 37 frames, row-strided full-mantissa input, vs "
           f"sym_conv_ref: max ulps of max |y| {worst} (tol {SYM_ULPS}); "
           f"'high' gain kernel/model dB {', '.join(gains)} (model >= "
-          f"{SYM_GAIN_MIN_DB}, kernel within {SYM_GAIN_TOL_DB})")
+          f"{SYM_GAIN_MIN_DB}, kernel within {SYM_GAIN_TOL_DB}); a packing "
+          f"of another tiling refused")
 
 
 def check_dense_cases(dev) -> None:
@@ -1115,8 +1158,8 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
     stage's input): the kernel against its plain version at the path's
     shape (frac_whole: its float32 model and its float64 product), timed
     beside the plain version and F.conv1d; the bound counts the operator's
-    nonzero entries (the dense count printed beside; frac_whole's the
-    smaller of its CUDA-core and split forms', frac_bounds)."""
+    nonzero entries (the dense count printed beside), the smaller of its
+    CUDA-core and split forms' (frac_bounds, sym_bounds)."""
     import torch
 
     from r8brain_torch.ops.pallas_frac import (frac_whole, frac_whole_ref,
@@ -1128,8 +1171,9 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
     xp, C = args[0], args[0].shape[0]
     if kernel == "sym_conv":
         fn, ref = sym_conv, sym_conv_ref
-        _xp, ops, L_fs, nb, hop = args[:5]
-        lo, rows = kw.get("lo"), kw.get("lo_rows")
+        _xp, parts, L_fs, nb, hop = args
+        kc = kw["kc"]
+        ops, lo, rows = ex.sym_ops, ex.sym_lo, ex.sym_lo_rows
         y, r = fn(*args, **kw), ref(*args, **kw)
         torch.cuda.synchronize()
         err = ulps_of_max(y, r)
@@ -1142,16 +1186,17 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
             g = torch.Generator(device=xp.device).manual_seed(SEED)
             gk, gp, db = sym_high_gain(
                 name, full_mantissa(g, tuple(xp.shape), xp.dtype, xp.device),
-                ops, L_fs, nb, hop, lo, rows)
+                ex, L_fs, nb, hop, kc)
             tol += (f"; 'high' gain on full-mantissa input {gk:.3f} dB "
                     f"(model {gp:.3f}, tol {SYM_GAIN_TOL_DB}), high "
                     f"{db:.2f} dB re full scale vs its f64 function")
         Hps = [(L + 1) // 2 for L in L_fs]
-        nnz = sum(int((ops[j, :, :hp] != 0).sum().item())
-                  for j, hp in enumerate(Hps))
+        nnz_main = sum(int((ops[j, :, :hp] != 0).sum().item())
+                       for j, hp in enumerate(Hps))
+        nnz_lo = None if lo is None else int((lo != 0).sum().item())
+        nnz = nnz_main + (0 if lo is None else nnz_main + nnz_lo)
         dense = sum(2 * hp * ops.shape[3] for hp in Hps)
         if lo is not None:  # the fold-error dots and the residual rows
-            nnz += nnz + int((lo != 0).sum().item())
             dense += dense + sum(n for ph in rows for _r0, n in ph) * \
                 ops.shape[3]
         per_frame = 2.0 * C * nb
@@ -1197,15 +1242,17 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
     lib_ms = cuda_ms(lib, reps=3, warmup=1)
     flops, dflops = per_frame * nnz, per_frame * dense
     nbytes = 4.0 * C * span + op_bytes + 4.0 * C * n_out
-    bound_ms, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
     dense_ms = bound(dflops, nbytes, peak_f32, peak_bytes)[0]
-    form = "fp32 FMA"
-    if kernel == "frac_whole":
-        io = 4.0 * C * span + 4.0 * C * n_out
-        (bound_ms, bound_by, form), simt, split = frac_bounds(
-            C * n_win, nnz_main, nnz_lo, io, D, O, peaks)
-        form += (f"; CUDA cores {simt[0]:.3f} ms by {simt[1]}, bf16 split "
-                 f"{split[0]:.3f} ms by {split[1]}")
+    io = 4.0 * C * span + 4.0 * C * n_out
+    if kernel == "sym_conv":
+        best, simt, split = sym_bounds(C * nb, nnz_main, nnz_lo, io,
+                                       op_bytes / 4, parts.numel(), peaks)
+    else:
+        best, simt, split = frac_bounds(C * n_win, nnz_main, nnz_lo, io, D,
+                                        O, peaks)
+    bound_ms, bound_by, form = best
+    form += (f"; CUDA cores {simt[0]:.3f} ms by {simt[1]}, bf16 split "
+             f"{split[0]:.3f} ms by {split[1]}")
     print(f"timing {card}: {name} ({label}, C={C}) kernel {k_ms:.3f} ms "
           f"({dflops / k_ms * 1e-9:.1f} TFLOP/s of dense work), bound "
           f"{bound_ms:.3f} ms by {bound_by} ({form}; {flops:.3e} flop over "

@@ -10,8 +10,7 @@
 //
 // Under precision "high" each of oe, oo also gets the exact two_sum error
 // of its fold add dotted with the same operator, and the dot of z (w) with
-// the row-truncated f64 -> f32 operator residual Te_lo (To_lo) over its
-// rows [r0, r0 + n).
+// the row-truncated f64 -> f32 operator residual Te_lo (To_lo).
 //
 // Replaces the reference package's TPU kernel
 // r8brain_tpu/ops/pallas_symconv.py::sym_conv_stage_pallas.  That kernel
@@ -19,110 +18,841 @@
 // reverse) and a separate XLA pass to flip and interleave its [e+o | e-o]
 // output blocks.  Here the reversed window is read by index from the same
 // staged span, and the mirrored half is written straight to its final
-// interleaved place: the fold halves the FMAs of the unfolded operator
-// and adds no pass.
+// interleaved place: the fold halves the products of the unfolded
+// operator and adds no pass.
 //
-// What bounds it: operations.  44.1k -> 96k at 1024 channels is 8.7e10
-// flop against ~0.55 GB, ~160 flop per byte, far above the fp32 CUDA-core
-// ridge (~20 flop/byte).  TF32 cannot hold the -141 dB class, so this is
-// an FMA kernel on the CUDA cores.
+// float32: an exact three-slice bfloat16 split on the tensor cores (wgmma),
+// the arithmetic of frac_whole.cu (its plain model is r8brain_torch/ops/
+// pallas_symconv.py::sym_conv_ref).
+//
+// What bounds it: operations.  44.1k -> 96k at 1024 channels is 7.6e10
+// flop of the function over the folded operators' nonzeros against ~0.55
+// GB.  TF32 cannot hold the -141 dB class; float32 FMA on the CUDA cores is
+// bound at 1.13 ms (67 TFLOP/s).  The split form runs 6 bf16 products a
+// term (8 under "high": the fold errors and the residual rows) at 989
+// TFLOP/s: about 0.46 ms (0.61).
+//
+// Arithmetic:
+//   * z, w formed in float32 (and under "high" their two_sum errors), each
+//     split into three bf16 slices z = z0 + z1 + z2 (exact in bf16's normal
+//     range); the operators come split the same way, once, by the executor
+//     (sym_parts: s0, s1, s2, and under "high" bf16 of the residual rows at
+//     their offsets).  Every slice product is exact in float32.
+//   * Kept pairs: p+q <= 2; under "high" also bf16(z_err)*s0 and z0*s3.
+//   * The big pair z0*s0 sums into a partial that each fold starts fresh
+//     (wgmma scale-d = 0) over FOLD = 16 or 32 terms and is folded into
+//     (hi, lo) with two_sum on the CUDA cores; the other products
+//     accumulate straight into lo.  The halves combine as
+//         (s, e) = two_sum(hi_e, +-hi_o),  y = s + (e + (lo_e +- lo_o)),
+//     so each output rounds once.  Plain __f*_rn arithmetic (no
+//     --use_fast_math): nothing is contracted or reassociated.
 //
 // Design:
-//   * One block = one channel x BM = 32 consecutive frames, all phases.
-//     It stages the span xp[c, b0*hop : (b0+nf-1)*hop + max L_f] once into
-//     shared memory with cp.async; every phase's forward and reversed
-//     windows are read from it (the phases share one frame origin).
-//   * Per phase, the operators stream through shared memory in BK = 16-row
-//     slabs (two stages, 16-byte cp.async; Hp reaches 899 rows, 920 KB for
-//     Te and To together at 96k -> 44.1k, so they cannot stay resident).
-//     Each slab's folded rows z, w (and the fold errors under "high") are
-//     built once into shared memory from the span, then each thread runs
-//     TM x TN = 4 x 4 outputs of each of oe and oo.
-//   * Accuracy: float32 partials of FOLD = 32 terms are folded into (hi,
-//     lo) with two_sum, as in frac_whole (a single running f32 sum over
-//     ~900 terms loses ~12 dB).  The "high" terms (~2^-24 of the main
-//     ones) run in one plain f32 sum.  The two halves combine with one
-//     more two_sum, so each output rounds once:
-//         (s, e) = two_sum(hi_e, +-hi_o)
-//         y = s + (e + ((lo_e +- lo_o) [+ (rr_e +- rr_o)]))
-//     float64 accumulates without folds.  Built without --use_fast_math.
-//   The plain PyTorch model of this chunking and fold order is
-//   r8brain_torch/ops/pallas_symconv.py::sym_conv_ref.
+//   * A block is two warpgroups; each owns one tile of 64 consecutive
+//     frames of one channel (the rows of its m64 MMAs) and computes, for
+//     every phase and every 32-column tile of the half, both z*Te and w*To
+//     (m64n32k16), so the mirrored outputs y[t'] and y[B-1-t'] come from
+//     one thread's registers: no exchange between warpgroups.  Six
+//     fragments of 16 floats (partial, hi, lo of each operator) a thread.
+//     (128 columns a warpgroup would need two operators' 48-64 KB stages
+//     per k-tile, which with the windows does not fit 227 KB; one operator
+//     a warpgroup would need its partner's results in the epilogue.
+//     Stacking an operator's slices along N, z0 x [s0|s1|s2] as one n96
+//     wgmma, needs their sums in one accumulator of 48-64 floats an
+//     operator: 255 registers, spills and serialized wgmmas (C7511), and
+//     7 % slower on the H100.)
+//   * The span a tile's windows cover, xp[c, b0*hop : b0*hop + 63*hop +
+//     max L_f], is staged once into shared memory with cp.async and serves
+//     every phase, column tile, forward and reversed window.  Frames sit
+//     hop = 256*down floats apart, a multiple of 32 banks, so the span is
+//     skewed: SK floats of padding after every 256 samples (SK*down = 8
+//     mod 32 where down allows), which puts the 8 rows of a fragment read
+//     on different banks.  A k16 step never straddles a 256-sample
+//     boundary, so the skew is one add a step; the reversed window's float
+//     pairs are read as one 8-byte load and swapped where L_f is even, as
+//     two 4-byte loads where it is odd.
+//   * The operators are packed on the host, once (sym_parts): per (phase,
+//     column tile, 64-row k-tile) one contiguous block [Te: P slices | To:
+//     P slices], each a K-major [32, 64] bf16 tile, 128-byte swizzled.
+//     One TMA bulk copy moves a block into an mbarrier ring shared by both
+//     warpgroups (3 stages, 2 under "high"); wgmma reads B from it through
+//     128B swizzle descriptors.  The warpgroup that frees a slot second
+//     refills it, so neither waits for the other (thread 0 waiting for
+//     both was 2-4 % slower).
+//   * A fold is: read and fold the windows, split z and w (and their
+//     errors) for all its k16 steps, fence, its MMAs, commit, wait,
+//     two_sum.  All of a fold's input registers are written before its
+//     MMAs start (ptxas serializes wgmmas whose register inputs change in
+//     flight).  One warpgroup's CUDA-core work runs while the other's
+//     MMAs do.
+//   * One phase a pass, written with stride up: all phases at once would
+//     multiply the accumulators (up to 8 phases).
+//
+// float64: an FMA kernel on the CUDA cores (the port's f64 path), one
+// block per channel x 32 frames, the operators streamed in 16-row slabs.
 
-#include <cuda_runtime.h>
 #include <climits>
+
+#include "hopper.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int MAXP = 8;   // phases a stage may have
-constexpr int BM = 32;    // frames (of one channel) a block
 constexpr int BH = 128;   // columns of each half, B/2
+
+struct Phases {
+  int Lf[MAXP];
+};
+
+// ---------------------------------------------------------------------------
+// float32: the split form on the tensor cores
+
+namespace split {
+
+constexpr int TK = 64;           // operator rows a k-tile
+constexpr int TN = 32;           // columns a tile, of each operator
+constexpr int N_TILES = BH / TN;
+constexpr int NF = 64;           // frames a warpgroup (the MMAs' rows)
+constexpr int NR = TN / 2;       // accumulator floats a thread a fragment
+constexpr int NT = 256;          // two warpgroups
+constexpr int SLICE = TN * TK;   // bf16 elements of one slice's tile
+
+// Ablation, for tools/torch_sym_ablation.py only: a build with
+// -DR8B_ABLATE=mask drops parts of the work (its output is then wrong) so
+// that the rest can be timed.  Bits: 1 the two_sum fold (one add
+// instead), 2 the split (z1 = z2 = z0), 4 the small-pair (and "high")
+// MMAs, 8 the span staging, 16 the output stores, 32 the reversed window
+// (z = w = a), 64 a split by truncation (z0 = z with its low 16 bits
+// cleared: integer ops in place of conversions; exact, but not the
+// model's slices).
+#ifndef R8B_ABLATE
+#define R8B_ABLATE 0
+#endif
+constexpr bool kNoFold = R8B_ABLATE & 1;
+constexpr bool kNoSplit = R8B_ABLATE & 2;
+constexpr bool kNoSmall = R8B_ABLATE & 4;
+constexpr bool kNoStage = R8B_ABLATE & 8;
+constexpr bool kNoStore = R8B_ABLATE & 16;
+constexpr bool kNoSym = R8B_ABLATE & 32;
+constexpr bool kTrunc = R8B_ABLATE & 64;  // a truncating split (timing)
+
+// the three bf16 slices of a float pair, as packed fragment registers (the
+// lower column in the low half), each difference exact
+__device__ __forceinline__ void split3(float2 v, uint32_t& a0, uint32_t& a1,
+                                       uint32_t& a2) {
+  if constexpr (kTrunc) {
+    const uint32_t x = __float_as_uint(v.x), y = __float_as_uint(v.y);
+    const float rx = __fsub_rn(v.x, __uint_as_float(x & 0xffff0000u));
+    const float ry = __fsub_rn(v.y, __uint_as_float(y & 0xffff0000u));
+    const uint32_t ux = __float_as_uint(rx), uy = __float_as_uint(ry);
+    const float sx = __fsub_rn(rx, __uint_as_float(ux & 0xffff0000u));
+    const float sy = __fsub_rn(ry, __uint_as_float(uy & 0xffff0000u));
+    a0 = __byte_perm(x, y, 0x7632);
+    a1 = __byte_perm(ux, uy, 0x7632);
+    a2 = __byte_perm(__float_as_uint(sx), __float_as_uint(sy), 0x7632);
+    return;
+  }
+  const __nv_bfloat162 h0 = __float22bfloat162_rn(v);
+  if constexpr (kNoSplit) {
+    a0 = a1 = a2 = bits(h0);
+    return;
+  }
+  const float2 f0 = __bfloat1622float2(h0);
+  const float2 r = make_float2(__fsub_rn(v.x, f0.x), __fsub_rn(v.y, f0.y));
+  const __nv_bfloat162 h1 = __float22bfloat162_rn(r);
+  const float2 f1 = __bfloat1622float2(h1);
+  const __nv_bfloat162 h2 = __float22bfloat162_rn(
+      make_float2(__fsub_rn(r.x, f1.x), __fsub_rn(r.y, f1.y)));
+  a0 = bits(h0);
+  a1 = bits(h1);
+  a2 = bits(h2);
+}
+
+// span index of sample p of a tile (SK floats of skew after every 256)
+__device__ __forceinline__ int skewed(int p, int sk) { return p + sk * (p >> 8); }
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.0f;
+}
+
+template <int P, int FOLD>
+__global__ void __launch_bounds__(NT, 1)
+sym_split_kernel(const float* __restrict__ xp, long long ldx,
+                 const bf16* __restrict__ parts, int Kt, float* __restrict__ y,
+                 long long n_tiles_all, int nb, int hop, int up, int n_tiles,
+                 int nf_max, int span_f, int sk, int vec, int ST, int Lf_max,
+                 Phases ph) {
+  constexpr int KS = FOLD / 16;          // k16 steps a fold
+  constexpr int UNIT = 2 * P * SLICE;    // bf16 elements a ring stage
+  constexpr unsigned UNIT_BYTES = UNIT * 2;
+  static_assert(TK % FOLD == 0 && FOLD % 16 == 0, "folds tile the k-tile");
+
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle atoms need 1024-byte alignment
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* Bs = reinterpret_cast<bf16*>(base);                          // [ST][UNIT]
+  float* spans = reinterpret_cast<float*>(base + size_t(ST) * UNIT_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(spans + 2 * span_f);
+  int* freed = reinterpret_cast<int*>(full + ST);  // warpgroups done, a slot
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, tw = tid & 127;
+  const int wq = tw >> 5, lane = tw & 31, g = lane >> 2, tq = lane & 3;
+
+  // this warpgroup's tile: channel c, frames b0 .. b0 + nf - 1
+  const long long tile = 2LL * blockIdx.x + wg;
+  long long c = 0;
+  int b0 = 0, nf = 0;
+  if (tile < n_tiles_all) {
+    c = tile / n_tiles;
+    b0 = static_cast<int>(tile % n_tiles) * nf_max;
+    nf = min(nf_max, nb - b0);
+  }
+  float* span = spans + wg * span_f;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      freed[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the operator blocks, one bulk copy a (phase, column tile, k-tile), in
+  // the consumers' order: the first ST by thread 0 now, each later one by
+  // the warpgroup that frees its slot second, so that neither warpgroup
+  // waits for the other
+  auto kt_of = [&](int j) { return ((ph.Lf[j] + 1) / 2 + TK - 1) / TK; };
+  auto load_unit = [&](int v, int slot) {
+    int j = 0;
+    while (v >= N_TILES * kt_of(j)) v -= N_TILES * kt_of(j++);
+    const int kt = kt_of(j);
+    mbar_expect_tx(full + slot, UNIT_BYTES);
+    bulk_g2s(Bs + slot * UNIT,
+             parts + ((static_cast<long long>(j) * N_TILES + v / kt) * Kt +
+                      v % kt) * UNIT,
+             UNIT_BYTES, full + slot);
+  };
+  int n_units = 0;
+  for (int j = 0; j < up; ++j) n_units += N_TILES * kt_of(j);
+  if (tid == 0) {
+    for (int u = 0; u < ST && u < n_units; ++u) load_unit(u, u);
+  }
+
+  // the span, once, skewed; zero past its end
+  if (nf > 0 && !kNoStage) {
+    const float* src = xp + c * ldx + static_cast<long long>(b0) * hop;
+    const int len = (nf - 1) * hop + Lf_max;
+    if (vec) {
+      for (int e = tw; e < (len + 3) / 4; e += 128) {
+        const int p = 4 * e;
+        cp_async16(span + skewed(p, sk), src + p, 4 * min(4, len - p));
+      }
+    } else {
+      for (int p = tw; p < len; p += 128)
+        cp_async_elem(span + skewed(p, sk), src + p, true);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  named_bar_sync(1 + wg, 128);
+
+  // this thread's two fragment rows (rows past the tile read frame 0:
+  // finite, never written)
+  const int row0 = wq * 16 + g, row1 = row0 + 8;
+  const int rstride = hop + sk * (hop >> 8);
+  const float* s0p = span + (row0 < nf ? row0 : 0) * rstride;
+  const float* s1p = span + (row1 < nf ? row1 : 0) * rstride;
+  const long long out_row = static_cast<long long>(nb) * 2 * BH * up;
+
+  // Accumulators of each operator: the big pair's partial of the fold in
+  // flight (tensor cores), its folded sum hi (CUDA cores), and lo, into
+  // which the tensor cores add the small pairs and the fold its errors
+  float acc_e[NR], acc_o[NR], hi_e[NR], hi_o[NR], lo_e[NR], lo_o[NR];
+  int u = 0;  // ring stage counter
+  for (int j = 0; j < up; ++j) {
+    const int Lf = ph.Lf[j];
+    const int Hp = (Lf + 1) / 2;
+    const int ktj = kt_of(j);
+    for (int n = 0; n < N_TILES; ++n) {
+      zero(hi_e);
+      zero(hi_o);
+      zero(lo_e);
+      zero(lo_o);
+      for (int t = 0; t < ktj; ++t) {
+        const int slot = u % ST;
+        mbar_wait(full + slot, (u / ST) & 1);
+        const unsigned b_s = smem_u32(Bs + slot * UNIT);
+#pragma unroll
+        for (int f = 0; f < TK / FOLD; ++f) {
+          const int lf = t * TK + f * FOLD;
+          if (lf >= Hp) break;  // all padding: adds nothing
+          // the fold's A fragments: z and w split into three bf16 sets
+          // (and their errors), all written before its MMAs start
+          uint32_t az[KS][3][4], aw[KS][3][4], ez[KS][4], ew[KS][4];
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const int l0 = lf + ks * 16 + 2 * tq;  // columns l0, l0+1 (+8)
+            float2 a[4], r[4];
+            if (lf + ks * 16 + 16 <= Hp) {
+              const int sf = sk * ((lf + ks * 16) >> 8);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float* sp = (q & 1) ? s1p : s0p;
+                const int l = l0 + 8 * (q >> 1);
+                a[q] = *reinterpret_cast<const float2*>(sp + l + sf);
+                if constexpr (kNoSym) {
+                  r[q] = make_float2(0.0f, 0.0f);
+                } else if ((Lf & 1) == 0) {
+                  // (r[l+1], r[l]) at q-1, q = Lf-1-l: one 8-byte load
+                  const int qq = Lf - 2 - l;
+                  const float2 v =
+                      *reinterpret_cast<const float2*>(sp + skewed(qq, sk));
+                  r[q] = make_float2(v.y, v.x);
+                } else {
+                  const int qq = Lf - 1 - l;
+                  r[q] = make_float2(sp[skewed(qq, sk)],
+                                     sp[skewed(qq - 1, sk)]);
+                }
+              }
+            } else {
+              // the step that crosses Hp: rows past it are zero
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float* sp = (q & 1) ? s1p : s0p;
+                const int l = l0 + 8 * (q >> 1);
+                float v[2], w[2];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int lc = min(l + h, Hp - 1);
+                  const float av = sp[skewed(lc, sk)];
+                  const float rv = kNoSym ? 0.0f : sp[skewed(Lf - 1 - lc, sk)];
+                  v[h] = l + h < Hp ? av : 0.0f;
+                  w[h] = l + h < Hp ? rv : 0.0f;
+                }
+                a[q] = make_float2(v[0], v[1]);
+                r[q] = make_float2(w[0], w[1]);
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float2 zv = make_float2(__fadd_rn(a[q].x, r[q].x),
+                                            __fadd_rn(a[q].y, r[q].y));
+              const float2 wv = make_float2(__fsub_rn(a[q].x, r[q].x),
+                                            __fsub_rn(a[q].y, r[q].y));
+              split3(zv, az[ks][0][q], az[ks][1][q], az[ks][2][q]);
+              split3(wv, aw[ks][0][q], aw[ks][1][q], aw[ks][2][q]);
+              if constexpr (P == 4) {
+                float s, ex, ey, fx, fy;
+                two_sum(a[q].x, r[q].x, s, ex);
+                two_sum(a[q].y, r[q].y, s, ey);
+                two_sum(a[q].x, -r[q].x, s, fx);
+                two_sum(a[q].y, -r[q].y, s, fy);
+                ez[ks][q] = bits(__float22bfloat162_rn(make_float2(ex, ey)));
+                ew[ks][q] = bits(__float22bfloat162_rn(make_float2(fx, fy)));
+              }
+            }
+          }
+          reg_fence(acc_e);
+          reg_fence(acc_o);
+          reg_fence(lo_e);
+          reg_fence(lo_o);
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const unsigned kb = b_s + (f * KS + ks) * 32;
+            const uint64_t e0 = desc_sw128(kb);
+            const uint64_t o0 = desc_sw128(kb + P * SLICE * 2);
+            Mma<TN>::run(acc_e, az[ks][0], e0, ks);  // fresh on the first
+            Mma<TN>::run(acc_o, aw[ks][0], o0, ks);
+            if constexpr (!kNoSmall) {
+              const uint64_t e1 = desc_sw128(kb + SLICE * 2);
+              const uint64_t e2 = desc_sw128(kb + 2 * SLICE * 2);
+              const uint64_t o1 = desc_sw128(kb + (P + 1) * SLICE * 2);
+              const uint64_t o2 = desc_sw128(kb + (P + 2) * SLICE * 2);
+              Mma<TN>::run(lo_e, az[ks][0], e1, 1);
+              Mma<TN>::run(lo_o, aw[ks][0], o1, 1);
+              Mma<TN>::run(lo_e, az[ks][1], e0, 1);
+              Mma<TN>::run(lo_o, aw[ks][1], o0, 1);
+              Mma<TN>::run(lo_e, az[ks][0], e2, 1);
+              Mma<TN>::run(lo_o, aw[ks][0], o2, 1);
+              Mma<TN>::run(lo_e, az[ks][1], e1, 1);
+              Mma<TN>::run(lo_o, aw[ks][1], o1, 1);
+              Mma<TN>::run(lo_e, az[ks][2], e0, 1);
+              Mma<TN>::run(lo_o, aw[ks][2], o0, 1);
+              if constexpr (P == 4) {
+                Mma<TN>::run(lo_e, ez[ks], e0, 1);
+                Mma<TN>::run(lo_o, ew[ks], o0, 1);
+                Mma<TN>::run(lo_e, az[ks][0],
+                             desc_sw128(kb + 3 * SLICE * 2), 1);
+                Mma<TN>::run(lo_o, aw[ks][0],
+                             desc_sw128(kb + (P + 3) * SLICE * 2), 1);
+              }
+            }
+          }
+          wg_commit();
+          wg_wait0();
+          reg_fence(acc_e);
+          reg_fence(acc_o);
+          reg_fence(lo_e);
+          reg_fence(lo_o);
+#pragma unroll
+          for (int i = 0; i < NR; ++i) {
+            if constexpr (kNoFold) {
+              hi_e[i] = __fadd_rn(hi_e[i], acc_e[i]);
+              hi_o[i] = __fadd_rn(hi_o[i], acc_o[i]);
+            } else {
+              float s, e;
+              two_sum(hi_e[i], acc_e[i], s, e);
+              hi_e[i] = s;
+              lo_e[i] = __fadd_rn(lo_e[i], e);
+              two_sum(hi_o[i], acc_o[i], s, e);
+              hi_o[i] = s;
+              lo_o[i] = __fadd_rn(lo_o[i], e);
+            }
+          }
+        }
+        // this warpgroup's wgmmas on the slot have completed; the second
+        // warpgroup to get here refills it
+        named_bar_sync(1 + wg, 128);
+        if (tw == 0) {
+          __threadfence_block();
+          if (atomicAdd(freed + slot, 1) == 1) {
+            freed[slot] = 0;
+            __threadfence_block();
+            if (u + ST < n_units) {
+              asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+              load_unit(u + ST, slot);
+            }
+          }
+        }
+        ++u;
+      }
+
+      // both halves straight to their interleaved places: fragment jj
+      // holds columns 8jj..8jj+7 of the tile, rows g and g+8 of the warp's
+      // 16
+#pragma unroll
+      for (int jj = 0; jj < NR / 4; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jj + e;
+          const int fr = (e >> 1) ? row1 : row0;
+          const int tcol = n * TN + 8 * jj + 2 * tq + (e & 1);
+          float s, er;
+          two_sum(hi_e[i], hi_o[i], s, er);
+          const float yp = __fadd_rn(s, __fadd_rn(er, __fadd_rn(lo_e[i], lo_o[i])));
+          two_sum(hi_e[i], -hi_o[i], s, er);
+          const float ym = __fadd_rn(s, __fadd_rn(er, __fsub_rn(lo_e[i], lo_o[i])));
+          bool store = fr < nf;
+          if constexpr (kNoStore)  // keep the values live, store nothing
+            store = store && __float_as_uint(yp) == 0x7f800001u &&
+                    __float_as_uint(ym) == 0x7f800001u;
+          if (store) {
+            float* yb = y + c * out_row +
+                        static_cast<long long>(b0 + fr) * 2 * BH * up + j;
+            yb[static_cast<long long>(tcol) * up] = yp;
+            yb[static_cast<long long>(2 * BH - 1 - tcol) * up] = ym;
+          }
+        }
+      }
+    }
+  }
+}
+
+// floats of a tile's skewed span of nf frames (its copies end on a
+// 16-byte boundary)
+inline int span_floats(int nf, int hop, int Lf_max, int sk) {
+  const int len = (nf - 1) * hop + Lf_max + 3;
+  return (len + sk * (len >> 8) + 3) / 4 * 4;
+}
+
+template <int P, int FOLD>
+cudaError_t launch_split(cudaStream_t s, const float* xp, long long ldx,
+                         const bf16* parts, int Kt, float* y, int C, int nb,
+                         int hop, int up, int Lf_max, const Phases& ph) {
+  // skew: SK * down = 8 (mod 32) puts a fragment's 8 rows on distinct
+  // banks (down = hop / 256; a multiple of 4 keeps SK = 8, with conflicts)
+  const int down = hop / 256;
+  const int sk = (down & 3) == 2 ? 4 : 8;
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&max_smem,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  // the most frames a tile, then the deepest ring, that fit
+  const size_t unit = size_t(2) * P * SLICE * 2;
+  int nf_max = 0, ST = 0, span_f = 0;
+  size_t smem = 0;
+  for (int nf = NF; nf >= 1 && nf_max == 0; nf /= 2) {
+    for (int st = 3; st >= 2; --st) {
+      const int sf = span_floats(nf, hop, Lf_max, sk);
+      const size_t b = st * unit + size_t(2) * sf * 4 + 2 * st * 8 + 1024;
+      if (b <= static_cast<size_t>(max_smem)) {
+        nf_max = nf;
+        ST = st;
+        span_f = sf;
+        smem = b;
+        break;
+      }
+    }
+  }
+  if (nf_max == 0) return cudaErrorInvalidValue;  // a frame too long
+  const int n_tiles = (nb + nf_max - 1) / nf_max;
+  const long long tiles = static_cast<long long>(C) * n_tiles;
+  const long long blocks = (tiles + 1) / 2;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  const int vec = reinterpret_cast<uintptr_t>(xp) % 16 == 0 && ldx % 4 == 0;
+  auto* kern = sym_split_kernel<P, FOLD>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(blocks), NT, smem, s>>>(
+      xp, ldx, parts, Kt, y, tiles, nb, hop, up, n_tiles, nf_max, span_f, sk,
+      vec, ST, Lf_max, ph);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The pair design: a block of two warpgroups on the same 64 frames (one
+// span), warpgroup 0 running z x Te and warpgroup 1 w x To over 64-column
+// tiles (m64n64k16); the epilogue hands warpgroup 1's (hi, lo) to
+// warpgroup 0 through shared memory, 32 columns a round.
+
+constexpr int TN2 = 2 * TN;      // columns a tile of this design
+constexpr int NR2 = TN2 / 2;     // accumulator floats a thread a fragment
+constexpr int XB = 2 * (NR2 / 2) * 128;  // floats of the exchange buffer
+
+template <int P, int FOLD>
+__global__ void __launch_bounds__(NT, 1)
+sym_pair_kernel(const float* __restrict__ xp, long long ldx,
+                const bf16* __restrict__ parts, int Kt, float* __restrict__ y,
+                int nb, int hop, int up, int n_tiles, int nf_max, int span_f,
+                int sk, int vec, int ST, int Lf_max, Phases ph) {
+  constexpr int KS = FOLD / 16;
+  constexpr int TILE2 = TN2 * TK;          // bf16 elements a slice's tile
+  constexpr int UNIT = 2 * P * TILE2;      // a stage: both operators
+  constexpr unsigned UNIT_BYTES = UNIT * 2;
+  static_assert(TK % FOLD == 0 && FOLD % 16 == 0, "folds tile the k-tile");
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* Bs = reinterpret_cast<bf16*>(base);  // [ST][2][P][TN2][TK]
+  float* span = reinterpret_cast<float*>(base + size_t(ST) * UNIT_BYTES);
+  float* xbuf = span + span_f;               // [2 * NR2 / 2][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xbuf + XB);
+  uint64_t* xfull = full + ST;
+  uint64_t* xempty = xfull + 1;
+  int* freed = reinterpret_cast<int*>(xempty + 1);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, tw = tid & 127;
+  const int wq = tw >> 5, lane = tw & 31, g = lane >> 2, tq = lane & 3;
+  const long long c = blockIdx.x / n_tiles;
+  const int b0 = static_cast<int>(blockIdx.x % n_tiles) * nf_max;
+  const int nf = min(nf_max, nb - b0);
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      freed[s] = 0;
+    }
+    mbar_init(xfull, 128);
+    mbar_init(xempty, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 0) mbar_arrive(xempty);  // the buffer starts free
+
+  auto kt_of = [&](int j) { return ((ph.Lf[j] + 1) / 2 + TK - 1) / TK; };
+  constexpr int NT2 = N_TILES / 2;  // 64-column tiles a half
+  // stage v: (phase, 64-column tile, k-tile), its 2 x P x 2 packed
+  // 32-column tiles side by side in shared memory
+  auto load_unit = [&](int v, int slot) {
+    int j = 0;
+    while (v >= NT2 * kt_of(j)) v -= NT2 * kt_of(j++);
+    const int kt = kt_of(j), m = v / kt, t = v % kt;
+    mbar_expect_tx(full + slot, UNIT_BYTES);
+    for (int o = 0; o < 2; ++o)
+      for (int p = 0; p < P; ++p)
+        for (int h = 0; h < 2; ++h)
+          bulk_g2s(Bs + slot * UNIT + (o * P + p) * TILE2 + h * SLICE,
+                   parts + ((((static_cast<long long>(j) * N_TILES + 2 * m +
+                               h) * Kt + t) * 2 + o) * P + p) * SLICE,
+                   SLICE * 2, full + slot);
+  };
+  int n_units = 0;
+  for (int j = 0; j < up; ++j) n_units += NT2 * kt_of(j);
+  if (tid == 0) {
+    for (int u = 0; u < ST && u < n_units; ++u) load_unit(u, u);
+  }
+
+  if (!kNoStage) {
+    const float* src = xp + c * ldx + static_cast<long long>(b0) * hop;
+    const int len = (nf - 1) * hop + Lf_max;
+    if (vec) {
+      for (int e = tid; e < (len + 3) / 4; e += NT) {
+        const int p = 4 * e;
+        cp_async16(span + skewed(p, sk), src + p, 4 * min(4, len - p));
+      }
+    } else {
+      for (int p = tid; p < len; p += NT)
+        cp_async_elem(span + skewed(p, sk), src + p, true);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int row0 = wq * 16 + g, row1 = row0 + 8;
+  const int rstride = hop + sk * (hop >> 8);
+  const float* s0p = span + (row0 < nf ? row0 : 0) * rstride;
+  const float* s1p = span + (row1 < nf ? row1 : 0) * rstride;
+  const long long out_row = static_cast<long long>(nb) * 2 * BH * up;
+  const float sgn = wg == 0 ? 1.0f : -1.0f;  // z = a + r, w = a - r
+
+  float acc[NR2], hi[NR2], lo[NR2];
+  int u = 0, rnd = 0;
+  for (int j = 0; j < up; ++j) {
+    const int Lf = ph.Lf[j];
+    const int Hp = (Lf + 1) / 2;
+    const int ktj = kt_of(j);
+    for (int m = 0; m < NT2; ++m) {
+      zero(hi);
+      zero(lo);
+      for (int t = 0; t < ktj; ++t) {
+        const int slot = u % ST;
+        mbar_wait(full + slot, (u / ST) & 1);
+        const unsigned b_s = smem_u32(Bs + slot * UNIT + wg * P * TILE2);
+#pragma unroll
+        for (int f = 0; f < TK / FOLD; ++f) {
+          const int lf = t * TK + f * FOLD;
+          if (lf >= Hp) break;
+          uint32_t av[KS][3][4], ev[KS][4];
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const int l0 = lf + ks * 16 + 2 * tq;
+            float2 a[4], r[4];
+            if (lf + ks * 16 + 16 <= Hp) {
+              const int sf = sk * ((lf + ks * 16) >> 8);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float* sp = (q & 1) ? s1p : s0p;
+                const int l = l0 + 8 * (q >> 1);
+                a[q] = *reinterpret_cast<const float2*>(sp + l + sf);
+                if constexpr (kNoSym) {
+                  r[q] = make_float2(0.0f, 0.0f);
+                } else if ((Lf & 1) == 0) {
+                  const int qq = Lf - 2 - l;
+                  const float2 v =
+                      *reinterpret_cast<const float2*>(sp + skewed(qq, sk));
+                  r[q] = make_float2(v.y, v.x);
+                } else {
+                  const int qq = Lf - 1 - l;
+                  r[q] = make_float2(sp[skewed(qq, sk)],
+                                     sp[skewed(qq - 1, sk)]);
+                }
+              }
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float* sp = (q & 1) ? s1p : s0p;
+                const int l = l0 + 8 * (q >> 1);
+                float v[2], w[2];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int lc = min(l + h, Hp - 1);
+                  const float avv = sp[skewed(lc, sk)];
+                  const float rv = kNoSym ? 0.0f : sp[skewed(Lf - 1 - lc, sk)];
+                  v[h] = l + h < Hp ? avv : 0.0f;
+                  w[h] = l + h < Hp ? rv : 0.0f;
+                }
+                a[q] = make_float2(v[0], v[1]);
+                r[q] = make_float2(w[0], w[1]);
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float2 rs = make_float2(sgn * r[q].x, sgn * r[q].y);
+              float2 vv, ee;
+              two_sum(a[q].x, rs.x, vv.x, ee.x);
+              two_sum(a[q].y, rs.y, vv.y, ee.y);
+              split3(vv, av[ks][0][q], av[ks][1][q], av[ks][2][q]);
+              if constexpr (P == 4)
+                ev[ks][q] = bits(__float22bfloat162_rn(ee));
+            }
+          }
+          reg_fence(acc);
+          reg_fence(lo);
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const unsigned kb = b_s + (f * KS + ks) * 32;
+            const uint64_t d0 = desc_sw128(kb);
+            Mma<TN2>::run(acc, av[ks][0], d0, ks);
+            if constexpr (!kNoSmall) {
+              const uint64_t d1 = desc_sw128(kb + TILE2 * 2);
+              const uint64_t d2 = desc_sw128(kb + 2 * TILE2 * 2);
+              Mma<TN2>::run(lo, av[ks][0], d1, 1);
+              Mma<TN2>::run(lo, av[ks][1], d0, 1);
+              Mma<TN2>::run(lo, av[ks][0], d2, 1);
+              Mma<TN2>::run(lo, av[ks][1], d1, 1);
+              Mma<TN2>::run(lo, av[ks][2], d0, 1);
+              if constexpr (P == 4) {
+                Mma<TN2>::run(lo, ev[ks], d0, 1);
+                Mma<TN2>::run(lo, av[ks][0], desc_sw128(kb + 3 * TILE2 * 2),
+                              1);
+              }
+            }
+          }
+          wg_commit();
+          wg_wait0();
+          reg_fence(acc);
+          reg_fence(lo);
+#pragma unroll
+          for (int i = 0; i < NR2; ++i) {
+            if constexpr (kNoFold) {
+              hi[i] = __fadd_rn(hi[i], acc[i]);
+            } else {
+              float s, e;
+              two_sum(hi[i], acc[i], s, e);
+              hi[i] = s;
+              lo[i] = __fadd_rn(lo[i], e);
+            }
+          }
+        }
+        named_bar_sync(1 + wg, 128);
+        if (tw == 0) {
+          __threadfence_block();
+          if (atomicAdd(freed + slot, 1) == 1) {
+            freed[slot] = 0;
+            __threadfence_block();
+            if (u + ST < n_units) {
+              asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+              load_unit(u + ST, slot);
+            }
+          }
+        }
+        ++u;
+      }
+
+      // the epilogue, 32 columns a round: warpgroup 1 hands its (hi, lo)
+      // to warpgroup 0, which writes both halves
+#pragma unroll
+      for (int h = 0; h < 2; ++h, ++rnd) {
+        constexpr int NB = NR2 / 2;  // floats of a round, per fragment
+        if (wg == 1) {
+          mbar_wait(xempty, rnd & 1);
+#pragma unroll
+          for (int i = 0; i < NB; ++i) {
+            xbuf[i * 128 + tw] = hi[h * NB + i];
+            xbuf[(NB + i) * 128 + tw] = lo[h * NB + i];
+          }
+          mbar_arrive(xfull);
+        } else {
+          mbar_wait(xfull, rnd & 1);
+#pragma unroll
+          for (int i = 0; i < NB; ++i) {
+            const int k = h * NB + i;
+            const int jj = k >> 2, e = k & 3;
+            const float ho = xbuf[i * 128 + tw];
+            const float lw = xbuf[(NB + i) * 128 + tw];
+            const int fr = (e >> 1) ? row1 : row0;
+            const int tcol = m * TN2 + 8 * jj + 2 * tq + (e & 1);
+            float s, er;
+            two_sum(hi[k], ho, s, er);
+            const float yp = __fadd_rn(s, __fadd_rn(er, __fadd_rn(lo[k], lw)));
+            two_sum(hi[k], -ho, s, er);
+            const float ym = __fadd_rn(s, __fadd_rn(er, __fsub_rn(lo[k], lw)));
+            bool store = fr < nf;
+            if constexpr (kNoStore)
+              store = store && __float_as_uint(yp) == 0x7f800001u &&
+                      __float_as_uint(ym) == 0x7f800001u;
+            if (store) {
+              float* yb = y + c * out_row +
+                          static_cast<long long>(b0 + fr) * 2 * BH * up + j;
+              yb[static_cast<long long>(tcol) * up] = yp;
+              yb[static_cast<long long>(2 * BH - 1 - tcol) * up] = ym;
+            }
+          }
+          mbar_arrive(xempty);
+        }
+      }
+    }
+  }
+}
+
+template <int P, int FOLD>
+cudaError_t launch_pair(cudaStream_t s, const float* xp, long long ldx,
+                        const bf16* parts, int Kt, float* y, int C, int nb,
+                        int hop, int up, int Lf_max, const Phases& ph) {
+  const int down = hop / 256;
+  const int sk = (down & 3) == 2 ? 4 : 8;
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&max_smem,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const size_t unit = size_t(2) * P * TN2 * TK * 2;
+  int nf_max = 0, ST = 0, span_f = 0;
+  size_t smem = 0;
+  for (int nf = NF; nf >= 1 && nf_max == 0; nf /= 2) {
+    for (int st = 3; st >= 2; --st) {
+      const int sf = span_floats(nf, hop, Lf_max, sk);
+      const size_t b = st * unit + size_t(sf) * 4 + XB * 4 + (st + 2) * 8 +
+                       st * 4 + 1024;
+      if (b <= static_cast<size_t>(max_smem)) {
+        nf_max = nf;
+        ST = st;
+        span_f = sf;
+        smem = b;
+        break;
+      }
+    }
+  }
+  if (nf_max == 0) return cudaErrorInvalidValue;
+  const int n_tiles = (nb + nf_max - 1) / nf_max;
+  const long long blocks = static_cast<long long>(C) * n_tiles;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  const int vec = reinterpret_cast<uintptr_t>(xp) % 16 == 0 && ldx % 4 == 0;
+  auto* kern = sym_pair_kernel<P, FOLD>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(blocks), NT, smem, s>>>(
+      xp, ldx, parts, Kt, y, nb, hop, up, n_tiles, nf_max, span_f, sk, vec,
+      ST, Lf_max, ph);
+  return cudaGetLastError();
+}
+
+}  // namespace split
+
+// ---------------------------------------------------------------------------
+// float64: FMA on the CUDA cores
+
+namespace f64 {
+
+constexpr int BM = 32;    // frames (of one channel) a block
 constexpr int BK = 16;    // operator rows a slab
 constexpr int TM = 4;     // frames a thread
 constexpr int TN = 4;     // columns a thread, of each of oe and oo
 constexpr int NT = (BM / TM) * (BH / TN);  // 256 threads
-constexpr int FOLD = 32;  // terms a float32 partial sums before its fold
-constexpr int ZP = BM + 4;  // row pitch of the folded slab (16-byte rows)
-static_assert(FOLD % BK == 0, "folds fall on slab ends");
+constexpr int ZP = BM + 4;  // row pitch of the folded slab
 static_assert(BH / TN == 32, "one warp spans the columns of TM frames");
 static_assert(TM == 4 && TN == 4, "vector loads of four");
 
-struct Phases {
-  int Lf[MAXP];
-  int r0[MAXP][2];  // first residual row of Te_lo, To_lo
-  int n[MAXP][2];   // residual rows of Te_lo, To_lo
-};
+// operator slabs [2 stages][2 ops][BK][BH] + folded slabs [BK][ZP] (z, w)
+constexpr size_t kFixed = size_t(2) * 2 * BK * BH + size_t(BK) * ZP * 2;
 
-__device__ __forceinline__ float fma_t(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_t(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async_elem(T* smem, const T* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (sizeof(T) == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(gmem));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(gmem));
-  }
-}
-// 16 bytes global -> shared; zeros instead when `pred` is false
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <typename T, bool HIGH>
-__host__ __device__ constexpr size_t fixed_smem_elems() {
-  // operator slabs [2 stages][2 ops][BK][BH] (twice under HIGH, the
-  // residual rows) + folded slabs [BK][ZP] (z, w; + z_err, w_err)
-  return size_t(2) * 2 * BK * BH * (HIGH ? 2 : 1) +
-         size_t(BK) * ZP * (HIGH ? 4 : 2);
-}
-
-// four consecutive elements (16-byte aligned) as vector loads
-__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
-}
 __device__ __forceinline__ void ld4(const double* p, double (&v)[4]) {
   const double2 a = reinterpret_cast<const double2*>(p)[0];
   const double2 b = reinterpret_cast<const double2*>(p)[1];
@@ -132,29 +862,17 @@ __device__ __forceinline__ void ld4(const double* p, double (&v)[4]) {
   v[3] = b.y;
 }
 
-template <typename T>
-__device__ __forceinline__ void two_sum(T a, T b, T& s, T& e) {
-  s = a + b;
-  const T bb = s - a;
-  e = (a - (s - bb)) + (b - bb);
-}
-
-template <typename T, bool HIGH>
 __global__ void __launch_bounds__(NT)
-sym_conv_kernel(const T* __restrict__ xp, long long ldx,
-                const T* __restrict__ ops, const T* __restrict__ lo,
-                T* __restrict__ y, int nb, int hop, int up, int Hp_max,
-                int R_lo, int Lf_max, int n_tiles, Phases ph) {
-  constexpr bool kFold = sizeof(T) == 4;
-  constexpr int VEC = 16 / sizeof(T);  // elements of one 16-byte copy
+sym_conv_f64_kernel(const double* __restrict__ xp, long long ldx,
+                    const double* __restrict__ ops, double* __restrict__ y,
+                    int nb, int hop, int up, int Hp_max, int Lf_max,
+                    int n_tiles, Phases ph) {
+  constexpr int VEC = 2;  // doubles of one 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* opsS = reinterpret_cast<T*>(smem_raw);  // [2][2][BK][BH]
-  T* loS = opsS + 2 * 2 * BK * BH;           // [2][2][BK][BH], HIGH only
-  T* zS = opsS + 2 * 2 * BK * BH * (HIGH ? 2 : 1);  // [BK][ZP]
-  T* wS = zS + BK * ZP;
-  T* zeS = wS + BK * ZP;  // HIGH only
-  T* weS = zeS + BK * ZP;
-  T* span = opsS + fixed_smem_elems<T, HIGH>();
+  double* opsS = reinterpret_cast<double*>(smem_raw);  // [2][2][BK][BH]
+  double* zS = opsS + 2 * 2 * BK * BH;                 // [BK][ZP]
+  double* wS = zS + BK * ZP;
+  double* span = opsS + kFixed;
 
   const int tid = threadIdx.x;
   const int ty = tid / (BH / TN);  // the warp: frames ty*TM ...
@@ -166,23 +884,19 @@ sym_conv_kernel(const T* __restrict__ xp, long long ldx,
 
   // the block's span, once: every phase reads its windows from it
   {
-    const T* src = xp + c * ldx + static_cast<long long>(b0) * hop;
+    const double* src = xp + c * ldx + static_cast<long long>(b0) * hop;
     const int len = (nf - 1) * hop + Lf_max;
-    for (int e = tid; e < len; e += NT) cp_async_elem(span + e, src + e);
+    for (int e = tid; e < len; e += NT) cp_async_elem(span + e, src + e, true);
     cp_async_commit();
   }
 
   for (int j = 0; j < up; ++j) {
     const int Lf = ph.Lf[j];
     const int Hp = (Lf + 1) / 2;
-    const T* te = ops + static_cast<size_t>(2 * j) * Hp_max * BH;
-    const T* to = te + static_cast<size_t>(Hp_max) * BH;
-    const T* tel = HIGH ? lo + static_cast<size_t>(2 * j) * R_lo * BH : lo;
-    const T* tol = HIGH ? tel + static_cast<size_t>(R_lo) * BH : lo;
-    const int r0e = ph.r0[j][0], ne = ph.n[j][0];
-    const int r0o = ph.r0[j][1], no = ph.n[j][1];
+    const double* te = ops + static_cast<size_t>(2 * j) * Hp_max * BH;
+    const double* to = te + static_cast<size_t>(Hp_max) * BH;
 
-    // slab [k0, k0 + BK) of Te, To (and of the residual rows) into stage st
+    // slab [k0, k0 + BK) of Te, To into stage st
     auto load_ops = [&](int st, int k0) {
       for (int q = tid; q < BK * BH / VEC; q += NT) {
         const int kk = q / (BH / VEC);
@@ -190,53 +904,19 @@ sym_conv_kernel(const T* __restrict__ xp, long long ldx,
         const int l = k0 + kk;
         const bool ok = l < Hp;
         const size_t off = ok ? static_cast<size_t>(l) * BH + cc : 0;
-        T* dst = opsS + static_cast<size_t>(st * 2 * BK + kk) * BH + cc;
-        cp_async16(dst, te + off, ok);
-        cp_async16(dst + BK * BH, to + off, ok);
-        if constexpr (HIGH) {
-          const bool oe_ = l >= r0e && l < r0e + ne;
-          const bool oo_ = l >= r0o && l < r0o + no;
-          T* dl = loS + static_cast<size_t>(st * 2 * BK + kk) * BH + cc;
-          cp_async16(dl, tel + (oe_ ? static_cast<size_t>(l - r0e) * BH + cc
-                                    : 0), oe_);
-          cp_async16(dl + BK * BH,
-                     tol + (oo_ ? static_cast<size_t>(l - r0o) * BH + cc : 0),
-                     oo_);
-        }
+        double* dst = opsS + static_cast<size_t>(st * 2 * BK + kk) * BH + cc;
+        cp_async16(dst, te + off, ok ? 16 : 0);
+        cp_async16(dst + BK * BH, to + off, ok ? 16 : 0);
       }
       cp_async_commit();
     };
 
-    T acc_e[TM][TN], acc_o[TM][TN], hi_e[TM][TN], hi_o[TM][TN];
-    T lo_e[TM][TN], lo_o[TM][TN], rr_e[HIGH ? TM : 1][HIGH ? TN : 1],
-        rr_o[HIGH ? TM : 1][HIGH ? TN : 1];
+    double acc_e[TM][TN], acc_o[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
 #pragma unroll
-      for (int k = 0; k < TN; ++k) {
-        acc_e[i][k] = acc_o[i][k] = T(0);
-        hi_e[i][k] = hi_o[i][k] = lo_e[i][k] = lo_o[i][k] = T(0);
-        if constexpr (HIGH) rr_e[i][k] = rr_o[i][k] = T(0);
-      }
+      for (int k = 0; k < TN; ++k) acc_e[i][k] = acc_o[i][k] = 0.0;
     }
-    auto fold = [&]() {
-      if constexpr (kFold) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-#pragma unroll
-          for (int k = 0; k < TN; ++k) {
-            T s, e;
-            two_sum(hi_e[i][k], acc_e[i][k], s, e);
-            hi_e[i][k] = s;
-            lo_e[i][k] += e;
-            two_sum(hi_o[i][k], acc_o[i][k], s, e);
-            hi_o[i][k] = s;
-            lo_o[i][k] += e;
-            acc_e[i][k] = acc_o[i][k] = T(0);
-          }
-        }
-      }
-    };
 
     const int n_slabs = (Hp + BK - 1) / BK;
     load_ops(0, 0);
@@ -257,38 +937,23 @@ sym_conv_kernel(const T* __restrict__ xp, long long ldx,
         const int kk = q % BK;
         const int i = q / BK;
         const int l = k0 + kk;
-        T zv = T(0), wv = T(0), ze = T(0), we = T(0);
+        double zv = 0.0, wv = 0.0;
         if (l < Hp && i < nf) {
-          const T a = span[i * hop + l];
-          const T r = span[i * hop + Lf - 1 - l];
+          const double a = span[i * hop + l];
+          const double r = span[i * hop + Lf - 1 - l];
           zv = a + r;
           wv = a - r;
-          if constexpr (HIGH) {
-            const T bz = zv - a;
-            ze = (a - (zv - bz)) + (r - bz);
-            const T bv = wv - a;
-            we = (a - (wv - bv)) - (r + bv);
-          }
         }
         zS[kk * ZP + i] = zv;
         wS[kk * ZP + i] = wv;
-        if constexpr (HIGH) {
-          zeS[kk * ZP + i] = ze;
-          weS[kk * ZP + i] = we;
-        }
       }
       __syncthreads();
 
-      const T* oe_s = opsS + static_cast<size_t>(st * 2 * BK) * BH;
-      const T* oo_s = oe_s + BK * BH;
-      const T* le_s = loS + static_cast<size_t>(st * 2 * BK) * BH;
-      const T* lo_s = le_s + BK * BH;
-      // does this slab meet a residual row block? (uniform in the block)
-      const bool lo_slab = HIGH && ((k0 < r0e + ne && k0 + BK > r0e) ||
-                                    (k0 < r0o + no && k0 + BK > r0o));
+      const double* oe_s = opsS + static_cast<size_t>(st * 2 * BK) * BH;
+      const double* oo_s = oe_s + BK * BH;
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) {
-        T z[TM], w[TM], a_e[TN], a_o[TN];
+        double z[TM], w[TM], a_e[TN], a_o[TN];
         ld4(zS + kk * ZP + ty * TM, z);
         ld4(wS + kk * ZP + ty * TM, w);
         ld4(oe_s + kk * BH + tx * TN, a_e);
@@ -297,148 +962,120 @@ sym_conv_kernel(const T* __restrict__ xp, long long ldx,
         for (int i = 0; i < TM; ++i) {
 #pragma unroll
           for (int k = 0; k < TN; ++k) {
-            acc_e[i][k] = fma_t(z[i], a_e[k], acc_e[i][k]);
-            acc_o[i][k] = fma_t(w[i], a_o[k], acc_o[i][k]);
-          }
-        }
-        if constexpr (HIGH) {
-          T ze[TM], we[TM];
-          ld4(zeS + kk * ZP + ty * TM, ze);
-          ld4(weS + kk * ZP + ty * TM, we);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-#pragma unroll
-            for (int k = 0; k < TN; ++k) {
-              rr_e[i][k] = fma_t(ze[i], a_e[k], rr_e[i][k]);
-              rr_o[i][k] = fma_t(we[i], a_o[k], rr_o[i][k]);
-            }
-          }
-          if (lo_slab) {
-            T b_e[TN], b_o[TN];
-            ld4(le_s + kk * BH + tx * TN, b_e);
-            ld4(lo_s + kk * BH + tx * TN, b_o);
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-#pragma unroll
-              for (int k = 0; k < TN; ++k) {
-                rr_e[i][k] = fma_t(z[i], b_e[k], rr_e[i][k]);
-                rr_o[i][k] = fma_t(w[i], b_o[k], rr_o[i][k]);
-              }
-            }
+            acc_e[i][k] = fma(z[i], a_e[k], acc_e[i][k]);
+            acc_o[i][k] = fma(w[i], a_o[k], acc_o[i][k]);
           }
         }
       }
-      if ((k0 + BK) % FOLD == 0) fold();
       // every warp is done with this stage before it is refilled
       __syncthreads();
     }
-    fold();
 
     // write both halves straight to their interleaved places
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int fi = ty * TM + i;
       if (fi >= nf) continue;
-      T* yb = y + c * out_row +
-              static_cast<long long>(b0 + fi) * 2 * BH * up + j;
+      double* yb = y + c * out_row +
+                   static_cast<long long>(b0 + fi) * 2 * BH * up + j;
 #pragma unroll
       for (int k = 0; k < TN; ++k) {
         const int t = tx * TN + k;
-        T he = hi_e[i][k], ho = hi_o[i][k];
-        if constexpr (!kFold) {
-          he = acc_e[i][k];
-          ho = acc_o[i][k];
-        }
-        T tp = lo_e[i][k] + lo_o[i][k];
-        T tm = lo_e[i][k] - lo_o[i][k];
-        if constexpr (HIGH) {
-          tp = tp + (rr_e[i][k] + rr_o[i][k]);
-          tm = tm + (rr_e[i][k] - rr_o[i][k]);
-        }
-        T s, e;
-        two_sum(he, ho, s, e);
-        yb[static_cast<long long>(t) * up] = s + (e + tp);
-        two_sum(he, -ho, s, e);
-        yb[static_cast<long long>(2 * BH - 1 - t) * up] = s + (e + tm);
+        yb[static_cast<long long>(t) * up] = acc_e[i][k] + acc_o[i][k];
+        yb[static_cast<long long>(2 * BH - 1 - t) * up] =
+            acc_e[i][k] - acc_o[i][k];
       }
     }
   }
 }
 
-template <typename T, bool HIGH>
-cudaError_t launch_one(const T* xp, long long ldx, const T* ops, const T* lo,
-                       T* y, int C, int nb, int hop, int up, int Hp_max,
-                       int R_lo, int Lf_max, const Phases& ph,
-                       cudaStream_t s) {
+cudaError_t launch(const double* xp, long long ldx, const double* ops,
+                   double* y, int C, int nb, int hop, int up, int Hp_max,
+                   int Lf_max, const Phases& ph, cudaStream_t s) {
   const int n_tiles = (nb + BM - 1) / BM;
   const long long blocks = static_cast<long long>(C) * n_tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   const size_t span = static_cast<size_t>(BM - 1) * hop + Lf_max;
-  const size_t smem = (fixed_smem_elems<T, HIGH>() + span) * sizeof(T);
-  auto* kern = sym_conv_kernel<T, HIGH>;
+  const size_t smem = (kFixed + span) * sizeof(double);
   const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sym_conv_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kern<<<static_cast<unsigned>(blocks), NT, smem, s>>>(
-      xp, ldx, ops, lo, y, nb, hop, up, Hp_max, R_lo, Lf_max, n_tiles, ph);
+  sym_conv_f64_kernel<<<static_cast<unsigned>(blocks), NT, smem, s>>>(
+      xp, ldx, ops, y, nb, hop, up, Hp_max, Lf_max, n_tiles, ph);
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch(const T* xp, long long ldx, const T* ops, const T* lo, T* y,
-           int C, int nb, int hop, int up, int Hp_max, int R_lo,
-           const int* Lf, const int* lo_rows, void* stream) {
-  if (C < 0 || nb < 1 || hop < 1 || up < 1 || up > MAXP || Hp_max < 1 ||
-      ldx < 0 || (lo != nullptr && R_lo < 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Phases ph{};
+}  // namespace f64
+
+// the phases' frame lengths, checked; returns the longest, or 0
+int read_phases(const int* Lf, int up, int rows, Phases& ph) {
   int Lf_max = 0;
   for (int j = 0; j < up; ++j) {
+    if (Lf[j] < 1 || (Lf[j] + 1) / 2 > rows) return 0;
     ph.Lf[j] = Lf[j];
-    if (Lf[j] < 1 || (Lf[j] + 1) / 2 > Hp_max)
-      return static_cast<int>(cudaErrorInvalidValue);
     Lf_max = Lf[j] > Lf_max ? Lf[j] : Lf_max;
-    for (int k = 0; k < 2; ++k) {
-      ph.r0[j][k] = lo_rows != nullptr ? lo_rows[4 * j + 2 * k] : 0;
-      ph.n[j][k] = lo_rows != nullptr ? lo_rows[4 * j + 2 * k + 1] : 0;
-      if (ph.r0[j][k] < 0 || ph.n[j][k] < 0 || ph.n[j][k] > R_lo)
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
   }
-  if (C == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      lo != nullptr
-          ? launch_one<T, true>(xp, ldx, ops, lo, y, C, nb, hop, up, Hp_max,
-                                R_lo, Lf_max, ph, s)
-          : launch_one<T, false>(xp, ldx, ops, lo, y, C, nb, hop, up, Hp_max,
-                                 R_lo, Lf_max, ph, s);
-  return static_cast<int>(e);
+  return Lf_max;
 }
 
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t); returns the launch's cudaError_t.
-// xp: [C, >= (nb-1)*hop + max Lf] with row stride ldx elements; ops: [up, 2,
-// Hp_max, 128] (Te_j, To_j; rows past Hp_j are not read); lo: null, or [up,
-// 2, R_lo, 128] residual rows, with lo_rows [up][4] = (r0_e, n_e, r0_o,
-// n_o); Lf: [up] frame lengths; y: [C, nb*256*up].  lo selects precision
-// "high" (the residual dots and the fold-error compensation); float64 has
-// no "high".
+// xp: [C, >= (nb-1)*hop + max Lf] float32 with row stride ldx elements;
+// parts: the packed bf16 operators [up, 4, Kt, 2, n_parts, 32, 64]
+// (ops/pallas_symconv.py::sym_parts; n_parts 3, or 4 under precision
+// "high" with the residual slice); y: [C, nb*256*up]; hop: a multiple of
+// 256; Lf: [up] frame lengths; fold: the terms of one big-pair partial,
+// 16 or 32.
 extern "C" int r8b_sym_conv_f32(const float* xp, long long ldx,
-                                const float* ops, const float* lo, float* y,
-                                int C, int nb, int hop, int up, int Hp_max,
-                                int R_lo, const int* Lf, const int* lo_rows,
-                                void* stream) {
-  return launch<float>(xp, ldx, ops, lo, y, C, nb, hop, up, Hp_max, R_lo, Lf,
-                       lo_rows, stream);
+                                const void* parts, int n_parts, int Kt,
+                                float* y, int C, int nb, int hop, int up,
+                                const int* Lf, int fold, void* stream) {
+  Phases ph{};
+  if (C < 0 || nb < 1 || hop < 256 || hop % 256 || up < 1 || up > MAXP ||
+      ldx < 0 || Kt < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Lf_max = read_phases(Lf, up, Kt * split::TK, ph);
+  if (Lf_max == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* pb = static_cast<const bf16*>(parts);
+// -DR8B_PAIR=1 (tools/torch_sym_ablation.py only) builds the pair design
+// in place of the one above
+#ifndef R8B_PAIR
+#define R8B_PAIR 0
+#endif
+#define R8B_SPLIT(P_, FOLD_)                                            \
+  if (n_parts == P_ && fold == FOLD_)                                   \
+    return static_cast<int>(R8B_PAIR                                    \
+        ? split::launch_pair<P_, FOLD_>(                                \
+              s, xp, ldx, pb, Kt, y, C, nb, hop, up, Lf_max, ph)        \
+        : split::launch_split<P_, FOLD_>(                               \
+              s, xp, ldx, pb, Kt, y, C, nb, hop, up, Lf_max, ph));
+  R8B_SPLIT(3, 32)
+  R8B_SPLIT(4, 32)
+  R8B_SPLIT(3, 16)
+  R8B_SPLIT(4, 16)
+#undef R8B_SPLIT
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// xp: [C, >= (nb-1)*hop + max Lf] float64 with row stride ldx; ops: [up, 2,
+// Hp_max, 128] (Te_j, To_j; rows past Hp_j are not read); y: [C,
+// nb*256*up].
 extern "C" int r8b_sym_conv_f64(const double* xp, long long ldx,
                                 const double* ops, double* y, int C, int nb,
                                 int hop, int up, int Hp_max, const int* Lf,
                                 void* stream) {
-  return launch<double>(xp, ldx, ops, nullptr, y, C, nb, hop, up, Hp_max, 0,
-                        Lf, nullptr, stream);
+  Phases ph{};
+  if (C < 0 || nb < 1 || hop < 1 || up < 1 || up > MAXP || Hp_max < 1 ||
+      ldx < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Lf_max = read_phases(Lf, up, Hp_max, ph);
+  if (Lf_max == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C == 0) return 0;
+  return static_cast<int>(f64::launch(xp, ldx, ops, y, C, nb, hop, up, Hp_max,
+                                      Lf_max, ph,
+                                      static_cast<cudaStream_t>(stream)));
 }

@@ -55,7 +55,7 @@ from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
 from .pallas_frac import KC, KC_LO, frac_whole, operator_parts
 from .pallas_ozaki import ozaki_framed, pack_operator
-from .pallas_symconv import BH, sym_conv
+from .pallas_symconv import BH, SYM_KC, sym_conv, sym_parts
 
 __all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "build_exec",
            "FFT_ENGINES", "MATMUL_ENGINES"]
@@ -435,9 +435,11 @@ class ConvExec(nn.Module):
 
     def _pack_sym(self):
         """``sym_conv``'s operands: ``sym_ops`` [up, 2, Hp_max, 128] (Te,
-        To of each phase, zero rows past its Hp) and, under "high",
-        ``sym_lo`` [up, 2, R, 128] with the row blocks of Te_lo, To_lo at
-        ``sym_lo_rows``."""
+        To of each phase, zero rows past its Hp), under "high" ``sym_lo``
+        [up, 2, R, 128] with the row blocks of Te_lo, To_lo at
+        ``sym_lo_rows``, and ``sym_parts``, their packing as the kernel
+        takes it (``sym_parts``: float32 bf16 slices, a fourth under
+        "high")."""
         ph = self.toep_sym
         np_dt = self._np_dtype()
         ops = np.zeros((len(ph), 2, max(p["Hp"] for p in ph), BH), np_dt)
@@ -458,6 +460,8 @@ class ConvExec(nn.Module):
                 for bb in blocks)
             lo = torch.from_numpy(lo)
         self.register_buffer("sym_lo", lo)
+        self.register_buffer("sym_parts", sym_parts(
+            self.sym_ops, self.sym_lo, self.sym_lo_rows).clone())
 
     def _build_pallas(self, B: int = 64):
         """The mini-Toeplitz of B=64 cycles (the reference's
@@ -592,8 +596,8 @@ class ConvExec(nn.Module):
         hop = B * down
         xp = _shifted(x, self.s_min + self.sym_dmin,
                       (nb - 1) * hop + max(self.sym_Lf), self.dtype)
-        return sym_conv(xp, self.sym_ops, self.sym_Lf, nb, hop,
-                        lo=self.sym_lo, lo_rows=self.sym_lo_rows)[:, :M]
+        return sym_conv(xp, self.sym_parts, self.sym_Lf, nb, hop,
+                        kc=SYM_KC[self.precision])[:, :M]
 
     def _apply_pallas(self, x: torch.Tensor, M: int) -> torch.Tensor:
         """The mini-Toeplitz on frac_whole: I = 64*down, D = L_f, O =

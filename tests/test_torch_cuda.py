@@ -22,8 +22,9 @@ from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
 from r8brain_torch.ops.pallas_ozaki import (lemma_operands, mma_dot,
                                             ozaki_framed, ozaki_framed_ref,
                                             pack_operator, wgmma_dot)
-from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
-                                               sym_ops_high)
+from r8brain_torch.ops.pallas_symconv import (SYM_KC, sym_conv,
+                                               sym_conv_ref, sym_ops_high,
+                                               sym_parts)
 from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
 
 # (label, I, D, O): tests/test_pallas.py's two shapes and the flagship's
@@ -487,8 +488,9 @@ def test_fft_chain_on_card(cuda_device, engine):
 SYM_CFGS = [(44100, 96001, 2.0, 180.15), (96000, 44100, 2.0, 180.15),
             (44100, 96000, 2.0, 180.15), (96000, 44100, 5.0, 136.45)]
 # (dtype, precision, tolerance against the plain version in ulps of max
-# |y|): the kernel's sums and the model's matmuls add each 32-term chunk in
-# their own order (0-1.5 ulps measured on the H100)
+# |y|): float32, the tensor cores sum each step's slice products in their
+# own order and truncate, which the model follows; float64, the FMA kernel
+# and the model's matmuls add the terms in their own order
 SYM_VARIANTS = [(torch.float32, "fast", 4), (torch.float32, "high", 4),
                 (torch.float64, "fast", 16)]
 
@@ -500,7 +502,8 @@ SYM_VARIANTS = [(torch.float32, "fast", 4), (torch.float32, "high", 4),
     *c[:3]))
 def test_sym_conv_matches_plain(cuda_device, cfg, variant):
     """sym_conv against sym_conv_ref on the card, C = 13 and 37 frames (no
-    multiple of any tile), on a row-strided view of the input."""
+    multiple of any tile), on a row-strided view of the input; a packing
+    of another tiling refused."""
     from r8brain_torch.models.plan import make_plan
     from r8brain_torch.ops.stages import ConvExec
 
@@ -512,8 +515,8 @@ def test_sym_conv_matches_plain(cuda_device, cfg, variant):
     rng = np.random.default_rng(15)
     big = torch.tensor(rng.uniform(-1, 1, (C, L + 3)), dtype=dtype,
                        device=cuda_device)
-    args = (big[:, 3:], ex.sym_ops, ex.sym_Lf, nb, hop, ex.sym_lo,
-            ex.sym_lo_rows)
+    args = (big[:, 3:], ex.sym_parts, ex.sym_Lf, nb, hop,
+            SYM_KC[ex.precision])
     before = sym_conv.launches
     y = sym_conv(*args)
     r = sym_conv_ref(*args)
@@ -526,15 +529,20 @@ def test_sym_conv_matches_plain(cuda_device, cfg, variant):
     if ex.sym_lo is not None:
         # "high" moves y by about an ulp: hold its gain, the drop of the
         # RMS error against the float64 function of "high" from the fast
-        # output to the high one, within 0.1 dB of the model's (0.47-0.54
-        # dB; the fold errors give 0.28 of it, the residual rows 0.2)
+        # output (the operators packed without the residual) to the high
+        # one, within 0.1 dB of the model's
         want = sym_conv_ref(args[0].double(), sym_ops_high(
             ex.sym_ops, ex.sym_lo, ex.sym_lo_rows), ex.sym_Lf, nb, hop)
-        gain = {fn: _rms_db((fn(*args[:5]).double() - want).cpu().numpy())
+        fast = sym_parts(ex.sym_ops)
+        gain = {fn: _rms_db((fn(args[0], fast, *args[2:]).double()
+                             - want).cpu().numpy())
                 - _rms_db((fn(*args).double() - want).cpu().numpy())
                 for fn in (sym_conv, sym_conv_ref)}
         assert gain[sym_conv_ref] >= 0.3
         assert abs(gain[sym_conv] - gain[sym_conv_ref]) <= 0.1, gain
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="another tiling"):
+            sym_conv(args[0], ex.sym_parts[:, :2].contiguous(), *args[2:])
 
 
 @pytest.mark.cuda

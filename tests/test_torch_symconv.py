@@ -21,8 +21,9 @@ import jax.numpy as jnp
 
 from r8brain_tpu.ops.stages import ConvExec as RefConvExec
 from r8brain_torch.ops.framing import _framed_matmul
-from r8brain_torch.ops.pallas_symconv import (BH, sym_conv, sym_conv_ref,
-                                               sym_ops_high)
+from r8brain_torch.ops.pallas_symconv import (BH, SYM_KC, sym_conv,
+                                               sym_conv_ref, sym_ops_high,
+                                               sym_parts)
 from r8brain_torch.ops.stages import ConvExec
 
 from .helpers import lcg_uniform, rms_db
@@ -65,7 +66,7 @@ def test_plain_version_vs_reference_kernel(pair, precision):
 def _random_stage(rng, up, L_fs, C, nb, hop):
     """A random signal and per-phase centrosymmetric banded operators of
     B = 256 columns (rows palindromic, as a symmetric kernel makes them),
-    their folds packed as sym_conv takes them, and the unfolded
+    their folds as sym_parts takes them (float64), and the unfolded
     operators."""
     B = 2 * BH
     xp = rng.uniform(-1, 1, (C, (nb - 1) * hop + max(L_fs) + 5))
@@ -109,7 +110,8 @@ def test_f64_fold_equals_unfolded_product(up, L_fs, hop):
     assert y.shape == want.shape
     assert np.abs(y - want).max() < 1e-13 * np.abs(want).max()
     y32 = sym_conv_ref(torch.from_numpy(xp).float(),
-                       torch.from_numpy(ops).float(), L_fs, nb, hop)
+                       sym_parts(torch.from_numpy(ops).float()), L_fs, nb,
+                       hop)
     assert np.abs(y32.double().numpy() - want).max() \
         < 2.0**-20 * np.abs(want).max()
 
@@ -125,10 +127,11 @@ def test_high_terms_move_the_result_by_their_size():
     lo = ((ops - ops32.astype(np.float64)).astype(np.float32))[:, :, 10:120]
     rows = (((10, 110), (10, 110)),) * 2
     x32 = torch.from_numpy(xp.astype(np.float32))
-    fast = sym_conv_ref(x32, torch.from_numpy(ops32), L_fs, nb, hop)
-    high = sym_conv_ref(x32, torch.from_numpy(ops32), L_fs, nb, hop,
-                        lo=torch.from_numpy(np.ascontiguousarray(lo)),
-                        lo_rows=rows)
+    fast = sym_conv_ref(x32, sym_parts(torch.from_numpy(ops32)), L_fs, nb,
+                        hop)
+    high = sym_conv_ref(x32, sym_parts(
+        torch.from_numpy(ops32), torch.from_numpy(np.ascontiguousarray(lo)),
+        rows), L_fs, nb, hop)
     ops_eff = ops32.astype(np.float64)
     ops_eff[:, :, 10:120] += lo
     want = sym_conv_ref(x32.double(), torch.from_numpy(ops_eff), L_fs, nb,
@@ -155,15 +158,15 @@ def test_high_gain_at_every_spec(pair):
     L = (nb - 1) * hop + max(ex.sym_Lf)
     x64 = np.random.default_rng(5).uniform(-1, 1, (C, L))
     ops, lo, rows = ex.sym_ops, ex.sym_lo, ex.sym_lo_rows
-    args = (ops, ex.sym_Lf, nb, hop)
+    args = (ex.sym_Lf, nb, hop, SYM_KC["high"])
+    parts = {"fast": sym_parts(ops), "high": ex.sym_parts,
+             "fold": sym_parts(ops, torch.zeros_like(lo), rows)}
 
     def gains(xp):
         want = sym_conv_ref(xp.double(), sym_ops_high(ops, lo, rows),
-                            *args[1:]).numpy()
-        db = {k: rms_db(sym_conv_ref(xp, *args, *kw).double().numpy()
-                        - want)
-              for k, kw in (("fast", ()), ("high", (lo, rows)),
-                            ("fold", (torch.zeros_like(lo), rows)))}
+                            *args[:3]).numpy()
+        db = {k: rms_db(sym_conv_ref(xp, p, *args).double().numpy() - want)
+              for k, p in parts.items()}
         return db["fast"] - db["high"], db["fast"] - db["fold"]
 
     full, fold = gains(torch.from_numpy(x64.astype(np.float32)))
@@ -174,30 +177,37 @@ def test_high_gain_at_every_spec(pair):
 
 def test_argument_checks():
     ops = torch.zeros((1, 2, 10, BH))
+    parts = sym_parts(ops)
     x = torch.zeros((2, 1000))
-    with pytest.raises(ValueError, match="ops"):
-        sym_conv(x, torch.zeros((1, 2, 10, 64)), (19,), 3, 256)
+    with pytest.raises(ValueError, match="another tiling"):
+        sym_conv(x, parts[:, :2].contiguous(), (19,), 3, 256)
+    with pytest.raises(TypeError, match="packed bfloat16"):
+        sym_conv(x, ops, (19,), 3, 256)
     with pytest.raises(TypeError, match="float32 or float64"):
-        sym_conv(x.half(), ops.half(), (19,), 3, 256)
+        sym_conv(x.half(), parts, (19,), 3, 256)
     with pytest.raises(ValueError, match="frame lengths"):
-        sym_conv(x, ops, (21,), 3, 256)
+        sym_conv(x.double(), ops.double(), (21,), 3, 256)
     with pytest.raises(ValueError, match="samples"):
-        sym_conv(x, ops, (19,), 5, 256)
+        sym_conv(x, parts, (19,), 5, 256)
     with pytest.raises(ValueError, match="phases"):
-        sym_conv(x, torch.zeros((9, 2, 10, BH)), (19,) * 9, 3, 256)
+        sym_conv(x, sym_parts(torch.zeros((9, 2, 10, BH))), (19,) * 9, 3,
+                 256)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        sym_conv(x, parts, (19,), 3, 200)
+    with pytest.raises(ValueError, match="kc"):
+        sym_conv(x, parts, (19,), 3, 256, kc=8)
     with pytest.raises(ValueError, match="go together"):
-        sym_conv(x, ops, (19,), 3, 256, lo=torch.zeros((1, 2, 4, BH)))
+        sym_parts(ops, lo=torch.zeros((1, 2, 4, BH)))
     with pytest.raises(ValueError, match="lo_rows"):
-        sym_conv(x, ops, (19,), 3, 256, lo=torch.zeros((1, 2, 4, BH)),
-                 lo_rows=(((0, 5), (0, 1)),))
+        sym_parts(ops, torch.zeros((1, 2, 4, BH)), (((0, 5), (0, 1)),))
     with pytest.raises(TypeError, match="float32 only"):
-        sym_conv(x.double(), ops.double(), (19,), 3, 256,
-                 lo=torch.zeros((1, 2, 4, BH), dtype=torch.float64),
-                 lo_rows=(((0, 4), (0, 4)),))
+        sym_parts(ops.double(), torch.zeros((1, 2, 4, BH),
+                                            dtype=torch.float64),
+                  (((0, 4), (0, 4)),))
 
 
 def test_cpu_call_launches_nothing():
-    ops = torch.zeros((1, 2, 10, BH))
+    parts = sym_parts(torch.zeros((1, 2, 10, BH)))
     before = sym_conv.launches
-    y = sym_conv(torch.ones((2, 1000)), ops, (19,), 3, 256)
+    y = sym_conv(torch.ones((2, 1000)), parts, (19,), 3, 256)
     assert y.shape == (2, 3 * 2 * BH) and sym_conv.launches == before
