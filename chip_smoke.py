@@ -135,8 +135,7 @@ SYM_ULPS = {"float32": 4, "float64": 16}
 # SYM_ULPS, so it is held by its gain: the drop, in dB, of the RMS error
 # against the float64 function of "high" (sym_ops_high) from the fast
 # output to the high one, on full-mantissa input.  The split model gains
-# 2.6 to 3.4 dB at every spec with the "high" executor's 16-term folds
-# (the fold errors give about half); the kernel's gain must be within
+# 2.0 to 2.2 dB at every spec; the kernel's gain must be within
 # SYM_GAIN_TOL_DB of the model's, so a kernel missing either part fails
 SYM_GAIN_MIN_DB, SYM_GAIN_TOL_DB = 0.3, 0.1
 # sym_conv's specs: the first conv stage of each (src, dst, trans_band,
@@ -1034,7 +1033,7 @@ def full_mantissa(g, shape, dtype, dev):
     return (u * 2 - 1).to(dtype)
 
 
-def sym_high_gain(label, xp, ex, L_fs, nb, hop, kc):
+def sym_high_gain(label, xp, ex, L_fs, nb, hop):
     """The gain of precision "high" on xp, kernel and model, for the
     "high" executor ``ex``: the drop of each one's RMS error against the
     float64 function of "high" from its fast output (the operators packed
@@ -1049,8 +1048,8 @@ def sym_high_gain(label, xp, ex, L_fs, nb, hop, kc):
     want = sym_conv_ref(xp.double(), sym_ops_high(ops, lo, rows), L_fs, nb,
                         hop)
     fast = sym_parts(ops)
-    db = {fn: (rms_db(fn(xp, fast, L_fs, nb, hop, kc) - want),
-               rms_db(fn(xp, ex.sym_parts, L_fs, nb, hop, kc) - want))
+    db = {fn: (rms_db(fn(xp, fast, L_fs, nb, hop) - want),
+               rms_db(fn(xp, ex.sym_parts, L_fs, nb, hop) - want))
           for fn in (sym_conv, sym_conv_ref)}
     gk = db[sym_conv][0] - db[sym_conv][1]
     gp = db[sym_conv_ref][0] - db[sym_conv_ref][1]
@@ -1071,8 +1070,7 @@ def check_sym_cases(dev) -> None:
     import torch
 
     from r8brain_torch.models.plan import make_plan
-    from r8brain_torch.ops.pallas_symconv import (SYM_KC, sym_conv,
-                                                  sym_conv_ref)
+    from r8brain_torch.ops.pallas_symconv import sym_conv, sym_conv_ref
     from r8brain_torch.ops.stages import ConvExec
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1085,7 +1083,7 @@ def check_sym_cases(dev) -> None:
             C, nb, hop = 13, 37, 256 * st.down
             L = (nb - 1) * hop + max(ex.sym_Lf)
             xp = full_mantissa(g, (C, L + 3), dt, dev)[:, 3:]
-            args = (xp, ex.sym_parts, ex.sym_Lf, nb, hop, SYM_KC[prec])
+            args = (xp, ex.sym_parts, ex.sym_Lf, nb, hop)
             y, r = sym_conv(*args), sym_conv_ref(*args)
             torch.cuda.synchronize()
             u = ulps_of_max(y, r)
@@ -1172,7 +1170,6 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
     if kernel == "sym_conv":
         fn, ref = sym_conv, sym_conv_ref
         _xp, parts, L_fs, nb, hop = args
-        kc = kw["kc"]
         ops, lo, rows = ex.sym_ops, ex.sym_lo, ex.sym_lo_rows
         y, r = fn(*args, **kw), ref(*args, **kw)
         torch.cuda.synchronize()
@@ -1186,7 +1183,7 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
             g = torch.Generator(device=xp.device).manual_seed(SEED)
             gk, gp, db = sym_high_gain(
                 name, full_mantissa(g, tuple(xp.shape), xp.dtype, xp.device),
-                ex, L_fs, nb, hop, kc)
+                ex, L_fs, nb, hop)
             tol += (f"; 'high' gain on full-mantissa input {gk:.3f} dB "
                     f"(model {gp:.3f}, tol {SYM_GAIN_TOL_DB}), high "
                     f"{db:.2f} dB re full scale vs its f64 function")

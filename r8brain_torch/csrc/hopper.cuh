@@ -1,5 +1,5 @@
 // Device helpers shared by the port's Hopper kernels (frac_whole.cu,
-// ozaki_framed.cu), for sm_90a: cp.async copies, mbarriers and TMA bulk
+// ozaki_framed.cu, sym_conv.cu), for sm_90a: cp.async copies, mbarriers and TMA bulk
 // copies, warpgroup MMAs (wgmma) with A from registers and B from a
 // K-major 128-byte-swizzled bf16 tile in shared memory, and two_sum.
 

@@ -39,9 +39,14 @@
 //     (sym_parts: s0, s1, s2, and under "high" bf16 of the residual rows at
 //     their offsets).  Every slice product is exact in float32.
 //   * Kept pairs: p+q <= 2; under "high" also bf16(z_err)*s0 and z0*s3.
-//   * The big pair z0*s0 sums into a partial that each fold starts fresh
-//     (wgmma scale-d = 0) over FOLD = 16 or 32 terms and is folded into
-//     (hi, lo) with two_sum on the CUDA cores; the other products
+//   * The big pair z0*s0 sums into a partial of FOLD = 32 terms: each of
+//     its two k16 steps starts fresh (wgmma scale-d = 0, one accumulator
+//     each), and the steps' sums, which the tensor cores truncate toward
+//     zero, are added in float32; the partial is folded into (hi, lo) with
+//     two_sum on the CUDA cores.  Chaining the steps in one accumulator
+//     sums in a way the model does not follow: its error
+//     sits between truncating once and twice, which moved the kernel's
+//     "high" gain 0.07-0.10 dB from the model's.  The other products
 //     accumulate straight into lo.  The halves combine as
 //         (s, e) = two_sum(hi_e, +-hi_o),  y = s + (e + (lo_e +- lo_o)),
 //     so each output rounds once.  Plain __f*_rn arithmetic (no
@@ -118,6 +123,10 @@ constexpr int NF = 64;           // frames a warpgroup (the MMAs' rows)
 constexpr int NR = TN / 2;       // accumulator floats a thread a fragment
 constexpr int NT = 256;          // two warpgroups
 constexpr int SLICE = TN * TK;   // bf16 elements of one slice's tile
+// terms of a big-pair partial (ops/pallas_frac.py KC): two k16 steps, each
+// summed fresh on the tensor cores and added in float32 before the fold
+constexpr int FOLD = 32;
+static_assert(TK % FOLD == 0 && FOLD % 16 == 0, "folds tile the k-tile");
 
 // Ablation, for tools/torch_sym_ablation.py only: a build with
 // -DR8B_ABLATE=mask drops parts of the work (its output is then wrong) so
@@ -179,7 +188,7 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
   for (int i = 0; i < N; ++i) r[i] = 0.0f;
 }
 
-template <int P, int FOLD>
+template <int P>
 __global__ void __launch_bounds__(NT, 1)
 sym_split_kernel(const float* __restrict__ xp, long long ldx,
                  const bf16* __restrict__ parts, int Kt, float* __restrict__ y,
@@ -189,7 +198,6 @@ sym_split_kernel(const float* __restrict__ xp, long long ldx,
   constexpr int KS = FOLD / 16;          // k16 steps a fold
   constexpr int UNIT = 2 * P * SLICE;    // bf16 elements a ring stage
   constexpr unsigned UNIT_BYTES = UNIT * 2;
-  static_assert(TK % FOLD == 0 && FOLD % 16 == 0, "folds tile the k-tile");
 
   extern __shared__ unsigned char smem_raw[];
   // the swizzle atoms need 1024-byte alignment
@@ -274,7 +282,8 @@ sym_split_kernel(const float* __restrict__ xp, long long ldx,
   // Accumulators of each operator: the big pair's partial of the fold in
   // flight (tensor cores), its folded sum hi (CUDA cores), and lo, into
   // which the tensor cores add the small pairs and the fold its errors
-  float acc_e[NR], acc_o[NR], hi_e[NR], hi_o[NR], lo_e[NR], lo_o[NR];
+  float acc_e[KS][NR], acc_o[KS][NR], hi_e[NR], hi_o[NR], lo_e[NR],
+      lo_o[NR];
   int u = 0;  // ring stage counter
   for (int j = 0; j < up; ++j) {
     const int Lf = ph.Lf[j];
@@ -359,8 +368,11 @@ sym_split_kernel(const float* __restrict__ xp, long long ldx,
               }
             }
           }
-          reg_fence(acc_e);
-          reg_fence(acc_o);
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            reg_fence(acc_e[ks]);
+            reg_fence(acc_o[ks]);
+          }
           reg_fence(lo_e);
           reg_fence(lo_o);
           wg_fence();
@@ -369,8 +381,8 @@ sym_split_kernel(const float* __restrict__ xp, long long ldx,
             const unsigned kb = b_s + (f * KS + ks) * 32;
             const uint64_t e0 = desc_sw128(kb);
             const uint64_t o0 = desc_sw128(kb + P * SLICE * 2);
-            Mma<TN>::run(acc_e, az[ks][0], e0, ks);  // fresh on the first
-            Mma<TN>::run(acc_o, aw[ks][0], o0, ks);
+            Mma<TN>::run(acc_e[ks], az[ks][0], e0, 0);  // fresh each step
+            Mma<TN>::run(acc_o[ks], aw[ks][0], o0, 0);
             if constexpr (!kNoSmall) {
               const uint64_t e1 = desc_sw128(kb + SLICE * 2);
               const uint64_t e2 = desc_sw128(kb + 2 * SLICE * 2);
@@ -398,21 +410,31 @@ sym_split_kernel(const float* __restrict__ xp, long long ldx,
           }
           wg_commit();
           wg_wait0();
-          reg_fence(acc_e);
-          reg_fence(acc_o);
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            reg_fence(acc_e[ks]);
+            reg_fence(acc_o[ks]);
+          }
           reg_fence(lo_e);
           reg_fence(lo_o);
 #pragma unroll
           for (int i = 0; i < NR; ++i) {
+            // the fold's partial: its steps' sums added in float32
+            float pe = acc_e[0][i], po = acc_o[0][i];
+#pragma unroll
+            for (int ks = 1; ks < KS; ++ks) {
+              pe = __fadd_rn(pe, acc_e[ks][i]);
+              po = __fadd_rn(po, acc_o[ks][i]);
+            }
             if constexpr (kNoFold) {
-              hi_e[i] = __fadd_rn(hi_e[i], acc_e[i]);
-              hi_o[i] = __fadd_rn(hi_o[i], acc_o[i]);
+              hi_e[i] = __fadd_rn(hi_e[i], pe);
+              hi_o[i] = __fadd_rn(hi_o[i], po);
             } else {
               float s, e;
-              two_sum(hi_e[i], acc_e[i], s, e);
+              two_sum(hi_e[i], pe, s, e);
               hi_e[i] = s;
               lo_e[i] = __fadd_rn(lo_e[i], e);
-              two_sum(hi_o[i], acc_o[i], s, e);
+              two_sum(hi_o[i], po, s, e);
               hi_o[i] = s;
               lo_o[i] = __fadd_rn(lo_o[i], e);
             }
@@ -473,7 +495,7 @@ inline int span_floats(int nf, int hop, int Lf_max, int sk) {
   return (len + sk * (len >> 8) + 3) / 4 * 4;
 }
 
-template <int P, int FOLD>
+template <int P>
 cudaError_t launch_split(cudaStream_t s, const float* xp, long long ldx,
                          const bf16* parts, int Kt, float* y, int C, int nb,
                          int hop, int up, int Lf_max, const Phases& ph) {
@@ -510,7 +532,7 @@ cudaError_t launch_split(cudaStream_t s, const float* xp, long long ldx,
   const long long blocks = (tiles + 1) / 2;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   const int vec = reinterpret_cast<uintptr_t>(xp) % 16 == 0 && ldx % 4 == 0;
-  auto* kern = sym_split_kernel<P, FOLD>;
+  auto* kern = sym_split_kernel<P>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -530,7 +552,7 @@ constexpr int TN2 = 2 * TN;      // columns a tile of this design
 constexpr int NR2 = TN2 / 2;     // accumulator floats a thread a fragment
 constexpr int XB = 2 * (NR2 / 2) * 128;  // floats of the exchange buffer
 
-template <int P, int FOLD>
+template <int P>
 __global__ void __launch_bounds__(NT, 1)
 sym_pair_kernel(const float* __restrict__ xp, long long ldx,
                 const bf16* __restrict__ parts, int Kt, float* __restrict__ y,
@@ -540,7 +562,6 @@ sym_pair_kernel(const float* __restrict__ xp, long long ldx,
   constexpr int TILE2 = TN2 * TK;          // bf16 elements a slice's tile
   constexpr int UNIT = 2 * P * TILE2;      // a stage: both operators
   constexpr unsigned UNIT_BYTES = UNIT * 2;
-  static_assert(TK % FOLD == 0 && FOLD % 16 == 0, "folds tile the k-tile");
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -619,7 +640,7 @@ sym_pair_kernel(const float* __restrict__ xp, long long ldx,
   const long long out_row = static_cast<long long>(nb) * 2 * BH * up;
   const float sgn = wg == 0 ? 1.0f : -1.0f;  // z = a + r, w = a - r
 
-  float acc[NR2], hi[NR2], lo[NR2];
+  float acc[KS][NR2], hi[NR2], lo[NR2];
   int u = 0, rnd = 0;
   for (int j = 0; j < up; ++j) {
     const int Lf = ph.Lf[j];
@@ -690,14 +711,15 @@ sym_pair_kernel(const float* __restrict__ xp, long long ldx,
                 ev[ks][q] = bits(__float22bfloat162_rn(ee));
             }
           }
-          reg_fence(acc);
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) reg_fence(acc[ks]);
           reg_fence(lo);
           wg_fence();
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
             const unsigned kb = b_s + (f * KS + ks) * 32;
             const uint64_t d0 = desc_sw128(kb);
-            Mma<TN2>::run(acc, av[ks][0], d0, ks);
+            Mma<TN2>::run(acc[ks], av[ks][0], d0, 0);
             if constexpr (!kNoSmall) {
               const uint64_t d1 = desc_sw128(kb + TILE2 * 2);
               const uint64_t d2 = desc_sw128(kb + 2 * TILE2 * 2);
@@ -715,15 +737,19 @@ sym_pair_kernel(const float* __restrict__ xp, long long ldx,
           }
           wg_commit();
           wg_wait0();
-          reg_fence(acc);
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) reg_fence(acc[ks]);
           reg_fence(lo);
 #pragma unroll
           for (int i = 0; i < NR2; ++i) {
+            float p = acc[0][i];
+#pragma unroll
+            for (int ks = 1; ks < KS; ++ks) p = __fadd_rn(p, acc[ks][i]);
             if constexpr (kNoFold) {
-              hi[i] = __fadd_rn(hi[i], acc[i]);
+              hi[i] = __fadd_rn(hi[i], p);
             } else {
               float s, e;
-              two_sum(hi[i], acc[i], s, e);
+              two_sum(hi[i], p, s, e);
               hi[i] = s;
               lo[i] = __fadd_rn(lo[i], e);
             }
@@ -790,7 +816,7 @@ sym_pair_kernel(const float* __restrict__ xp, long long ldx,
   }
 }
 
-template <int P, int FOLD>
+template <int P>
 cudaError_t launch_pair(cudaStream_t s, const float* xp, long long ldx,
                         const bf16* parts, int Kt, float* y, int C, int nb,
                         int hop, int up, int Lf_max, const Phases& ph) {
@@ -824,7 +850,7 @@ cudaError_t launch_pair(cudaStream_t s, const float* xp, long long ldx,
   const long long blocks = static_cast<long long>(C) * n_tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   const int vec = reinterpret_cast<uintptr_t>(xp) % 16 == 0 && ldx % 4 == 0;
-  auto* kern = sym_pair_kernel<P, FOLD>;
+  auto* kern = sym_pair_kernel<P>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -1021,44 +1047,47 @@ int read_phases(const int* Lf, int up, int rows, Phases& ph) {
 
 }  // namespace
 
+// -DR8B_PAIR=1 (tools/torch_sym_ablation.py only) builds the pair design
+// in place of the one the port runs
+#ifndef R8B_PAIR
+#define R8B_PAIR 0
+#endif
+
 // Launch on `stream` (a cudaStream_t); returns the launch's cudaError_t.
 // xp: [C, >= (nb-1)*hop + max Lf] float32 with row stride ldx elements;
 // parts: the packed bf16 operators [up, 4, Kt, 2, n_parts, 32, 64]
 // (ops/pallas_symconv.py::sym_parts; n_parts 3, or 4 under precision
 // "high" with the residual slice); y: [C, nb*256*up]; hop: a multiple of
-// 256; Lf: [up] frame lengths; fold: the terms of one big-pair partial,
-// 16 or 32.
+// 256; Lf: [up] frame lengths.
 extern "C" int r8b_sym_conv_f32(const float* xp, long long ldx,
                                 const void* parts, int n_parts, int Kt,
                                 float* y, int C, int nb, int hop, int up,
-                                const int* Lf, int fold, void* stream) {
+                                const int* Lf, void* stream) {
   Phases ph{};
   if (C < 0 || nb < 1 || hop < 256 || hop % 256 || up < 1 || up > MAXP ||
-      ldx < 0 || Kt < 1)
+      ldx < 0 || Kt < 1 || (n_parts != 3 && n_parts != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const int Lf_max = read_phases(Lf, up, Kt * split::TK, ph);
   if (Lf_max == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* pb = static_cast<const bf16*>(parts);
-// -DR8B_PAIR=1 (tools/torch_sym_ablation.py only) builds the pair design
-// in place of the one above
-#ifndef R8B_PAIR
-#define R8B_PAIR 0
+#if R8B_PAIR
+  const cudaError_t e =
+      n_parts == 3
+          ? split::launch_pair<3>(s, xp, ldx, pb, Kt, y, C, nb, hop, up,
+                                  Lf_max, ph)
+          : split::launch_pair<4>(s, xp, ldx, pb, Kt, y, C, nb, hop, up,
+                                  Lf_max, ph);
+#else
+  const cudaError_t e =
+      n_parts == 3
+          ? split::launch_split<3>(s, xp, ldx, pb, Kt, y, C, nb, hop, up,
+                                   Lf_max, ph)
+          : split::launch_split<4>(s, xp, ldx, pb, Kt, y, C, nb, hop, up,
+                                   Lf_max, ph);
 #endif
-#define R8B_SPLIT(P_, FOLD_)                                            \
-  if (n_parts == P_ && fold == FOLD_)                                   \
-    return static_cast<int>(R8B_PAIR                                    \
-        ? split::launch_pair<P_, FOLD_>(                                \
-              s, xp, ldx, pb, Kt, y, C, nb, hop, up, Lf_max, ph)        \
-        : split::launch_split<P_, FOLD_>(                               \
-              s, xp, ldx, pb, Kt, y, C, nb, hop, up, Lf_max, ph));
-  R8B_SPLIT(3, 32)
-  R8B_SPLIT(4, 32)
-  R8B_SPLIT(3, 16)
-  R8B_SPLIT(4, 16)
-#undef R8B_SPLIT
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(e);
 }
 
 // xp: [C, >= (nb-1)*hop + max Lf] float64 with row stride ldx; ops: [up, 2,

@@ -29,11 +29,11 @@ bfloat16 split that the kernel runs on the tensor cores, as
   under "high": bf16 of the residual rows at their offsets, zero
   elsewhere;
 * every slice product is exact in float32; the big pair z0*s0 sums in
-  ``kc``-term float32 chunks, each folded into (hi, lo) with two_sum; the
-  model sums a chunk as the tensor cores do, each 16-term step's products
-  added exactly and the partial truncated toward zero (chip_smoke.py
-  holds the kernel to it); the five small pairs with p+q <= 2, and under
-  "high" bf16(z_err)*s0 and z0*s3, sum per chunk into lo;
+  ``KC``-term chunks, each folded into (hi, lo) with two_sum; a chunk is
+  two 16-term steps, each summed as the tensor cores sum it (the exact
+  sum truncated toward zero to float32), added in float32; the five small
+  pairs with p+q <= 2, and under "high" bf16(z_err)*s0 and z0*s3, sum
+  per chunk into lo;
 * the halves combine with one more two_sum, so each output rounds once:
   (s, e) = two_sum(hi_e, +-hi_o), y = s + (e + (lo_e +- lo_o)).
 
@@ -51,10 +51,10 @@ import torch
 from . import _cuda
 from .dfloat import two_sum
 from .framing import _frames
-from .pallas_frac import KC, KC_LO, TILE_K, _swizzle, split3
+from .pallas_frac import KC, TILE_K, _swizzle, split3
 
-__all__ = ["BH", "SYM_KC", "TILE_N", "sym_conv", "sym_conv_ref",
-           "sym_ops_high", "sym_parts", "unpack_sym"]
+__all__ = ["BH", "TILE_N", "sym_conv", "sym_conv_ref", "sym_ops_high",
+           "sym_parts", "unpack_sym"]
 
 #: Columns of each half of a folded block (the reference pins B at 256).
 BH = 128
@@ -64,12 +64,6 @@ MAX_PHASES = 8
 #: warpgroup's MMA width, for both operators of a phase.
 TILE_N = 32
 N_TILES = BH // TILE_N
-#: Terms a float32 big-pair partial sums before its fold, by precision
-#: (the executor's choice).  "high" folds every k16 step: the tensor cores
-#: truncate each step's sum, and a 32-term partial's second step is not
-#: modelled closely enough to hold the kernel's gain from the residual
-#: terms to the model's (chip_smoke.py, SYM_GAIN_TOL_DB).
-SYM_KC = {"fast": KC, "high": KC_LO}
 
 LoRows = Sequence[Tuple[Tuple[int, int], Tuple[int, int]]]
 
@@ -145,7 +139,7 @@ def unpack_sym(parts: torch.Tensor) -> torch.Tensor:
     return t.reshape(up, 2, P, Kt * k, nt * n)
 
 
-def _check(xp, parts, L_fs, nb, hop, kc):
+def _check(xp, parts, L_fs, nb, hop):
     up = len(L_fs)
     if not 1 <= up <= MAX_PHASES:
         raise ValueError(f"need 1..{MAX_PHASES} phases, got {up}")
@@ -153,8 +147,6 @@ def _check(xp, parts, L_fs, nb, hop, kc):
         raise ValueError(f"xp must be [C, L], got {tuple(xp.shape)}")
     if xp.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"xp must be float32 or float64, got {xp.dtype}")
-    if kc not in (KC_LO, KC):
-        raise ValueError(f"kc must be {KC_LO} or {KC}, got {kc}")
     if nb < 1 or hop < 1 or hop % (2 * BH):
         raise ValueError(f"need nb >= 1 and hop a positive multiple of "
                          f"{2 * BH} (frames of B = {2 * BH} columns), got "
@@ -198,28 +190,29 @@ def _rz(x: torch.Tensor) -> torch.Tensor:
                        torch.nextafter(y, torch.zeros_like(y)), y)
 
 
-def _split_dot(v: torch.Tensor, S: torch.Tensor, kc: int,
+def _split_dot(v: torch.Tensor, S: torch.Tensor,
                v_err: Optional[torch.Tensor]):
     """(hi, lo) of v @ (S[0] + S[1] + S[2] (+ S[3])) in the kernel's split
-    arithmetic.  Per kc-row chunk: the big pair v0 @ s0 as the tensor
-    cores sum it, each 16-row step's products added exactly to the
-    partial and the sum truncated to float32, then folded into (hi, lo)
-    with two_sum; the small pairs (and the "high" terms bf16(v_err) @ s0
-    and v0 @ s3) summed in float64, rounded once, and added to lo before
-    the fold's error.  The float64 sums are exact for any terms within
-    2^37 of each other, so the result does not depend on their order."""
+    arithmetic.  Per KC-row chunk: the big pair v0 @ s0 by 16-row steps,
+    each step's products summed exactly and truncated toward zero to
+    float32 (as the tensor cores do), the steps added in float32, the
+    chunk folded into (hi, lo) with two_sum; the small pairs (and the
+    "high" terms bf16(v_err) @ s0 and v0 @ s3) summed in float64, rounded
+    once, and added to lo before the fold's error.  The float64 sums are
+    exact for any terms within 2^37 of each other, so the result does not
+    depend on their order."""
     v0, v1, v2 = (t.double() for t in split3(v))
     S = S.double()
     pairs = [(v0, S[1] + S[2]), (v1, S[0] + S[1]), (v2, S[0])]
     if v_err is not None:
         pairs += [(v_err.to(torch.bfloat16).double(), S[0]), (v0, S[3])]
     hi = lo = None
-    for l0 in range(0, S.shape[1], kc):
+    for l0 in range(0, S.shape[1], KC):
         acc = None
-        for k0 in range(l0, min(l0 + kc, S.shape[1]), 16):
-            p = torch.matmul(v0[..., k0 : k0 + 16], S[0, k0 : k0 + 16])
-            acc = _rz(p if acc is None else acc.double() + p)
-        c = slice(l0, l0 + kc)
+        for k0 in range(l0, min(l0 + KC, S.shape[1]), 16):
+            p = _rz(torch.matmul(v0[..., k0 : k0 + 16], S[0, k0 : k0 + 16]))
+            acc = p if acc is None else acc + p
+        c = slice(l0, l0 + KC)
         small = sum(torch.matmul(a[..., c], b[c]) for a, b in pairs).float()
         if hi is None:
             hi, lo = acc, small
@@ -230,11 +223,11 @@ def _split_dot(v: torch.Tensor, S: torch.Tensor, kc: int,
 
 
 def sym_conv_ref(xp: torch.Tensor, parts: torch.Tensor, L_fs: Sequence[int],
-                 nb: int, hop: int, kc: int = KC) -> torch.Tensor:
+                 nb: int, hop: int) -> torch.Tensor:
     """Plain PyTorch version of ``sym_conv``, on any device (arguments as
     there): in float32 the kernel's split arithmetic on the slices of
     ``parts``, in float64 the plain contraction."""
-    _check(xp, parts, L_fs, nb, hop, kc)
+    _check(xp, parts, L_fs, nb, hop)
     C, up = xp.shape[0], len(L_fs)
     f64 = xp.dtype == torch.float64
     S = parts if f64 else unpack_sym(parts)
@@ -257,8 +250,8 @@ def sym_conv_ref(xp: torch.Tensor, parts: torch.Tensor, L_fs: Sequence[int],
             z_err = (a - (z - bz)) + (r - bz)
             bv = w - a
             w_err = (a - (w - bv)) - (r + bv)
-        he, le = _split_dot(z, S[j, 0, :, :Hp], kc, z_err)
-        ho, lo = _split_dot(w, S[j, 1, :, :Hp], kc, w_err)
+        he, le = _split_dot(z, S[j, 0, :, :Hp], z_err)
+        ho, lo = _split_dot(w, S[j, 1, :, :Hp], w_err)
         s, e = two_sum(he, ho)
         y[:, :, :BH, j] = s + (e + (le + lo))
         s, e = two_sum(he, -ho)
@@ -282,7 +275,7 @@ def sym_ops_high(ops: torch.Tensor, lo: torch.Tensor,
 _F32_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
 _F64_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -300,24 +293,22 @@ def _launcher(dtype):
 
 
 def sym_conv(xp: torch.Tensor, parts: torch.Tensor, L_fs: Sequence[int],
-             nb: int, hop: int, kc: int = KC) -> torch.Tensor:
+             nb: int, hop: int) -> torch.Tensor:
     """y [C, nb*256*up]: every phase of one folded conv stage, in the
     stage's output order y[c, (b*256 + t)*up + j].
 
     xp: [C, L], L >= (nb-1)*hop + max(L_fs), unit stride along time (any
     row stride), column 0 the phases' common frame origin; parts:
     ``sym_parts(ops, lo, lo_rows)`` of xp's dtype on xp's device; L_fs: the
-    phases' frame lengths; hop: a multiple of 256; kc: terms a float32
-    big-pair partial sums before its fold, ``KC`` or ``KC_LO`` (float64
-    ignores it).  On a CUDA tensor this launches the kernel (counted in
-    ``sym_conv.launches``) or raises; on a CPU tensor it is
-    ``sym_conv_ref``.
+    phases' frame lengths; hop: a multiple of 256.  On a CUDA tensor this
+    launches the kernel (counted in ``sym_conv.launches``) or raises; on a
+    CPU tensor it is ``sym_conv_ref``.
 
     The float32 kernel sums on the tensor cores in their own order, so it
     matches ``sym_conv_ref`` to a few ulps of max |y|, not bit for bit."""
-    _check(xp, parts, L_fs, nb, hop, kc)
+    _check(xp, parts, L_fs, nb, hop)
     if xp.device.type == "cpu":
-        return sym_conv_ref(xp, parts, L_fs, nb, hop, kc)
+        return sym_conv_ref(xp, parts, L_fs, nb, hop)
     if xp.device.type != "cuda":
         raise RuntimeError(f"sym_conv runs on cuda or cpu, not {xp.device}")
     if parts.device != xp.device or not parts.is_contiguous() \
@@ -337,7 +328,7 @@ def sym_conv(xp: torch.Tensor, parts: torch.Tensor, L_fs: Sequence[int],
         if xp.dtype == torch.float32:
             rc = fn(xp.data_ptr(), xp.stride(0), parts.data_ptr(),
                     parts.shape[4], parts.shape[2], y.data_ptr(), C, nb, hop,
-                    up, Lf, kc, stream)
+                    up, Lf, stream)
         else:
             rc = fn(xp.data_ptr(), xp.stride(0), parts.data_ptr(),
                     y.data_ptr(), C, nb, hop, up, parts.shape[2], Lf, stream)

@@ -55,7 +55,7 @@ from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
 from .pallas_frac import KC, KC_LO, frac_whole, operator_parts
 from .pallas_ozaki import ozaki_framed, pack_operator
-from .pallas_symconv import BH, SYM_KC, sym_conv, sym_parts
+from .pallas_symconv import BH, sym_conv, sym_parts
 
 __all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "build_exec",
            "FFT_ENGINES", "MATMUL_ENGINES"]
@@ -596,8 +596,7 @@ class ConvExec(nn.Module):
         hop = B * down
         xp = _shifted(x, self.s_min + self.sym_dmin,
                       (nb - 1) * hop + max(self.sym_Lf), self.dtype)
-        return sym_conv(xp, self.sym_parts, self.sym_Lf, nb, hop,
-                        kc=SYM_KC[self.precision])[:, :M]
+        return sym_conv(xp, self.sym_parts, self.sym_Lf, nb, hop)[:, :M]
 
     def _apply_pallas(self, x: torch.Tensor, M: int) -> torch.Tensor:
         """The mini-Toeplitz on frac_whole: I = 64*down, D = L_f, O =

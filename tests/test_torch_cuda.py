@@ -22,9 +22,8 @@ from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
 from r8brain_torch.ops.pallas_ozaki import (lemma_operands, mma_dot,
                                             ozaki_framed, ozaki_framed_ref,
                                             pack_operator, wgmma_dot)
-from r8brain_torch.ops.pallas_symconv import (SYM_KC, sym_conv,
-                                               sym_conv_ref, sym_ops_high,
-                                               sym_parts)
+from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
+                                               sym_ops_high, sym_parts)
 from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
 
 # (label, I, D, O): tests/test_pallas.py's two shapes and the flagship's
@@ -515,8 +514,7 @@ def test_sym_conv_matches_plain(cuda_device, cfg, variant):
     rng = np.random.default_rng(15)
     big = torch.tensor(rng.uniform(-1, 1, (C, L + 3)), dtype=dtype,
                        device=cuda_device)
-    args = (big[:, 3:], ex.sym_parts, ex.sym_Lf, nb, hop,
-            SYM_KC[ex.precision])
+    args = (big[:, 3:], ex.sym_parts, ex.sym_Lf, nb, hop)
     before = sym_conv.launches
     y = sym_conv(*args)
     r = sym_conv_ref(*args)

@@ -21,9 +21,8 @@ import jax.numpy as jnp
 
 from r8brain_tpu.ops.stages import ConvExec as RefConvExec
 from r8brain_torch.ops.framing import _framed_matmul
-from r8brain_torch.ops.pallas_symconv import (BH, SYM_KC, sym_conv,
-                                               sym_conv_ref, sym_ops_high,
-                                               sym_parts)
+from r8brain_torch.ops.pallas_symconv import (BH, sym_conv, sym_conv_ref,
+                                               sym_ops_high, sym_parts)
 from r8brain_torch.ops.stages import ConvExec
 
 from .helpers import lcg_uniform, rms_db
@@ -158,13 +157,13 @@ def test_high_gain_at_every_spec(pair):
     L = (nb - 1) * hop + max(ex.sym_Lf)
     x64 = np.random.default_rng(5).uniform(-1, 1, (C, L))
     ops, lo, rows = ex.sym_ops, ex.sym_lo, ex.sym_lo_rows
-    args = (ex.sym_Lf, nb, hop, SYM_KC["high"])
+    args = (ex.sym_Lf, nb, hop)
     parts = {"fast": sym_parts(ops), "high": ex.sym_parts,
              "fold": sym_parts(ops, torch.zeros_like(lo), rows)}
 
     def gains(xp):
         want = sym_conv_ref(xp.double(), sym_ops_high(ops, lo, rows),
-                            *args[:3]).numpy()
+                            *args).numpy()
         db = {k: rms_db(sym_conv_ref(xp, p, *args).double().numpy() - want)
               for k, p in parts.items()}
         return db["fast"] - db["high"], db["fast"] - db["fold"]
@@ -194,8 +193,6 @@ def test_argument_checks():
                  256)
     with pytest.raises(ValueError, match="multiple of 256"):
         sym_conv(x, parts, (19,), 3, 200)
-    with pytest.raises(ValueError, match="kc"):
-        sym_conv(x, parts, (19,), 3, 256, kc=8)
     with pytest.raises(ValueError, match="go together"):
         sym_parts(ops, lo=torch.zeros((1, 2, 4, BH)))
     with pytest.raises(ValueError, match="lo_rows"):

@@ -25,8 +25,8 @@ parts of the work (their outputs are wrong; only their times are read):
 and times each with CUDA events (chip_smoke.cuda_ms) at the three calls of
 the main paths, captured from Resampler(..., fused=False,
 conv_engine="toeplitz_sym").oneshot on 1024 channels x 44100 samples:
-44.1k -> 96k "fast" (32-term folds) and "high" (16-term folds, the
-residual slice), 96k -> 44.1k "fast".  Prints one line a variant and the
+44.1k -> 96k "fast" and "high" (the residual slice), 96k -> 44.1k
+"fast".  Prints one line a variant and the
 card's name and power limit.  Needs a CUDA device and nvcc; exits
 non-zero without them.
 """
@@ -103,16 +103,16 @@ def main(argv=None) -> int:
         (xp, parts, L_fs, nb, hop), kw = capture_calls(
             rs, x, stages, ("sym_conv",))["sym_conv"]
         y = torch.empty((xp.shape[0], nb * 256 * len(L_fs)), device=dev)
-        calls[label] = (xp, parts, L_fs, nb, hop, kw["kc"], y)
+        calls[label] = (xp, parts, L_fs, nb, hop, y)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def timed(fn, name, label, xp, parts, L_fs, nb, hop, kc, y):
+    def timed(fn, name, label, xp, parts, L_fs, nb, hop, y):
         Lf = (ctypes.c_int * len(L_fs))(*L_fs)
 
         def run():
             rc = fn(xp.data_ptr(), xp.stride(0), parts.data_ptr(),
                     parts.shape[4], parts.shape[2], y.data_ptr(), xp.shape[0],
-                    nb, hop, len(L_fs), Lf, kc, stream)
+                    nb, hop, len(L_fs), Lf, stream)
             if rc != 0:
                 raise RuntimeError(f"{name} {label}: CUDA error {rc}")
         return f"{label} {cuda_ms(run, args.iters):8.3f} ms"
