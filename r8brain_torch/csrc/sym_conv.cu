@@ -57,15 +57,16 @@
 //     frames of one channel (the rows of its m64 MMAs) and computes, for
 //     every phase and every 32-column tile of the half, both z*Te and w*To
 //     (m64n32k16), so the mirrored outputs y[t'] and y[B-1-t'] come from
-//     one thread's registers: no exchange between warpgroups.  Six
-//     fragments of 16 floats (partial, hi, lo of each operator) a thread.
-//     (128 columns a warpgroup would need two operators' 48-64 KB stages
-//     per k-tile, which with the windows does not fit 227 KB; one operator
-//     a warpgroup would need its partner's results in the epilogue.
-//     Stacking an operator's slices along N, z0 x [s0|s1|s2] as one n96
-//     wgmma, needs their sums in one accumulator of 48-64 floats an
-//     operator: 255 registers, spills and serialized wgmmas (C7511), and
-//     7 % slower on the H100.)
+//     one thread's registers: no exchange between warpgroups.  Eight
+//     fragments of 16 floats a thread (two step partials, hi and lo of
+//     each operator).  Tried on the H100 and slower: two warpgroups on the
+//     same frames, one operator each over 64-column tiles, handing (hi,
+//     lo) over through shared memory (9-14 % at the fast shapes: twice the
+//     operator traffic a frame, a 2-stage ring); an operator's slices
+//     stacked along N, z0 x [s0|s1|s2] as one n96 wgmma (one accumulator
+//     of 48-64 floats an operator: 255 registers, spills, serialized
+//     wgmmas, 7 %).  128 columns a warpgroup would need two operators'
+//     48-64 KB stages per k-tile, which with the windows does not fit.
 //   * The span a tile's windows cover, xp[c, b0*hop : b0*hop + 63*hop +
 //     max L_f], is staged once into shared memory with cp.async and serves
 //     every phase, column tile, forward and reversed window.  Frames sit
@@ -88,8 +89,8 @@
 //     errors) for all its k16 steps, fence, its MMAs, commit, wait,
 //     two_sum.  All of a fold's input registers are written before its
 //     MMAs start (ptxas serializes wgmmas whose register inputs change in
-//     flight).  One warpgroup's CUDA-core work runs while the other's
-//     MMAs do.
+//     flight).  The parts add up (tools/torch_sym_ablation.py): one
+//     warpgroup's CUDA-core work does not hide under the other's MMAs.
 //   * One phase a pass, written with stride up: all phases at once would
 //     multiply the accumulators (up to 8 phases).
 //
@@ -133,9 +134,7 @@ static_assert(TK % FOLD == 0 && FOLD % 16 == 0, "folds tile the k-tile");
 // that the rest can be timed.  Bits: 1 the two_sum fold (one add
 // instead), 2 the split (z1 = z2 = z0), 4 the small-pair (and "high")
 // MMAs, 8 the span staging, 16 the output stores, 32 the reversed window
-// (z = w = a), 64 a split by truncation (z0 = z with its low 16 bits
-// cleared: integer ops in place of conversions; exact, but not the
-// model's slices).
+// (z = w = a).
 #ifndef R8B_ABLATE
 #define R8B_ABLATE 0
 #endif
@@ -145,24 +144,11 @@ constexpr bool kNoSmall = R8B_ABLATE & 4;
 constexpr bool kNoStage = R8B_ABLATE & 8;
 constexpr bool kNoStore = R8B_ABLATE & 16;
 constexpr bool kNoSym = R8B_ABLATE & 32;
-constexpr bool kTrunc = R8B_ABLATE & 64;  // a truncating split (timing)
 
 // the three bf16 slices of a float pair, as packed fragment registers (the
 // lower column in the low half), each difference exact
 __device__ __forceinline__ void split3(float2 v, uint32_t& a0, uint32_t& a1,
                                        uint32_t& a2) {
-  if constexpr (kTrunc) {
-    const uint32_t x = __float_as_uint(v.x), y = __float_as_uint(v.y);
-    const float rx = __fsub_rn(v.x, __uint_as_float(x & 0xffff0000u));
-    const float ry = __fsub_rn(v.y, __uint_as_float(y & 0xffff0000u));
-    const uint32_t ux = __float_as_uint(rx), uy = __float_as_uint(ry);
-    const float sx = __fsub_rn(rx, __uint_as_float(ux & 0xffff0000u));
-    const float sy = __fsub_rn(ry, __uint_as_float(uy & 0xffff0000u));
-    a0 = __byte_perm(x, y, 0x7632);
-    a1 = __byte_perm(ux, uy, 0x7632);
-    a2 = __byte_perm(__float_as_uint(sx), __float_as_uint(sy), 0x7632);
-    return;
-  }
   const __nv_bfloat162 h0 = __float22bfloat162_rn(v);
   if constexpr (kNoSplit) {
     a0 = a1 = a2 = bits(h0);
@@ -542,324 +528,6 @@ cudaError_t launch_split(cudaStream_t s, const float* xp, long long ldx,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// The pair design: a block of two warpgroups on the same 64 frames (one
-// span), warpgroup 0 running z x Te and warpgroup 1 w x To over 64-column
-// tiles (m64n64k16); the epilogue hands warpgroup 1's (hi, lo) to
-// warpgroup 0 through shared memory, 32 columns a round.
-
-constexpr int TN2 = 2 * TN;      // columns a tile of this design
-constexpr int NR2 = TN2 / 2;     // accumulator floats a thread a fragment
-constexpr int XB = 2 * (NR2 / 2) * 128;  // floats of the exchange buffer
-
-template <int P>
-__global__ void __launch_bounds__(NT, 1)
-sym_pair_kernel(const float* __restrict__ xp, long long ldx,
-                const bf16* __restrict__ parts, int Kt, float* __restrict__ y,
-                int nb, int hop, int up, int n_tiles, int nf_max, int span_f,
-                int sk, int vec, int ST, int Lf_max, Phases ph) {
-  constexpr int KS = FOLD / 16;
-  constexpr int TILE2 = TN2 * TK;          // bf16 elements a slice's tile
-  constexpr int UNIT = 2 * P * TILE2;      // a stage: both operators
-  constexpr unsigned UNIT_BYTES = UNIT * 2;
-
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base =
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  bf16* Bs = reinterpret_cast<bf16*>(base);  // [ST][2][P][TN2][TK]
-  float* span = reinterpret_cast<float*>(base + size_t(ST) * UNIT_BYTES);
-  float* xbuf = span + span_f;               // [2 * NR2 / 2][128]
-  uint64_t* full = reinterpret_cast<uint64_t*>(xbuf + XB);
-  uint64_t* xfull = full + ST;
-  uint64_t* xempty = xfull + 1;
-  int* freed = reinterpret_cast<int*>(xempty + 1);
-
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7, tw = tid & 127;
-  const int wq = tw >> 5, lane = tw & 31, g = lane >> 2, tq = lane & 3;
-  const long long c = blockIdx.x / n_tiles;
-  const int b0 = static_cast<int>(blockIdx.x % n_tiles) * nf_max;
-  const int nf = min(nf_max, nb - b0);
-
-  if (tid == 0) {
-    for (int s = 0; s < ST; ++s) {
-      mbar_init(full + s, 1);
-      freed[s] = 0;
-    }
-    mbar_init(xfull, 128);
-    mbar_init(xempty, 128);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (wg == 0) mbar_arrive(xempty);  // the buffer starts free
-
-  auto kt_of = [&](int j) { return ((ph.Lf[j] + 1) / 2 + TK - 1) / TK; };
-  constexpr int NT2 = N_TILES / 2;  // 64-column tiles a half
-  // stage v: (phase, 64-column tile, k-tile), its 2 x P x 2 packed
-  // 32-column tiles side by side in shared memory
-  auto load_unit = [&](int v, int slot) {
-    int j = 0;
-    while (v >= NT2 * kt_of(j)) v -= NT2 * kt_of(j++);
-    const int kt = kt_of(j), m = v / kt, t = v % kt;
-    mbar_expect_tx(full + slot, UNIT_BYTES);
-    for (int o = 0; o < 2; ++o)
-      for (int p = 0; p < P; ++p)
-        for (int h = 0; h < 2; ++h)
-          bulk_g2s(Bs + slot * UNIT + (o * P + p) * TILE2 + h * SLICE,
-                   parts + ((((static_cast<long long>(j) * N_TILES + 2 * m +
-                               h) * Kt + t) * 2 + o) * P + p) * SLICE,
-                   SLICE * 2, full + slot);
-  };
-  int n_units = 0;
-  for (int j = 0; j < up; ++j) n_units += NT2 * kt_of(j);
-  if (tid == 0) {
-    for (int u = 0; u < ST && u < n_units; ++u) load_unit(u, u);
-  }
-
-  if (!kNoStage) {
-    const float* src = xp + c * ldx + static_cast<long long>(b0) * hop;
-    const int len = (nf - 1) * hop + Lf_max;
-    if (vec) {
-      for (int e = tid; e < (len + 3) / 4; e += NT) {
-        const int p = 4 * e;
-        cp_async16(span + skewed(p, sk), src + p, 4 * min(4, len - p));
-      }
-    } else {
-      for (int p = tid; p < len; p += NT)
-        cp_async_elem(span + skewed(p, sk), src + p, true);
-    }
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int row0 = wq * 16 + g, row1 = row0 + 8;
-  const int rstride = hop + sk * (hop >> 8);
-  const float* s0p = span + (row0 < nf ? row0 : 0) * rstride;
-  const float* s1p = span + (row1 < nf ? row1 : 0) * rstride;
-  const long long out_row = static_cast<long long>(nb) * 2 * BH * up;
-  const float sgn = wg == 0 ? 1.0f : -1.0f;  // z = a + r, w = a - r
-
-  float acc[KS][NR2], hi[NR2], lo[NR2];
-  int u = 0, rnd = 0;
-  for (int j = 0; j < up; ++j) {
-    const int Lf = ph.Lf[j];
-    const int Hp = (Lf + 1) / 2;
-    const int ktj = kt_of(j);
-    for (int m = 0; m < NT2; ++m) {
-      zero(hi);
-      zero(lo);
-      for (int t = 0; t < ktj; ++t) {
-        const int slot = u % ST;
-        mbar_wait(full + slot, (u / ST) & 1);
-        const unsigned b_s = smem_u32(Bs + slot * UNIT + wg * P * TILE2);
-#pragma unroll
-        for (int f = 0; f < TK / FOLD; ++f) {
-          const int lf = t * TK + f * FOLD;
-          if (lf >= Hp) break;
-          uint32_t av[KS][3][4], ev[KS][4];
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks) {
-            const int l0 = lf + ks * 16 + 2 * tq;
-            float2 a[4], r[4];
-            if (lf + ks * 16 + 16 <= Hp) {
-              const int sf = sk * ((lf + ks * 16) >> 8);
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const float* sp = (q & 1) ? s1p : s0p;
-                const int l = l0 + 8 * (q >> 1);
-                a[q] = *reinterpret_cast<const float2*>(sp + l + sf);
-                if constexpr (kNoSym) {
-                  r[q] = make_float2(0.0f, 0.0f);
-                } else if ((Lf & 1) == 0) {
-                  const int qq = Lf - 2 - l;
-                  const float2 v =
-                      *reinterpret_cast<const float2*>(sp + skewed(qq, sk));
-                  r[q] = make_float2(v.y, v.x);
-                } else {
-                  const int qq = Lf - 1 - l;
-                  r[q] = make_float2(sp[skewed(qq, sk)],
-                                     sp[skewed(qq - 1, sk)]);
-                }
-              }
-            } else {
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const float* sp = (q & 1) ? s1p : s0p;
-                const int l = l0 + 8 * (q >> 1);
-                float v[2], w[2];
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                  const int lc = min(l + h, Hp - 1);
-                  const float avv = sp[skewed(lc, sk)];
-                  const float rv = kNoSym ? 0.0f : sp[skewed(Lf - 1 - lc, sk)];
-                  v[h] = l + h < Hp ? avv : 0.0f;
-                  w[h] = l + h < Hp ? rv : 0.0f;
-                }
-                a[q] = make_float2(v[0], v[1]);
-                r[q] = make_float2(w[0], w[1]);
-              }
-            }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float2 rs = make_float2(sgn * r[q].x, sgn * r[q].y);
-              float2 vv, ee;
-              two_sum(a[q].x, rs.x, vv.x, ee.x);
-              two_sum(a[q].y, rs.y, vv.y, ee.y);
-              split3(vv, av[ks][0][q], av[ks][1][q], av[ks][2][q]);
-              if constexpr (P == 4)
-                ev[ks][q] = bits(__float22bfloat162_rn(ee));
-            }
-          }
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks) reg_fence(acc[ks]);
-          reg_fence(lo);
-          wg_fence();
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks) {
-            const unsigned kb = b_s + (f * KS + ks) * 32;
-            const uint64_t d0 = desc_sw128(kb);
-            Mma<TN2>::run(acc[ks], av[ks][0], d0, 0);
-            if constexpr (!kNoSmall) {
-              const uint64_t d1 = desc_sw128(kb + TILE2 * 2);
-              const uint64_t d2 = desc_sw128(kb + 2 * TILE2 * 2);
-              Mma<TN2>::run(lo, av[ks][0], d1, 1);
-              Mma<TN2>::run(lo, av[ks][1], d0, 1);
-              Mma<TN2>::run(lo, av[ks][0], d2, 1);
-              Mma<TN2>::run(lo, av[ks][1], d1, 1);
-              Mma<TN2>::run(lo, av[ks][2], d0, 1);
-              if constexpr (P == 4) {
-                Mma<TN2>::run(lo, ev[ks], d0, 1);
-                Mma<TN2>::run(lo, av[ks][0], desc_sw128(kb + 3 * TILE2 * 2),
-                              1);
-              }
-            }
-          }
-          wg_commit();
-          wg_wait0();
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks) reg_fence(acc[ks]);
-          reg_fence(lo);
-#pragma unroll
-          for (int i = 0; i < NR2; ++i) {
-            float p = acc[0][i];
-#pragma unroll
-            for (int ks = 1; ks < KS; ++ks) p = __fadd_rn(p, acc[ks][i]);
-            if constexpr (kNoFold) {
-              hi[i] = __fadd_rn(hi[i], p);
-            } else {
-              float s, e;
-              two_sum(hi[i], p, s, e);
-              hi[i] = s;
-              lo[i] = __fadd_rn(lo[i], e);
-            }
-          }
-        }
-        named_bar_sync(1 + wg, 128);
-        if (tw == 0) {
-          __threadfence_block();
-          if (atomicAdd(freed + slot, 1) == 1) {
-            freed[slot] = 0;
-            __threadfence_block();
-            if (u + ST < n_units) {
-              asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-              load_unit(u + ST, slot);
-            }
-          }
-        }
-        ++u;
-      }
-
-      // the epilogue, 32 columns a round: warpgroup 1 hands its (hi, lo)
-      // to warpgroup 0, which writes both halves
-#pragma unroll
-      for (int h = 0; h < 2; ++h, ++rnd) {
-        constexpr int NB = NR2 / 2;  // floats of a round, per fragment
-        if (wg == 1) {
-          mbar_wait(xempty, rnd & 1);
-#pragma unroll
-          for (int i = 0; i < NB; ++i) {
-            xbuf[i * 128 + tw] = hi[h * NB + i];
-            xbuf[(NB + i) * 128 + tw] = lo[h * NB + i];
-          }
-          mbar_arrive(xfull);
-        } else {
-          mbar_wait(xfull, rnd & 1);
-#pragma unroll
-          for (int i = 0; i < NB; ++i) {
-            const int k = h * NB + i;
-            const int jj = k >> 2, e = k & 3;
-            const float ho = xbuf[i * 128 + tw];
-            const float lw = xbuf[(NB + i) * 128 + tw];
-            const int fr = (e >> 1) ? row1 : row0;
-            const int tcol = m * TN2 + 8 * jj + 2 * tq + (e & 1);
-            float s, er;
-            two_sum(hi[k], ho, s, er);
-            const float yp = __fadd_rn(s, __fadd_rn(er, __fadd_rn(lo[k], lw)));
-            two_sum(hi[k], -ho, s, er);
-            const float ym = __fadd_rn(s, __fadd_rn(er, __fsub_rn(lo[k], lw)));
-            bool store = fr < nf;
-            if constexpr (kNoStore)
-              store = store && __float_as_uint(yp) == 0x7f800001u &&
-                      __float_as_uint(ym) == 0x7f800001u;
-            if (store) {
-              float* yb = y + c * out_row +
-                          static_cast<long long>(b0 + fr) * 2 * BH * up + j;
-              yb[static_cast<long long>(tcol) * up] = yp;
-              yb[static_cast<long long>(2 * BH - 1 - tcol) * up] = ym;
-            }
-          }
-          mbar_arrive(xempty);
-        }
-      }
-    }
-  }
-}
-
-template <int P>
-cudaError_t launch_pair(cudaStream_t s, const float* xp, long long ldx,
-                        const bf16* parts, int Kt, float* y, int C, int nb,
-                        int hop, int up, int Lf_max, const Phases& ph) {
-  const int down = hop / 256;
-  const int sk = (down & 3) == 2 ? 4 : 8;
-  int dev = 0, max_smem = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&max_smem,
-                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  const size_t unit = size_t(2) * P * TN2 * TK * 2;
-  int nf_max = 0, ST = 0, span_f = 0;
-  size_t smem = 0;
-  for (int nf = NF; nf >= 1 && nf_max == 0; nf /= 2) {
-    for (int st = 3; st >= 2; --st) {
-      const int sf = span_floats(nf, hop, Lf_max, sk);
-      const size_t b = st * unit + size_t(sf) * 4 + XB * 4 + (st + 2) * 8 +
-                       st * 4 + 1024;
-      if (b <= static_cast<size_t>(max_smem)) {
-        nf_max = nf;
-        ST = st;
-        span_f = sf;
-        smem = b;
-        break;
-      }
-    }
-  }
-  if (nf_max == 0) return cudaErrorInvalidValue;
-  const int n_tiles = (nb + nf_max - 1) / nf_max;
-  const long long blocks = static_cast<long long>(C) * n_tiles;
-  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  const int vec = reinterpret_cast<uintptr_t>(xp) % 16 == 0 && ldx % 4 == 0;
-  auto* kern = sym_pair_kernel<P>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kern<<<static_cast<unsigned>(blocks), NT, smem, s>>>(
-      xp, ldx, parts, Kt, y, nb, hop, up, n_tiles, nf_max, span_f, sk, vec,
-      ST, Lf_max, ph);
-  return cudaGetLastError();
-}
-
 }  // namespace split
 
 // ---------------------------------------------------------------------------
@@ -1047,12 +715,6 @@ int read_phases(const int* Lf, int up, int rows, Phases& ph) {
 
 }  // namespace
 
-// -DR8B_PAIR=1 (tools/torch_sym_ablation.py only) builds the pair design
-// in place of the one the port runs
-#ifndef R8B_PAIR
-#define R8B_PAIR 0
-#endif
-
 // Launch on `stream` (a cudaStream_t); returns the launch's cudaError_t.
 // xp: [C, >= (nb-1)*hop + max Lf] float32 with row stride ldx elements;
 // parts: the packed bf16 operators [up, 4, Kt, 2, n_parts, 32, 64]
@@ -1072,21 +734,12 @@ extern "C" int r8b_sym_conv_f32(const float* xp, long long ldx,
   if (C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* pb = static_cast<const bf16*>(parts);
-#if R8B_PAIR
-  const cudaError_t e =
-      n_parts == 3
-          ? split::launch_pair<3>(s, xp, ldx, pb, Kt, y, C, nb, hop, up,
-                                  Lf_max, ph)
-          : split::launch_pair<4>(s, xp, ldx, pb, Kt, y, C, nb, hop, up,
-                                  Lf_max, ph);
-#else
   const cudaError_t e =
       n_parts == 3
           ? split::launch_split<3>(s, xp, ldx, pb, Kt, y, C, nb, hop, up,
                                    Lf_max, ph)
           : split::launch_split<4>(s, xp, ldx, pb, Kt, y, C, nb, hop, up,
                                    Lf_max, ph);
-#endif
   return static_cast<int>(e);
 }
 

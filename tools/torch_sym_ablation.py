@@ -17,10 +17,6 @@ parts of the work (their outputs are wrong; only their times are read):
   mma_only        no staging, reversed window, split or two_sum: MMAs,
                   operator copies and the epilogue
   mma_nostore     mma_only without the stores
-  trunc_split     the split by truncation (integer ops, no conversions)
-  pair, pair_mma_only  the pair design (-DR8B_PAIR=1: two warpgroups on
-                  the same frames, z x Te and w x To, 64-column tiles, an
-                  exchange through shared memory), as built and MMAs only
 
 and times each with CUDA events (chip_smoke.cuda_ms) at the three calls of
 the main paths, captured from Resampler(..., fused=False,
@@ -47,15 +43,11 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import capture_calls, cuda_ms  # noqa: E402
 
 # the kernel's R8B_ABLATE bits
-TWOSUM, SPLIT, SMALL, STAGE, STORE, SYM, TRUNC = 1, 2, 4, 8, 16, 32, 64
+TWOSUM, SPLIT, SMALL, STAGE, STORE, SYM = 1, 2, 4, 8, 16, 32
 MMA_ONLY = TWOSUM | SPLIT | STAGE | SYM
-# name: (R8B_ABLATE mask, R8B_PAIR)
-VARIANTS = {"base": (0, 0), "no_stage": (STAGE, 0),
-            "no_fold_split": (SPLIT | SYM, 0), "no_twosum": (TWOSUM, 0),
-            "only_big": (SMALL, 0), "no_store": (STORE, 0),
-            "mma_only": (MMA_ONLY, 0), "mma_nostore": (MMA_ONLY | STORE, 0),
-            "trunc_split": (TRUNC, 0), "pair": (0, 1),
-            "pair_mma_only": (MMA_ONLY, 1)}
+VARIANTS = {"base": 0, "no_stage": STAGE, "no_fold_split": SPLIT | SYM,
+            "no_twosum": TWOSUM, "only_big": SMALL, "no_store": STORE,
+            "mma_only": MMA_ONLY, "mma_nostore": MMA_ONLY | STORE}
 # (label, src, dst, precision) of the captured calls
 CALLS = (("44.1k->96k fast", 44100, 96000, "fast"),
          ("44.1k->96k high", 44100, 96000, "high"),
@@ -81,10 +73,9 @@ def main(argv=None) -> int:
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=_cuda.BUILD_DIR))
     procs = {}
-    for name, (mask, pair) in VARIANTS.items():
+    for name, mask in VARIANTS.items():
         procs[name] = subprocess.Popen(
-            [_cuda._nvcc(), *flags, f"-DR8B_ABLATE={mask}",
-             f"-DR8B_PAIR={pair}", "-o",
+            [_cuda._nvcc(), *flags, f"-DR8B_ABLATE={mask}", "-o",
              str(tmp / f"{name}.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, p in procs.items():
