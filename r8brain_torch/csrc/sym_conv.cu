@@ -30,7 +30,7 @@
 // GB.  TF32 cannot hold the -141 dB class; float32 FMA on the CUDA cores is
 // bound at 1.13 ms (67 TFLOP/s).  The split form runs 6 bf16 products a
 // term (8 under "high": the fold errors and the residual rows) at 989
-// TFLOP/s: about 0.46 ms (0.61).
+// TFLOP/s: 0.46 ms (0.56 under "high").
 //
 // Arithmetic:
 //   * z, w formed in float32 (and under "high" their two_sum errors), each
@@ -44,9 +44,9 @@
 //     each), and the steps' sums, which the tensor cores truncate toward
 //     zero, are added in float32; the partial is folded into (hi, lo) with
 //     two_sum on the CUDA cores.  Chaining the steps in one accumulator
-//     sums in a way the model does not follow: its error
-//     sits between truncating once and twice, which moved the kernel's
-//     "high" gain 0.07-0.10 dB from the model's.  The other products
+//     sums in a way the model does not follow: its error sits between
+//     truncating once and twice, and the kernel's "high" gain came out as
+//     far from the model's as chip_smoke.py allows.  The other products
 //     accumulate straight into lo.  The halves combine as
 //         (s, e) = two_sum(hi_e, +-hi_o),  y = s + (e + (lo_e +- lo_o)),
 //     so each output rounds once.  Plain __f*_rn arithmetic (no
@@ -61,11 +61,12 @@
 //     fragments of 16 floats a thread (two step partials, hi and lo of
 //     each operator).  Tried on the H100 and slower: two warpgroups on the
 //     same frames, one operator each over 64-column tiles, handing (hi,
-//     lo) over through shared memory (9-14 % at the fast shapes: twice the
-//     operator traffic a frame, a 2-stage ring); an operator's slices
+//     lo) over through shared memory (9-11 % slower at the fast shapes,
+//     level under "high": twice the operator traffic a frame, a 2-stage
+//     ring); an operator's slices
 //     stacked along N, z0 x [s0|s1|s2] as one n96 wgmma (one accumulator
 //     of 48-64 floats an operator: 255 registers, spills, serialized
-//     wgmmas, 7 %).  128 columns a warpgroup would need two operators'
+//     wgmmas).  128 columns a warpgroup would need two operators'
 //     48-64 KB stages per k-tile, which with the windows does not fit.
 //   * The span a tile's windows cover, xp[c, b0*hop : b0*hop + 63*hop +
 //     max L_f], is staged once into shared memory with cp.async and serves
@@ -83,8 +84,7 @@
 //     One TMA bulk copy moves a block into an mbarrier ring shared by both
 //     warpgroups (3 stages, 2 under "high"); wgmma reads B from it through
 //     128B swizzle descriptors.  The warpgroup that frees a slot second
-//     refills it, so neither waits for the other (thread 0 waiting for
-//     both was 2-4 % slower).
+//     refills it, so neither waits for the other.
 //   * A fold is: read and fold the windows, split z and w (and their
 //     errors) for all its k16 steps, fence, its MMAs, commit, wait,
 //     two_sum.  All of a fold's input registers are written before its
@@ -166,7 +166,9 @@ __device__ __forceinline__ void split3(float2 v, uint32_t& a0, uint32_t& a1,
 }
 
 // span index of sample p of a tile (SK floats of skew after every 256)
-__device__ __forceinline__ int skewed(int p, int sk) { return p + sk * (p >> 8); }
+__device__ __forceinline__ int skewed(int p, int sk) {
+  return p + sk * (p >> 8);
+}
 
 template <int N>
 __device__ __forceinline__ void zero(float (&r)[N]) {
@@ -189,7 +191,7 @@ sym_split_kernel(const float* __restrict__ xp, long long ldx,
   // the swizzle atoms need 1024-byte alignment
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  bf16* Bs = reinterpret_cast<bf16*>(base);                          // [ST][UNIT]
+  bf16* Bs = reinterpret_cast<bf16*>(base);  // [ST][UNIT]
   float* spans = reinterpret_cast<float*>(base + size_t(ST) * UNIT_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(spans + 2 * span_f);
   int* freed = reinterpret_cast<int*>(full + ST);  // warpgroups done, a slot
@@ -453,11 +455,13 @@ sym_split_kernel(const float* __restrict__ xp, long long ldx,
           const int i = 4 * jj + e;
           const int fr = (e >> 1) ? row1 : row0;
           const int tcol = n * TN + 8 * jj + 2 * tq + (e & 1);
+          const float tp = __fadd_rn(lo_e[i], lo_o[i]);
+          const float tm = __fsub_rn(lo_e[i], lo_o[i]);
           float s, er;
           two_sum(hi_e[i], hi_o[i], s, er);
-          const float yp = __fadd_rn(s, __fadd_rn(er, __fadd_rn(lo_e[i], lo_o[i])));
+          const float yp = __fadd_rn(s, __fadd_rn(er, tp));
           two_sum(hi_e[i], -hi_o[i], s, er);
-          const float ym = __fadd_rn(s, __fadd_rn(er, __fsub_rn(lo_e[i], lo_o[i])));
+          const float ym = __fadd_rn(s, __fadd_rn(er, tm));
           bool store = fr < nf;
           if constexpr (kNoStore)  // keep the values live, store nothing
             store = store && __float_as_uint(yp) == 0x7f800001u &&

@@ -76,7 +76,7 @@ class Resampler(nn.Module):
         conv_engine: "auto" (fused; unfused, "toeplitz" in float32 and
         "fft" in float64); the float32 matmul engines "toeplitz" (the
         banded operator on frac_whole), "toeplitz_sym" (the folded
-        operators on sym_conv, half the FMAs; a kernel that is not
+        operators on sym_conv, half the products; a kernel that is not
         symmetric falls back to "toeplitz" under the
         conv_toeplitz_sym_fallback trace), "pallas" (the B=64
         mini-Toeplitz on frac_whole; no fallback) and "direct" (the

@@ -161,7 +161,7 @@ class ConvExec(nn.Module):
         operator rides the same call (``skT_lo``).
       * "toeplitz_sym": for a symmetric kernel each phase's operator is
         centrosymmetric and folds into Te, To of half the rows and columns
-        (``sym_conv``: half the FMAs); under "high" with the fold-error
+        (``sym_conv``: half the products); under "high" with the fold-error
         compensation and the operators' residual rows.  A kernel that is
         not symmetric, or a phase row that is not a palindrome (min-phase
         kernels), falls back to "toeplitz", visibly (the
