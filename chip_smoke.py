@@ -126,10 +126,10 @@ FFT_CASES = ([("frames", n, 0, 5, 3) for n in (512, 1024, 8192, 16384, 65536)]
              + [("framed", n, n // 4, 3, 5) for n in (4096, 8192)]
              + [("poly", n, n // 4, 3, 4) for n in (4096, 8192, 16384)])
 
-# sym_conv vs sym_conv_ref, in ulps of max |y|: float32, the tensor cores
-# sum each chunk of exact slice products in their own order, truncating
-# (frac_whole's MODEL_REL_TOL); float64, the FMA kernel and the model's
-# matmuls add the terms in their own order
+# sym_conv vs sym_conv_ref, in ulps of max |y|: float32, the model sums
+# the big pair's steps as the tensor cores do, but the small pairs and lo
+# add in their own order (frac_whole's MODEL_REL_TOL); float64, the FMA
+# kernel and the model's matmuls add the terms in their own order
 SYM_ULPS = {"float32": 4, "float64": 16}
 # precision "high" moves sym_conv's output by about an ulp, inside
 # SYM_ULPS, so it is held by its gain: the drop, in dB, of the RMS error
