@@ -68,6 +68,18 @@ constexpr int SMEM_MAX_LOGN = 13;  // one CTA holds transforms up to 8192
 constexpr int MAX_RB = 3;          // radix-2 stages per pass: 8 points
 constexpr int MAX_THREADS = 256;   // ~80 registers a thread: 3 CTAs an SM
 
+// Ablation, for tools/torch_fft_ablation.py only: a build with
+// -DR8B_ABLATE=mask drops parts of the one-CTA kernel's work (its output
+// is then wrong) so that the rest can be timed.  Bits: 1 constant
+// twiddles (no twiddle load), 2 no spectrum product (no G load, no sweep),
+// 4 loads and stores only (no transforms, no product).
+#ifndef R8B_ABLATE
+#define R8B_ABLATE 0
+#endif
+constexpr bool kConstTw = R8B_ABLATE & 1;
+constexpr bool kNoProduct = R8B_ABLATE & 2;
+constexpr bool kIoOnly = R8B_ABLATE & 4;
+
 __device__ __forceinline__ int pad_idx(int i) { return i + (i >> 4); }
 
 __host__ __device__ constexpr int smem_points(int m) { return m + (m >> 4); }
@@ -119,7 +131,8 @@ __device__ void radix_pass(double2* s, int logm, int log_hmin,
       for (int k = 0; k < R; ++k) {
         if (k & sk) continue;
         const int jpos = ((k & (sk - 1)) << log_hmin) + j;
-        const double2 w = tw[jpos << (logn - log_h - 1)];
+        const double2 w = kConstTw ? make_double2(0.6, -0.8)
+                                   : tw[jpos << (logn - log_h - 1)];
         if (INV) {
           const double2 t = cmul(v[k + sk], conj(w));
           v[k + sk] = csub(v[k], t);
@@ -235,11 +248,15 @@ __global__ void __launch_bounds__(MAX_THREADS)
   for (int t = threadIdx.x; t < n; t += blockDim.x)
     s[pad_idx(t)] = load_point(fr, u, ldu, L, hop, t);
   __syncthreads();
-  block_fft<false>(s, logn, tw, logn);
-  for (int p = threadIdx.x; p < n; p += blockDim.x)
-    s[pad_idx(p)] = cmul(s[pad_idx(p)], G[brev(p, logn)]);
-  __syncthreads();
-  block_fft<true>(s, logn, tw, logn);
+  if (!kIoOnly) {
+    block_fft<false>(s, logn, tw, logn);
+    if (!kNoProduct) {
+      for (int p = threadIdx.x; p < n; p += blockDim.x)
+        s[pad_idx(p)] = cmul(s[pad_idx(p)], G[brev(p, logn)]);
+      __syncthreads();
+    }
+    block_fft<true>(s, logn, tw, logn);
+  }
   for (int t = threadIdx.x; t < hop; t += blockDim.x)
     store_point(fr, out, n_frames, hop, t, s[pad_idx(head + t)], POLY);
 }
