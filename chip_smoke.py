@@ -52,6 +52,7 @@ version; before the stage chains it holds ``sym_conv`` at every conv
 spec of the folded engine (float32 fast and high on the tensor cores,
 float64, the gain of ``"high"`` against its float64 function, and a
 packing of another tiling refused) and the scouting GEMM ``dense_gemm``
+(the TPU's HIGHEST dot as a three-slice bf16 split on the tensor cores)
 to their plain versions.  Each path runs
 with the launch counts set to 0 just before it and read just after.
 Then it times each path, each kernel at the path's shapes, its plain
@@ -120,11 +121,14 @@ FFT_PATHS = (
     ("unframed5", 96000, 44100, 5.0, 136.45, "pallas_fft5",
      ("framed", 2048), "r8brain_tpu/ops/pallas_dfft5.py:623"),
     ("xla_fft", 44100, 96000, 2.0, 180.15, "fft", ("framed", 8192), None))
-# df_fft_conv against its plain version at every mode and size class:
+# df_fft_conv against its plain version in every mode at every size of
+# the register-resident kernel (128 .. 8192) and at the four-step sizes:
 # (mode, n, head, C, n_frames), C * n_frames odd outside poly mode
-FFT_CASES = ([("frames", n, 0, 5, 3) for n in (512, 1024, 8192, 16384, 65536)]
-             + [("framed", n, n // 4, 3, 5) for n in (4096, 8192)]
-             + [("poly", n, n // 4, 3, 4) for n in (4096, 8192, 16384)])
+FFT_CASES = ([(mode, 1 << b, 0 if mode == "frames" else (1 << b) // 4,
+               *((3, 4) if mode == "poly" else (5, 3)))
+              for b in range(7, 14) for mode in ("frames", "framed", "poly")]
+             + [("frames", n, 0, 5, 3) for n in (16384, 65536)]
+             + [("poly", 16384, 4096, 3, 4)])
 
 # sym_conv vs sym_conv_ref, in ulps of max |y|: float32, the model sums
 # the big pair's steps as the tensor cores do, but the small pairs and lo
@@ -735,8 +739,8 @@ def check_fft_cases(dev) -> None:
         check(rel <= FFT_REL_TOL, f"df_fft_conv {mode} n={n}: max rel err "
               f"{rel:.3e} vs plain")
         worst = max(worst, rel)
-    print(f"df_fft_conv: {len(FFT_CASES)} cases (frames n=512..65536, "
-          f"framed n=4096/8192, poly n=4096..16384; odd C*n_frames, "
+    print(f"df_fft_conv: {len(FFT_CASES)} cases (every mode at n=128.."
+          f"8192, frames n=16384/65536, poly n=16384; odd C*n_frames, "
           f"row-strided input) vs df_fft_conv_ref: max rel err {worst:.3e} "
           f"(tol {FFT_REL_TOL:.2e})")
 
@@ -1112,8 +1116,10 @@ def check_sym_cases(dev) -> None:
 
 
 def check_dense_cases(dev) -> None:
-    """dense_gemm at a ragged shape, both M tiles, one K loop and hop
-    segments, against the float64 product on the card."""
+    """dense_gemm at a ragged shape, both M tiles (the same result), one K
+    loop and hop segments (256, and 48, which folds mid k-tile), a K no
+    multiple of 4 and a misaligned A, against the float64 product on the
+    card."""
     import torch
 
     from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
@@ -1121,16 +1127,30 @@ def check_dense_cases(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(SEED)
     A = torch.randn((1000, 700), generator=g, device=dev)
     B = torch.randn((700, 130), generator=g, device=dev)
-    errs = {}
+    errs, outs = {}, {}
     for mt in M_TILES:
-        for hop in (None, GEMM_HOP):
+        for hop in (None, GEMM_HOP, 48):
             c, r = dense_gemm(A, B, mt, hop), dense_gemm_ref(A, B, mt, hop)
             torch.cuda.synchronize()
             errs[(mt, hop)] = max_rel(c, r)
+            outs[(mt, hop)] = c
             check(errs[(mt, hop)] <= DENSE_REL_TOL, f"dense_gemm mt={mt} "
                   f"hop={hop}: max rel err {errs[(mt, hop)]:.3e}")
-    print(f"dense_gemm 1000x700 @ 700x130 vs the f64 product: max rel err "
-          f"by (mt, hop) {errs} (tol {DENSE_REL_TOL:g})")
+    for hop in (None, GEMM_HOP, 48):
+        check(torch.equal(outs[(M_TILES[0], hop)], outs[(M_TILES[1], hop)]),
+              f"dense_gemm hop={hop}: the result depends on mt")
+    # K no multiple of 4 (A padded by the wrapper), a misaligned view
+    A7 = torch.randn((300, 701), generator=g, device=dev)
+    B7 = torch.randn((701, 130), generator=g, device=dev)
+    big = torch.randn((300 * 700 + 1,), generator=g, device=dev)
+    for label, a, b in (("K=701", A7, B7),
+                        ("misaligned A", big[1:].view(300, 700), B)):
+        e = max_rel(dense_gemm(a, b), dense_gemm_ref(a, b))
+        check(e <= DENSE_REL_TOL, f"dense_gemm {label}: max rel err {e:.3e}")
+        errs[label] = e
+    print(f"dense_gemm 1000x700 @ 700x130 (and 300x701 @ 701x130, a "
+          f"misaligned A) vs the f64 product: max rel err by (mt, hop) "
+          f"{errs} (tol {DENSE_REL_TOL:g}); equal across mt")
 
 
 def conv_library(ex, x_in, n_cyc: int):
@@ -1340,22 +1360,29 @@ def matmul_paths(dev, x, ref, skip, peaks, card):
 def gemm_records(dev, peaks, card):
     """The scouting GEMM at the conv stage's Toeplitz shape, at both M
     tiles and with hop segments, beside its float64 plain version, float32
-    torch.matmul (TF32 off) and the chain's own formulation (the toeplitz
-    engine's frac_whole call on the un-materialized frames: C=1024, 171
-    blocks at hop 256, L_f = K)."""
+    torch.matmul (TF32 off; its own error against the float64 product
+    printed beside the kernel's) and the chain's own formulation (the
+    toeplitz engine's frac_whole call on the un-materialized frames:
+    C=1024, 171 blocks at hop 256, L_f = K).  The bound is the smaller of
+    the CUDA-core form (2MKN float32 FMA flop over the fp32 peak, A, B and
+    C in float32) and the split form (the six bf16 slice products, 6 *
+    2MKN flop over the bf16 peak; A and C in float32, B as three bf16
+    slices), each the larger of its operations and bytes time."""
     import torch
 
     from r8brain_torch.ops.pallas_frac import frac_whole, operator_parts
     from r8brain_torch.ops.scout import dense_gemm, dense_gemm_ref
 
-    peak_f32, _bf16, peak_bytes = peaks
+    peak_f32, peak_bf16, peak_bytes = peaks
     g = torch.Generator(device=dev).manual_seed(SEED)
     M, K, N = GEMM_M, GEMM_K, GEMM_N
     A = torch.randn((M, K), generator=g, device=dev)
     B = torch.randn((K, N), generator=g, device=dev)
     flops = 2.0 * M * K * N
-    nbytes = 4.0 * (M * K + K * N + M * N)
-    bound_ms, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
+    io = 4.0 * (M * K + M * N)
+    simt = bound(flops, io + 4.0 * K * N, peak_f32, peak_bytes)
+    split = bound(6 * flops, io + 2.0 * 3 * K * N, peak_bf16, peak_bytes)
+    bound_ms, bound_by, form = best_form(simt, split)
     lib_ms = cuda_ms(lambda: torch.matmul(A, B), reps=10)
     nb = M // CHANNELS
     xp = torch.randn((CHANNELS, (nb - 1) * GEMM_HOP + K), generator=g,
@@ -1363,14 +1390,16 @@ def gemm_records(dev, peaks, card):
     parts = operator_parts(B)
     fw_ms = cuda_ms(lambda: frac_whole(xp, parts, GEMM_HOP, K, N, nb),
                     reps=10)
-    print(f"timing {card}: GEMM {M}x{K} @ {K}x{N} ({flops:.3e} flop): "
-          f"torch.matmul f32 (TF32 off) {lib_ms:.3f} ms "
-          f"({flops / lib_ms * 1e-9:.1f} TFLOP/s); frac_whole on the "
-          f"un-materialized frames (C={CHANNELS}, {nb} blocks, hop "
-          f"{GEMM_HOP}; the bf16 split form) {fw_ms:.3f} ms "
-          f"({flops / fw_ms * 1e-9:.1f} TFLOP/s of the function)")
     del xp, parts
     ref = dense_gemm_ref(A, B)
+    lib_err = max_rel(torch.matmul(A, B), ref)
+    print(f"timing {card}: GEMM {M}x{K} @ {K}x{N} ({flops:.3e} flop): "
+          f"torch.matmul f32 (TF32 off) {lib_ms:.3f} ms "
+          f"({flops / lib_ms * 1e-9:.1f} TFLOP/s, max rel err {lib_err:.3e}"
+          f" vs the f64 product); frac_whole on the un-materialized frames "
+          f"(C={CHANNELS}, {nb} blocks, hop {GEMM_HOP}; the bf16 split form "
+          f"with two_sum folds) {fw_ms:.3f} ms "
+          f"({flops / fw_ms * 1e-9:.1f} TFLOP/s of the function)")
     p_ms = cuda_ms(lambda: dense_gemm_ref(A, B), reps=3, warmup=1)
     records = []
     for mt, hop, rep in ((512, None, "tools/exp_pallas_gemm.py:70"),
@@ -1386,9 +1415,14 @@ def gemm_records(dev, peaks, card):
         k_ms = cuda_ms(lambda: dense_gemm(A, B, mt, hop), reps=10)
         seg = "" if hop is None else f", K in hop-{hop} segments"
         print(f"timing {card}: dense_gemm mt={mt}{seg}: kernel {k_ms:.3f} "
-              f"ms ({flops / k_ms * 1e-9:.1f} TFLOP/s), bound {bound_ms:.3f} "
-              f"ms by {bound_by}, plain (f64 torch.matmul) {p_ms:.3f} ms; "
-              f"max rel err {err:.3e} (tol {DENSE_REL_TOL:g})")
+              f"ms ({flops / k_ms * 1e-9:.1f} TFLOP/s of the function, "
+              f"{6 * flops / k_ms * 1e-9:.1f} bf16 TFLOP/s of slice products;"
+              f" B split and packed in the call), {lib_ms / k_ms:.2f}x "
+              f"torch.matmul; bound {bound_ms:.3f} ms by {bound_by} "
+              f"({form}; CUDA cores {simt[0]:.3f} ms, bf16 split "
+              f"{split[0]:.3f} ms), plain (f64 torch.matmul) {p_ms:.3f} ms; "
+              f"max rel err {err:.3e} (torch.matmul {lib_err:.3e}; tol "
+              f"{DENSE_REL_TOL:g})")
         records.append({
             "name": f"dense_gemm[mt={mt}{'' if hop is None else ', seg'}]",
             "route": "cuda", "source": "r8brain_torch/csrc/dense_gemm.cu",

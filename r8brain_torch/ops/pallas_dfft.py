@@ -31,7 +31,11 @@ reference TPU kernel                     here
 The card has native FP64, so the kernel (``csrc/df_fft_conv.cu``) runs its
 butterflies and the spectrum product in double and rounds only the output;
 the TPU kernels' permuted twiddle, mask and transposed-spectrum planes are
-Mosaic layout and have no counterpart.  ``df_fft_conv`` launches the
+Mosaic layout and have no counterpart.  Up to ``SMEM_MAX_N`` the kernel
+keeps each transform's points in registers and runs radix-16 passes
+(``pass_radices``); its forward transform leaves the spectrum in
+``digit_order``, and the plan stores G in that order (``DfFFTPlan.Gk``),
+so the product needs no reordering.  ``df_fft_conv`` launches the
 kernel on a CUDA tensor and runs ``df_fft_conv_ref`` (``torch.fft`` in
 complex128) on a CPU tensor; the two agree to the float32 rounding of the
 output (a last-bit difference at most).
@@ -51,14 +55,18 @@ from torch import nn
 from . import _cuda
 from .framing import _frames
 
-__all__ = ["supported_n", "framed_supported", "DfFFTPlan", "df_fft_conv",
-           "df_fft_conv_ref", "MIN_N", "MAX_N", "SMEM_MAX_N"]
+__all__ = ["supported_n", "framed_supported", "pass_radices", "digit_order",
+           "DfFFTPlan", "df_fft_conv", "df_fft_conv_ref", "MIN_N", "MAX_N",
+           "SMEM_MAX_N"]
 
 #: Transform sizes the kernel takes: every power of two in [MIN_N, MAX_N].
 MIN_N, MAX_N = 128, 65536
-#: Up to this size one CTA holds a transform in shared memory; above it
-#: the kernel runs the four-step split through a float64 scratch.
+#: Up to this size the kernel keeps a transform's points in the registers
+#: of one CTA (16 a thread); above it the kernel runs the four-step split
+#: through a float64 scratch.
 SMEM_MAX_N = 8192
+#: Points a thread of the register-resident kernel holds.
+RADIX = 16
 #: Bytes of four-step scratch one call allocates at most (it runs its
 #: transforms in chunks that fit); the kernel takes at most 65535 a launch.
 SCRATCH_BYTES = 1 << 28
@@ -81,11 +89,39 @@ def framed_supported(n: int) -> bool:
     return supported_n(n) and n >= 4096
 
 
+def pass_radices(n: int) -> tuple:
+    """The register-resident kernel's passes, forward order (n <=
+    SMEM_MAX_N): radix 2^(log2(n) mod 4) first (16 when that is 0), then
+    radix 16: (16, 16, 16) at 4096, (2, 16, 16, 16) at 8192."""
+    b = n.bit_length() - 1
+    r0 = 1 << (b % 4 or 4)
+    return (r0,) + (RADIX,) * ((b - (b % 4 or 4)) // 4)
+
+
+def digit_order(n: int) -> np.ndarray:
+    """The frequency index of the point that the kernel's forward transform
+    (decimation in frequency over ``pass_radices(n)``) leaves at each
+    position: position p = sum_i k_i * n/(r_0...r_i), digit k_i < r_i of
+    pass i, holds X[k_0 + r_0*k_1 + r_0*r_1*k_2 + ...]."""
+    p = np.arange(n)
+    idx = np.zeros(n, dtype=np.int64)
+    w_pos, w_x = n, 1
+    for r in pass_radices(n):
+        w_pos //= r
+        idx += (p // w_pos) % r * w_x
+        w_x *= r
+    return idx
+
+
 class DfFFTPlan(nn.Module):
     """Host constants of one convolution: the transform size ``n``, the
     natural-order complex128 spectrum ``G`` (``H``, the kernel's ``fft(k,
-    n)/n``, or ``H + 1j*H2`` in polyphase mode) and the twiddle table ``tw``
-    (``exp(-2*pi*i*e/n)``, e < n), as buffers that move with the module."""
+    n)/n``, or ``H + 1j*H2`` in polyphase mode), the twiddle table ``tw``
+    (``exp(-2*pi*i*e/n)``, e < n) and, for n <= SMEM_MAX_N, ``Gk``: G in
+    the kernel's order, ``Gk[m, tau] = G[digit_order(n)[16*tau + m]]``
+    ([16, n/16]: the point that thread tau holds in register m after the
+    forward transform, read coalesced), as buffers that move with the
+    module."""
 
     def __init__(self, n: int, H: np.ndarray, H2: Optional[np.ndarray] = None):
         super().__init__()
@@ -99,6 +135,10 @@ class DfFFTPlan(nn.Module):
         self.poly = H2 is not None
         G = H if H2 is None else H + 1j * np.asarray(H2, np.complex128)
         self.register_buffer("G", torch.from_numpy(np.ascontiguousarray(G)))
+        if n <= SMEM_MAX_N:
+            Gk = G[digit_order(n)].reshape(n // RADIX, RADIX).T
+            self.register_buffer("Gk",
+                                 torch.from_numpy(np.ascontiguousarray(Gk)))
         tw = np.exp(-2j * np.pi * np.arange(n, dtype=np.float64) / n)
         self.register_buffer("tw", torch.from_numpy(tw))
 
@@ -187,13 +227,14 @@ def df_fft_conv(u: torch.Tensor, plan: DfFFTPlan, n_frames: int,
         chunk = max(1, min(n_tr, 65535, SCRATCH_BYTES // (16 * n)))
         scratch = torch.empty((chunk, n), dtype=torch.complex128,
                               device=u.device)
+    G = plan.Gk if n <= SMEM_MAX_N else plan.G
     lib = _lib()
     per_chunk, key = (1 if n <= SMEM_MAX_N else 3), (plan.mode(head), n)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         for g0 in range(0, n_tr, chunk):
             rc = lib.r8b_df_fft_conv(
-                u.data_ptr(), u.stride(0), u.shape[1], plan.G.data_ptr(),
+                u.data_ptr(), u.stride(0), u.shape[1], G.data_ptr(),
                 plan.tw.data_ptr(), out.data_ptr(), C, n_frames, n, head,
                 int(plan.poly), g0, min(chunk, n_tr - g0),
                 None if scratch is None else scratch.data_ptr(), stream)

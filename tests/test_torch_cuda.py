@@ -431,6 +431,37 @@ def test_df_fft_conv_matches_plain(cuda_device, case):
     assert _rms_db(y - ref) - _rms_db(ref) <= -150.0
 
 
+# every mode at every size of the register-resident kernel (128 .. 8192)
+REG_CASES = [(mode, 1 << b, 0 if mode == "frames" else (1 << b) // 4,
+              *((3, 4) if mode == "poly" else (5, 3)))
+             for b in range(7, 14) for mode in ("frames", "framed", "poly")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REG_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in REG_CASES])
+def test_df_fft_conv_every_register_size(cuda_device, case):
+    """The register-resident radix-16 kernel at every n from 128 to 8192
+    in every mode (one radix-2, -4 or -8 pass before the radix-16 ones,
+    several transforms a CTA below 2048, persistent CTAs over more
+    transforms than fit at once) against its plain version (within 2^-22
+    of max |y|) and the float64 direct convolution (-150 dB)."""
+    mode, n, head, C, n_frames = case
+    rng = np.random.default_rng(3 * n + len(mode))
+    u, plan, ref = fft_case(rng, mode, n, head, C, n_frames)
+    plan = plan.to(cuda_device)
+    ut = torch.tensor(u, dtype=torch.float32, device=cuda_device)
+    before = df_fft_conv.launches_by[(mode, n)]
+    y = df_fft_conv(ut, plan, n_frames, head)
+    r = df_fft_conv_ref(ut, plan, n_frames, head)
+    torch.cuda.synchronize()
+    assert df_fft_conv.launches_by[(mode, n)] == before + 1
+    y = y.cpu().double().numpy()
+    r = r.cpu().double().numpy()
+    assert np.abs(y - r).max() <= 2.0**-22 * np.abs(r).max()
+    assert _rms_db(y - ref) - _rms_db(ref) <= -150.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["frames", "poly"])
 def test_df_fft_conv_four_step_in_chunks(cuda_device, mode, monkeypatch):
@@ -559,6 +590,43 @@ def test_dense_gemm_matches_plain(cuda_device, mt, hop):
     r = dense_gemm_ref(A, B, mt, hop)
     torch.cuda.synchronize()
     assert dense_gemm.launches == before + 1
+    assert ((c.double() - r).abs().max() / r.abs().max()).item() < 1e-5
+
+
+@pytest.mark.cuda
+def test_dense_gemm_does_not_depend_on_mt(cuda_device):
+    """mt is the reference's M tile: the kernel's tile is its own, so both
+    values give the same bits, in one K loop and in segments, one of
+    which (48) folds mid k-tile."""
+    rng = np.random.default_rng(11)
+    A = torch.tensor(rng.standard_normal((777, 700)), dtype=torch.float32,
+                     device=cuda_device)
+    B = torch.tensor(rng.standard_normal((700, 300)), dtype=torch.float32,
+                     device=cuda_device)
+    for hop in (None, 256, 48):
+        c = [dense_gemm(A, B, mt, hop) for mt in M_TILES]
+        assert torch.equal(c[0], c[1])
+        r = dense_gemm_ref(A, B, 512, hop)
+        assert ((c[0].double() - r).abs().max() / r.abs().max()).item() \
+            < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["K=701", "misaligned"])
+def test_dense_gemm_copies_what_tma_cannot_read(cuda_device, layout):
+    """A K no multiple of 4, or an A whose start is not 16-byte aligned,
+    is copied by the wrapper before the TMA copies read it: the result
+    still holds the tolerance."""
+    rng = np.random.default_rng(12)
+    K = 701 if layout == "K=701" else 700
+    B = torch.tensor(rng.standard_normal((K, 130)), dtype=torch.float32,
+                     device=cuda_device)
+    flat = torch.tensor(rng.standard_normal(300 * K + 1), dtype=torch.float32,
+                        device=cuda_device)
+    A = (flat[1:] if layout == "misaligned" else flat[:-1]).view(300, K)
+    c = dense_gemm(A, B)
+    r = dense_gemm_ref(A, B)
+    torch.cuda.synchronize()
     assert ((c.double() - r).abs().max() / r.abs().max()).item() < 1e-5
 
 

@@ -16,9 +16,12 @@ float32 with TF32 off:
 
   frac_whole_chain  frac_whole on the un-materialized frames
                     (ops/pallas_frac.py, the toeplitz engine's call)
-  gemm_mt512        dense_gemm (csrc/dense_gemm.cu) at M tile 512
-  gemm_mt176        the same at M tile 176
-  gemm_seg512       M tile 512, K summed in hop-row segments
+  gemm_mt512        dense_gemm (csrc/dense_gemm.cu, the HIGHEST dot as a
+                    three-slice bf16 split on the tensor cores) with
+                    mt=512, the reference's M tile
+  gemm_mt176        the same with mt=176 (the kernel's tile is its own:
+                    the same work)
+  gemm_seg512       K summed in hop-row segments
   matmul            torch.matmul on the same dense operand
 
 and prints Tflop/s (2*C*nb*k*n flop over the time) per case, then one

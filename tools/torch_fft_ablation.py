@@ -8,9 +8,15 @@ Builds csrc/df_fft_conv.cu as it is and, from the same source with
 -DR8B_ABLATE=mask (the kernel's ablation switches), variants that drop
 parts of the work (their outputs are wrong; only their times are read):
 
-  const_tw        every twiddle a constant: no twiddle load
+  tw_table        every twiddle loaded from the table (15 loads a pass
+                  and thread) in place of powers of one (one load);
+                  the output is right
+  no_twiddle      the twiddles between passes skipped
+  no_exchange     the exchanges through shared memory skipped
   no_product      the spectrum product (and its G loads) skipped
-  io_only         loads and stores only: no transforms, no product
+  io_only         loads and stores only: no passes, no product
+  no_reg_cap      128 registers a thread no longer forced (fewer CTAs an
+                  SM where the kernel takes more); the output is right
 
 and times each with CUDA events (chip_smoke.cuda_ms) through the
 ``df_fft_conv`` wrapper at the four calls that chip_smoke.py times,
@@ -37,9 +43,11 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import capture_calls, cuda_ms  # noqa: E402
 
 # the kernel's R8B_ABLATE bits
-CONST_TW, NO_PRODUCT, IO_ONLY = 1, 2, 4
-VARIANTS = {"base": 0, "const_tw": CONST_TW, "no_product": NO_PRODUCT,
-            "io_only": IO_ONLY}
+TW_TABLE, NO_PRODUCT, IO_ONLY, NO_EXCHANGE, NO_TWIDDLE, NO_REG_CAP = (
+    1, 2, 4, 8, 16, 32)
+VARIANTS = {"base": 0, "tw_table": TW_TABLE, "no_twiddle": NO_TWIDDLE,
+            "no_exchange": NO_EXCHANGE, "no_product": NO_PRODUCT,
+            "io_only": IO_ONLY, "no_reg_cap": NO_REG_CAP}
 # (label, src, dst, trans_band, atten, conv_engine) of the captured calls
 CALLS = (("poly 4096", 44100, 96000, 2.0, 180.15, "pallas_fft5"),
          ("8192 h1416", 44100, 96000, 2.0, 180.15, "pallas_fft4"),
@@ -62,7 +70,7 @@ def main(argv=None) -> int:
     from r8brain_torch import Resampler
     from r8brain_torch.ops import _cuda, pallas_dfft, stages
 
-    flags = [f for f in _cuda.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    flags = list(_cuda.NVCC_FLAGS)
     src = ROOT / "r8brain_torch" / "csrc" / "df_fft_conv.cu"
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=_cuda.BUILD_DIR))
@@ -77,6 +85,11 @@ def main(argv=None) -> int:
         if p.returncode != 0:
             print(f"build of {name} failed:\n{log}", file=sys.stderr)
             return 1
+        if name in ("base", "no_reg_cap"):  # registers and spills by kernel
+            for line in log.splitlines():
+                if "conv_reg_kernel" in line or "registers" in line or \
+                        "spill" in line:
+                    print(f"  ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
