@@ -65,10 +65,12 @@
 //     buffer in shared memory with cp.async while it computes this one,
 //     so no CTA waits on device memory (one CTA an SM at n = 8192, whose
 //     load latency a CTA a transform left bare).  A CTA holds n/16
-//     threads (at least 128: several transforms a CTA below n = 2048); at
-//     most 128 registers a thread, so two CTAs an SM at n = 4096 and one
-//     of 512 threads at n = 8192, where registers, not the 203 KB of
-//     shared memory, bound the occupancy.
+//     threads (at least 128: several transforms a CTA below n = 2048).
+//     The launch bounds let a thread take up to 255 registers (one CTA of
+//     256 threads an SM at n = 4096, no spills: 5 % faster than two CTAs
+//     held to 128 registers and spilling); at n = 8192 the 512 threads
+//     get 128 each, and registers, not the 203 KB of shared memory, bound
+//     the occupancy.
 //   * Sizes 16384..65536: the four-step split n = n1*n2 (n1, n2 <= 256),
 //     through a float64 scratch that the wrapper allocates, in three
 //     launches of one shared-memory radix-2 body (radix-8 passes):
@@ -96,8 +98,8 @@ constexpr int MAX_THREADS = 256;   // four-step: threads a CTA
 // timed.  Bits: 1 each twiddle loaded from the table instead of powers of
 // one, 2 no spectrum product, 4 loads and stores only (no passes, no
 // product), 8 no exchanges through shared memory, 16 no inter-pass
-// twiddles, 32 no cap of 128 registers a thread (launch bounds without a
-// minimum of resident CTAs).
+// twiddles, 32 at most 128 registers a thread (launch bounds asking for
+// 512 threads an SM, so two CTAs of 256 at n = 4096; the output is right).
 #ifndef R8B_ABLATE
 #define R8B_ABLATE 0
 #endif
@@ -106,7 +108,7 @@ constexpr bool kNoProduct = R8B_ABLATE & 2;
 constexpr bool kIoOnly = R8B_ABLATE & 4;
 constexpr bool kNoExchange = R8B_ABLATE & 8;
 constexpr bool kNoTwiddle = R8B_ABLATE & 16;
-constexpr bool kNoRegCap = R8B_ABLATE & 32;
+constexpr bool kRegCap = R8B_ABLATE & 32;
 
 __device__ __forceinline__ int pad_idx(int i) { return i + (i >> 4); }
 
@@ -385,25 +387,67 @@ __device__ __forceinline__ void twiddle(double2 (&t)[R], int j, int sh,
   }
 }
 
+// multiply by W16^e for a value of e that unrolling makes constant
+__device__ __forceinline__ double2 rot16_at(double2 a, int e) {
+  switch (e & 15) {
+    case 1: return rot16<1, false>(a);
+    case 2: return rot16<2, false>(a);
+    case 3: return rot16<3, false>(a);
+    case 4: return rot16<4, false>(a);
+    case 5: return rot16<5, false>(a);
+    case 6: return rot16<6, false>(a);
+    case 7: return rot16<7, false>(a);
+    case 8: return rot16<8, false>(a);
+    case 9: return rot16<9, false>(a);
+    case 10: return rot16<10, false>(a);
+    case 11: return rot16<11, false>(a);
+    case 12: return rot16<12, false>(a);
+    case 13: return rot16<13, false>(a);
+    case 14: return rot16<14, false>(a);
+    case 15: return rot16<15, false>(a);
+    default: return a;
+  }
+}
+
 // Pass 0, radix R0 over the whole transform (stride N/R0): groups q <
 // 16/R0 of the points m*N/16 + tau, elements q + (16/R0)*k, offset j = tau
 // + q*N/16, twiddles W_N^(jk) on the outputs (forward, DIF) or the
-// inputs (inverse, DIT)
+// inputs (inverse, DIT).  Below radix 16, W_N^(jk) = W_N^(tau*k) *
+// W16^(qk): the powers of one loaded twiddle, turned by constants.
 template <int LOGN, bool INV>
 __device__ __forceinline__ void pass0(double2 (&v)[16], int tau,
                                       const double2* __restrict__ tw) {
   constexpr int R = Geo<LOGN>::R0, GR = 16 / R;
+  if constexpr (R == 16) {
+    if (INV) twiddle<16, true>(v, tau, 0, tw);
+    Dft<16, INV>::run(v);
+    if (!INV) twiddle<16, false>(v, tau, 0, tw);
+  } else {
+    double2 p[R];  // p[k] = W_N^(tau*k), k >= 1
+    if constexpr (!kNoTwiddle) {
+      p[1] = __ldg(tw + tau);
 #pragma unroll
-  for (int q = 0; q < GR; ++q) {
-    double2 t[R];
+      for (int k = 2; k < R; ++k)
+        p[k] = kTwTable ? __ldg(tw + tau * k) : cmul(p[k - 1], p[1]);
+    }
 #pragma unroll
-    for (int k = 0; k < R; ++k) t[k] = v[q + GR * k];
-    const int j = tau + (q << (LOGN - 4));
-    if (INV) twiddle<R, true>(t, j, 0, tw);
-    Dft<R, INV>::run(t);
-    if (!INV) twiddle<R, false>(t, j, 0, tw);
+    for (int q = 0; q < GR; ++q) {
+      double2 t[R];
 #pragma unroll
-    for (int k = 0; k < R; ++k) v[q + GR * k] = t[k];
+      for (int k = 0; k < R; ++k) t[k] = v[q + GR * k];
+      if constexpr (INV && !kNoTwiddle) {
+#pragma unroll
+        for (int k = 1; k < R; ++k)
+          t[k] = cmul(t[k], conj(rot16_at(p[k], q * k)));
+      }
+      Dft<R, INV>::run(t);
+      if constexpr (!INV && !kNoTwiddle) {
+#pragma unroll
+        for (int k = 1; k < R; ++k) t[k] = cmul(t[k], rot16_at(p[k], q * k));
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[q + GR * k] = t[k];
+    }
   }
 }
 
@@ -499,10 +543,12 @@ __device__ __forceinline__ void prefetch(float* st,
 // into shared memory (cp.async) under the passes of this one.  Gk: the
 // spectrum in the forward transform's output order, Gk[m*N/16 + tau] for
 // the point that thread tau holds in register m after the last forward
-// pass (position 16*tau + m).  At most 128 registers a thread.
+// pass (position 16*tau + m).  One CTA an SM is enough for the launch
+// bounds: up to 255 registers a thread below n = 8192 (no spills), 128 at
+// 8192 (512 threads).
 template <int LOGN, bool POLY>
 __global__ void __launch_bounds__(Geo<LOGN>::THREADS,
-                                  kNoRegCap ? 1 : 512 / Geo<LOGN>::THREADS)
+                                  kRegCap ? 512 / Geo<LOGN>::THREADS : 1)
     conv_reg_kernel(const float* __restrict__ u, long long ldu, long long L,
         const double2* __restrict__ Gk, const double2* __restrict__ tw,
         float* __restrict__ out, long long F_total, int n_frames, int head,

@@ -15,8 +15,8 @@ parts of the work (their outputs are wrong; only their times are read):
   no_exchange     the exchanges through shared memory skipped
   no_product      the spectrum product (and its G loads) skipped
   io_only         loads and stores only: no passes, no product
-  no_reg_cap      128 registers a thread no longer forced (fewer CTAs an
-                  SM where the kernel takes more); the output is right
+  reg_cap         at most 128 registers a thread (two CTAs an SM at
+                  n = 4096, spilling); the output is right
 
 and times each with CUDA events (chip_smoke.cuda_ms) through the
 ``df_fft_conv`` wrapper at the four calls that chip_smoke.py times,
@@ -43,11 +43,11 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import capture_calls, cuda_ms  # noqa: E402
 
 # the kernel's R8B_ABLATE bits
-TW_TABLE, NO_PRODUCT, IO_ONLY, NO_EXCHANGE, NO_TWIDDLE, NO_REG_CAP = (
+TW_TABLE, NO_PRODUCT, IO_ONLY, NO_EXCHANGE, NO_TWIDDLE, REG_CAP = (
     1, 2, 4, 8, 16, 32)
 VARIANTS = {"base": 0, "tw_table": TW_TABLE, "no_twiddle": NO_TWIDDLE,
             "no_exchange": NO_EXCHANGE, "no_product": NO_PRODUCT,
-            "io_only": IO_ONLY, "no_reg_cap": NO_REG_CAP}
+            "io_only": IO_ONLY, "reg_cap": REG_CAP}
 # (label, src, dst, trans_band, atten, conv_engine) of the captured calls
 CALLS = (("poly 4096", 44100, 96000, 2.0, 180.15, "pallas_fft5"),
          ("8192 h1416", 44100, 96000, 2.0, 180.15, "pallas_fft4"),
@@ -85,7 +85,7 @@ def main(argv=None) -> int:
         if p.returncode != 0:
             print(f"build of {name} failed:\n{log}", file=sys.stderr)
             return 1
-        if name in ("base", "no_reg_cap"):  # registers and spills by kernel
+        if name in ("base", "reg_cap"):  # registers and spills by kernel
             for line in log.splitlines():
                 if "conv_reg_kernel" in line or "registers" in line or \
                         "spill" in line:
