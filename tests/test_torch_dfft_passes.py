@@ -96,9 +96,14 @@ def test_pass_radices_and_digit_order(n):
     radices = pass_radices(n)
     assert int(np.prod(radices)) == n
     assert all(r == RADIX for r in radices[1:]) and radices[0] <= RADIX
-    assert len(radices) == {4096: 3, 8192: 4, 2048: 3}.get(n, len(radices))
     order = digit_order(n)
     assert sorted(order.tolist()) == list(range(n))  # a permutation
+
+
+def test_pass_radices_of_the_main_path_sizes():
+    assert pass_radices(4096) == (16, 16, 16)
+    assert pass_radices(8192) == (2, 16, 16, 16)
+    assert pass_radices(2048) == (8, 16, 16)
 
 
 @pytest.mark.parametrize("poly", [False, True])
