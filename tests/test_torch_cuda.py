@@ -437,14 +437,22 @@ REG_CASES = [(mode, 1 << b, 0 if mode == "frames" else (1 << b) // 4,
              for b in range(7, 14) for mode in ("frames", "framed", "poly")]
 
 
+# with FFT_CASES, every mode at every four-step size (16384 .. 65536)
+FOUR_STEP_CASES = ([("framed", n, n // 4, 3, 3) for n in (16384, 32768, 65536)]
+                   + [("frames", 32768, 0, 3, 3)]
+                   + [("poly", n, n // 4, 3, 2) for n in (32768, 65536)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", REG_CASES,
-                         ids=[f"{c[0]}-{c[1]}" for c in REG_CASES])
-def test_df_fft_conv_every_register_size(cuda_device, case):
+@pytest.mark.parametrize("case", REG_CASES + FOUR_STEP_CASES,
+                         ids=[f"{c[0]}-{c[1]}"
+                              for c in REG_CASES + FOUR_STEP_CASES])
+def test_df_fft_conv_every_size_and_mode(cuda_device, case):
     """The register-resident radix-16 kernel at every n from 128 to 8192
     in every mode (one radix-2, -4 or -8 pass before the radix-16 ones,
     several transforms a CTA below 2048, persistent CTAs over more
-    transforms than fit at once) against its plain version (within 2^-22
+    transforms than fit at once), and the four-step path in the modes and
+    sizes FFT_CASES leaves out, against the plain version (within 2^-22
     of max |y|) and the float64 direct convolution (-150 dB)."""
     mode, n, head, C, n_frames = case
     rng = np.random.default_rng(3 * n + len(mode))
@@ -455,7 +463,8 @@ def test_df_fft_conv_every_register_size(cuda_device, case):
     y = df_fft_conv(ut, plan, n_frames, head)
     r = df_fft_conv_ref(ut, plan, n_frames, head)
     torch.cuda.synchronize()
-    assert df_fft_conv.launches_by[(mode, n)] == before + 1
+    assert df_fft_conv.launches_by[(mode, n)] == \
+        before + (1 if n <= SMEM_MAX_N else 3)
     y = y.cpu().double().numpy()
     r = r.cpu().double().numpy()
     assert np.abs(y - r).max() <= 2.0**-22 * np.abs(r).max()
