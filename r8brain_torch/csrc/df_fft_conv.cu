@@ -352,11 +352,12 @@ __device__ __forceinline__ int ppos(int tau, int m) {
   }
 }
 
-// t[k] *= W^k for k = 1..R-1 (the conjugates under INV), W = tw[j << sh]
-// = W_N^(j*2^sh): powers of one base twiddle, at most four products deep;
-// or, under the table ablation, tw[(j*k) << sh] each (j*k*2^sh < N)
-template <int R, bool INV>
-__device__ __forceinline__ void twiddle(double2 (&t)[R], int j, int sh,
+// t[k] *= W^k for k = 1..15 (the conjugates under INV), W = tw[j << sh]
+// = W_N^(j*2^sh): powers of one base twiddle, w^k = w^(k-4) * w^4, at
+// most five products deep; or, under the table ablation, tw[(j*k) << sh]
+// each (j*k*2^sh < N)
+template <bool INV>
+__device__ __forceinline__ void twiddle(double2 (&t)[16], int j, int sh,
                                         const double2* __restrict__ tw) {
   if constexpr (kNoTwiddle) return;
   auto apply = [&](int k, double2 w) {
@@ -364,25 +365,16 @@ __device__ __forceinline__ void twiddle(double2 (&t)[R], int j, int sh,
   };
   if constexpr (kTwTable) {
 #pragma unroll
-    for (int k = 1; k < R; ++k) apply(k, __ldg(tw + ((j * k) << sh)));
+    for (int k = 1; k < 16; ++k) apply(k, __ldg(tw + ((j * k) << sh)));
   } else {
     const double2 w1 = __ldg(tw + (j << sh));
-    apply(1, w1);
-    if constexpr (R > 2) {
-      const double2 w2 = cmul(w1, w1);
-      apply(2, w2);
-      apply(3, cmul(w2, w1));
-      if constexpr (R > 4) {
-        // w^k = w^(k-4) * w^4, the last four powers kept
-        double2 wr[4] = {w1, w2, cmul(w2, w1), cmul(w2, w2)};
-        const double2 w4 = wr[3];
-        apply(4, w4);
+    const double2 w2 = cmul(w1, w1);
+    double2 wr[4] = {w1, w2, cmul(w2, w1), cmul(w2, w2)};  // the last four
+    const double2 w4 = wr[3];
 #pragma unroll
-        for (int k = 5; k < R; ++k) {
-          wr[(k - 1) & 3] = cmul(wr[(k - 1) & 3], w4);
-          apply(k, wr[(k - 1) & 3]);
-        }
-      }
+    for (int k = 1; k < 16; ++k) {
+      if (k > 4) wr[(k - 1) & 3] = cmul(wr[(k - 1) & 3], w4);
+      apply(k, wr[(k - 1) & 3]);
     }
   }
 }
@@ -419,9 +411,9 @@ __device__ __forceinline__ void pass0(double2 (&v)[16], int tau,
                                       const double2* __restrict__ tw) {
   constexpr int R = Geo<LOGN>::R0, GR = 16 / R;
   if constexpr (R == 16) {
-    if (INV) twiddle<16, true>(v, tau, 0, tw);
+    if (INV) twiddle<true>(v, tau, 0, tw);
     Dft<16, INV>::run(v);
-    if (!INV) twiddle<16, false>(v, tau, 0, tw);
+    if (!INV) twiddle<false>(v, tau, 0, tw);
   } else {
     double2 p[R];  // p[k] = W_N^(tau*k), k >= 1
     if constexpr (!kNoTwiddle) {
@@ -458,9 +450,9 @@ __device__ __forceinline__ void pass16(double2 (&v)[16], int tau,
                                        const double2* __restrict__ tw) {
   constexpr int lL = Geo<LOGN>::log_L(I), ls = lL - 4;
   const int j = tau & ((1 << ls) - 1);
-  if constexpr (INV && ls > 0) twiddle<16, true>(v, j, LOGN - lL, tw);
+  if constexpr (INV && ls > 0) twiddle<true>(v, j, LOGN - lL, tw);
   Dft<16, INV>::run(v);
-  if constexpr (!INV && ls > 0) twiddle<16, false>(v, j, LOGN - lL, tw);
+  if constexpr (!INV && ls > 0) twiddle<false>(v, j, LOGN - lL, tw);
 }
 
 // The points from pass FROM's positions to pass TO's through the
