@@ -40,7 +40,7 @@
 //     128-byte swizzle, two 32-column boxes a 64-deep k-tile; the copy
 //     engine zero-fills rows past M and columns past K, so ragged shapes
 //     need no masks; K must be a multiple of 4, else the wrapper pads A).
-//   * A CTA is three warpgroups: a producer (one thread issues the copies;
+//   * A CTA is three warpgroups: a producer (one thread starts the copies;
 //     setmaxnreg gives its registers to the others) and two consumers, each
 //     64 rows x 128 columns of a 128 x 128 tile of C.  A is ringed in 3
 //     stages (32 KB each), B in 2 (48 KB): 192 KB, one CTA an SM.  CTAs are
@@ -50,7 +50,7 @@
 //     consumers store the last one.
 //   * A consumer reads its k-tile of A from shared memory as float pairs
 //     (the swizzle keeps the reads free of bank conflicts), splits them
-//     into three bf16 fragment sets in registers, and issues the 24
+//     into three bf16 fragment sets in registers, and starts the 24
 //     m64n128k16 MMAs of the k-tile (A from registers, B's slices from
 //     shared memory), commits, waits, frees the slots and, at a fold's
 //     end, adds the accumulator into the total.  The other consumer's MMAs
@@ -315,7 +315,7 @@ dense_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no link
+// cuTensorMapEncodeTiled looked up through the CUDA runtime (no link
 // against libcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
