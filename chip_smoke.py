@@ -34,7 +34,24 @@ uniform float32 input:
   superkernel on ``frac_whole``), each under ``"fast"`` and ``"high"``, and
   96 kHz -> 44.1 kHz with ``"toeplitz_sym"``, each checked at -141 dB
   under ``"fast"`` (``"direct"`` at -139.97 dB, 1 dB above the reference
-  package's own chain on the CPU) and at -143 dB under ``"high"``.
+  package's own chain on the CPU) and at -143 dB under ``"high"``;
+* the half-band, cascade and polynomial plans with the default engines,
+  on 1024 channels x 1 s of the source rate (0.25 s at 2.8224 MHz):
+  44.1 kHz -> 192 kHz (fused pair, conv stage, half-band upsampler) fast
+  and high, 192 kHz -> 44.1 kHz (half-band decimator, fused pair), PCM ->
+  DSD64 44.1 kHz -> 2.8224 MHz (conv stage, the five half-band upsamplers
+  as one cascade: ``frac_whole`` at O = 4096; its device memory peak
+  held under 40 GB), SACD -> PCM 2.8224 MHz -> 96 kHz (three half-band
+  decimators, fused pair) and 44.1 kHz -> 96001 Hz (conv, polynomial
+  interpolator on ``torch.matmul`` in IEEE float32, conv) fast and high
+  (and again with TF32 on: bit-equal), each checked at -141 dB ("fast")
+  or -143 dB ("high"); and their guarantee chains (44.1 kHz -> 192 kHz,
+  44.1 kHz -> 96001 Hz, 192 kHz -> 44.1 kHz) with the carry on and off,
+  at -150 and -141 dB.  Every kernel call shape these paths make that no
+  earlier phase recorded is held to its plain version (``frac_whole`` in
+  channel chunks against its model and its float64 product;
+  ``ozaki_framed`` in every variant at each new geometry, the half-band
+  ones among them) and gets a record.
 
 First it pins how the tensor cores add bf16 products into float32
 (``accumulation_pin``: 16- and 32-term sums through ``frac_whole``'s own
@@ -181,6 +198,28 @@ MATMUL_RECORDS = {
 # with their records)
 RESIDUAL_PATHS = ("direct/high",)
 
+# the half-band, cascade and polynomial paths (default engines): (label,
+# src, dst, seconds of input, precision, frac_whole launches a oneshot,
+# bound dB re full scale)
+STAGE_PATHS = (
+    ("44.1k->192k fast", 44100, 192000, 1.0, "fast", 3, CLASS_DB),
+    ("44.1k->192k high", 44100, 192000, 1.0, "high", 3, HIGH_CHAIN_DB),
+    ("192k->44.1k fast", 192000, 44100, 1.0, "fast", 2, CLASS_DB),
+    ("44.1k->2.8224M fast", 44100, 2822400, 1.0, "fast", 2, CLASS_DB),
+    ("2.8224M->96k fast", 2822400, 96000, 0.25, "fast", 4, CLASS_DB),
+    ("44.1k->96001 fast", 44100, 96001, 1.0, "fast", 2, CLASS_DB),
+    ("44.1k->96001 high", 44100, 96001, 1.0, "high", 2, HIGH_CHAIN_DB))
+# the guarantee chains of those plans: (label, src, dst), each with the
+# df32 carry on and off
+OZ_PATHS = (("44.1k->192k", 44100, 192000), ("44.1k->96001", 44100, 96001),
+            ("192k->44.1k", 192000, 44100))
+# frac_whole and ozaki_framed call shapes whose records come from earlier
+# phases: (I, D, O, slices, fold) and (hop, L_f, Kcols)
+FRAC_SHAPES_SEEN = {(294, 1027, 640, 3, 32), (294, 1027, 640, 4, 32),
+                    (256, 964, 512, 3, 32)}
+OZ_GEOS_SEEN = {(256, 964, 512), (147, 170, 160)}
+PEAK_GB = 40.0  # device memory a path may take (PCM -> DSD64: 11.6 GB out)
+
 # (fp32 CUDA-core, dense bf16 tensor-core, fp64 tensor-core peak FLOP/s,
 # HBM bytes/s) by SKU, at the full power limit (NVIDIA data sheets).  The
 # fp64 bound takes the tensor cores' rate, the card's highest for fp64 (an
@@ -317,6 +356,7 @@ def check_frac_model(label, y, model, ref64):
 
 # the executors' operator buffers: (packed operator, skT, skT_lo)
 OPERATOR_BUFFERS = (("sk_parts", "skT", "skT_lo"),
+                    ("T_parts", "T", "T_lo"),
                     ("T_toep_parts", "T_toep", "T_toep_lo"),
                     ("T_pal_parts", "T_pal", "T_pal_lo"),
                     ("skT_direct_parts", "skT_direct", "skT_direct_lo"))
@@ -328,7 +368,7 @@ def exec_operator(ex, parts):
     residual check read the operator that the executor packed."""
     for p, hi, lo in OPERATOR_BUFFERS:
         if getattr(ex, p, None) is parts:
-            return getattr(ex, hi), getattr(ex, lo)
+            return getattr(ex, hi), getattr(ex, lo, None)
     raise SmokeFailure("a frac_whole call got an operator that is no "
                        "buffer of its executor")
 
@@ -907,75 +947,12 @@ def fft_paths(dev, x, ref, skip, peaks, card):
         del y, r, u, lib
 
         if label == "poly":
-            records.append(frac_lo_record(
+            records.append(frac_record(
                 "frac_whole[frac stage, skT_lo]", calls["frac_whole"],
                 rs.execs[1], n_fw, (peak_f32, peak_bf16, peak_bytes), card))
         del calls, rs
         torch.cuda.empty_cache()
     return records
-
-
-def frac_lo_record(name, call, ex, launches, peaks, card):
-    """frac_whole with the operator residual at one path's call (``ex``:
-    the executor that made it): against its plain model and its float64
-    product, its residual slice held with a planted skT_lo
-    (check_residual), timed at the call's fold length and at the other
-    one, beside the plain model and float64 cuDNN conv1d.  The bound
-    counts the operator's nonzero entries (a whole-stepping stage's
-    operator is banded; the kernel multiplies it dense)."""
-    import torch
-    import torch.nn.functional as F
-
-    from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
-                                               frac_whole_ref, operator_parts)
-
-    (xp, parts, I, D, O, n_win), kw = call
-    kc = kw.get("kc", KC)
-    skT, lo = exec_operator(ex, parts)
-    check(lo is not None, f"{name}: the call has no skT_lo")
-    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
-    model = frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc)
-    r64 = frac_whole_ref(xp.double(), operator_parts(skT.double(),
-                                                     lo.double()),
-                         I, D, O, n_win)
-    torch.cuda.synchronize()
-    max_abs, err_m, err = check_frac_model(name, y, model, r64)
-    db = rms_db(y.double() - r64)
-    del r64, y, model
-    check_residual(name, xp, skT, I, D, O, n_win, kc)
-    torch.cuda.empty_cache()
-    ms = {k: cuda_ms(lambda: frac_whole(xp, parts, I, D, O, n_win, kc=k),
-                     reps=20)
-          for k in (KC_LO, KC)}
-    p_ms = cuda_ms(lambda: frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc),
-                   reps=3, warmup=1)
-    w = (skT.double() + lo.double()).T.contiguous()[:, None, :]
-    xp64 = xp.double()[:, None, :]
-    lib_ms = cuda_ms(lambda: F.conv1d(xp64, w, stride=I), reps=3, warmup=1)
-    del xp64, w
-    C = xp.shape[0]
-    R = C * n_win
-    nnz, nnz_lo = int((skT != 0).sum().item()), int((lo != 0).sum().item())
-    io = 4.0 * (C * ((n_win - 1) * I + D) + R * O)
-    (bound_ms, bound_by, form), simt, split = frac_bounds(R, nnz, nnz_lo, io,
-                                                          D, O, peaks)
-    print(f"timing {card}: {name} I={I} D={D} O={O} C={C} n_win={n_win}, "
-          f"fold {kc}: kernel {ms[kc]:.3f} ms (fold {KC_LO}: "
-          f"{ms[KC_LO]:.3f} ms, fold {KC}: {ms[KC]:.3f} ms), bound "
-          f"{bound_ms:.3f} ms by {bound_by} ({form}; CUDA cores "
-          f"{simt[0]:.3f} ms by {simt[1]}, bf16 split {split[0]:.3f} ms by "
-          f"{split[1]}; over the {nnz} + {nnz_lo} nonzeros of skT and "
-          f"skT_lo of {D * O} each), plain frac_whole_ref {p_ms:.3f} ms, "
-          f"f64 cuDNN conv1d {lib_ms:.3f} ms; {db:.2f} dB re full scale vs "
-          f"f64 plain, max rel err {err:.3e} (tol {KERNEL_REL_TOL:g}), "
-          f"{err_m:.3e} of max |y| from the model (tol "
-          f"{MODEL_REL_TOL:.2e})")
-    return {"name": name, "route": "cuda",
-            "source": "r8brain_torch/csrc/frac_whole.cu",
-            "replaces": "r8brain_tpu/ops/pallas_frac.py:111",
-            "launches": launches, "max_abs_err": max_abs, "ms": ms[kc],
-            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms}
 
 
 def fused_high_path(dev, x, ref, skip, peaks, card):
@@ -1010,7 +987,7 @@ def fused_high_path(dev, x, ref, skip, peaks, card):
     print(f"timing {card}: fused high oneshot {one_ms:.3f} ms = "
           f"{1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
     calls = capture_calls(rs, x, fused, ("frac_whole",))
-    rec = frac_lo_record("frac_whole[fused, skT_lo]", calls["frac_whole"],
+    rec = frac_record("frac_whole[fused, skT_lo]", calls["frac_whole"],
                          rs.execs[0], launches, peaks, card)
     del calls, rs
     torch.cuda.empty_cache()
@@ -1434,6 +1411,421 @@ def gemm_records(dev, peaks, card):
     return records
 
 
+def uniform_input(dev, n: int):
+    """CHANNELS x n full-scale uniform float32 from SEED, on dev."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    return torch.rand((CHANNELS, n), generator=g, device=dev) * 2 - 1
+
+
+def f64_reference(src, dst, x):
+    """The port's float64 CPU path on x's first N_CMP channels."""
+    import torch
+
+    from r8brain_torch import Resampler
+
+    return Resampler(src, dst, TB, ATTEN, dtype=torch.float64,
+                     device="cpu").oneshot(x[:N_CMP].cpu().double()).numpy()
+
+
+def record_calls(rs, x, modules, name):
+    """rs.oneshot(x) with every call of the kernel wrapper ``name`` that
+    ``modules`` make recorded, in order, as (args, kw); the wrapper itself
+    still runs (and counts).  Returns (output, calls)."""
+    calls = []
+    real = getattr(modules[0], name)
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    try:
+        for m in modules:
+            setattr(m, name, rec)
+        out = rs.oneshot(x)
+    finally:
+        for m in modules:
+            setattr(m, name, real)
+    return out, calls
+
+
+def owner(rs, parts):
+    """The executor of rs that holds the packed operator ``parts``."""
+    for ex in rs.execs:
+        if any(getattr(ex, p, None) is parts for p, _h, _l in
+               OPERATOR_BUFFERS + (("oz_parts", "", ""),)):
+            return ex
+    raise SmokeFailure("a kernel call got an operator of no executor")
+
+
+def channel_chunks(C: int, per_channel: int, budget: int = 1 << 28):
+    """Channel ranges whose float32 temporaries of per_channel elements a
+    channel stay under ``budget`` elements (the plain versions hold
+    several at once)."""
+    step = max(1, budget // max(1, per_channel))
+    return [(c0, min(C, c0 + step)) for c0 in range(0, C, step)]
+
+
+def library_call(ex, xp, skT, I, dtype):
+    """(function of no arguments, what it is): the one PyTorch call that
+    computes a frac_whole or ozaki_framed call's function on its input
+    xp, TF32 off: the half-band kernel (4*nt - 1 taps) by
+    F.conv_transpose1d at stride 2 (up) or F.conv1d at stride 2 (down),
+    the cascade's composite by F.conv_transpose1d at stride U, else the
+    operator's columns by F.conv1d at stride I."""
+    import torch
+    import torch.nn.functional as F
+
+    from r8brain_torch.ops.hb_cascade import _hb_full_kernel, compose_run
+
+    kind = type(ex).__name__
+    u = xp.to(dtype)[:, None, :]
+    if kind in ("HBUpExec", "HBDownExec"):
+        w = torch.from_numpy(_hb_full_kernel(ex.spec)).to(xp.device, dtype)
+        if kind == "HBUpExec":
+            return (lambda: F.conv_transpose1d(u, w[None, None], stride=2),
+                    f"F.conv_transpose1d ({w.numel()} taps, stride 2)")
+        return (lambda: F.conv1d(u, w[None, None], stride=2),
+                f"F.conv1d ({w.numel()} taps, stride 2)")
+    if kind == "HBUpCascadeExec":
+        Gc, _S, U = compose_run(ex.specs)
+        w = torch.from_numpy(Gc).to(xp.device, dtype)[None, None]
+        return (lambda: F.conv_transpose1d(u, w, stride=U),
+                f"F.conv_transpose1d (composite, {Gc.size} taps, stride "
+                f"{U})")
+    w = skT.to(dtype).T.contiguous()[:, None, :]
+    return (lambda: F.conv1d(u, w, stride=I),
+            f"F.conv1d ({w.shape[0]} columns of {w.shape[2]}, stride {I})")
+
+
+def frac_record(name, call, ex, launches, peaks, card):
+    """One frac_whole call of a path (``ex`` made it): against its plain
+    model (within MODEL_REL_TOL of max |y|) and its float64 product
+    (KERNEL_REL_TOL), in channel chunks; with skT_lo its residual slice
+    held with a planted skT_lo (check_residual) and the kernel timed at
+    both fold lengths; timed beside the plain version (the same chunks)
+    and library_call (float32; float64 of skT + skT_lo with skT_lo).  The
+    bound counts the operator's nonzero entries (frac_bounds)."""
+    import torch
+
+    from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
+                                               frac_whole_ref, operator_parts)
+
+    (xp, parts, I, D, O, n_win), kw = call
+    kc = kw.get("kc", KC)
+    skT, lo = exec_operator(ex, parts)
+    C = xp.shape[0]
+    chunks = channel_chunks(C, n_win * O)
+    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
+    p64 = operator_parts(skT.double(), None if lo is None else lo.double())
+    e_m = e_r = scale = sq = 0.0
+    for c0, c1 in chunks:
+        m = frac_whole_ref(xp[c0:c1], parts, I, D, O, n_win, kc=kc).double()
+        r = frac_whole_ref(xp[c0:c1].double(), p64, I, D, O, n_win)
+        yc = y[c0:c1].double()
+        e_m = max(e_m, float((yc - m).abs().max().item()))
+        e_r = max(e_r, float((yc - r).abs().max().item()))
+        scale = max(scale, float(r.abs().max().item()))
+        sq += float((yc - r).square().sum().item())
+        del m, r, yc
+    db = 10.0 * math.log10(sq / y.numel() + 1e-300)
+    del y
+    torch.cuda.empty_cache()
+    err_m, err = e_m / scale, e_r / scale
+    check(err_m <= MODEL_REL_TOL, f"{name}: {err_m:.3e} of max |y| from "
+          f"the plain model (tol {MODEL_REL_TOL:.2e})")
+    check(err <= KERNEL_REL_TOL, f"{name}: max rel err {err:.3e} vs f64 "
+          f"plain")
+    if lo is not None:
+        check_residual(name, xp, skT, I, D, O, n_win, kc)
+    ms = {k: cuda_ms(lambda: frac_whole(xp, parts, I, D, O, n_win, kc=k),
+                     reps=10)
+          for k in ((KC_LO, KC) if lo is not None else (kc,))}
+    k_ms = ms[kc]
+    p_ms = cuda_ms(lambda: [frac_whole_ref(xp[c0:c1], parts, I, D, O, n_win,
+                                           kc=kc) for c0, c1 in chunks],
+                   reps=2, warmup=1)
+    lib_dt = torch.float32 if lo is None else torch.float64
+    lib, lib_what = library_call(
+        ex, xp, skT if lo is None else skT.double() + lo.double(), I, lib_dt)
+    lib_ms = cuda_ms(lib, reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    R = C * n_win
+    nnz = int((skT != 0).sum().item())
+    nnz_lo = None if lo is None else int((lo != 0).sum().item())
+    io = 4.0 * (C * ((n_win - 1) * I + D) + R * O)
+    (bound_ms, bound_by, form), simt, split = frac_bounds(R, nnz, nnz_lo, io,
+                                                          D, O, peaks)
+    folds = "".join(f", fold {k}: {t:.3f} ms" for k, t in ms.items()
+                    if k != kc)
+    print(f"timing {card}: {name} I={I} D={D} O={O} C={C} n_win={n_win}, "
+          f"fold {kc}{', skT_lo' if lo is not None else ''}: kernel "
+          f"{k_ms:.3f} ms{folds}, bound {bound_ms:.3f} ms by {bound_by} "
+          f"({form}; "
+          f"CUDA cores {simt[0]:.3f} ms by {simt[1]}, bf16 split "
+          f"{split[0]:.3f} ms by {split[1]}; over the operator's {nnz} "
+          f"nonzeros of {D * O}), plain frac_whole_ref {p_ms:.3f} ms "
+          f"({len(chunks)} channel chunks), {lib_what} "
+          f"{'f32' if lo is None else 'f64'} {lib_ms:.3f} ms; "
+          f"{db:.2f} dB re full scale vs f64 plain, max rel err {err:.3e} "
+          f"(tol {KERNEL_REL_TOL:g}), {err_m:.3e} of max |y| from the model "
+          f"(tol {MODEL_REL_TOL:.2e})")
+    return {"name": name, "route": "cuda",
+            "source": "r8brain_torch/csrc/frac_whole.cu",
+            "replaces": "r8brain_tpu/ops/pallas_frac.py:111",
+            "launches": launches, "max_abs_err": e_r, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+def stage_paths(dev, peaks, card):
+    """The half-band, cascade and polynomial paths (STAGE_PATHS), each
+    counted (launches set to 0 just before, read just after, and held to
+    the path's count), checked against the port's float64 CPU path and
+    timed; PCM -> DSD64's device memory peak held under PEAK_GB; the
+    polynomial stage timed alone and its chain run again with TF32 on
+    (bit-equal: the stage forces IEEE float32 products).  Every
+    frac_whole call shape no earlier phase recorded gets a record
+    (frac_record)."""
+    import torch
+
+    from r8brain_torch import Resampler
+    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops.pallas_frac import frac_whole
+
+    refs, records, seen = {}, [], set(FRAC_SHAPES_SEEN)
+    for label, src, dst, secs, prec, want, bound_db in STAGE_PATHS:
+        n = int(round(src * secs))
+        x = uniform_input(dev, n)
+        if (src, dst, n) not in refs:
+            refs[(src, dst, n)] = f64_reference(src, dst, x)
+        r64, sk = refs[(src, dst, n)], int(EDGE_S * dst)
+        rs = Resampler(src, dst, TB, ATTEN, precision=prec, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        frac_whole.launches = 0
+        out, calls = record_calls(rs, x, (stages, fused, hb_cascade),
+                                  "frac_whole")
+        torch.cuda.synchronize()
+        got = frac_whole.launches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out_len = rs.default_out_len(n)
+        check(tuple(out.shape) == (CHANNELS, out_len),
+              f"{label} oneshot shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{label} output not finite")
+        check(got == want == len(calls), f"path {label} launched frac_whole "
+              f"{got} times ({len(calls)} calls), want {want}")
+        db = rms_db(out[:N_CMP].cpu().double().numpy()[:, sk:-sk]
+                    - r64[:, sk:-sk])
+        print(f"stage path {label}: Resampler({src}, {dst}, {TB}, {ATTEN}, "
+              f"precision='{prec}') {CHANNELS} x {n} -> {tuple(out.shape)}; "
+              f"executors {[type(e).__name__ for e in rs.execs]}; {N_CMP} "
+              f"channels vs port f64 CPU path {db:.2f} dB re full scale "
+              f"(bound {bound_db:g}, {EDGE_S * 1e3:g} ms edge skip); "
+              f"frac_whole launches {got}; device memory peak {peak:.2f} GB")
+        check(db <= bound_db, f"stage path {label}: {db:.2f} dB misses "
+              f"{bound_db:g} dB")
+        check(peak <= PEAK_GB, f"stage path {label}: {peak:.2f} GB of "
+              f"device memory (limit {PEAK_GB:g})")
+        if "96001 fast" in label:
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                out_tf32 = rs.oneshot(x)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+            check(torch.equal(out_tf32, out), f"{label}: TF32 on changes "
+                  f"the output")
+            print(f"stage path {label} with TF32 on: bit-equal")
+            del out_tf32
+        del out
+        one_ms = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
+        print(f"timing {card}: stage path {label} oneshot {one_ms:.3f} ms = "
+              f"{1e-6 * CHANNELS * n / (one_ms * 1e-3):.1f} Mrops")
+        poly = [e for e in rs.execs if type(e).__name__ == "FracPolyExec"]
+        if poly:
+            i = list(rs.execs).index(poly[0])
+            T = max(n, rs.in_len_for_out(out_len))
+            v, m = torch.nn.functional.pad(x, (0, T - n)), T
+            for e in rs.execs[:i]:
+                v, m = e.apply_v(v, m)
+            p_ms = cuda_ms(lambda: poly[0].apply_v(v, m), reps=5)
+            print(f"timing {card}: {label} polynomial stage (banded, "
+                  f"S={poly[0].S} G={poly[0].G} W={poly[0].W}, torch.matmul "
+                  f"in IEEE float32; no kernel of its own) {p_ms:.3f} ms")
+            del v
+        for args, kw in calls:
+            _xp, parts, I, D, O, _nw = args
+            shape = (I, D, O, parts.shape[2] - (parts.shape[3] == 8),
+                     kw.get("kc", 32))
+            if shape in seen:
+                continue
+            seen.add(shape)
+            ex = owner(rs, parts)
+            kind = {"HBUpExec": "HB up", "HBDownExec": "HB down",
+                    "HBUpCascadeExec": f"cascade U={getattr(ex, 'U', 0)}",
+                    "FusedUpExec": "fused", "ConvExec": "toeplitz conv"}[
+                type(ex).__name__]
+            n_shape = sum(1 for a, k in calls if a[2:5] == (I, D, O))
+            records.append(frac_record(
+                f"frac_whole[{kind}, {label}]", (args, kw), ex, n_shape,
+                peaks, card))
+        del calls, rs, x
+        torch.cuda.empty_cache()
+    return records
+
+
+def ozaki_record(name, rep, geo, case, parts, packed, has_lo, emit,
+                 launches, err, lib, peaks, card):
+    """ozaki_framed at one geometry and variant, timed beside its plain
+    version and ``lib`` (a (function, what) pair, float64); the bound
+    counts the slice products of the operator's nonzero entries (the
+    kernel multiplies it dense)."""
+    from r8brain_torch.ops.ozaki import N_PARTS
+    from r8brain_torch.ops.pallas_ozaki import ozaki_framed, ozaki_framed_ref
+
+    peak_f32, peak_bf16, peak_bytes = peaks
+    L_f, hop, Kcols, nb = geo
+    xp, sx, xl, _p = case
+    lo = xl if has_lo else None
+    args = (xp, sx, parts, L_f, hop, Kcols, nb)
+    k_ms = cuda_ms(lambda: ozaki_framed(*args, x_lo=lo, emit_pair=emit,
+                                        packed=packed), reps=10)
+    p_ms = cuda_ms(lambda: ozaki_framed_ref(*args, x_lo=lo, emit_pair=emit),
+                   reps=2, warmup=1)
+    lib_fn, lib_what = lib
+    lib_ms = cuda_ms(lib_fn, reps=3, warmup=1)
+    C = xp.shape[0]
+    nnz = int((parts != 0).any(dim=0).sum().item())
+    flops = (10 + has_lo) * 2.0 * C * nb * nnz
+    dense = 10 * 2.0 * C * nb * L_f * Kcols
+    nbytes = (4.0 * xp.numel() + 4 * C + 2 * N_PARTS * nnz
+              + 2.0 * has_lo * xp.numel() + (4.0 + 2 * emit) * C * nb * Kcols)
+    bound_ms, bound_by = bound(flops, nbytes, peak_bf16, peak_bytes)
+    print(f"timing {card}: {name} (L_f={L_f} hop={hop} Kcols={Kcols} "
+          f"n_blocks={nb} C={C}, x_lo={has_lo}, emit_pair={emit}) kernel "
+          f"{k_ms:.3f} ms ({dense / k_ms * 1e-9:.1f} bf16 TFLOP/s of dense "
+          f"slice products), bound {bound_ms:.3f} ms by {bound_by} "
+          f"({flops:.3e} flop over the operator's {nnz} nonzeros of "
+          f"{L_f * Kcols}, {nbytes / 1e9:.3f} GB; dense operator "
+          f"{dense:.3e} flop, "
+          f"{bound(dense, nbytes, peak_bf16, peak_bytes)[0]:.3f} ms), plain "
+          f"ozaki_framed_ref {p_ms:.3f} ms, {lib_what} f64 {lib_ms:.3f} ms")
+    return {"name": name, "route": "cuda",
+            "source": "r8brain_torch/csrc/ozaki_framed.cu",
+            "replaces": f"r8brain_tpu/ops/{rep}", "launches": launches,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def ozaki_paths(dev, peaks, card):
+    """The guarantee chains of OZ_PATHS, carry on and off: counted (every
+    ozaki_framed call recorded with its geometry), held to -150 / -141 dB
+    relative to the port's float64 CPU path, timed.  Each geometry no
+    earlier phase checked (the half-band ones among them) gets every
+    variant held to ozaki_framed_ref and the float64 product
+    (check_ozaki_variants), and a record per variant the paths run."""
+    import torch
+
+    from r8brain_torch import Resampler
+    from r8brain_torch.ops import stages
+    from r8brain_torch.ops.pallas_ozaki import ozaki_framed
+
+    refs, runs = {}, []
+    for label, src, dst in OZ_PATHS:
+        x = uniform_input(dev, src)
+        if (src, dst) not in refs:
+            refs[(src, dst)] = f64_reference(src, dst, x)
+        r64, sk = refs[(src, dst)], int(EDGE_S * dst)
+        r64s = r64[:, sk:-sk]
+        for carry in (True, False):
+            old = os.environ.get("R8BT_DF_CARRY")
+            os.environ["R8BT_DF_CARRY"] = "1" if carry else "0"
+            try:
+                rs = Resampler(src, dst, TB, ATTEN, precision="high",
+                               conv_engine="ozaki", frac_engine="ozaki",
+                               device=dev)
+            finally:
+                if old is None:
+                    del os.environ["R8BT_DF_CARRY"]
+                else:
+                    os.environ["R8BT_DF_CARRY"] = old
+            check(rs.df_carry == carry, f"{label}: df_carry is "
+                  f"{rs.df_carry}")
+            ozaki_framed.launches = 0
+            ozaki_framed.launches_by.clear()
+            out, calls = record_calls(rs, x, (stages,), "ozaki_framed")
+            torch.cuda.synchronize()
+            by = dict(ozaki_framed.launches_by)
+            n_st = sum(type(e).__name__ != "FracPolyExec" for e in rs.execs)
+            check(ozaki_framed.launches == len(calls) == n_st,
+                  f"guarantee {label} carry={carry}: {ozaki_framed.launches}"
+                  f" ozaki_framed launches, want one a stage ({n_st})")
+            check(tuple(out.shape) == (CHANNELS, rs.default_out_len(src)),
+                  f"guarantee {label} shape {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), f"guarantee {label} "
+                  f"output not finite")
+            d = out[:N_CMP].cpu().double().numpy()[:, sk:-sk] - r64s
+            db = rms_db(d) - rms_db(r64s)
+            bound_db = OZ_CARRY_DB if carry else OZ_NOCARRY_DB
+            print(f"guarantee chain {label}, carry {'on' if carry else 'off'}"
+                  f": Resampler({src}, {dst}, {TB}, {ATTEN}, precision="
+                  f"'high', conv_engine='ozaki', frac_engine='ozaki') "
+                  f"{CHANNELS} x {src} -> {tuple(out.shape)}; executors "
+                  f"{[type(e).__name__ + ':' + e.engine for e in rs.execs]}; "
+                  f"{N_CMP} channels vs port f64 CPU path {db:.2f} dB "
+                  f"relative (bound {bound_db:g}); ozaki_framed launches by "
+                  f"(hop, L_f, Kcols, has_lo, emit_pair) {by}")
+            check(db <= bound_db, f"guarantee {label} carry={carry}: "
+                  f"{db:.2f} dB misses {bound_db:g} dB")
+            del out
+            one_ms = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
+            print(f"timing {card}: guarantee {label} oneshot carry "
+                  f"{'on' if carry else 'off'} {one_ms:.3f} ms = "
+                  f"{1e-6 * CHANNELS * src / (one_ms * 1e-3):.1f} Mrops")
+            runs.append((f"{label}, carry {'on' if carry else 'off'}", rs,
+                         calls, by))
+        del x
+    records, geos = [], {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for run_label, rs, calls, by in runs:
+        for args, kw in calls:
+            _xp, _sx, parts, L_f, hop, Kcols, nb = args
+            if (hop, L_f, Kcols) in OZ_GEOS_SEEN:
+                continue
+            key = (hop, L_f, Kcols, kw.get("x_lo") is not None,
+                   bool(kw.get("emit_pair")))
+            ex = owner(rs, parts)
+            if (hop, L_f, Kcols) not in geos:
+                geo = (L_f, hop, Kcols, nb)
+                case = ozaki_case(dev, g, CHANNELS, *geo, parts)
+                errs = check_ozaki_variants(
+                    f"{type(ex).__name__} ({run_label})", geo, case, parts,
+                    kw["packed"])
+                geos[(hop, L_f, Kcols)] = (geo, case, errs, set())
+            geo, case, errs, done = geos[(hop, L_f, Kcols)]
+            if key[3:] in done:
+                continue
+            done.add(key[3:])
+            kind = type(ex).__name__
+            rep = ("pallas_ozaki.py:263" if key[3] or key[4] else
+                   "pallas_ozaki.py:317")
+            if kind == "FracWholeExec":
+                rep = ("pallas_ozaki.py:207" if key[4] else
+                       "pallas_ozaki.py:232")
+            lib = library_call(ex, case[0], parts.double().sum(dim=0), hop,
+                               torch.float64)
+            records.append(ozaki_record(
+                f"ozaki_framed[{kind}, {run_label}]", rep, geo, case, parts,
+                kw["packed"], key[3], key[4], by.get(key, 0),
+                errs[key[3:]], lib, peaks, card))
+        torch.cuda.empty_cache()
+    del runs, geos
+    torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1441,14 +1833,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import numpy as np
-    import torch.nn.functional as F
 
     from r8brain_torch import Resampler
-    from r8brain_torch.ops.ozaki import (N_PARTS, framed_cheap,
-                                         split_operator_host)
-    from r8brain_torch.ops.pallas_ozaki import (ozaki_framed,
-                                                ozaki_framed_ref,
-                                                pack_operator)
+    from r8brain_torch.ops.ozaki import framed_cheap, split_operator_host
+    from r8brain_torch.ops.pallas_ozaki import pack_operator
 
     # full fp32 everywhere: TF32 cannot hold the -141 dB class
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1527,47 +1915,15 @@ def main() -> int:
         print(f"timing {card}: guarantee oneshot carry "
               f"{'on' if carry else 'off'} {one_ms:.3f} ms = "
               f"{1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
-    for k in ("conv", "frac"):
-        L_f, hop, Kcols, nb = geos[k]
-        xp, sx, xl, _p = cases[k]
-        args = (xp, sx, parts[k], L_f, hop, Kcols, nb)
-        w = parts[k].double().sum(dim=0).T.contiguous()[:, None, :]
-        xp64 = xp.double()[:, None, :]
-        lib_ms = cuda_ms(lambda: F.conv1d(xp64, w, stride=hop), reps=3,
-                         warmup=1)
-        del xp64
+    for k, ex in (("conv", conv), ("frac", frac)):
+        lib = library_call(ex, cases[k][0], parts[k].double().sum(dim=0),
+                           geos[k][1], torch.float64)
         for emit in (True, False):
-            k_ms = cuda_ms(lambda: ozaki_framed(*args, emit_pair=emit,
-                                                packed=packs[k]), reps=10)
-            p_ms = cuda_ms(lambda: ozaki_framed_ref(*args, emit_pair=emit),
-                           reps=2, warmup=1)
-            # the operator is banded: the bound counts the slice products
-            # of its nonzero entries only (the kernel multiplies it dense)
-            C = xp.shape[0]
-            nnz = int((parts[k] != 0).any(dim=0).sum().item())
-            flops = 10 * 2.0 * C * nb * nnz
-            dense = 10 * 2.0 * C * nb * L_f * Kcols
-            nbytes = (4.0 * xp.numel() + 4 * C + 2 * N_PARTS * nnz
-                      + (4.0 + 2 * emit) * C * nb * Kcols)
-            bound_ms, bound_by = bound(flops, nbytes, peak_bf16, peak_bytes)
-            print(f"timing {card}: ozaki_framed {k} emit_pair={emit} kernel "
-                  f"{k_ms:.3f} ms ({dense / k_ms * 1e-9:.1f} bf16 TFLOP/s of "
-                  f"dense slice products), bound {bound_ms:.3f} ms by "
-                  f"{bound_by} ({flops:.3e} flop over the operator's {nnz} "
-                  f"nonzeros of {L_f * Kcols}, {nbytes / 1e9:.3f} GB; dense "
-                  f"operator {dense:.3e} flop, "
-                  f"{bound(dense, nbytes, peak_bf16, peak_bytes)[0]:.3f} ms), "
-                  f"plain ozaki_framed_ref {p_ms:.3f} ms, f64 cuDNN conv1d "
-                  f"{lib_ms:.3f} ms")
-            rep = paths[(k, emit)][1]
-            kernels.append({
-                "name": f"ozaki_framed[{k}, emit_pair={int(emit)}]",
-                "route": "cuda", "source": "r8brain_torch/csrc/ozaki_framed.cu",
-                "replaces": f"r8brain_tpu/ops/{rep}",
-                "launches": launches[(k, emit)],
-                "max_abs_err": errs[k][(False, emit)], "ms": k_ms,
-                "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms})
+            kernels.append(ozaki_record(
+                f"ozaki_framed[{k}, emit_pair={int(emit)}]",
+                paths[(k, emit)][1], geos[k], cases[k], parts[k], packs[k],
+                False, emit, launches[(k, emit)], errs[k][(False, emit)], lib,
+                peaks, card))
     L_f, hop, Kcols, nb = geos["frac"]
     xl = cases["frac"][2]
     c_ms = cuda_ms(lambda: framed_cheap(xl, parts["frac"][0], nb, hop),
@@ -1590,6 +1946,13 @@ def main() -> int:
     check_dense_cases(dev)
     kernels += matmul_paths(dev, x, ref, skip, peaks, card)
     kernels += gemm_records(dev, peaks, card)
+    del x
+    torch.cuda.empty_cache()
+
+    # the half-band, cascade and polynomial paths, then their guarantee
+    # chains; each new kernel call shape against its plain version
+    kernels += stage_paths(dev, peaks, card)
+    kernels += ozaki_paths(dev, peaks, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,16 +10,20 @@ The zero-flush semantics of the reference's oneshot (CDSPResampler.h:
 of zeros whose outputs cover ``out_len`` (models/lengths.py inverse
 emission algebra).
 
-Ported: every [conv, whole-frac] plan.  Plans that fuse into one [conv(up),
-whole-frac] composite (e.g. 44.1k -> 96k, 44.1k -> 48k) run fused with the
-default engines; ``fused=False`` or any other engine runs the stages one by
-one: the float32 matmul conv engines (``"toeplitz"``, the unfused float32
-default, ``"toeplitz_sym"``, ``"pallas"``, ``"direct"``), the ozaki chain
-(``conv_engine="ozaki"`` + ``frac_engine="ozaki"``, with the df32
-inter-stage carry under ``precision="high"``) and the df32-FFT conv engines
-(``"fft"``, ``"pallas_fft"``, ``"pallas_fft4"``, ``"pallas_fft5"``), before
-the ``im2col``, ``pallas``, ``conv`` or ``ozaki`` interpolator.  Half-band
-and polynomial plans, ``fused="poly"`` and streaming
+Ported: every plan the planner makes.  With the default engines each
+[conv(up), whole-frac] pair of the plan runs fused (e.g. 44.1k -> 96k,
+44.1k -> 48k) and each run of two or more float32 half-band upsamplers
+runs as one cascade (e.g. 44.1k -> 2.8224M), the other stages one by one:
+lone conv stages, half-band stages, polynomial interpolators (e.g.
+44.1k -> 96001).  ``fused=False`` or any other engine runs the stages one
+by one: the float32 matmul conv engines (``"toeplitz"``, the unfused
+float32 default, ``"toeplitz_sym"``, ``"pallas"``, ``"direct"``), the
+ozaki chain (``conv_engine="ozaki"`` + ``frac_engine="ozaki"``: conv,
+half-band and interpolator stages in the split form, with the df32
+inter-stage carry under ``precision="high"``) and the df32-FFT conv
+engines (``"fft"``, ``"pallas_fft"``, ``"pallas_fft4"``,
+``"pallas_fft5"``), before the ``im2col``, ``pallas``, ``conv`` or
+``ozaki`` interpolator.  ``fused="poly"`` and streaming
 (``oneshot(max_chunk=...)`` beyond one chunk) raise NotImplementedError
 naming the ROADMAP.md item that ports them; nothing falls back to another
 path.
@@ -69,9 +73,10 @@ class Resampler(nn.Module):
         the reference package with ``convert.plan_from_reference``.
 
         fused: "auto" composes each [conv(up), whole-frac] pair of the
-        plan into one operator (ops/fused.py) when both engines are
-        "auto", and runs the other stages (a lone conv stage) one by one;
-        False runs every stage one by one.
+        plan into one operator (ops/fused.py) and, in float32, each run of
+        two or more half-band upsamplers (ops/hb_cascade.py), when both
+        engines are "auto", and runs the other stages one by one; False
+        runs every stage one by one.
 
         conv_engine: "auto" (fused; unfused, "toeplitz" in float32 and
         "fft" in float64); the float32 matmul engines "toeplitz" (the
@@ -91,10 +96,12 @@ class Resampler(nn.Module):
         frac_engine: "auto" (the reference's rule: "im2col" in float32
         when the windows barely overlap, else "conv"); "im2col",
         "pallas" and "conv" (one frac_whole call, ops/pallas_frac.py); or
-        "ozaki".  With conv_engine="ozaki", precision="high" and float32
-        the stages hand (hi, lo) pairs across their seams (the df32 carry:
-        only the final output rounds) unless the environment sets
-        R8BT_DF_CARRY=0.
+        "ozaki".  A polynomial-mode stage takes "banded" (float32's
+        "auto") or "gather" (float64's), and under "ozaki" the banded
+        engine's split products at precision "high".  With
+        conv_engine="ozaki", precision="high" and float32 the stages hand
+        (hi, lo) pairs across their seams (the df32 carry: only the final
+        output rounds) unless the environment sets R8BT_DF_CARRY=0.
 
         device: where the operators live and the contraction runs; "cuda"
         (the default) raises RuntimeError when CUDA is not available."""

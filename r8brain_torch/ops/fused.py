@@ -22,6 +22,8 @@ buffers.  The contraction runs through ``frac_whole``: the CUDA kernel on
 a CUDA tensor, its plain PyTorch version on a CPU tensor.
 
 Applicability: plan == [ConvStage(up, down=1), FracStage(whole)].
+``fuse_stage_list`` also replaces each run of two or more float32
+half-band upsamplers by one ``HBUpCascadeExec`` (ops/hb_cascade.py).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from torch import nn
 from ..models.lengths import chain_out_len
 from ..models.plan import ConvStage, FracStage, Plan
 from ..parallel.sharding import chain_shift_period
+from .hb_cascade import HBUpCascadeExec, hb_up_run_fusable
 from .pallas_frac import frac_whole, operator_parts
 from .stages import build_exec
 
@@ -53,18 +56,25 @@ def can_fuse(plan: Plan) -> bool:
 
 
 def fuse_stage_list(plan: Plan, dtype, precision):
-    """Executor list for the plan with every adjacent [conv(up, down=1),
-    whole-frac] pair replaced by a FusedUpExec and every other stage
-    given its own executor (``build_exec``, which raises
-    NotImplementedError naming the ROADMAP item of a stage the port does
-    not run yet).  Returns None if nothing fuses: the caller then builds
-    the stages one by one."""
+    """Executor list for the plan with every run of >= 2 half-band
+    upsamplers replaced by an HBUpCascadeExec (float32), every adjacent
+    [conv(up, down=1), whole-frac] pair by a FusedUpExec and every other
+    stage given its own executor (``build_exec``).  A pair or run
+    mid-chain is valid: its input stream starts at zero of its own input,
+    the fused executors' stream-start semantics.  Returns None if nothing
+    fuses: the caller then builds the stages one by one."""
     stages = plan.stages
     execs = []
     fused_any = False
     i = 0
     while i < len(stages):
-        if i + 1 < len(stages) and _pair_fusable(stages[i], stages[i + 1]):
+        hb_run = hb_up_run_fusable(stages, i, dtype)
+        if hb_run:
+            execs.append(HBUpCascadeExec(stages[i : i + hb_run], dtype))
+            fused_any = True
+            i += hb_run
+        elif i + 1 < len(stages) and _pair_fusable(stages[i],
+                                                   stages[i + 1]):
             sub = Plan(plan.src_rate, plan.dst_rate, plan.trans_band,
                        plan.atten, plan.phase,
                        (stages[i], stages[i + 1]),

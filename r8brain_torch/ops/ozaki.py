@@ -31,8 +31,8 @@ import torch.nn.functional as F
 from .dfloat import two_sum
 
 __all__ = ["N_PARTS", "N_DIAG", "K0", "split_operator_host",
-           "channel_scale", "split_input", "framed_cheap",
-           "framed_matmul_ozaki"]
+           "split_operator_host_batched", "channel_scale", "split_input",
+           "framed_cheap", "framed_matmul_ozaki"]
 
 N_PARTS = 4   # 8-bit slices per operand (32 bits below the block peak)
 N_DIAG = 4    # kept diagonals d = p+q in [0, N_DIAG)
@@ -67,6 +67,29 @@ def split_operator_host(T64: np.ndarray):
     assert np.array_equal(pb.double().numpy(), parts), \
         "operator slice not bf16-exact"
     return pb, s.astype(np.float32)
+
+
+def split_operator_host_batched(T64: np.ndarray, axis: int = 1):
+    """split_operator_host for a batched operator [nloc, W, G]: slices on a
+    per-(m, g)-column power-of-two grid (the max over the contraction axis
+    ``axis``), the scales folded in.  Returns [N_PARTS, *T64.shape]
+    torch.bfloat16.  The banded polynomial interpolator's guarantee path
+    (``stages.banded_contract_ozaki``) uses it: the exactness lemma holds
+    per (channel, m, g) output cell."""
+    T64 = np.asarray(T64, dtype=np.float64)
+    s = _pow2_ceil_scale(np.abs(T64).max(axis=axis, keepdims=True))
+    r = T64 / s
+    parts = []
+    for p in range(N_PARTS):
+        step = 2.0 ** (-8 * (p + 1))
+        q = np.round(r / step) * step
+        parts.append(q * s)
+        r = r - q
+    parts = np.stack(parts)
+    pb = torch.from_numpy(parts).to(torch.bfloat16)
+    assert np.array_equal(pb.double().numpy(), parts), \
+        "operator slice not bf16-exact"
+    return pb
 
 
 def channel_scale(x: torch.Tensor) -> torch.Tensor:

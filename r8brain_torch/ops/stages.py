@@ -16,7 +16,7 @@ M = stage_out_len(spec, N), plus the two seam protocols of the chain:
   float32 store rounding never happens; only the chain's last output
   rounds.  Returns ``(h, l, n_out)``.
 
-Ported, for every [conv, whole-frac] plan:
+Ported: every stage kind the planner makes.
 
 * ``ConvExec``: the float32 matmul engines ``toeplitz`` (the banded
   operator on ``frac_whole``, ops/pallas_frac.py), ``toeplitz_sym`` (the
@@ -33,31 +33,46 @@ Ported, for every [conv, whole-frac] plan:
 * ``FracWholeExec``: the ozaki engine, and the ``im2col``, ``pallas`` and
   ``conv`` engines, all one contraction on ``frac_whole`` (with the
   float32 operator residual and 16-term folds under ``precision="high"``).
+* ``HBUpExec``, ``HBDownExec``: the half-band stages, one framed product
+  on ``frac_whole`` (float32) or ``ozaki_framed`` (the guarantee chain),
+  or the oracle's stencil (float64).  Runs of two or more half-band
+  upsamplers fuse into one product (ops/hb_cascade.py).
+* ``FracPolyExec``: polynomial mode, a banded batched product against
+  operators built from host-side float64 positions (IEEE float32, or the
+  error-free split form under frac_engine="ozaki"), or a per-tap gather
+  in float64.
 
 Each kernel wrapper runs the CUDA kernel on a CUDA tensor and its plain
-version on a CPU tensor.  Half-band and polynomial stages raise
-NotImplementedError naming the ROADMAP.md item that ports them; the fast
-flagship runs through the fused executor (ops/fused.py) instead.
+version on a CPU tensor.
 """
 
 from __future__ import annotations
+
+import contextlib
+from collections import OrderedDict
+from fractions import Fraction
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.lengths import stage_out_len
+from ..models.lengths import frac_positions, stage_out_len
 from ..models.plan import ConvStage, FracStage, HBDownStage, HBUpStage
 from ..utils.trace import trace
-from .ozaki import channel_scale, framed_cheap, split_operator_host
+from .dfloat import two_sum
+from .ozaki import (K0, N_DIAG, N_PARTS, channel_scale, framed_cheap,
+                    split_input, split_operator_host,
+                    split_operator_host_batched)
 from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
 from .pallas_frac import KC, KC_LO, frac_whole, operator_parts
 from .pallas_ozaki import ozaki_framed, pack_operator
 from .pallas_symconv import BH, sym_conv, sym_parts
 
-__all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "build_exec",
+__all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "HBUpExec",
+           "HBDownExec", "FracPolyExec", "chunk_drift_groups",
+           "banded_contract", "banded_contract_ozaki", "build_exec",
            "FFT_ENGINES", "MATMUL_ENGINES"]
 
 #: ConvExec's FFT engines: df_fft_conv under precision "high".
@@ -89,7 +104,7 @@ def _check_ozaki(dtype, precision):
     if dtype != torch.float32:
         raise NotImplementedError(
             f"the ozaki engine runs in float32 only (got {dtype}); float64 "
-            f"runs conv_engine='fft' (ROADMAP.md queue 1 items 3 and 8)")
+            f"runs conv_engine='fft'")
     _check_precision(precision)
 
 
@@ -836,22 +851,746 @@ class FracWholeExec(nn.Module):
         return yh[:, :M], yl[:, :M], M
 
 
+
+
+def _df_collapse_input(h, l, n_valid):
+    """A df32 seam pair collapsed to one input for a stage (or engine)
+    without a carry path: both streams sliced to the logical prefix and
+    added once, exactly the seam rounding of the chain without the
+    carry."""
+    hl = h if h.shape[1] == n_valid else h[:, :n_valid]
+    if l is not None:
+        hl = hl + (l if l.shape[1] == n_valid else l[:, :n_valid])
+    return hl
+
+
+class _HalfBandExec(nn.Module):
+    """What the two half-band executors share: the engine rule, the
+    operator of the framed engines and their product, the carry.
+
+    Engines: "matmul" (float32's "auto"), the framed product against the
+    banded operator on ``frac_whole`` (32-term folds; under
+    ``precision="high"`` with the row-truncated residual of the rounded
+    taps, ``T_lo``, and 16-term folds, as FracWholeExec: a column's 2*nt
+    taps would otherwise share one partial); "stencil" (float64's
+    "auto"), the symmetric shifted adds in the oracle's summation order;
+    "ozaki", the same
+    operator in the error-free split form on ``ozaki_framed`` (float64
+    runs "stencil" instead, as in the reference)."""
+
+    def __init__(self, spec, dtype, engine: str, block: int, precision: str):
+        super().__init__()
+        _check_dtype(dtype)
+        _check_precision(precision)
+        if engine == "auto":
+            engine = "matmul" if dtype == torch.float32 else "stencil"
+        if engine == "ozaki" and dtype != torch.float32:
+            engine = "stencil"  # the split form is a float32 tool
+        if engine not in ("matmul", "stencil", "ozaki"):
+            raise ValueError(f"unknown half-band engine {engine!r}")
+        self.spec = spec
+        self.dtype = dtype
+        self.engine = engine
+        self.nt = spec.hb.num_taps
+        self.B = block
+        self.precision = (precision if dtype == torch.float32
+                          and engine in ("matmul", "ozaki") else "fast")
+        np_dt = np.float32 if dtype == torch.float32 else np.float64
+        t64 = np.asarray(spec.hb.taps, dtype=np.float64)
+        self.register_buffer("taps", torch.from_numpy(t64.astype(np_dt)))
+        if engine == "stencil":
+            return
+        T = self._operator(t64)
+        self.L_f, self.Kcols = T.shape
+        if engine == "ozaki":
+            parts, self.oz_scale = split_operator_host(T)
+            _register_ozaki(self, parts)
+            return
+        Thi = T.astype(np_dt)
+        lo = None
+        if self.precision == "high":
+            # the rounded taps' residual (the identity entries are exact)
+            r0, rows = truncate_residual(
+                (T - Thi.astype(np.float64)).astype(np.float32),
+                float(np.abs(T).max()))
+            if rows.shape[0]:
+                lo = _placed(rows, r0, T.shape[0])
+        self.register_buffer("T", torch.from_numpy(Thi))
+        self.register_buffer("T_lo", lo)
+        self.register_buffer("T_parts", operator_parts(self.T, self.T_lo))
+        self.kc = KC_LO if self.precision == "high" else KC
+
+    @property
+    def oz_packed(self):
+        """The ozaki engine's operator as the kernel takes it."""
+        return self.oz_tiles, self.oz_bands
+
+    def out_len(self, n_in: int) -> int:
+        return stage_out_len(self.spec, n_in)
+
+    def _framed(self, x, n_in: int, x_lo=None, pair: bool = False):
+        """The framed product over the blocks behind n_in input samples,
+        every block's columns ([C, n_blocks * Kcols], or the (hi, lo)
+        pair)."""
+        start, n_blocks, hop = self._geometry(n_in)
+        need = (n_blocks - 1) * hop + self.L_f
+        if self.engine == "matmul":
+            xp = _shifted(x, start, need, self.dtype)
+            return frac_whole(xp, self.T_parts, hop, self.L_f, self.Kcols,
+                              n_blocks, kc=self.kc)
+        xp = _shifted(x, start, need, torch.float32)
+        xl = None if x_lo is None else _shifted(x_lo, start, need,
+                                                x_lo.dtype)
+        return ozaki_framed(xp, channel_scale(xp[:, :need]), self.oz_parts,
+                            self.L_f, hop, self.Kcols, n_blocks, x_lo=xl,
+                            emit_pair=pair, packed=self.oz_packed)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        C, N = x.shape
+        M = self.out_len(N)
+        if M <= 0:
+            return x.new_zeros((C, 0), dtype=self.dtype)
+        lat = self.spec.out_latency
+        if self.engine == "stencil":
+            return self._stencil(x.to(self.dtype))[:, lat : lat + M]
+        return self._framed(x, N)[:, lat : lat + M]
+
+    forward = apply
+
+    def apply_df(self, h: torch.Tensor, l, n_valid=None,
+                 emit_pair: bool = True):
+        """df32 carry (see ConvExec.apply_df): the ozaki engine reads the
+        raw pair; window reads past ``n_valid`` land only in outputs past
+        M.  The other engines collapse the pair first."""
+        C, N = h.shape
+        if n_valid is None:
+            n_valid = N
+        M = self.out_len(n_valid)
+        if M <= 0:
+            return h.new_zeros((C, 0), dtype=self.dtype), None, 0
+        if self.engine != "ozaki":
+            y = self.apply(_df_collapse_input(h, l, n_valid))
+            return y, None, y.shape[1]
+        lat = self.spec.out_latency
+        res = self._framed(h, n_valid, x_lo=l, pair=emit_pair)
+        if emit_pair:
+            return res[0][:, lat : lat + M], res[1][:, lat : lat + M], M
+        return res[:, lat : lat + M], None, M
+
+
+class HBUpExec(_HalfBandExec):
+    """Half-band 2X upsampler: y[2n] = x[n]; y[2n+1] = the symmetric
+    stencil sum_i taps[i] * (x[n+1+i] + x[n-i]) (CDSPHBUpsampler.h).
+
+    The framed engines run blocks of B = 128 pairs against a [B + 2*nt, 2B]
+    operator whose even columns are the identity and odd columns the
+    stencil, so the product writes the interleaved stream: one
+    ``frac_whole`` (or ``ozaki_framed``) call at I = 128, D = 128 + 2*nt,
+    O = 256."""
+
+    def __init__(self, spec: HBUpStage, dtype=torch.float32,
+                 engine: str = "auto", block: int = 128,
+                 precision: str = "fast"):
+        super().__init__(spec, dtype, engine, block, precision)
+
+    def _operator(self, t64: np.ndarray) -> np.ndarray:
+        nt, B = self.nt, self.B
+        T = np.zeros((B + 2 * nt, 2 * B), dtype=np.float64)
+        j = np.arange(B)
+        T[j + nt, 2 * j] = 1.0  # even output: the centre sample
+        for i in range(nt):
+            T[j + nt + 1 + i, 2 * j + 1] = t64[i]
+            T[j + nt - i, 2 * j + 1] = t64[i]
+        return T
+
+    def _geometry(self, n_in: int):
+        """(first sample of block 0, blocks, hop): pair n reads x[n - nt +
+        l], l in [1, 2*nt]."""
+        return -self.nt, -(-(n_in - self.nt) // self.B), self.B
+
+    def _stencil(self, x: torch.Tensor) -> torch.Tensor:
+        """The symmetric shifted adds in the oracle's order."""
+        C, N = x.shape
+        nt = self.nt
+        n_pairs = N - nt
+        xp = F.pad(x, (nt, 0))  # xp[k] = x[k - nt]
+        odd = x.new_zeros((C, n_pairs))
+        for i in range(nt):
+            a = xp[:, nt + 1 + i : nt + 1 + i + n_pairs]
+            odd = odd + self.taps[i] * (a + xp[:, nt - i : nt - i + n_pairs])
+        return torch.stack([x[:, :n_pairs], odd], dim=-1).reshape(
+            C, 2 * n_pairs)
+
+
+class HBDownExec(_HalfBandExec):
+    """Half-band 2X decimator (gain 2): y[n] = x[2n] + sum_i taps[i] *
+    (x[2n+1+2i] + x[2n-1-2i]) (CDSPHBDownsampler.h).
+
+    The framed engines run blocks of B = 128 outputs at hop 2B against a
+    [2B + 4*nt - 2, B] operator holding the half-band kernel at stride-2
+    column offsets: one ``frac_whole`` (or ``ozaki_framed``) call at I =
+    256, D = 254 + 4*nt, O = 128."""
+
+    def __init__(self, spec: HBDownStage, dtype=torch.float32,
+                 engine: str = "auto", block: int = 128,
+                 precision: str = "fast"):
+        super().__init__(spec, dtype, engine, block, precision)
+
+    def _operator(self, t64: np.ndarray) -> np.ndarray:
+        nt, B = self.nt, self.B
+        h = np.zeros(4 * nt - 1, dtype=np.float64)
+        h[2 * nt - 1] = 1.0  # the centre sample x[2n]
+        for i in range(nt):
+            h[2 * nt + 2 * i] = t64[i]
+            h[2 * nt - 2 - 2 * i] = t64[i]
+        T = np.zeros((2 * B + h.shape[0] - 1, B), dtype=np.float64)
+        for b in range(B):
+            T[2 * b : 2 * b + h.shape[0], b] = h
+        return T
+
+    def _geometry(self, n_in: int):
+        """(first sample of block 0, blocks, hop): y[n] reads x[2n + d -
+        (2*nt - 1)], d in [0, 4*nt - 1)."""
+        cnt = (n_in - 2 * self.nt) // 2 + 1
+        return 1 - 2 * self.nt, -(-cnt // self.B), 2 * self.B
+
+    def _stencil(self, x: torch.Tensor) -> torch.Tensor:
+        """The deinterleaved symmetric shifted adds in the oracle's order
+        (the even/odd split of CDSPHBDownsampler.h)."""
+        N = x.shape[1]
+        nt = self.nt
+        cnt = (N - 2 * nt) // 2 + 1
+        if N % 2:
+            x = F.pad(x, (0, 1))
+        xo = F.pad(x[:, 1::2], (nt, nt))  # xo[k] = x[2(k - nt) + 1]
+        y = x[:, 0::2][:, :cnt]
+        for i in range(nt):
+            y = y + self.taps[i] * (xo[:, nt + i : nt + i + cnt]
+                                    + xo[:, nt - 1 - i : nt - 1 - i + cnt])
+        return y
+
+
+def chunk_drift_groups(sg: np.ndarray, vals: np.ndarray, scale: int,
+                       S: int, fl: int, budget: int, ngrp_max: int,
+                       W: int):
+    """Chunks of [n_grp, G] output groups for the banded contraction.
+
+    Frames are read at the uniform stride ``S``; a chunk of ``nloc`` groups
+    from ``g0`` is anchored at A = min over its rows m of (sg[g0+m].min() -
+    m*S) and its group-local window offsets are off = vals[g0:g0+nloc] -
+    scale*(A + m*S) (``scale`` maps the frame grid to the grid of
+    ``vals``).  A chunk is accepted when off.max() + fl <= budget and
+    halved otherwise; a single group must fit.
+
+    Returns (chunks, need_len, shift): ``chunks`` a list of (g0, nloc, A,
+    off int32) with every A >= 0 after the frame origin moves right by
+    ``shift`` samples; ``need_len`` the frame samples needed from the
+    shifted origin."""
+    n_grp = sg.shape[0]
+    chunks = []
+    need_len = 0
+    g0 = 0
+    while g0 < n_grp:
+        nloc = min(ngrp_max, n_grp - g0)
+        while True:
+            m = np.arange(nloc)
+            A = int((sg[g0 : g0 + nloc].min(axis=1) - m * S).min())
+            off = vals[g0 : g0 + nloc] - scale * (A + m * S)[:, None]
+            assert off.min() >= 0
+            if off.max() + fl <= budget or nloc == 1:
+                break
+            nloc //= 2  # the drift exceeds the operator's band: split
+        assert off.max() + fl <= budget, "drift budget exceeded"
+        chunks.append((g0, nloc, A, off.astype(np.int32)))
+        need_len = max(need_len, A + (nloc - 1) * S + W)
+        g0 += nloc
+    shift = max(0, -min(a for _, _, a, _ in chunks))
+    if shift:
+        need_len += shift
+        chunks = [(g_, n_, a_ + shift, o_) for g_, n_, a_, o_ in chunks]
+    return chunks, need_len, shift
+
+
+def _stride_segments(xc: torch.Tensor, nloc: int, S: int, W: int):
+    """([C, nloc + n_seg, S] reshape view of xc, n_seg): frame m covers
+    xc[:, m*S : m*S + W], read in n_seg = ceil(W/S) shifted segments."""
+    n_seg = -(-W // S)
+    total = (nloc + n_seg) * S
+    if xc.shape[1] < total:
+        xc = F.pad(xc, (0, total - xc.shape[1]))
+    return xc[:, :total].reshape(xc.shape[0], nloc + n_seg, S), n_seg
+
+
+@contextlib.contextmanager
+def _ieee_fp32():
+    """float32 matmuls with IEEE products inside, whatever the caller set
+    (TF32's 10-bit mantissa cannot hold the -141 dB class)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def banded_contract(xc: torch.Tensor, R: torch.Tensor, nloc: int, S: int,
+                    W: int) -> torch.Tensor:
+    """sum_w frames[c, m, w] * R[m, w, g] with the [C, nloc, W] frames at
+    stride S read as reshape views of ``xc`` (no gather), segment by
+    segment: a batched matmul over m (the operator differs per output
+    group).  Returns [C, nloc, G] in xc's dtype; the caller picks the
+    matmul precision."""
+    ch3, n_seg = _stride_segments(xc, nloc, S, W)
+    o = None
+    for e in range(n_seg):
+        w_e = min(S, W - e * S)
+        oe = torch.matmul(ch3[:, e : nloc + e, :w_e].transpose(0, 1),
+                          R[:, e * S : e * S + w_e])
+        o = oe if o is None else o + oe
+    return o.transpose(0, 1)
+
+
+def banded_contract_ozaki(xc: torch.Tensor, R_parts: torch.Tensor,
+                          nloc: int, S: int, W: int, x_lo=None,
+                          pair: bool = False):
+    """banded_contract in the error-free split-operand form (the exactness
+    lemma of ops/ozaki.py, per (channel, m, g) output cell): slice-pair
+    products are integers < 2^16 on a power-of-two grid and every <= K0
+    deep float32 sum of them is exact.  The slices are multiplied as
+    float32 tensors holding bfloat16 values, so the products stay exact
+    and float32 even under TF32.
+
+    R_parts: [N_PARTS, nloc, W, G] bfloat16 (``split_operator_host_batched``,
+    scales folded).  x_lo: the previous seam's residual stream, one pass
+    against the top slice.  pair=True returns the two_sum-normalized (hi
+    float32, lo bfloat16); [C, nloc, G] either way."""
+    C = xc.shape[0]
+    ch, n_seg = _stride_segments(xc, nloc, S, W)
+    xparts, x_scale = split_input(ch.reshape(C, -1))
+    ch = [xparts[p].reshape(ch.shape).transpose(0, 1)
+          for p in range(N_PARTS)]
+    chl = None
+    if x_lo is not None:
+        chl = _stride_segments(x_lo, nloc, S, W)[0].to(
+            torch.bfloat16).transpose(0, 1)
+
+    def dot(seg, Rq):
+        return torch.matmul(seg.float(), Rq.float())
+
+    hi = lo = rest = cheap = None
+    for e in range(n_seg):
+        w_e = min(S, W - e * S)
+        for c0 in range(0, w_e, K0):
+            a0 = e * S + c0
+            a1 = min(e * S + w_e, a0 + K0)
+            cols = slice(a0 - e * S, a1 - e * S)
+            d0 = small = None
+            for p in range(N_PARTS):
+                for q in range(N_DIAG - p):
+                    o = dot(ch[p][e : nloc + e, :, cols], R_parts[q, :, a0:a1])
+                    if p + q == 0:
+                        d0 = o
+                    else:
+                        small = o if small is None else small + o
+            if hi is None:
+                hi, lo = d0, torch.zeros_like(d0)
+            else:
+                hi, err = two_sum(hi, d0)
+                lo = lo + err
+            rest = small if rest is None else rest + small
+            if chl is not None:
+                o = dot(chl[e : nloc + e, :, cols], R_parts[0, :, a0:a1])
+                cheap = o if cheap is None else cheap + o
+    sc = x_scale[None]  # [1, C, 1]
+    y_hi = hi * sc
+    y_small = (lo + rest) * sc
+    if cheap is not None:
+        y_small = y_small + cheap
+    if not pair:
+        return (y_hi + y_small).transpose(0, 1)
+    H, L = two_sum(y_hi, y_small)
+    return H.transpose(0, 1), L.to(torch.bfloat16).transpose(0, 1)
+
+
+#: The polynomial interpolator builds its banded operator on the host (in
+#: float64, rounded once) while it holds at most this many entries (Mp * W:
+#: ~0.6 s of output at 44.1k -> 96001); above, the filter values are
+#: placed into it on the device.
+POLY_HOST_R_CAP = 16_000_000
+#: ... and computes the filter values on the host while they number at most
+#: this many (Mp * fl); above, from the spline table on the device.
+POLY_HOST_FLT_CAP = 16_000_000
+#: Input lengths whose host-built state a FracPolyExec keeps.
+POLY_CACHE = 4
+
+
+def _place_host(vals: np.ndarray, off: np.ndarray, W: int) -> np.ndarray:
+    """[nloc, W, G]: the filter values vals [nloc, G, fl] placed at the
+    group-local offsets off [nloc, G] (distinct rows for each (m, g, i):
+    the placement is exact)."""
+    nloc, G, fl = vals.shape
+    R = np.zeros((nloc, W, G), dtype=vals.dtype)
+    R[np.arange(nloc)[:, None, None], off[..., None] + np.arange(fl),
+      np.arange(G)[None, :, None]] = vals
+    return R
+
+
+def _place_device(vals: torch.Tensor, off: torch.Tensor,
+                  W: int) -> torch.Tensor:
+    """_place_host on the device: a one-hot scatter of each tap."""
+    nloc, G, fl = vals.shape
+    idx = off.long()[..., None] + torch.arange(fl, device=vals.device)
+    R = vals.new_zeros((nloc, G, W)).scatter_(2, idx, vals)
+    return R.transpose(1, 2).contiguous()
+
+
+class FracPolyExec(nn.Module):
+    """Polynomial-mode fractional interpolator
+    (CDSPFracInterpolator.h, convolve2): output n reads fl input samples
+    from floor(p_n) - fll with the spline filter c0[f] + (c1[f] + c2[f]*t)
+    * t of its fractional position.  The read positions are independent
+    of the data: the host computes them in float64, as the oracle does.
+
+    Engines:
+      * "banded" (float32's "auto"): a rational S/G near the ratio (G
+        outputs advance the read position by about S inputs), frames of W
+        samples at the uniform stride S read as reshape views, and each
+        group of G outputs one [W] x [W, G] product against a banded
+        operator R holding the filters at their group-local offsets.  The
+        offsets drift by |G*r - S| a group, so the groups are chunked to
+        the band (``chunk_drift_groups``).  R is built on the host in
+        float64 and rounded once while Mp*W <= ``POLY_HOST_R_CAP``, else
+        placed on the device; under "high" the rounding's residual rides a
+        second pass (on both branches while the filter values come from
+        the host); with ``oz_products`` (frac_engine="ozaki") the float64
+        operator is split into bfloat16 slices and contracted error-free
+        (``banded_contract_ozaki``).  The main contraction runs in IEEE
+        float32 whatever the caller's TF32 setting; under "high" it sums
+        in float64 (the float32 products are exact there) and rounds
+        once, where the reference sums in float32: a plain float32 sum of
+        a window's taps was the chain's largest error on an H100 (about
+        -146 dB re full scale, against -150 for each frac_whole stage).
+      * "gather" (float64's "auto"): one gather a tap with the filter
+        evaluated in place, in the oracle's summation order.
+
+    The host-built state (positions, chunks, operators on the device)
+    depends only on the output count: it is built once for each input
+    length and kept for the last ``POLY_CACHE`` lengths."""
+
+    def __init__(self, spec: FracStage, dtype=torch.float32,
+                 engine: str = "auto", precision: str = "fast",
+                 oz_products: bool = False):
+        super().__init__()
+        if spec.is_whole:
+            raise ValueError("FracPolyExec needs a polynomial-mode stage")
+        _check_dtype(dtype)
+        _check_precision(precision)
+        self.spec = spec
+        self.dtype = dtype
+        self.precision = precision if dtype == torch.float32 else "fast"
+        self.oz_products = bool(oz_products) and self.precision == "high"
+        if engine == "auto":
+            engine = "banded" if dtype == torch.float32 else "gather"
+        if engine not in ("banded", "gather"):
+            raise ValueError(f"unknown poly engine {engine!r}")
+        self.engine = engine
+        tab = np.asarray(spec.bank.table, dtype=np.float64)  # [rows, fl, 3]
+        self.tab64 = tab
+        np_dt = np.float32 if dtype == torch.float32 else np.float64
+        self.register_buffer("coef", torch.from_numpy(np.ascontiguousarray(
+            np.moveaxis(tab, 2, 0)).astype(np_dt)))  # c0, c1, c2
+        self.fracs = spec.bank.fracs
+        self.fl = spec.filter_len
+        self.fll = self.fl // 2 - 1
+        self._state = OrderedDict()
+        if engine == "banded":
+            self._prep_banded()
+
+    def _prep_banded(self, g_max: int = 256):
+        """The (S, G) pair minimizing the product's work per output, W *
+        ceil(G/128)*128/G * (1 + 0.5/ngrp_max) with W ~ S + fl + slack:
+        the convergents of the ratio and G in (64, 96, ..., 256), the
+        reference's scoring, kept so the geometry is the reference's."""
+        r = self.spec.src_rate / self.spec.dst_rate
+        fr = Fraction(r).limit_denominator(g_max)
+        cands = []
+        if 8 <= fr.denominator <= g_max:
+            for k in range(1, g_max // fr.denominator + 1):
+                cands.append((fr.numerator * k, fr.denominator * k))
+        for G in (64, 96, 128, 160, 192, 256):
+            S = int(round(G * r))
+            if S >= 1:
+                cands.append((S, G))
+        slack = 6
+        best = None
+        for S, G in cands:
+            drift = abs(G * r - S)
+            if drift > slack:  # a single group must fit the band
+                continue
+            W = -(-(S + self.fl + slack + 2) // 8) * 8
+            lane_pad = (-(-G // 128) * 128) / G
+            ngrp_max = max(8, int(slack / max(drift, 1e-12)))
+            eff = W * lane_pad * (1.0 + 0.5 / ngrp_max)
+            if best is None or eff < best[0]:
+                best = (eff, S, G, drift, ngrp_max, W)
+        _, self.S, self.G, self.drift, self.ngrp_max, self.W = best
+        self.slack = slack
+
+    def out_len(self, n_in: int) -> int:
+        return stage_out_len(self.spec, n_in)
+
+    def host_positions(self, M: int):
+        """(window_start int32, frac_index int32, t float64) of outputs [0,
+        M), in float64 on the host (models/lengths.py frac_positions)."""
+        s, f = frac_positions(self.spec, 0, M)
+        fr = f * self.fracs
+        fti = np.floor(fr).astype(np.int64)
+        t = (fr - fti).astype(np.float64)
+        return (s - self.fll).astype(np.int32), fti.astype(np.int32), t
+
+    def apply_v(self, x: torch.Tensor, n_valid: int):
+        """Valid-prefix seam protocol (see ConvExec.apply_v): the raw
+        group buffer and the logical count.  The positions are closed-form
+        in the output index, so the surplus columns are real outputs.
+        Latency-shifted specs take the sliced path (folding in_latency into
+        the window starts would read samples of the latency prefix where
+        apply reads zeros)."""
+        M = stage_out_len(self.spec, n_valid)
+        if self.engine != "banded" or M <= 0 or self.spec.in_latency:
+            y = self.apply(x if x.shape[1] == n_valid else x[:, :n_valid])
+            return y, y.shape[1]
+        Mp = -(-M // self.G) * self.G
+        return self._apply_banded(x, Mp, raw=True), M
+
+    def apply_df(self, h: torch.Tensor, l, n_valid=None,
+                 emit_pair: bool = True):
+        """df32 carry (see ConvExec.apply_df): the banded engine emits its
+        main contraction and its corrections (spline residual, seam
+        residual) as a two_sum pair on raw group buffers; latency-shifted
+        specs and the gather engine collapse the pair first."""
+        C, N = h.shape
+        if n_valid is None:
+            n_valid = N
+        M = stage_out_len(self.spec, n_valid)
+        if self.engine != "banded" or self.spec.in_latency or M <= 0:
+            y = self.apply(_df_collapse_input(h, l, n_valid))
+            return y, None, y.shape[1]
+        Mp = -(-M // self.G) * self.G
+        res = self._apply_banded(h, Mp, raw=True, x_lo=l, pair=emit_pair)
+        if emit_pair:
+            return res[0], res[1], M
+        return res, None, M
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        spec = self.spec
+        C = x.shape[0]
+        M = stage_out_len(spec, x.shape[1])
+        if spec.in_latency:
+            x = x[:, spec.in_latency :]
+        if M <= 0:
+            return x.new_zeros((C, 0), dtype=self.dtype)
+        if self.engine == "banded":
+            return self._apply_banded(x, M)
+        return self._apply_gather(x, M)
+
+    forward = apply
+
+    def _cached(self, key, build):
+        st = self._state.get(key)
+        if st is None:
+            st = self._state[key] = build()
+            while len(self._state) > POLY_CACHE:
+                self._state.popitem(last=False)
+        else:
+            self._state.move_to_end(key)
+        return st
+
+    def _apply_gather(self, x: torch.Tensor, M: int) -> torch.Tensor:
+        N = x.shape[1]
+        dev = x.device
+
+        def build():
+            start, fti, t = self.host_positions(M)
+            pad_l = max(0, -int(start.min()))
+            pad_r = max(0, int(start.max()) + self.fl - N)
+            fti = torch.from_numpy(fti.astype(np.int64)).to(dev)
+            t = torch.from_numpy(t).to(dev, self.dtype)[:, None]
+            c0, c1, c2 = (c[fti] for c in self.coef)
+            flt = c0 + (c1 + c2 * t) * t  # [M, fl]
+            idx = torch.from_numpy(start.astype(np.int64) + pad_l).to(dev)
+            return pad_l, pad_r, idx, flt
+
+        pad_l, pad_r, idx, flt = self._cached(("gather", M, N, dev), build)
+        xp = F.pad(x.to(self.dtype), (pad_l, pad_r))
+        y = x.new_zeros((x.shape[0], M), dtype=self.dtype)
+        for i in range(self.fl):
+            y = y + flt[None, :, i] * xp[:, idx + i]
+        return y
+
+    def _banded_state(self, M: int, dev):
+        """(chunks [(A, nloc, operators)], need_len, pad_l) of M outputs,
+        M a multiple of G on the seam paths; a non-seam caller's last
+        partial group is edge-extended."""
+        G, S, W, fl = self.G, self.S, self.W, self.fl
+        start, fti, t = self.host_positions(M)
+        n_grp = -(-M // G)
+        Mp = n_grp * G
+        if Mp > M:
+            ext = Mp - M
+            start = np.concatenate([start, np.repeat(start[-1], ext)])
+            fti = np.concatenate([fti, np.repeat(fti[-1], ext)])
+            t = np.concatenate([t, np.repeat(t[-1], ext)])
+        pad_l = max(0, -int(start.min()))
+        sg = (start + pad_l).reshape(n_grp, G)  # window starts a group
+        chunks, need_len, shift = chunk_drift_groups(sg, sg, 1, S, fl, W,
+                                                     n_grp, W)
+        host_R = Mp * W <= POLY_HOST_R_CAP
+        host_flt = Mp * fl <= POLY_HOST_FLT_CAP
+        fti2, t2 = fti.reshape(n_grp, G), t.reshape(n_grp, G)
+        if self.oz_products and not host_flt:
+            trace("poly_oz_flt_cap", Mp=Mp, fl=fl,
+                  detail="guarantee products above the filter-value cap: "
+                         "the residual-corrected float32 form instead")
+        built = []
+        for g0, nloc, A, off in chunks:
+            fc, tc = fti2[g0 : g0 + nloc], t2[g0 : g0 + nloc]
+            built.append((A, nloc, self._chunk_operators(
+                fc, tc, off, host_R, host_flt, dev)))
+        return built, need_len, pad_l + shift
+
+    def _chunk_operators(self, fc, tc, off, host_R: bool, host_flt: bool,
+                         dev):
+        """A chunk's operators on ``dev``: {"R_oz"} for the split
+        products, else {"R", "R_lo"} (R_lo None where there is no
+        residual pass)."""
+        W, tb = self.W, self.tab64
+        np_dt = np.float32 if self.dtype == torch.float32 else np.float64
+        flt64 = None
+        if host_flt:
+            t3 = tc[..., None]
+            flt64 = tb[fc, :, 0] + (tb[fc, :, 1] + tb[fc, :, 2] * t3) * t3
+        if self.oz_products and host_flt:
+            # the float64 operator split into bf16 slices: no residual
+            # pass needed, the slices carry it to 32 bits
+            if host_R:
+                R_oz = split_operator_host_batched(_place_host(flt64, off, W))
+            else:
+                fps = split_operator_host_batched(flt64, axis=-1).to(dev)
+                off_d = torch.from_numpy(off).to(dev)
+                R_oz = torch.stack([_place_device(fps[q].float(), off_d, W)
+                                    .to(torch.bfloat16)
+                                    for q in range(N_PARTS)])
+            return {"R_oz": R_oz.to(dev)}
+        R_lo = None
+        if host_R:
+            R = _place_host(flt64.astype(np_dt), off, W)
+            if self.precision == "high":
+                R_lo = _place_host((flt64 - flt64.astype(np.float32)).astype(
+                    np.float32), off, W)
+            R, R_lo = (None if a is None else torch.from_numpy(a).to(dev)
+                       for a in (R, R_lo))
+            return {"R": R, "R_lo": R_lo}
+        off_d = torch.from_numpy(off).to(dev)
+        if host_flt:
+            flt = torch.from_numpy(flt64.astype(np_dt)).to(dev)
+            if self.precision == "high":
+                R_lo = _place_device(torch.from_numpy(
+                    (flt64 - flt64.astype(np.float32)).astype(np.float32)
+                ).to(dev), off_d, W)
+        else:
+            fti_c = torch.from_numpy(fc.astype(np.int64)).to(dev)
+            t_c = torch.from_numpy(tc).to(dev, self.dtype)[..., None]
+            c0, c1, c2 = (c[fti_c] for c in self.coef)
+            flt = c0 + (c1 + c2 * t_c) * t_c
+        return {"R": _place_device(flt, off_d, W), "R_lo": R_lo}
+
+    def _apply_banded(self, x: torch.Tensor, M: int, raw: bool = False,
+                      x_lo=None, pair: bool = False):
+        C, N = x.shape
+        G, S, W = self.G, self.S, self.W
+        chunks, need_len, pad_l = self._cached(
+            ("banded", M, x.device), lambda: self._banded_state(M, x.device))
+        pad_r = max(0, need_len - (N + pad_l))
+        xp = F.pad(x.to(self.dtype), (pad_l, pad_r))
+        xlp = None if x_lo is None else F.pad(x_lo, (pad_l, pad_r))
+        outs = []
+        for A, nloc, ops in chunks:
+            xlc = None if xlp is None else xlp[:, A:]
+            if "R_oz" in ops:
+                res = banded_contract_ozaki(xp[:, A:], ops["R_oz"], nloc, S,
+                                            W, x_lo=xlc, pair=pair)
+                outs.append((res[0].reshape(C, nloc * G),
+                             res[1].reshape(C, nloc * G)) if pair else
+                            (res.reshape(C, nloc * G), None))
+                continue
+            small = None
+            if self.precision == "high":
+                # float32 products are exact in float64: the main product
+                # sums there and rounds once (its rounding carried in
+                # small), so the spline residual below is what is left
+                o64 = banded_contract(xp[:, A:].double(), ops["R"].double(),
+                                      nloc, S, W)
+                o = o64.float()
+                small = (o64 - o.double()).float()
+            else:
+                with _ieee_fp32():
+                    o = banded_contract(xp[:, A:], ops["R"], nloc, S, W)
+            if ops["R_lo"] is not None:
+                # the spline operator's rounding residual: ~2^-24 of the
+                # main term, any float32 matmul precision will do
+                lo = banded_contract(xp[:, A:], ops["R_lo"], nloc, S, W)
+                small = lo if small is None else small + lo
+            if xlc is not None:
+                # the seam residual (|x_lo| <= 2^-24 |x|), one pass
+                c = banded_contract(xlc.to(self.dtype), ops["R"], nloc, S, W)
+                small = c if small is None else small + c
+            if not pair and small is not None:
+                o = o + small
+            outs.append((o.reshape(C, nloc * G),
+                         None if small is None or not pair
+                         else small.reshape(C, nloc * G)))
+        y = torch.cat([a for a, _ in outs], dim=1) if len(outs) > 1 \
+            else outs[0][0]
+        if not pair:
+            return y if raw else y[:, :M]
+        ls = [b.float() if b is not None else torch.zeros_like(a)
+              for a, b in outs]
+        yl = torch.cat(ls, dim=1) if len(ls) > 1 else ls[0]
+        if not raw:
+            y, yl = y[:, :M], yl[:, :M]
+        H, L = two_sum(y, yl)
+        return H, L.to(torch.bfloat16)
+
+
+#: The frac engines a polynomial stage accepts (the whole-stepping ones run
+#: its "auto", as in the reference; "ozaki" turns on the split products).
+POLY_FRAC_ENGINES = ("auto", "banded", "gather", "ozaki", "im2col",
+                     "pallas", "conv")
+
+
 def build_exec(spec, dtype=torch.float32, precision: str = "fast",
                conv_engine: str = "auto", frac_engine: str = "auto"):
-    """The executor of one planned stage: ``ConvExec`` and
-    ``FracWholeExec`` (an unknown engine raises ValueError); half-band and
-    polynomial stages raise NotImplementedError naming their ROADMAP.md
-    item."""
+    """The executor of one planned stage (the reference's build_exec): an
+    unknown engine raises ValueError.  Half-band stages take the ozaki
+    engine under conv_engine="ozaki", their "auto" otherwise; a polynomial
+    stage takes frac_engine "banded" or "gather", and under "ozaki"
+    precision "high" with the split products."""
     if isinstance(spec, ConvStage):
         return ConvExec(spec, dtype, precision, engine=conv_engine)
-    if isinstance(spec, (HBUpStage, HBDownStage)):
-        raise NotImplementedError(
-            f"{spec.kind} stages are not ported yet (ROADMAP.md queue 1 "
-            f"item 3; their ozaki engine item 7)")
+    hb_engine = "ozaki" if conv_engine == "ozaki" else "auto"
+    if isinstance(spec, HBUpStage):
+        return HBUpExec(spec, dtype, engine=hb_engine, precision=precision)
+    if isinstance(spec, HBDownStage):
+        return HBDownExec(spec, dtype, engine=hb_engine, precision=precision)
     if isinstance(spec, FracStage):
-        if not spec.is_whole:
-            raise NotImplementedError(
-                "polynomial-mode interpolation is not ported yet (ROADMAP.md "
-                "queue 1 item 4; its ozaki products item 7)")
-        return FracWholeExec(spec, dtype, precision, engine=frac_engine)
+        if spec.is_whole:
+            return FracWholeExec(spec, dtype, precision, engine=frac_engine)
+        if frac_engine not in POLY_FRAC_ENGINES:
+            raise ValueError(f"unknown frac engine {frac_engine!r}")
+        return FracPolyExec(
+            spec, dtype,
+            engine=frac_engine if frac_engine in ("banded", "gather")
+            else "auto",
+            precision="high" if frac_engine == "ozaki" else precision,
+            oz_products=frac_engine == "ozaki")
     raise TypeError(spec)

@@ -102,9 +102,13 @@ def test_kernel_fold_lengths_match_plain(cuda_device, kc):
 # (label, I, D, O): SHAPES and the float32 chains' other frac_whole calls:
 # the toeplitz conv stage, the direct conv stage (O = 2: the 8-column tile
 # with the side-by-side slices, staged as stretches) and the interpolator
-# of the frac stage; and a narrow one staged by row (I > 64, O = 1)
+# of the frac stage; a narrow one staged by row (I > 64, O = 1); and the
+# half-band stages' and the cascade's (44.1k -> 192k's upsampler, 192k ->
+# 44.1k's decimator, the five upsamplers of 44.1k -> 2.8224M: O = 4096)
 MODEL_SHAPES = SHAPES + [("toeplitz", 256, 964, 512), ("direct", 1, 709, 2),
-                         ("frac", 147, 170, 160), ("narrow", 100, 331, 1)]
+                         ("frac", 147, 170, 160), ("narrow", 100, 331, 1),
+                         ("hb_up", 128, 150, 256), ("hb_down", 256, 298, 128),
+                         ("cascade", 128, 157, 4096)]
 
 
 @pytest.mark.cuda
@@ -203,9 +207,13 @@ def test_resampler_on_card_holds_class(cuda_device, precision):
 # (label, C, L_f, hop, Kcols, n_blocks): the guarantee chain's conv and frac
 # geometries at a few blocks, an odd one (C and Kcols no multiple of 8 or
 # 32, L_f no multiple of 16 and three K0 chunks, hop odd) and a ragged one
-# (rows, Kcols and L_f short of one tile: 21 rows, 40 columns, 70 deep)
+# (rows, Kcols and L_f short of one tile: 21 rows, 40 columns, 70 deep);
+# and the half-band geometries (44.1k -> 192k's upsampler, 192k -> 44.1k's
+# decimator)
 OZ_SHAPES = [("conv", 13, 964, 256, 512, 5), ("frac", 13, 170, 147, 160, 40),
-             ("odd", 13, 599, 301, 100, 9), ("ragged", 3, 70, 33, 40, 7)]
+             ("odd", 13, 599, 301, 100, 9), ("ragged", 3, 70, 33, 40, 7),
+             ("hb_up", 13, 150, 128, 256, 30),
+             ("hb_down", 13, 298, 256, 128, 30)]
 OZ_CHAIN = dict(precision="high", conv_engine="ozaki", frac_engine="ozaki")
 
 
@@ -670,3 +678,112 @@ def test_matmul_chain_on_card(cuda_device, chain, precision):
     bound = (-143.0 if precision == "high" else
              -140.0 if engine == "direct" else -141.0)
     assert _rms_db(y.cpu().double().numpy() - ref) < bound
+
+
+# the half-band, cascade and polynomial plans: (src, dst, input samples,
+# frac_whole launches of one oneshot)
+STAGE_CHAINS = [(44100, 192000, 20000, 3), (192000, 44100, 40000, 2),
+                (44100, 2822400, 20000, 2), (2822400, 96000, 360000, 4),
+                (44100, 96001, 20000, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fast", "high"])
+@pytest.mark.parametrize("chain", STAGE_CHAINS,
+                         ids=[f"{s}-{d}" for s, d, _n, _l in STAGE_CHAINS])
+def test_stage_chain_on_card(cuda_device, chain, precision):
+    """The default float32 chains of the half-band, cascade and
+    polynomial plans on the card, through their kernels, against the
+    port's float64 CPU path: -141 dB under "fast", -143 dB under "high"
+    (the CPU path reads -143.6 to -146.5 dB on these plans)."""
+    src, dst, n, launches = chain
+    rng = np.random.default_rng(17)
+    x = rng.uniform(-1.0, 1.0, (3, n)).astype(np.float32)
+    rs = Resampler(src, dst, 2.0, 180.15, precision=precision,
+                   device=cuda_device)
+    before = frac_whole.launches
+    y = rs.oneshot(x)
+    torch.cuda.synchronize()
+    assert frac_whole.launches - before == launches
+    ref = Resampler(src, dst, 2.0, 180.15, dtype=torch.float64,
+                    device="cpu").oneshot(x.astype(np.float64)).numpy()
+    skip = int(0.025 * dst)
+    d = y.cpu().double().numpy()[:, skip:-skip] - ref[:, skip:-skip]
+    assert _rms_db(d) < (-143.0 if precision == "high" else -141.0)
+
+
+@pytest.mark.cuda
+def test_poly_chain_holds_class_under_tf32(cuda_device):
+    """With TF32 switched on for the whole process the polynomial chain
+    still holds -141 dB: its stage runs its products in IEEE float32 (and
+    gives the same output as with TF32 off)."""
+    rng = np.random.default_rng(18)
+    x = rng.uniform(-1.0, 1.0, (3, 20000)).astype(np.float32)
+    rs = Resampler(44100, 96001, 2.0, 180.15, device=cuda_device)
+    y_off = rs.oneshot(x)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y = rs.oneshot(x)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(y, y_off)
+    ref = Resampler(44100, 96001, 2.0, 180.15, dtype=torch.float64,
+                    device="cpu").oneshot(x.astype(np.float64)).numpy()
+    skip = int(0.025 * 96001)
+    d = y.cpu().double().numpy()[:, skip:-skip] - ref[:, skip:-skip]
+    assert _rms_db(d) < -141.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", ["1", "0"], ids=["carry", "no_carry"])
+@pytest.mark.parametrize("rates", [(44100, 192000), (192000, 44100),
+                                   (44100, 96001)],
+                         ids=["44k_192k", "192k_44k", "44k_96001"])
+def test_stage_guarantee_chain_on_card(cuda_device, rates, carry,
+                                       monkeypatch):
+    """The guarantee chains of the half-band and polynomial plans on the
+    card: one ozaki_framed launch a conv or half-band stage, within -150
+    dB of the same chain's CPU run, and -150 dB (carry) or -141 dB (no
+    carry) from the port's float64 path."""
+    src, dst = rates
+    monkeypatch.setenv("R8BT_DF_CARRY", carry)
+    rng = np.random.default_rng(19)
+    x = rng.uniform(-1.0, 1.0, (3, 30000)).astype(np.float32)
+    rs = Resampler(src, dst, 2.0, 180.15, **OZ_CHAIN, device=cuda_device)
+    before = ozaki_framed.launches
+    y = rs.oneshot(x)
+    torch.cuda.synchronize()
+    assert ozaki_framed.launches - before == sum(
+        type(e).__name__ != "FracPolyExec" for e in rs.execs)
+    y = y.cpu().double().numpy()
+    y_cpu = Resampler(src, dst, 2.0, 180.15, **OZ_CHAIN,
+                      device="cpu").oneshot(x).double().numpy()
+    ref = Resampler(src, dst, 2.0, 180.15, dtype=torch.float64,
+                    device="cpu").oneshot(x.astype(np.float64)).numpy()
+    assert _rms_db(y - y_cpu) - _rms_db(y_cpu) < -150.0
+    assert _rms_db(y - ref) - _rms_db(ref) < (-150.0 if carry == "1"
+                                              else -141.0)
+
+
+@pytest.mark.cuda
+def test_cascade_f64_on_card(cuda_device):
+    """The float64 cascade on the card (frac_whole's float64 kernel and
+    the edge matrices) equals the per-stage float64 stencils to 1e-12 of
+    max |y|, from inputs inside the edge region to long ones."""
+    from r8brain_torch.models.plan import make_plan
+    from r8brain_torch.ops.hb_cascade import HBUpCascadeExec
+    from r8brain_torch.ops.stages import HBUpExec
+
+    specs = [s for s in make_plan(44100, 2822400, 2.0, 180.15, 0).stages
+             if s.kind == "hb_up"]
+    ex = HBUpCascadeExec(specs, torch.float64).to(cuda_device)
+    rng = np.random.default_rng(20)
+    for n in (3, 8, 40, 3000):
+        x = torch.from_numpy(rng.standard_normal((2, n)))
+        y = ex.apply(x.to(cuda_device)).cpu()
+        for sp in specs:
+            x = HBUpExec(sp, torch.float64).apply(x)
+        assert y.shape == x.shape
+        if y.numel():
+            assert (y - x).abs().max() <= 1e-12 * x.abs().max()

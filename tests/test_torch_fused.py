@@ -182,19 +182,22 @@ def test_short_input_and_empty_output():
 
 
 def test_fuse_stage_list_rejects_unported_stages():
+    """Every stage kind has an executor now: the list of the reference's
+    fuse_stage_list (the [conv, whole-frac] pair fused, a run of half-band
+    upsamplers one cascade, the rest per stage), or None when nothing
+    fuses."""
     fused = fuse_stage_list(make_plan(44100, 96000, 2.0, 180.15, 0),
                             torch.float32, "fast")
     assert len(fused) == 1 and isinstance(fused[0], FusedUpExec)
     # a lone conv stage fuses with nothing: the caller builds the stages
     assert fuse_stage_list(make_plan(44100, 22050, 2.0, 180.15, 0),
                            torch.float32, "fast") is None
-    # [conv, frac, conv, hb_up]: the pair fuses, the half-band stage has
-    # no executor yet
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        fuse_stage_list(make_plan(44100, 192000, 2.0, 180.15, 0),
-                        torch.float32, "fast")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        fuse_stage_list(make_plan(44100, 96001, 2.0, 180.15, 0),
-                        torch.float32, "fast")
+    # [conv, frac, conv, hb_up]: the pair fuses, the rest per stage
+    names = [type(e).__name__ for e in fuse_stage_list(
+        make_plan(44100, 192000, 2.0, 180.15, 0), torch.float32, "fast")]
+    assert names == ["FusedUpExec", "ConvExec", "HBUpExec"]
+    # [conv, poly, conv]: nothing fuses
+    assert fuse_stage_list(make_plan(44100, 96001, 2.0, 180.15, 0),
+                           torch.float32, "fast") is None
     with pytest.raises(ValueError):
         FusedUpExec(make_plan(44100, 22050, 2.0, 180.15, 0))

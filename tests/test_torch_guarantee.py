@@ -140,17 +140,23 @@ def test_cpu_chain_launches_no_kernel(monkeypatch):
 
 def test_unported_engines_raise():
     """What is still unported raises, naming its ROADMAP.md item:
-    fused="poly", the half-band and polynomial stages (on every engine);
-    the ozaki engine in float64 raises too, and an unknown engine name is
-    a ValueError."""
+    fused="poly"; the half-band and polynomial stages build on every
+    engine (the ozaki chain's take the split form); the ozaki engine in
+    float64 raises, and an unknown engine name is a ValueError."""
     cpu = dict(device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         Resampler(44100, 96000, 2.0, 180.15, fused="poly", **cpu)
-    # half-band and polynomial stages have no executor yet
-    for dst, item in ((176400, "item 3"), (96001, "item 4")):
-        for kw in (OZ, dict(fused=False), dict(conv_engine="toeplitz_sym")):
-            with pytest.raises(NotImplementedError, match=item):
-                Resampler(44100, dst, 2.0, 180.15, **kw, **cpu)
+    for dst, kinds in ((176400, ["ConvExec", "HBUpExec"]),
+                       (96001, ["ConvExec", "FracPolyExec", "ConvExec"])):
+        for kw, engine in ((OZ, "ozaki"), (dict(fused=False), "toeplitz"),
+                           (dict(conv_engine="toeplitz_sym"),
+                            "toeplitz_sym")):
+            rs = Resampler(44100, dst, 2.0, 180.15, **kw, **cpu)
+            assert [type(e).__name__ for e in rs.execs] == kinds
+            assert rs.execs[0].engine == engine
+            assert rs.execs[1].engine == {
+                "HBUpExec": "ozaki" if engine == "ozaki" else "matmul",
+                "FracPolyExec": "banded"}[kinds[1]]
     with pytest.raises(NotImplementedError, match="float32"):
         Resampler(44100, 96000, 2.0, 180.15, dtype=torch.float64, **OZ,
                   **cpu)
@@ -158,3 +164,28 @@ def test_unported_engines_raise():
     assert build_exec(conv, conv_engine="toeplitz").engine == "toeplitz"
     with pytest.raises(ValueError, match="unknown conv engine"):
         build_exec(conv, conv_engine="toeplitz_asym")
+
+
+CARRY_CLASS = [(44100.0, 96001.0, 180.15), (431181.83, 44100.0, 139.53)]
+
+
+@pytest.mark.parametrize("carry", ["1", "0"], ids=["carry", "no_carry"])
+@pytest.mark.parametrize("cfg", CARRY_CLASS,
+                         ids=[f"{s:g}-{d:g}" for s, d, _a in CARRY_CLASS])
+def test_df_carry_chain_class(cfg, carry, monkeypatch):
+    """tests/test_ozaki.py::test_df_carry_chain_class on the port: the
+    guarantee chain with the polynomial stage's split products (and,
+    at 431181.83 -> 44100, two half-band decimators on the split form)
+    holds -150 dB against the oracle with the carry, -141 dB without."""
+    src, dst, atten = cfg
+    monkeypatch.setenv("R8BT_DF_CARRY", carry)
+    rs = Resampler(src, dst, 2.0, atten, device="cpu", **OZ)
+    assert rs.df_carry == (carry == "1")
+    assert all(e.engine in ("ozaki", "banded") for e in rs.execs)
+    n = 4000
+    x32 = lcg_uniform(17, n).astype(np.float32)
+    out_len = int(np.floor(n * dst / src))
+    orc = OracleResampler(src, dst, 4096, 2.0, atten, 0).oneshot(
+        x32.astype(np.float64), out_len)
+    y = rs.oneshot(x32, out_len).double().numpy()
+    assert _rel_db(y, orc) < CARRY_DB[carry]

@@ -24,12 +24,10 @@ from r8brain_tpu.models.plan import make_plan as ref_make_plan
 from r8brain_tpu.models.resampler import Resampler as RefResampler
 from r8brain_tpu.ops.stages import ConvExec as RefConvExec
 from r8brain_torch import Resampler
-from r8brain_torch.models.plan import make_plan
 from r8brain_torch.ops import stages
 from r8brain_torch.ops.stages import ConvExec, FracWholeExec
 
 from .helpers import lcg_uniform, load_golden, load_manifest, rms_db
-from .test_torch_resampler import has_executors
 
 CHAINS = [(44100, 96000, 2.0, 180.15), (96000, 44100, 2.0, 180.15),
           (44100, 48000, 2.0, 180.15), (96000, 44100, 5.0, 136.45)]
@@ -145,18 +143,16 @@ def test_raw_seam_equals_sliced_stages(cfg, precision, conv_engine):
     assert np.array_equal(y_sliced.double().numpy(), y)
 
 
-GOLDENS = [c for c in load_manifest()
-           if has_executors(make_plan(c["src"], c["dst"], c["tb"],
-                                      c["atten"], c["phase"]))]
+GOLDENS = load_manifest()
 
 
 @pytest.mark.parametrize("cfg", GOLDENS, ids=[c["label"] for c in GOLDENS])
 def test_goldens_on_toeplitz_sym(cfg, monkeypatch):
-    """The C++ goldens of every plan the port runs within -141 dB on
-    the unfused float32 chain with conv_engine="toeplitz_sym"; a kernel
-    that does not fold (min-phase, or phase rows that are not
-    palindromes) takes the traced fallback to "toeplitz", as in the
-    reference."""
+    """Every C++ golden within -141 dB on the unfused float32 chain with
+    conv_engine="toeplitz_sym" (half-band and polynomial stages on their
+    "auto" engines); a kernel that does not fold (min-phase, or phase
+    rows that are not palindromes) takes the traced fallback to
+    "toeplitz", as in the reference."""
     events = []
     monkeypatch.setattr(stages, "trace", lambda ev, **kw: events.append(ev))
     x = lcg_uniform(cfg["seed"], cfg["inlen"])
@@ -164,17 +160,20 @@ def test_goldens_on_toeplitz_sym(cfg, monkeypatch):
     rs = Resampler(cfg["src"], cfg["dst"], cfg["tb"], cfg["atten"],
                    cfg["phase"], fused=False, conv_engine="toeplitz_sym",
                    device="cpu")
-    k = np.asarray(rs.plan.stages[0].filt.kernel)
-    symmetric = np.array_equal(k, k[::-1])
-    # the reference's choice: a symmetric kernel whose phase rows are not
-    # palindromes (up = 3 with down = 2 or 4) falls back too
-    ref_stage = ref_make_plan(cfg["src"], cfg["dst"], cfg["tb"],
-                              cfg["atten"], cfg["phase"]).stages[0]
-    want = RefConvExec(ref_stage, jnp.float32, precision="fast",
-                       engine="toeplitz_sym").engine
-    assert rs.execs[0].engine == want
-    assert symmetric or want == "toeplitz"
-    assert events == ([] if want == "toeplitz_sym"
-                      else ["conv_toeplitz_sym_fallback"])
+    ref_stages = ref_make_plan(cfg["src"], cfg["dst"], cfg["tb"],
+                               cfg["atten"], cfg["phase"]).stages
+    convs = [i for i, s in enumerate(rs.plan.stages) if s.kind == "conv"]
+    fallbacks = 0
+    for i in convs:
+        k = np.asarray(rs.plan.stages[i].filt.kernel)
+        symmetric = np.array_equal(k, k[::-1])
+        # the reference's choice: a symmetric kernel whose phase rows are
+        # not palindromes (up = 3 with down = 2 or 4) falls back too
+        want = RefConvExec(ref_stages[i], jnp.float32, precision="fast",
+                           engine="toeplitz_sym").engine
+        assert rs.execs[i].engine == want
+        assert symmetric or want == "toeplitz"
+        fallbacks += want == "toeplitz"
+    assert events == ["conv_toeplitz_sym_fallback"] * fallbacks
     y = rs.oneshot(x, cfg["outlen"]).double().numpy()
     assert rms_db(y - ref) < CLASS_DB, cfg["label"]

@@ -3,8 +3,11 @@
 
     python tools/torch_profile_chain.py
         [--engine fast|ozaki|pallas_fft5|toeplitz|toeplitz_sym] [--carry 1|0]
+        [--src 44100] [--dst 96000]
 
-Runs ``Resampler(44100, 96000, 2, 180.15).oneshot`` on 1024 x 44100
+Runs ``Resampler(src, dst, 2, 180.15).oneshot`` (44.1 kHz -> 96 kHz by
+default; 44.1 kHz -> 192 kHz and -> 96001 Hz are the half-band and
+polynomial plans) on 1024 channels x 1 s of the source rate of
 full-scale uniform float32 input (seed 0) through ``torch.profiler`` and
 prints, per device kernel, its time per oneshot and share, then the sum of
 kernel time against the oneshot's wall time (CUDA events), whose
@@ -38,6 +41,8 @@ def main() -> int:
                                          "toeplitz", "toeplitz_sym"),
                     default="ozaki")
     ap.add_argument("--carry", choices=("1", "0"), default="1")
+    ap.add_argument("--src", type=float, default=44100)
+    ap.add_argument("--dst", type=float, default=96000)
     args = ap.parse_args()
 
     import torch
@@ -60,8 +65,9 @@ def main() -> int:
           "toeplitz": dict(fused=False, conv_engine="toeplitz"),
           "toeplitz_sym": dict(fused=False,
                                conv_engine="toeplitz_sym")}[args.engine]
-    rs = Resampler(44100, 96000, 2.0, 180.15, device=dev, **kw)
-    x = torch.rand((CHANNELS, 44100), generator=torch.Generator(
+    rs = Resampler(args.src, args.dst, 2.0, 180.15, device=dev, **kw)
+    n = int(round(args.src))
+    x = torch.rand((CHANNELS, n), generator=torch.Generator(
         device=dev).manual_seed(0), device=dev) * 2 - 1
     for _ in range(2):
         rs.oneshot(x)
@@ -86,8 +92,9 @@ def main() -> int:
     busy = sum(r[0] for r in rows)
     label = f"ozaki carry={args.carry}" if args.engine == "ozaki" else \
         args.engine
-    print(f"{torch.cuda.get_device_name(0)}: chain {label}, "
-          f"{CHANNELS} x 44100, per oneshot:")
+    print(f"{torch.cuda.get_device_name(0)}: {args.src:g} -> {args.dst:g} "
+          f"chain {label}, {CHANNELS} x {n}, executors "
+          f"{[type(e).__name__ for e in rs.execs]}, per oneshot:")
     for ms, n, key in rows:
         print(f"  {ms:9.3f} ms {100 * ms / wall_ms:5.1f} %  x{n:<3d} "
               f"{key[:90]}")
