@@ -44,7 +44,8 @@ uniform float32 input:
   held under 40 GB), SACD -> PCM 2.8224 MHz -> 96 kHz (three half-band
   decimators, fused pair) and 44.1 kHz -> 96001 Hz (conv, polynomial
   interpolator on ``torch.matmul`` in IEEE float32, conv) fast and high
-  (and again with TF32 on: bit-equal), each checked at -141 dB ("fast")
+  (and again with TF32 on, and with the operator placed on the device as
+  above ``POLY_HOST_R_CAP``: both bit-equal), each checked at -141 dB ("fast")
   or -143 dB ("high"); and their guarantee chains (44.1 kHz -> 192 kHz,
   44.1 kHz -> 96001 Hz, 192 kHz -> 44.1 kHz) with the carry on and off,
   at -150 and -141 dB.  Every kernel call shape these paths make that no
@@ -949,7 +950,8 @@ def fft_paths(dev, x, ref, skip, peaks, card):
         if label == "poly":
             records.append(frac_record(
                 "frac_whole[frac stage, skT_lo]", calls["frac_whole"],
-                rs.execs[1], n_fw, (peak_f32, peak_bf16, peak_bytes), card))
+                rs.execs[1], n_fw, (peak_f32, peak_bf16, peak_bytes), card,
+                expect_lo=True))
         del calls, rs
         torch.cuda.empty_cache()
     return records
@@ -988,7 +990,7 @@ def fused_high_path(dev, x, ref, skip, peaks, card):
           f"{1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
     calls = capture_calls(rs, x, fused, ("frac_whole",))
     rec = frac_record("frac_whole[fused, skT_lo]", calls["frac_whole"],
-                         rs.execs[0], launches, peaks, card)
+                      rs.execs[0], launches, peaks, card, expect_lo=True)
     del calls, rs
     torch.cuda.empty_cache()
     return rec
@@ -1499,12 +1501,13 @@ def library_call(ex, xp, skT, I, dtype):
             f"F.conv1d ({w.shape[0]} columns of {w.shape[2]}, stride {I})")
 
 
-def frac_record(name, call, ex, launches, peaks, card):
+def frac_record(name, call, ex, launches, peaks, card,
+                expect_lo: bool = False):
     """One frac_whole call of a path (``ex`` made it): against its plain
     model (within MODEL_REL_TOL of max |y|) and its float64 product
-    (KERNEL_REL_TOL), in channel chunks; with skT_lo its residual slice
-    held with a planted skT_lo (check_residual) and the kernel timed at
-    both fold lengths; timed beside the plain version (the same chunks)
+    (KERNEL_REL_TOL), in channel chunks; with skT_lo (which ``expect_lo``
+    requires) its residual slice held with a planted skT_lo
+    (check_residual) and the kernel timed at both fold lengths; timed beside the plain version (the same chunks)
     and library_call (float32; float64 of skT + skT_lo with skT_lo).  The
     bound counts the operator's nonzero entries (frac_bounds)."""
     import torch
@@ -1515,6 +1518,8 @@ def frac_record(name, call, ex, launches, peaks, card):
     (xp, parts, I, D, O, n_win), kw = call
     kc = kw.get("kc", KC)
     skT, lo = exec_operator(ex, parts)
+    if expect_lo:
+        check(lo is not None, f"{name}: the call has no skT_lo")
     C = xp.shape[0]
     chunks = channel_chunks(C, n_win * O)
     y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
@@ -1579,6 +1584,71 @@ def frac_record(name, call, ex, launches, peaks, card):
             "library_ms": lib_ms}
 
 
+def poly_parts_ms(ex, v, reps: int = 5):
+    """A "high" polynomial stage's contractions timed apart over its
+    cached state (the operators of input ``v``'s last apply): the main
+    product in IEEE float32 (what "fast" runs), in float64 on the
+    chunks' spans (what "high" runs), and the spline residual pass."""
+    import torch.nn.functional as F
+
+    from r8brain_torch.ops.stages import _ieee_fp32, banded_contract
+
+    S, W = ex.S, ex.W
+    chunks, need_len, pad_l = list(ex._state.values())[-1]
+    xp = F.pad(v, (pad_l, max(0, need_len - (v.shape[1] + pad_l))))
+    span = -(-W // S) * S
+
+    def main32():
+        with _ieee_fp32():
+            for A, nloc, ops in chunks:
+                banded_contract(xp[:, A:], ops["R"], nloc, S, W)
+
+    def main64():
+        for A, nloc, ops in chunks:
+            banded_contract(xp[:, A : A + nloc * S + span].double(),
+                            ops["R64"], nloc, S, W)
+
+    def resid():
+        for A, nloc, ops in chunks:
+            banded_contract(xp[:, A:], ops["R_lo"], nloc, S, W)
+
+    return {k: cuda_ms(f, reps=reps) for k, f in
+            (("f32 main", main32), ("f64 main", main64),
+             ("spline residual", resid))}, len(chunks)
+
+
+def poly_branches(label, src, dst, prec, x, out, first_s, one_ms, card):
+    """The polynomial path again with its operator placed on the device
+    (POLY_HOST_R_CAP patched to 0: the branch every input above the cap
+    takes, about 1.2 s of 44.1 kHz at 96001): its output held bit-equal
+    to the host-built operator's ``out``; both branches' first oneshot
+    (state build included, host clock) and cached oneshot timed."""
+    import torch
+
+    from r8brain_torch import Resampler
+    from r8brain_torch.ops import stages
+
+    cap = stages.POLY_HOST_R_CAP
+    stages.POLY_HOST_R_CAP = 0
+    try:
+        rs = Resampler(src, dst, TB, ATTEN, precision=prec, device=x.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_dev = rs.oneshot(x)
+        torch.cuda.synchronize()
+        first_dev = time.perf_counter() - t0
+        check(torch.equal(out_dev, out), f"{label}: the device-placed "
+              f"operator's output differs from the host-built one's")
+        del out_dev
+        dev_ms = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
+    finally:
+        stages.POLY_HOST_R_CAP = cap
+    print(f"timing {card}: {label} operator built on the host / placed on "
+          f"the device: first oneshot (state build included, host clock) "
+          f"{first_s * 1e3:.1f} / {first_dev * 1e3:.1f} ms, cached oneshot "
+          f"{one_ms:.3f} / {dev_ms:.3f} ms; outputs bit-equal")
+
+
 def stage_paths(dev, peaks, card):
     """The half-band, cascade and polynomial paths (STAGE_PATHS), each
     counted (launches set to 0 just before, read just after, and held to
@@ -1605,9 +1675,11 @@ def stage_paths(dev, peaks, card):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         frac_whole.launches = 0
+        t0 = time.perf_counter()
         out, calls = record_calls(rs, x, (stages, fused, hb_cascade),
                                   "frac_whole")
         torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
         got = frac_whole.launches
         peak = torch.cuda.max_memory_allocated() / 1e9
         out_len = rs.default_out_len(n)
@@ -1639,11 +1711,14 @@ def stage_paths(dev, peaks, card):
                   f"the output")
             print(f"stage path {label} with TF32 on: bit-equal")
             del out_tf32
-        del out
         one_ms = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
         print(f"timing {card}: stage path {label} oneshot {one_ms:.3f} ms = "
               f"{1e-6 * CHANNELS * n / (one_ms * 1e-3):.1f} Mrops")
         poly = [e for e in rs.execs if type(e).__name__ == "FracPolyExec"]
+        if poly:
+            poly_branches(label, src, dst, prec, x, out, first_s, one_ms,
+                          card)
+        del out
         if poly:
             i = list(rs.execs).index(poly[0])
             T = max(n, rs.in_len_for_out(out_len))
@@ -1654,6 +1729,11 @@ def stage_paths(dev, peaks, card):
             print(f"timing {card}: {label} polynomial stage (banded, "
                   f"S={poly[0].S} G={poly[0].G} W={poly[0].W}, torch.matmul "
                   f"in IEEE float32; no kernel of its own) {p_ms:.3f} ms")
+            if prec == "high":
+                parts_ms, n_chunks = poly_parts_ms(poly[0], v)
+                print(f"timing {card}: {label} polynomial stage by part "
+                      f"({n_chunks} chunks): " + ", ".join(
+                          f"{k} {t:.3f} ms" for k, t in parts_ms.items()))
             del v
         for args, kw in calls:
             _xp, parts, I, D, O, _nw = args

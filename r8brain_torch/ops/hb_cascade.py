@@ -45,17 +45,17 @@ from torch import nn
 from ..models.lengths import stage_in_for_out, stage_out_len
 from ..models.plan import HBUpStage
 from .pallas_frac import KC, frac_whole, operator_parts
-from .stages import _check_dtype, _shifted
+from .stages import HB_BLOCK, _check_dtype, _shifted
 
 __all__ = ["HBUpCascadeExec", "hb_up_run_fusable", "compose_run"]
 
 
-def hb_up_run_fusable(stages, i, dtype, engine: str = "auto") -> int:
+def hb_up_run_fusable(stages, i, dtype) -> int:
     """Length of the run of HBUpStages from stages[i] that fuses (0 if
-    shorter than 2): float32 under the matmul engines only; float64 keeps
-    the per-stage stencils in the oracle's order."""
-    if dtype != torch.float32 or engine not in ("auto", "toeplitz",
-                                                "matmul"):
+    shorter than 2): float32 only (fuse_stage_list runs under the auto
+    engines alone); float64 keeps the per-stage stencils in the oracle's
+    order."""
+    if dtype != torch.float32:
         return 0
     n = 0
     while i + n < len(stages) and isinstance(stages[i + n], HBUpStage):
@@ -125,7 +125,7 @@ class HBUpCascadeExec(nn.Module):
 
     engine = "matmul"
 
-    def __init__(self, specs, dtype=torch.float32, block: int = 128):
+    def __init__(self, specs, dtype=torch.float32):
         super().__init__()
         if len(specs) < 2 or not all(isinstance(s, HBUpStage)
                                      for s in specs):
@@ -135,7 +135,7 @@ class HBUpCascadeExec(nn.Module):
         self.specs = tuple(specs)
         self.dtype = dtype
         np_dt = np.float32 if dtype == torch.float32 else np.float64
-        B = self.B = max(8, block)
+        B = HB_BLOCK
         Gc, S, U = compose_run(specs)
         self.U = U
 
@@ -219,7 +219,7 @@ class HBUpCascadeExec(nn.Module):
             # every output lies in the edge: the dense cascade response
             # is the exact functional
             return self._edge(x, self.edge_D[:, :M])
-        B, U = self.B, self.U
+        B, U = HB_BLOCK, self.U
         n_blocks = -(-(-(-M // U)) // B)
         # block b reads xb[b*B + l], l < L_f, xb[i] = x[i + minr]; cells of
         # zero weight may lie outside x (zeros there)

@@ -864,6 +864,11 @@ def _df_collapse_input(h, l, n_valid):
     return hl
 
 
+#: The half-band framed engines' block: 128 pairs (up) or outputs (down)
+#: a frame, the reference's B.
+HB_BLOCK = 128
+
+
 class _HalfBandExec(nn.Module):
     """What the two half-band executors share: the engine rule, the
     operator of the framed engines and their product, the carry.
@@ -878,7 +883,7 @@ class _HalfBandExec(nn.Module):
     operator in the error-free split form on ``ozaki_framed`` (float64
     runs "stencil" instead, as in the reference)."""
 
-    def __init__(self, spec, dtype, engine: str, block: int, precision: str):
+    def __init__(self, spec, dtype, engine: str, precision: str):
         super().__init__()
         _check_dtype(dtype)
         _check_precision(precision)
@@ -892,7 +897,6 @@ class _HalfBandExec(nn.Module):
         self.dtype = dtype
         self.engine = engine
         self.nt = spec.hb.num_taps
-        self.B = block
         self.precision = (precision if dtype == torch.float32
                           and engine in ("matmul", "ozaki") else "fast")
         np_dt = np.float32 if dtype == torch.float32 else np.float64
@@ -989,12 +993,11 @@ class HBUpExec(_HalfBandExec):
     O = 256."""
 
     def __init__(self, spec: HBUpStage, dtype=torch.float32,
-                 engine: str = "auto", block: int = 128,
-                 precision: str = "fast"):
-        super().__init__(spec, dtype, engine, block, precision)
+                 engine: str = "auto", precision: str = "fast"):
+        super().__init__(spec, dtype, engine, precision)
 
     def _operator(self, t64: np.ndarray) -> np.ndarray:
-        nt, B = self.nt, self.B
+        nt, B = self.nt, HB_BLOCK
         T = np.zeros((B + 2 * nt, 2 * B), dtype=np.float64)
         j = np.arange(B)
         T[j + nt, 2 * j] = 1.0  # even output: the centre sample
@@ -1006,7 +1009,7 @@ class HBUpExec(_HalfBandExec):
     def _geometry(self, n_in: int):
         """(first sample of block 0, blocks, hop): pair n reads x[n - nt +
         l], l in [1, 2*nt]."""
-        return -self.nt, -(-(n_in - self.nt) // self.B), self.B
+        return -self.nt, -(-(n_in - self.nt) // HB_BLOCK), HB_BLOCK
 
     def _stencil(self, x: torch.Tensor) -> torch.Tensor:
         """The symmetric shifted adds in the oracle's order."""
@@ -1032,12 +1035,11 @@ class HBDownExec(_HalfBandExec):
     256, D = 254 + 4*nt, O = 128."""
 
     def __init__(self, spec: HBDownStage, dtype=torch.float32,
-                 engine: str = "auto", block: int = 128,
-                 precision: str = "fast"):
-        super().__init__(spec, dtype, engine, block, precision)
+                 engine: str = "auto", precision: str = "fast"):
+        super().__init__(spec, dtype, engine, precision)
 
     def _operator(self, t64: np.ndarray) -> np.ndarray:
-        nt, B = self.nt, self.B
+        nt, B = self.nt, HB_BLOCK
         h = np.zeros(4 * nt - 1, dtype=np.float64)
         h[2 * nt - 1] = 1.0  # the centre sample x[2n]
         for i in range(nt):
@@ -1052,7 +1054,7 @@ class HBDownExec(_HalfBandExec):
         """(first sample of block 0, blocks, hop): y[n] reads x[2n + d -
         (2*nt - 1)], d in [0, 4*nt - 1)."""
         cnt = (n_in - 2 * self.nt) // 2 + 1
-        return 1 - 2 * self.nt, -(-cnt // self.B), 2 * self.B
+        return 1 - 2 * self.nt, -(-cnt // HB_BLOCK), 2 * HB_BLOCK
 
     def _stencil(self, x: torch.Tensor) -> torch.Tensor:
         """The deinterleaved symmetric shifted adds in the oracle's order
@@ -1214,14 +1216,13 @@ def banded_contract_ozaki(xc: torch.Tensor, R_parts: torch.Tensor,
 
 #: The polynomial interpolator builds its banded operator on the host (in
 #: float64, rounded once) while it holds at most this many entries (Mp * W:
-#: ~0.6 s of output at 44.1k -> 96001); above, the filter values are
-#: placed into it on the device.
+#: ~0.6 s of output at 44.1k -> 96001); above, the host's float64 filter
+#: values are placed into it on the device, chunk by chunk.
 POLY_HOST_R_CAP = 16_000_000
-#: ... and computes the filter values on the host while they number at most
-#: this many (Mp * fl); above, from the spline table on the device.
-POLY_HOST_FLT_CAP = 16_000_000
 #: Input lengths whose host-built state a FracPolyExec keeps.
 POLY_CACHE = 4
+#: The largest group size G the banded engine considers (the reference's).
+POLY_G_MAX = 256
 
 
 def _place_host(vals: np.ndarray, off: np.ndarray, W: int) -> np.ndarray:
@@ -1258,11 +1259,10 @@ class FracPolyExec(nn.Module):
         group of G outputs one [W] x [W, G] product against a banded
         operator R holding the filters at their group-local offsets.  The
         offsets drift by |G*r - S| a group, so the groups are chunked to
-        the band (``chunk_drift_groups``).  R is built on the host in
-        float64 and rounded once while Mp*W <= ``POLY_HOST_R_CAP``, else
-        placed on the device; under "high" the rounding's residual rides a
-        second pass (on both branches while the filter values come from
-        the host); with ``oz_products`` (frac_engine="ozaki") the float64
+        the band (``chunk_drift_groups``).  The filter values are evaluated
+        on the host in float64 and rounded once; R is built there while
+        Mp*W <= ``POLY_HOST_R_CAP``, else they are placed on the device;
+        under "high" the rounding's residual rides a second pass; with ``oz_products`` (frac_engine="ozaki") the float64
         operator is split into bfloat16 slices and contracted error-free
         (``banded_contract_ozaki``).  The main contraction runs in IEEE
         float32 whatever the caller's TF32 setting; under "high" it sums
@@ -1306,16 +1306,16 @@ class FracPolyExec(nn.Module):
         if engine == "banded":
             self._prep_banded()
 
-    def _prep_banded(self, g_max: int = 256):
+    def _prep_banded(self):
         """The (S, G) pair minimizing the product's work per output, W *
         ceil(G/128)*128/G * (1 + 0.5/ngrp_max) with W ~ S + fl + slack:
         the convergents of the ratio and G in (64, 96, ..., 256), the
         reference's scoring, kept so the geometry is the reference's."""
         r = self.spec.src_rate / self.spec.dst_rate
-        fr = Fraction(r).limit_denominator(g_max)
+        fr = Fraction(r).limit_denominator(POLY_G_MAX)
         cands = []
-        if 8 <= fr.denominator <= g_max:
-            for k in range(1, g_max // fr.denominator + 1):
+        if 8 <= fr.denominator <= POLY_G_MAX:
+            for k in range(1, POLY_G_MAX // fr.denominator + 1):
                 cands.append((fr.numerator * k, fr.denominator * k))
         for G in (64, 96, 128, 160, 192, 256):
             S = int(round(G * r))
@@ -1445,64 +1445,47 @@ class FracPolyExec(nn.Module):
         chunks, need_len, shift = chunk_drift_groups(sg, sg, 1, S, fl, W,
                                                      n_grp, W)
         host_R = Mp * W <= POLY_HOST_R_CAP
-        host_flt = Mp * fl <= POLY_HOST_FLT_CAP
         fti2, t2 = fti.reshape(n_grp, G), t.reshape(n_grp, G)
-        if self.oz_products and not host_flt:
-            trace("poly_oz_flt_cap", Mp=Mp, fl=fl,
-                  detail="guarantee products above the filter-value cap: "
-                         "the residual-corrected float32 form instead")
         built = []
         for g0, nloc, A, off in chunks:
             fc, tc = fti2[g0 : g0 + nloc], t2[g0 : g0 + nloc]
             built.append((A, nloc, self._chunk_operators(
-                fc, tc, off, host_R, host_flt, dev)))
+                fc, tc, off, host_R, dev)))
         return built, need_len, pad_l + shift
 
-    def _chunk_operators(self, fc, tc, off, host_R: bool, host_flt: bool,
-                         dev):
-        """A chunk's operators on ``dev``: {"R_oz"} for the split
-        products, else {"R", "R_lo"} (R_lo None where there is no
-        residual pass)."""
+    def _chunk_operators(self, fc, tc, off, host_R: bool, dev):
+        """A chunk's operators on ``dev``, from its filter values
+        evaluated on the host in float64: {"R_oz"} for the split
+        products, else {"R", "R_lo", "R64"} (R_lo the spline residual
+        pass and R64 the float64 copy of R that "high" sums against; None
+        where unused)."""
         W, tb = self.W, self.tab64
         np_dt = np.float32 if self.dtype == torch.float32 else np.float64
-        flt64 = None
-        if host_flt:
-            t3 = tc[..., None]
-            flt64 = tb[fc, :, 0] + (tb[fc, :, 1] + tb[fc, :, 2] * t3) * t3
-        if self.oz_products and host_flt:
+        t3 = tc[..., None]
+        flt64 = tb[fc, :, 0] + (tb[fc, :, 1] + tb[fc, :, 2] * t3) * t3
+        off_d = None if host_R else torch.from_numpy(off).to(dev)
+
+        def place(v: np.ndarray) -> torch.Tensor:
+            if host_R:
+                return torch.from_numpy(_place_host(v, off, W)).to(dev)
+            return _place_device(torch.from_numpy(v).to(dev), off_d, W)
+
+        if self.oz_products:
             # the float64 operator split into bf16 slices: no residual
             # pass needed, the slices carry it to 32 bits
             if host_R:
                 R_oz = split_operator_host_batched(_place_host(flt64, off, W))
             else:
                 fps = split_operator_host_batched(flt64, axis=-1).to(dev)
-                off_d = torch.from_numpy(off).to(dev)
                 R_oz = torch.stack([_place_device(fps[q].float(), off_d, W)
                                     .to(torch.bfloat16)
                                     for q in range(N_PARTS)])
             return {"R_oz": R_oz.to(dev)}
-        R_lo = None
-        if host_R:
-            R = _place_host(flt64.astype(np_dt), off, W)
-            if self.precision == "high":
-                R_lo = _place_host((flt64 - flt64.astype(np.float32)).astype(
-                    np.float32), off, W)
-            R, R_lo = (None if a is None else torch.from_numpy(a).to(dev)
-                       for a in (R, R_lo))
-            return {"R": R, "R_lo": R_lo}
-        off_d = torch.from_numpy(off).to(dev)
-        if host_flt:
-            flt = torch.from_numpy(flt64.astype(np_dt)).to(dev)
-            if self.precision == "high":
-                R_lo = _place_device(torch.from_numpy(
-                    (flt64 - flt64.astype(np.float32)).astype(np.float32)
-                ).to(dev), off_d, W)
-        else:
-            fti_c = torch.from_numpy(fc.astype(np.int64)).to(dev)
-            t_c = torch.from_numpy(tc).to(dev, self.dtype)[..., None]
-            c0, c1, c2 = (c[fti_c] for c in self.coef)
-            flt = c0 + (c1 + c2 * t_c) * t_c
-        return {"R": _place_device(flt, off_d, W), "R_lo": R_lo}
+        R = place(flt64.astype(np_dt))
+        if self.precision != "high":
+            return {"R": R, "R_lo": None, "R64": None}
+        return {"R": R, "R64": R.double(), "R_lo": place(
+            (flt64 - flt64.astype(np.float32)).astype(np.float32))}
 
     def _apply_banded(self, x: torch.Tensor, M: int, raw: bool = False,
                       x_lo=None, pair: bool = False):
@@ -1514,8 +1497,9 @@ class FracPolyExec(nn.Module):
         xp = F.pad(x.to(self.dtype), (pad_l, pad_r))
         xlp = None if x_lo is None else F.pad(x_lo, (pad_l, pad_r))
         outs = []
+        span = -(-W // S) * S  # past the chunk's nloc*S: its last frame
         for A, nloc, ops in chunks:
-            xlc = None if xlp is None else xlp[:, A:]
+            xlc = None if xlp is None else xlp[:, A : A + nloc * S + span]
             if "R_oz" in ops:
                 res = banded_contract_ozaki(xp[:, A:], ops["R_oz"], nloc, S,
                                             W, x_lo=xlc, pair=pair)
@@ -1528,8 +1512,9 @@ class FracPolyExec(nn.Module):
                 # float32 products are exact in float64: the main product
                 # sums there and rounds once (its rounding carried in
                 # small), so the spline residual below is what is left
-                o64 = banded_contract(xp[:, A:].double(), ops["R"].double(),
-                                      nloc, S, W)
+                o64 = banded_contract(
+                    xp[:, A : A + nloc * S + span].double(), ops["R64"],
+                    nloc, S, W)
                 o = o64.float()
                 small = (o64 - o.double()).float()
             else:

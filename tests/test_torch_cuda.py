@@ -787,3 +787,31 @@ def test_cascade_f64_on_card(cuda_device):
         assert y.shape == x.shape
         if y.numel():
             assert (y - x).abs().max() <= 1e-12 * x.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(precision="fast"),
+                                dict(precision="high"),
+                                dict(precision="high", oz_products=True)],
+                         ids=["fast", "high", "oz_products"])
+def test_poly_device_operator_on_card(cuda_device, kw, monkeypatch):
+    """The polynomial stage's operator placed on the card (the branch
+    above POLY_HOST_R_CAP, reached here by patching the cap to 0) gives
+    the host-built operator's output bit for bit, collapsed and as the
+    carry's pair."""
+    from r8brain_torch.models.plan import make_plan
+    from r8brain_torch.ops import stages
+
+    spec = next(s for s in make_plan(44100, 96001, 2.0, 180.15, 0).stages
+                if s.kind == "frac" and not s.is_whole)
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, (3, 30000)).astype(
+        np.float32)).to(cuda_device)
+    host = stages.FracPolyExec(spec, torch.float32, **kw)
+    y_host, pair_host = host.apply(x), host.apply_df(x, None)
+    monkeypatch.setattr(stages, "POLY_HOST_R_CAP", 0)
+    dev = stages.FracPolyExec(spec, torch.float32, **kw)
+    y_dev, pair_dev = dev.apply(x), dev.apply_df(x, None)
+    assert torch.equal(y_host, y_dev)
+    assert torch.equal(pair_host[0], pair_dev[0])
+    assert torch.equal(pair_host[1], pair_dev[1])

@@ -34,7 +34,8 @@ from r8brain_torch.ops.fused import fuse_stage_list
 from r8brain_torch.ops.ozaki import channel_scale
 from r8brain_torch.ops.pallas_frac import frac_whole
 from r8brain_torch.ops.pallas_ozaki import ozaki_framed
-from r8brain_torch.ops.stages import HBDownExec, HBUpExec, build_exec
+from r8brain_torch.ops.stages import (HB_BLOCK, HBDownExec, HBUpExec,
+                                      build_exec)
 
 from .helpers import rms_db
 
@@ -204,7 +205,7 @@ def test_ozaki_product_vs_reference_composition(kind, has_lo, pair):
     hi agrees within -160 dB and its sum too."""
     port, _ref = _specs(kind)
     ex = KINDS[kind][3](port[0], torch.float32, engine="ozaki")
-    hop = ex.B if kind == "up" else 2 * ex.B
+    hop = HB_BLOCK * (1 if kind == "up" else 2)
     n_blocks, C = 7, 3
     rng = np.random.default_rng(13)
     span = (n_blocks - 1) * hop + ex.L_f

@@ -269,27 +269,30 @@ def test_spline_residual_gain(cap, monkeypatch):
                          ids=["fast", "high", "oz_products"])
 def test_host_and_device_operators_agree(kw, monkeypatch):
     """Above POLY_HOST_R_CAP the operator is placed on the device from
-    host float64 filter values: the same values, so the output is
-    bit-equal to the host-built operator's (raw pair output included).
-    Above POLY_HOST_FLT_CAP too the filter values come from the float32
-    spline table: within -120 dB, and the guarantee products fall back
-    visibly (the poly_oz_flt_cap trace)."""
+    the same host float64 filter values, so the output is bit-equal to
+    the host-built operator's (raw pair output included), and every
+    chunk keeps the operators of its precision class: the split slices
+    with oz_products, the spline residual and the float64 copy under
+    "high", neither under "fast"."""
     port, _ref = _spec(44100, 96001, 180.15)
     x = torch.from_numpy(_input(seed=5, C=2, n=9000)).float()
     y_host = FracPolyExec(port, torch.float32, **kw).apply(x)
     pair_host = FracPolyExec(port, torch.float32, **kw).apply_df(x, None)
     monkeypatch.setattr(stages, "POLY_HOST_R_CAP", 0)
-    y_dev = FracPolyExec(port, torch.float32, **kw).apply(x)
+    ex = FracPolyExec(port, torch.float32, **kw)
+    y_dev = ex.apply(x)
     pair_dev = FracPolyExec(port, torch.float32, **kw).apply_df(x, None)
     assert torch.equal(y_host, y_dev)
     assert torch.equal(pair_host[0], pair_dev[0])
     assert torch.equal(pair_host[1], pair_dev[1])
-    events = []
-    monkeypatch.setattr(stages, "POLY_HOST_FLT_CAP", 0)
-    monkeypatch.setattr(stages, "trace", lambda ev, **f: events.append(ev))
-    y_tab = FracPolyExec(port, torch.float32, **kw).apply(x)
-    assert _rel_db(_np(y_tab), _np(y_host)) < -120.0
-    assert events == (["poly_oz_flt_cap"] if kw.get("oz_products") else [])
+    (chunks, _need, _pad), = ex._state.values()
+    for _A, _nloc, ops in chunks:
+        if kw.get("oz_products"):
+            assert set(ops) == {"R_oz"}
+        else:
+            high = kw["precision"] == "high"
+            assert (ops["R_lo"] is not None) == high
+            assert (ops["R64"] is not None) == high
 
 
 def test_ozaki_contraction_vs_reference():
