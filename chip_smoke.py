@@ -44,15 +44,30 @@ uniform float32 input:
   held under 40 GB), SACD -> PCM 2.8224 MHz -> 96 kHz (three half-band
   decimators, fused pair) and 44.1 kHz -> 96001 Hz (conv, polynomial
   interpolator on ``torch.matmul`` in IEEE float32, conv) fast and high
-  (and again with TF32 on, and with the operator placed on the device as
-  above ``POLY_HOST_R_CAP``: both bit-equal), each checked at -141 dB ("fast")
+  (and again with TF32 on: bit-equal), each checked at -141 dB ("fast")
   or -143 dB ("high"); and their guarantee chains (44.1 kHz -> 192 kHz,
   44.1 kHz -> 96001 Hz, 192 kHz -> 44.1 kHz) with the carry on and off,
   at -150 and -141 dB.  Every kernel call shape these paths make that no
   earlier phase recorded is held to its plain version (``frac_whole`` in
   channel chunks against its model and its float64 product;
   ``ozaki_framed`` in every variant at each new geometry, the half-band
-  ones among them) and gets a record.
+  ones among them) and gets a record;
+* the push-mode streams (``StreamResampler``) at the serving size of
+  ``tools/bench_stream.py``, 1024 channels and ``block_len=8192``, each
+  driven per block and in calls of 8 blocks: 44.1 kHz -> 96 kHz fast
+  and its guarantee chain (-150 dB relative), each k-block output held
+  bit-equal to the per-block output, 44.1 kHz -> 96001 Hz fast and high
+  (the interpolator with one window base a block, and in spans of its
+  groups a k-block call; a mid-stream checkpoint resumed bit for bit) and
+  44.1 kHz -> 352800.3 Hz fast and high (the suffix ring and its
+  half-band stage; a chain of four executors, so its conv stages fold
+  every 16 terms), each checked against the float64 CPU path at -141 /
+  -143 dB, every new
+  kernel call shape (a block's window of H + L samples, the k windows as
+  one [k*C, H+L] batch) held to its plain version with a record, the
+  steady calls timed (ms a block, Mrops, real-time streams, the device's
+  idle share); then ``oneshot(max_chunk=44100)`` on 30 s of 44.1 kHz ->
+  96001 Hz with its device memory peak.
 
 First it pins how the tensor cores add bf16 products into float32
 (``accumulation_pin``: 16- and 32-term sums through ``frac_whole``'s own
@@ -220,6 +235,29 @@ FRAC_SHAPES_SEEN = {(294, 1027, 640, 3, 32), (294, 1027, 640, 4, 32),
                     (256, 964, 512, 3, 32)}
 OZ_GEOS_SEEN = {(256, 964, 512), (147, 170, 160)}
 PEAK_GB = 40.0  # device memory a path may take (PCM -> DSD64: 11.6 GB out)
+
+# the push-mode stream phases (tools/bench_stream.py's serving size):
+# 1024 channels, block_len 8192, k blocks a batched call; each stream
+# drives STREAM_CALLS k-block calls, or as many single blocks, then the
+# steady calls are timed.  (label, src, dst, Resampler keywords, bound dB,
+# bound relative to the output's RMS (else re full scale), interpolator
+# paths the k-block calls must take)
+STREAM_BLOCK, STREAM_K, STREAM_CALLS = 8192, 8, 2
+STREAM_PATHS = (
+    ("44.1k->96k fast", 44100, 96000, {}, CLASS_DB, False, None),
+    ("44.1k->96k guarantee", 44100, 96000,
+     dict(precision="high", conv_engine="ozaki", frac_engine="ozaki"),
+     OZ_CARRY_DB, True, None),
+    ("44.1k->96001 fast", 44100, 96001, {}, CLASS_DB, False, "spans"),
+    ("44.1k->96001 high", 44100, 96001, dict(precision="high"),
+     HIGH_CHAIN_DB, False, "spans"),
+    ("44.1k->352800.3 fast", 44100, 352800.3, {}, CLASS_DB, False,
+     "spans"),
+    ("44.1k->352800.3 high", 44100, 352800.3, dict(precision="high"),
+     HIGH_CHAIN_DB, False, "spans"))
+# the chunked oneshot: seconds of input, max_chunk, channels held against
+# the float64 CPU path over the whole length
+CHUNKED_S, CHUNKED_MAX, CHUNKED_CMP = 30, 44100, 1
 
 # (fp32 CUDA-core, dense bf16 tensor-core, fp64 tensor-core peak FLOP/s,
 # HBM bytes/s) by SKU, at the full power limit (NVIDIA data sheets).  The
@@ -1431,10 +1469,10 @@ def f64_reference(src, dst, x):
                      device="cpu").oneshot(x[:N_CMP].cpu().double()).numpy()
 
 
-def record_calls(rs, x, modules, name):
-    """rs.oneshot(x) with every call of the kernel wrapper ``name`` that
+def record_run(fn, modules, name):
+    """fn() with every call of the kernel wrapper ``name`` that
     ``modules`` make recorded, in order, as (args, kw); the wrapper itself
-    still runs (and counts).  Returns (output, calls)."""
+    still runs (and counts).  Returns (fn's result, calls)."""
     calls = []
     real = getattr(modules[0], name)
 
@@ -1445,11 +1483,16 @@ def record_calls(rs, x, modules, name):
     try:
         for m in modules:
             setattr(m, name, rec)
-        out = rs.oneshot(x)
+        out = fn()
     finally:
         for m in modules:
             setattr(m, name, real)
     return out, calls
+
+
+def record_calls(rs, x, modules, name):
+    """record_run of rs.oneshot(x)."""
+    return record_run(lambda: rs.oneshot(x), modules, name)
 
 
 def owner(rs, parts):
@@ -1617,38 +1660,6 @@ def poly_parts_ms(ex, v, reps: int = 5):
              ("spline residual", resid))}, len(chunks)
 
 
-def poly_branches(label, src, dst, prec, x, out, first_s, one_ms, card):
-    """The polynomial path again with its operator placed on the device
-    (POLY_HOST_R_CAP patched to 0: the branch every input above the cap
-    takes, about 1.2 s of 44.1 kHz at 96001): its output held bit-equal
-    to the host-built operator's ``out``; both branches' first oneshot
-    (state build included, host clock) and cached oneshot timed."""
-    import torch
-
-    from r8brain_torch import Resampler
-    from r8brain_torch.ops import stages
-
-    cap = stages.POLY_HOST_R_CAP
-    stages.POLY_HOST_R_CAP = 0
-    try:
-        rs = Resampler(src, dst, TB, ATTEN, precision=prec, device=x.device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out_dev = rs.oneshot(x)
-        torch.cuda.synchronize()
-        first_dev = time.perf_counter() - t0
-        check(torch.equal(out_dev, out), f"{label}: the device-placed "
-              f"operator's output differs from the host-built one's")
-        del out_dev
-        dev_ms = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
-    finally:
-        stages.POLY_HOST_R_CAP = cap
-    print(f"timing {card}: {label} operator built on the host / placed on "
-          f"the device: first oneshot (state build included, host clock) "
-          f"{first_s * 1e3:.1f} / {first_dev * 1e3:.1f} ms, cached oneshot "
-          f"{one_ms:.3f} / {dev_ms:.3f} ms; outputs bit-equal")
-
-
 def stage_paths(dev, peaks, card):
     """The half-band, cascade and polynomial paths (STAGE_PATHS), each
     counted (launches set to 0 just before, read just after, and held to
@@ -1716,8 +1727,9 @@ def stage_paths(dev, peaks, card):
               f"{1e-6 * CHANNELS * n / (one_ms * 1e-3):.1f} Mrops")
         poly = [e for e in rs.execs if type(e).__name__ == "FracPolyExec"]
         if poly:
-            poly_branches(label, src, dst, prec, x, out, first_s, one_ms,
-                          card)
+            print(f"timing {card}: stage path {label} first oneshot "
+                  f"(the polynomial stage's state built, host clock) "
+                  f"{first_s * 1e3:.1f} ms, cached {one_ms:.3f} ms")
         del out
         if poly:
             i = list(rs.execs).index(poly[0])
@@ -1906,6 +1918,314 @@ def ozaki_paths(dev, peaks, card):
     return records
 
 
+def stream_drive(st, x, k: int):
+    """The stream st over x in calls of k whole blocks (k = 1:
+    process_block_device, else process_blocks_device); the outputs
+    concatenated."""
+    import torch
+
+    L = st.block
+    if k == 1:
+        outs = [st.process_block_device(x[:, i : i + L])
+                for i in range(0, x.shape[1], L)]
+    else:
+        outs = [st.process_blocks_device(x[:, i : i + k * L])
+                for i in range(0, x.shape[1], k * L)]
+    return torch.cat(outs, dim=1)
+
+
+def device_busy_ms(fn, reps: int):
+    """Device time of fn() a call, ms: every kernel's time that
+    torch.profiler traces over ``reps`` calls, summed (None when it
+    traces none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / reps if busy > 0 else None
+
+
+def stream_timing(label, st, xb, k: int, src, card):
+    """Steady calls of k blocks (xb) timed with CUDA events after a
+    warm-up call: ms a block, Mrops (1e-6 x channels x input samples /
+    s), real-time streams (channels x block seconds / s), and the device's
+    idle share (1 - the profiler's kernel time / the events' time)."""
+    C, L = xb.shape[0], st.block
+    if k == 1:
+        def fn():
+            st.process_block_device(xb)
+    else:
+        def fn():
+            st.process_blocks_device(xb)
+    reps = max(2, 16 // k)
+    ms = cuda_ms(fn, reps=reps, warmup=1)
+    busy = device_busy_ms(fn, reps)
+    idle = "not measured" if busy is None else \
+        f"{100.0 * (1.0 - busy / ms):.1f} %"
+    busy_s = "not measured" if busy is None else f"{busy:.3f} ms"
+    how = "per block" if k == 1 else f"k={k} blocks a call"
+    print(f"timing {card}: stream {label}, {how}: {ms:.3f} ms a call, "
+          f"{ms / k:.3f} ms a block of {C} x {L}, "
+          f"{1e-6 * C * L * k / (ms * 1e-3):.1f} Mrops, "
+          f"{C * (L / src) * k / (ms * 1e-3):.0f} real-time streams; "
+          f"device busy {busy_s} a call, idle {idle}")
+
+
+def stream_frac_records(label, rs, calls, seen, peaks, card):
+    """A record (frac_record) for each frac_whole call shape of a stream
+    run that no earlier stream phase recorded: the operator (I, D, O,
+    slices, fold), its window count and whether its rows are one block's
+    channels or several blocks batched (a k-block call, or the suffix
+    ring's whole blocks; held at the first row count the run gave it);
+    launches: the run's calls of that shape."""
+    records = []
+    for args, kw in calls:
+        xp, parts, I, D, O, n_win = args
+        batch = xp.shape[0] > CHANNELS
+        shape = (I, D, O, parts.shape[2] - (parts.shape[3] == 8),
+                 kw.get("kc", 32), n_win, batch)
+        if shape in seen:
+            continue
+        seen.add(shape)
+        ex = owner(rs, parts)
+        kind = {"HBUpExec": "HB up", "HBDownExec": "HB down",
+                "FusedUpExec": "fused", "ConvExec": "toeplitz conv"}[
+            type(ex).__name__]
+        n_shape = sum(1 for a, _k in calls if a[2:6] == (I, D, O, n_win)
+                      and (a[0].shape[0] > CHANNELS) == batch)
+        records.append(frac_record(
+            f"frac_whole[{kind}, stream {label}, "
+            f"{'blocks batched' if batch else 'one block'}, n_win={n_win}]",
+            (args, kw), ex, n_shape, peaks, card))
+    return records
+
+
+def stream_ozaki_records(label, rs, calls, seen, dev, peaks, card):
+    """Each ozaki_framed geometry of a guarantee stream run that no
+    earlier stream phase checked (hop, L_f, Kcols, n_blocks, one block or
+    several batched): every variant against its plain version and the
+    float64 product at the call's row count (check_ozaki_variants), and
+    a record (ozaki_record) for each variant the run made."""
+    import torch
+
+    records = []
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for args, kw in calls:
+        xp, _sx, parts, L_f, hop, Kcols, nb = args
+        batch = xp.shape[0] > CHANNELS
+        key = (hop, L_f, Kcols, nb, batch)
+        var = (kw.get("x_lo") is not None, bool(kw.get("emit_pair")))
+        if key + var in seen:
+            continue
+        seen.add(key + var)
+        ex = owner(rs, parts)
+        geo = (L_f, hop, Kcols, nb)
+        case = ozaki_case(dev, g, xp.shape[0], *geo, parts)
+        errs = check_ozaki_variants(
+            f"{type(ex).__name__} (stream {label}, "
+            f"{'blocks batched' if batch else 'one block'})", geo, case,
+            parts, kw["packed"])
+        rep = ("pallas_ozaki.py:263" if var[0] or var[1] else
+               "pallas_ozaki.py:317")
+        if type(ex).__name__ == "FracWholeExec":
+            rep = "pallas_ozaki.py:207" if var[1] else "pallas_ozaki.py:232"
+        n_key = sum(1 for a, k_ in calls if tuple(a[3:7]) == geo
+                    and (a[0].shape[0] > CHANNELS) == batch
+                    and (k_.get("x_lo") is not None,
+                         bool(k_.get("emit_pair"))) == var)
+        lib = library_call(ex, case[0], parts.double().sum(dim=0), hop,
+                           torch.float64)
+        records.append(ozaki_record(
+            f"ozaki_framed[{type(ex).__name__}, stream {label}, "
+            f"{'blocks batched' if batch else 'one block'}, n_blocks={nb}]",
+            rep, geo, case, parts, kw["packed"], var[0], var[1], n_key,
+            errs[var], lib, peaks, card))
+        del case
+        torch.cuda.empty_cache()
+    return records
+
+
+def stream_paths(dev, peaks, card):
+    """The push-mode stream phases (STREAM_PATHS) on CHANNELS channels,
+    block_len STREAM_BLOCK: each stream driven per block and in calls of
+    STREAM_K blocks, each run counted (launch counts set to 0 just before
+    it and read just after; every kernel call recorded), checked against
+    the port's float64 CPU oneshot on N_CMP channels, k-block output held
+    bit-equal to per-block output on the rational plans (the polynomial
+    plans' agreement printed), the interpolator's path checked (one window base
+    per block; spans per k-block call).  Every new kernel call shape gets
+    a record; the steady calls are timed; 44.1k -> 96001 fast resumes a
+    mid-stream checkpoint bit for bit.  Then the chunked oneshot."""
+    import torch
+
+    from r8brain_torch import Resampler, StreamResampler
+    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops.pallas_frac import frac_whole
+    from r8brain_torch.ops.pallas_ozaki import ozaki_framed
+
+    records, seen_f, seen_o = [], set(), set()
+    for label, src, dst, kw, bound_db, rel, tail_path in STREAM_PATHS:
+        rs = Resampler(src, dst, TB, ATTEN, device=dev, **kw)
+        streams = {k: StreamResampler(rs, STREAM_BLOCK)
+                   for k in (1, STREAM_K)}
+        L = streams[1].block
+        n = STREAM_K * STREAM_CALLS * L
+        x = uniform_input(dev, n)
+        ref = Resampler(src, dst, TB, ATTEN, dtype=torch.float64,
+                        device="cpu").oneshot(
+            x[:N_CMP].cpu().double()).numpy()
+        sk = int(EDGE_S * dst)
+        ys, runs = {}, {}
+        for k, st in streams.items():
+            frac_whole.launches = 0
+            ozaki_framed.launches = 0
+            (y, ocalls), fcalls = record_run(
+                lambda: record_run(lambda: stream_drive(st, x, k),
+                                   (stages,), "ozaki_framed"),
+                (stages, fused, hb_cascade), "frac_whole")
+            torch.cuda.synchronize()
+            got_f, got_o = frac_whole.launches, ozaki_framed.launches
+            check(got_f == len(fcalls) and got_o == len(ocalls)
+                  and got_f + got_o > 0, f"stream {label} k={k}: "
+                  f"frac_whole {got_f} / ozaki_framed {got_o} launches for "
+                  f"{len(fcalls)} / {len(ocalls)} calls")
+            m = y.shape[1]
+            check(y.shape[0] == CHANNELS and m > sk, f"stream {label} "
+                  f"k={k} output shape {tuple(y.shape)}")
+            check(bool(torch.isfinite(y).all()), f"stream {label} k={k} "
+                  f"output not finite")
+            d = y[:N_CMP, sk:m].cpu().double().numpy() - ref[:, sk:m]
+            db = rms_db(d) - (rms_db(ref[:, sk:m]) if rel else 0.0)
+            tail = streams[k]._tail
+            paths = dict(tail.paths) if tail is not None else {}
+            print(f"stream {label}, {'per block' if k == 1 else f'k={k}'}: "
+                  f"StreamResampler(Resampler({src}, {dst}, {TB}, {ATTEN}"
+                  f"{''.join(f', {a}={b!r}' for a, b in kw.items())}), "
+                  f"{STREAM_BLOCK}) block {L}, {CHANNELS} x {n} -> "
+                  f"{tuple(y.shape)} in {n // (k * L)} calls; {N_CMP} "
+                  f"channels vs port f64 CPU oneshot {db:.2f} dB "
+                  f"{'relative' if rel else 're full scale'} (bound "
+                  f"{bound_db:g}); launches frac_whole {got_f}, "
+                  f"ozaki_framed {got_o}; interpolator paths {paths}")
+            check(db <= bound_db, f"stream {label} k={k}: {db:.2f} dB "
+                  f"misses {bound_db:g}")
+            if tail_path is not None:
+                want = "single" if k == 1 else tail_path
+                check(set(paths) == {want}, f"stream {label} k={k}: "
+                      f"interpolator paths {paths}, want only {want}")
+            ys[k], runs[k] = y, (fcalls, ocalls)
+        y1, yk = ys[1], ys[STREAM_K]
+        m = min(y1.shape[1], yk.shape[1])
+        same = y1.shape == yk.shape and torch.equal(y1, yk)
+        diff = float((y1[:, :m].double() - yk[:, :m].double()).abs().max()
+                     .item()) / float(y1[:, :m].abs().max().item())
+        print(f"stream {label}: k={STREAM_K} output vs per-block output: "
+              f"{'bit-equal' if same else f'max rel diff {diff:.3e}'}")
+        if streams[1]._mode == "period":  # a rational plan
+            check(same, f"stream {label}: k-block output not bit-equal to "
+                  f"per-block output")
+        del ys, y1, yk
+        for k in (1, STREAM_K):
+            fcalls, ocalls = runs[k]
+            records += stream_frac_records(label, rs, fcalls, seen_f,
+                                           peaks, card)
+            records += stream_ozaki_records(label, rs, ocalls, seen_o, dev,
+                                            peaks, card)
+        del runs, fcalls, ocalls
+        torch.cuda.empty_cache()
+        if label == "44.1k->96001 fast":
+            # a mid-stream checkpoint, resumed in a fresh stream
+            st = streams[STREAM_K]
+            xk = x[:, : STREAM_K * L]
+            ckpt = st.get_state()
+            a = st.process_blocks_device(xk)
+            st2 = StreamResampler(rs, STREAM_BLOCK)
+            st2.set_state(ckpt)
+            b = st2.process_blocks_device(xk)
+            check(torch.equal(a, b), f"stream {label}: the resumed "
+                  f"checkpoint's output differs")
+            mb = sum(v.nbytes for v in _arrays(ckpt)) / 1e6
+            print(f"stream {label}: checkpoint after {STREAM_CALLS} calls "
+                  f"(host arrays, {mb:.1f} MB) resumed in a fresh stream: "
+                  f"next call bit-equal")
+            del a, b, st2
+        for k, st in streams.items():
+            stream_timing(label, st, x[:, : k * L], k, src, card)
+        del streams, x, rs
+        torch.cuda.empty_cache()
+    chunked_oneshot(dev, card)
+    return records
+
+
+def _arrays(state):
+    """The host arrays of a stream checkpoint."""
+    for v in state.values():
+        if isinstance(v, dict):
+            yield from _arrays(v)
+        elif hasattr(v, "nbytes"):
+            yield v
+
+
+def chunked_oneshot(dev, card):
+    """oneshot(max_chunk=CHUNKED_MAX) on CHUNKED_S seconds of 44.1 kHz ->
+    96001 Hz, CHANNELS channels (the input on the card): its shape, its
+    first CHUNKED_CMP channels against the port's float64 CPU oneshot over
+    the whole length, its time (host clock) and its device memory peak
+    beside the input and the output it must hold."""
+    import torch
+
+    from r8brain_torch import Resampler
+
+    src, dst = 44100, 96001
+    n = CHUNKED_S * src
+    rs = Resampler(src, dst, TB, ATTEN, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    x = uniform_input(dev, n)
+    out_len = rs.default_out_len(n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    y = rs.oneshot(x, max_chunk=CHUNKED_MAX)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(y.shape) == (CHANNELS, out_len), f"chunked oneshot shape "
+          f"{tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), "chunked oneshot not finite")
+    ref = Resampler(src, dst, TB, ATTEN, dtype=torch.float64,
+                    device="cpu").oneshot(
+        x[:CHUNKED_CMP].cpu().double()).numpy()
+    sk = int(EDGE_S * dst)
+    db = rms_db(y[:CHUNKED_CMP].cpu().double().numpy()[:, sk:-sk]
+                - ref[:, sk:-sk])
+    out_gb = y.numel() * y.element_size() / 1e9
+    in_gb = x.numel() * x.element_size() / 1e9
+    print(f"chunked oneshot: Resampler({src}, {dst}, {TB}, {ATTEN})."
+          f"oneshot(x, max_chunk={CHUNKED_MAX}) on {CHANNELS} x {n} "
+          f"({CHUNKED_S} s) -> {tuple(y.shape)}; {CHUNKED_CMP} channel(s) "
+          f"vs port f64 CPU oneshot over the whole length {db:.2f} dB re "
+          f"full scale (bound {CLASS_DB:g})")
+    print(f"timing {card}: chunked oneshot {secs * 1e3:.1f} ms (host "
+          f"clock) = {1e-6 * CHANNELS * n / secs:.1f} Mrops; device memory "
+          f"peak {peak / 1e9:.2f} GB: the {in_gb:.2f} GB input, the "
+          f"{out_gb:.2f} GB output, {held / 1e9:.2f} GB that earlier phases "
+          f"hold, working set {(peak - base) / 1e9 - out_gb:.2f} GB")
+    check(db <= CLASS_DB, f"chunked oneshot: {db:.2f} dB misses "
+          f"{CLASS_DB:g}")
+    check(peak / 1e9 <= PEAK_GB, f"chunked oneshot: {peak / 1e9:.2f} GB")
+    del x, y
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2033,6 +2353,9 @@ def main() -> int:
     # chains; each new kernel call shape against its plain version
     kernels += stage_paths(dev, peaks, card)
     kernels += ozaki_paths(dev, peaks, card)
+
+    # the push-mode streams at the serving size, then the chunked oneshot
+    kernels += stream_paths(dev, peaks, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

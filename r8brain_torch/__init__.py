@@ -9,8 +9,12 @@ Public API:
   * Resampler / Resampler16 / Resampler16IR / Resampler24 -- batched
     [channels, time] converters (models.resampler).  Entry points run on
     ``device="cuda"`` unless the caller passes ``device="cpu"``.
+  * StreamResampler -- push-mode streaming over a Resampler: process /
+    flush, whole-block device calls (one block or k at once),
+    get_state / set_state checkpoints (models.stream).
   * make_plan / Plan -- stage planner (models.plan).
-  * plan_from_reference -- carry a reference-package plan across (convert).
+  * plan_from_reference / stream_state_from_reference -- carry a
+    reference-package plan, or stream checkpoint, across (convert).
   * FusedUpExec -- the fused [conv(up), whole-frac] executor (ops.fused).
   * frac_whole / frac_whole_ref -- the framed-matmul CUDA kernel and its
     plain PyTorch version (ops.pallas_frac).
@@ -21,11 +25,12 @@ Public API:
     halfband, fracbank).
 """
 
-from .convert import plan_from_reference
+from .convert import plan_from_reference, stream_state_from_reference
 from .design.lpfilter import LINEAR_PHASE, MIN_PHASE, build_lp_filter, get_lp_filter
 from .models.plan import Plan, make_plan
 from .models.resampler import (Resampler, Resampler16, Resampler16IR,
                                Resampler24)
+from .models.stream import StreamResampler
 from .ops.fused import FusedUpExec
 from .ops.pallas_frac import frac_whole, frac_whole_ref
 
@@ -39,10 +44,12 @@ __all__ = [
     "Plan",
     "make_plan",
     "plan_from_reference",
+    "stream_state_from_reference",
     "Resampler",
     "Resampler16",
     "Resampler16IR",
     "Resampler24",
+    "StreamResampler",
     "FusedUpExec",
     "frac_whole",
     "frac_whole_ref",

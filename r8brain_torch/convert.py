@@ -6,11 +6,17 @@ The "weights" of this system are the designed filters of a plan.
 package -- and copies every stage integer and every tap array into this
 package's dataclasses, so ``Resampler(..., plan=plan_from_reference(p))``
 computes with exactly the reference's filters.
+
+``stream_state_from_reference`` carries a reference ``StreamResampler``
+checkpoint (``get_state()``, a dict of numpy arrays and integers) into the
+layout of this package's ``StreamResampler.set_state``, after checking
+that the two streams cut the signal into the same blocks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -19,7 +25,7 @@ from .design.halfband import HBFilter
 from .design.lpfilter import LPFilter
 from .models.plan import ConvStage, FracStage, HBDownStage, HBUpStage, Plan
 
-__all__ = ["plan_from_reference"]
+__all__ = ["plan_from_reference", "stream_state_from_reference"]
 
 _STAGES = {"conv": ConvStage, "hb_up": HBUpStage, "hb_down": HBDownStage,
            "frac": FracStage}
@@ -45,3 +51,84 @@ def plan_from_reference(plan) -> Plan:
     stages = tuple(_copy(s, _STAGES[s.kind]) for s in plan.stages)
     return Plan(plan.src_rate, plan.dst_rate, plan.trans_band, plan.atten,
                 plan.phase, stages, plan.latency_frac)
+
+
+def _width(a) -> Optional[int]:
+    return None if a is None else int(np.asarray(a).shape[1])
+
+
+def stream_state_from_reference(state: dict, stream, reference=None) -> dict:
+    """This package's checkpoint of ``stream`` (an r8brain_torch
+    StreamResampler) from the reference-package stream state ``state``.
+
+    The two streams must share their block geometry: the block, each
+    period stream's L and H and the interpolator's history H.  With
+    ``reference`` (the reference StreamResampler, read by attribute only)
+    those are compared directly; in any case each carried array must have
+    the width of this stream's history and each input count must be a
+    whole number of its blocks.  Raises ValueError otherwise.  The
+    reference's suffix pending samples and its device re-blocker's fill
+    become this stream's suffix pending samples (in that order)."""
+    geo = stream.geometry()
+    if reference is not None:
+        ref = {"block": reference.block}
+        for key, attr in (("core", "_core"), ("suf", "_suf")):
+            ps = getattr(reference, attr, None)
+            if ps is not None:
+                ref[f"{key}_L"], ref[f"{key}_H"] = ps.L, ps.H
+        tail = getattr(reference, "_tail", None)
+        if tail is not None:
+            ref["tail_H"] = tail.H
+        if ref != geo:
+            raise ValueError(f"reference stream geometry {ref} is not this "
+                             f"stream's {geo}")
+    bad = []
+    pend = _width(state["pending"])
+    if pend is not None and pend >= geo["block"]:
+        bad.append(f"pending {pend} >= block {geo['block']}")
+    for key in ("core", "suf"):
+        sub = state.get(key)
+        if (sub is None) != (f"{key}_L" not in geo):
+            bad.append(f"{key} state {'missing' if sub is None else 'extra'}")
+            continue
+        if sub is None:
+            continue
+        w = _width(sub["hist"])
+        if w is not None and w != geo[f"{key}_H"]:
+            bad.append(f"{key} history {w} != H {geo[f'{key}_H']}")
+        if sub["n_in"] % geo[f"{key}_L"]:
+            bad.append(f"{key} n_in {sub['n_in']} not whole blocks of "
+                       f"{geo[f'{key}_L']}")
+    tail = state.get("tail")
+    if (tail is None) != ("tail_H" not in geo):
+        bad.append("tail state missing or extra")
+    elif tail is not None and _width(tail["buf"]) not in (None,
+                                                          geo["tail_H"]):
+        bad.append(f"tail history {_width(tail['buf'])} != H "
+                   f"{geo['tail_H']}")
+    if bad:
+        raise ValueError("reference state does not fit this stream: "
+                         + "; ".join(bad))
+
+    def arr(a):
+        return None if a is None else np.array(a, copy=True)
+
+    st = {"geometry": geo, "n_in_total": int(state["n_in_total"]),
+          "n_out_total": int(state["n_out_total"]),
+          "pending": arr(state["pending"]), "channels": state["channels"],
+          "squeeze": bool(state["squeeze"])}
+    if "core" in state:
+        st["core"] = {"hist": arr(state["core"]["hist"]),
+                      "n_in": int(state["core"]["n_in"])}
+    if tail is not None:
+        st["tail"] = {k: int(tail[k]) for k in ("n_in", "m_out",
+                                                 "skip_left")}
+        st["tail"]["buf"] = arr(tail["buf"])
+    if "suf" in state:
+        sf = state["suf"]
+        parts = [np.asarray(a) for a in (sf["pending"], sf.get("dev_buf"))
+                 if a is not None and np.asarray(a).shape[1]]
+        st["suf"] = {"hist": arr(sf["hist"]), "n_in": int(sf["n_in"]),
+                     "pending": np.concatenate(parts, axis=1)
+                     if parts else None}
+    return st

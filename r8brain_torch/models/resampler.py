@@ -23,10 +23,10 @@ half-band and interpolator stages in the split form, with the df32
 inter-stage carry under ``precision="high"``) and the df32-FFT conv
 engines (``"fft"``, ``"pallas_fft"``, ``"pallas_fft4"``,
 ``"pallas_fft5"``), before the ``im2col``, ``pallas``, ``conv`` or
-``ozaki`` interpolator.  ``fused="poly"`` and streaming
-(``oneshot(max_chunk=...)`` beyond one chunk) raise NotImplementedError
-naming the ROADMAP.md item that ports them; nothing falls back to another
-path.
+``ozaki`` interpolator.  ``oneshot(max_chunk=...)`` over more than one
+chunk runs through the push-mode stream (models/stream.py).
+``fused="poly"`` raises NotImplementedError naming the ROADMAP.md item
+that ports it; nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -40,12 +40,15 @@ import torch
 from torch import nn
 
 from ..ops.fused import fuse_stage_list
-from ..ops.stages import build_exec
+from ..ops.pallas_frac import KC, KC_LO
+from ..ops.stages import ConvExec, build_exec
 from ..utils.trace import trace_plan
 from .lengths import chain_in_for_out, chain_max_out_len, chain_out_len
 from .plan import Plan, make_plan
 
-__all__ = ["Resampler", "Resampler16", "Resampler16IR", "Resampler24"]
+__all__ = ["Resampler", "Resampler16", "Resampler16IR", "Resampler24",
+           "run_chain"]
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises when it names CUDA and CUDA is
@@ -55,6 +58,58 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' for the "
                            "plain PyTorch path")
     return device
+
+
+#: A float32 "fast" chain of this many executors or more folds its conv
+#: stages' frac_whole sums every 16 terms (KC_LO): each executor's
+#: truncating tensor-core sums add coherently along the chain, and 44.1k ->
+#: 352800.3 ([conv, poly, conv, half-band]) reads -140.00 dB re full scale
+#: on an H100 at 32-term folds, -141.83 at 16 (tools/torch_chain_error.py;
+#: ROADMAP.md section 3).  Shorter chains hold the class at 32.
+LONG_CHAIN = 4
+
+
+def set_conv_fold(execs, kc: int) -> None:
+    """Give every ConvExec of ``execs`` the frac_whole fold ``kc``."""
+    for e in execs:
+        if isinstance(e, ConvExec):
+            e.kc = kc
+
+
+def run_chain(execs, x: torch.Tensor, df_carry: bool = False, x_lo=None,
+              emit_pair: bool = False):
+    """The stage chain ``execs`` on x [C, N] (already zero-flushed), the
+    body of ``Resampler.forward`` and of each streamed block.  Stages with
+    a seam protocol hand their raw (unsliced) framing buffer and a
+    logical length to the next stage, so no seam slices and re-pads.
+
+    df_carry: the guarantee chain's df32 carry.  Stages then thread raw
+    (hi float32, lo bfloat16) pair buffers plus the logical count; the
+    first stage only emits (there is no residual to consume), the last
+    only consumes, so the chain ends with one float32 output.  Every
+    executor build_exec returns has a carry path.  A streamed piece of a
+    chain carries the pair across its own ends: x_lo is the residual
+    stream entering the first stage, and emit_pair=True returns the last
+    stage's (hi, lo) pair (lo None where the stage collapses)."""
+    n = x.shape[1]
+    if df_carry:
+        h, l = x, x_lo
+        for i, e in enumerate(execs):
+            h, l, n = e.apply_df(h, l, n,
+                                 emit_pair=emit_pair or i < len(execs) - 1)
+        h = h if h.shape[1] == n else h[:, :n]
+        if not emit_pair:
+            return h
+        return h, (l if l is None or l.shape[1] == n else l[:, :n])
+    for e in execs:
+        if hasattr(e, "apply_v"):
+            x, n = e.apply_v(x, n)
+        else:
+            if x.shape[1] != n:
+                x = x[:, :n]
+            x = e(x)
+            n = x.shape[1]
+    return x if x.shape[1] == n else x[:, :n]
 
 
 class Resampler(nn.Module):
@@ -118,6 +173,8 @@ class Resampler(nn.Module):
             src_rate, dst_rate, trans_band, atten, phase)
         self.dtype = dtype
         self.precision = precision
+        self.conv_engine = conv_engine
+        self.frac_engine = frac_engine
         trace_plan(self.plan, context=f"resampler dtype={dtype} "
                                       f"precision={precision}")
         execs = None
@@ -127,6 +184,12 @@ class Resampler(nn.Module):
         if execs is None:
             execs = [build_exec(s, dtype, precision, conv_engine, frac_engine)
                      for s in self.plan.stages]
+        #: the conv stages' fold (LONG_CHAIN); a stream's own sub-chain
+        #: executors take it too
+        self.conv_kc = KC_LO if (precision == "fast"
+                                 and dtype == torch.float32
+                                 and len(execs) >= LONG_CHAIN) else KC
+        set_conv_fold(execs, self.conv_kc)
         self.execs = nn.ModuleList(execs)
         self.df_carry = (precision == "high" and conv_engine == "ozaki"
                          and dtype == torch.float32
@@ -146,36 +209,14 @@ class Resampler(nn.Module):
 
     def clear(self) -> None:
         """No-op: the whole-array executor is stateless between oneshot
-        calls (CDSPResampler::clear resets stream buffers; streaming is
-        ROADMAP.md queue 1 item 6)."""
+        calls.  The stream state that CDSPResampler::clear resets lives in
+        a ``StreamResampler`` (models/stream.py), which has its own
+        ``clear``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The stage chain on x [C, N] (already zero-flushed).  Stages with
-        a seam protocol hand their raw (unsliced) framing buffer and a
-        logical length to the next stage, so no seam slices and re-pads."""
-        if self.df_carry:
-            return self._chain_df(x)
-        n = x.shape[1]
-        for e in self.execs:
-            if hasattr(e, "apply_v"):
-                x, n = e.apply_v(x, n)
-            else:
-                if x.shape[1] != n:
-                    x = x[:, :n]
-                x = e(x)
-                n = x.shape[1]
-        return x if x.shape[1] == n else x[:, :n]
-
-    def _chain_df(self, x: torch.Tensor) -> torch.Tensor:
-        """The guarantee chain's df32 carry: stages thread raw (hi float32,
-        lo bfloat16) pair buffers plus the logical count.  The first stage
-        only emits (there is no residual to consume), the last only
-        consumes, so the chain ends with one float32 output.  Every
-        executor build_exec returns has a carry path."""
-        h, l, n = x, None, x.shape[1]
-        for i, e in enumerate(self.execs):
-            h, l, n = e.apply_df(h, l, n, emit_pair=i < len(self.execs) - 1)
-        return h if h.shape[1] == n else h[:, :n]
+        """The stage chain on x [C, N] (already zero-flushed): ``run_chain``
+        with the df32 carry when the guarantee chain has it on."""
+        return run_chain(self.execs, x, self.df_carry)
 
     def out_len_for_in(self, n_in: int) -> int:
         return chain_out_len(self.plan.stages, n_in)
@@ -210,11 +251,16 @@ class Resampler(nn.Module):
         """Offline conversion with zero-flush.  x: [C, N] or [N], a tensor
         or an array; the result is a tensor on the resampler's device.
 
-        max_chunk: inputs longer than ``max_chunk`` samples need the
-        streaming path, which is not ported yet (NotImplementedError)."""
+        max_chunk bounds device memory for long signals: inputs longer
+        than ``max_chunk`` samples are pushed through the streaming path
+        (``StreamResampler``, the same outputs as the whole-array chain
+        to its rounding) in ``max_chunk``-sample pieces, each moved to the
+        device when it is pushed, and the outputs are written into the
+        result as they come, so the working set beside the input and the
+        result is O(channels x max_chunk).  Default None runs the whole
+        array at once (fastest)."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
-        x = x.to(device=self.device, dtype=self.dtype)
         squeeze = x.dim() == 1
         if squeeze:
             x = x[None, :]
@@ -222,21 +268,38 @@ class Resampler(nn.Module):
         if out_len is None:
             out_len = self.default_out_len(N)
         if not self.plan.stages:  # src == dst passthrough
-            y = x[:, :out_len]
+            y = x.to(device=self.device, dtype=self.dtype)[:, :out_len]
             if out_len > N:
                 y = torch.nn.functional.pad(y, (0, out_len - N))
             return y[0] if squeeze else y
         if max_chunk is not None and max_chunk < 1:
             raise ValueError(f"max_chunk must be >= 1, got {max_chunk}")
         if max_chunk is not None and N > max_chunk:
-            raise NotImplementedError(
-                "oneshot(max_chunk=...) over more than one chunk needs "
-                "streaming, ROADMAP.md queue 1 item 6")
+            y = self._oneshot_chunked(x, out_len, int(max_chunk))
+            return y[0] if squeeze else y
+        x = x.to(device=self.device, dtype=self.dtype)
         T = max(N, self.in_len_for_out(out_len))
         if T > N:
             x = torch.nn.functional.pad(x, (0, T - N))
         y = self(x)[:, :out_len]
         return y[0] if squeeze else y
+
+    def _oneshot_chunked(self, x: torch.Tensor, out_len: int,
+                         max_chunk: int) -> torch.Tensor:
+        from .stream import StreamResampler
+
+        st = StreamResampler(self, block_len=max_chunk)
+        y = torch.empty((x.shape[0], out_len), dtype=self.dtype,
+                        device=self.device)
+        pos = 0
+        for i in range(0, x.shape[1] + max_chunk, max_chunk):
+            o = st.process(x[:, i : i + max_chunk]) if i < x.shape[1] \
+                else st.flush(out_len)
+            take = min(o.shape[1], out_len - pos)
+            y[:, pos : pos + take] = o[:, :take]
+            pos += take
+        assert pos == out_len, (pos, out_len)
+        return y
 
 
 class Resampler16(Resampler):

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from .dfloat import two_sum
 
 __all__ = ["N_PARTS", "N_DIAG", "K0", "split_operator_host",
-           "split_operator_host_batched", "channel_scale", "split_input",
+           "split_operator_batched", "channel_scale", "split_input",
            "framed_cheap", "framed_matmul_ozaki"]
 
 N_PARTS = 4   # 8-bit slices per operand (32 bits below the block peak)
@@ -69,26 +69,39 @@ def split_operator_host(T64: np.ndarray):
     return pb, s.astype(np.float32)
 
 
-def split_operator_host_batched(T64: np.ndarray, axis: int = 1):
-    """split_operator_host for a batched operator [nloc, W, G]: slices on a
-    per-(m, g)-column power-of-two grid (the max over the contraction axis
-    ``axis``), the scales folded in.  Returns [N_PARTS, *T64.shape]
-    torch.bfloat16.  The banded polynomial interpolator's guarantee path
-    (``stages.banded_contract_ozaki``) uses it: the exactness lemma holds
-    per (channel, m, g) output cell."""
-    T64 = np.asarray(T64, dtype=np.float64)
-    s = _pow2_ceil_scale(np.abs(T64).max(axis=axis, keepdims=True))
+def split_operator_batched(T64: torch.Tensor, axis: int = 1,
+                           check: bool = False) -> torch.Tensor:
+    """Split a batched float64 operator (``[nloc, W, G]``, or the filter
+    values ``[..., G, fl]`` with ``axis=-1``) into ``N_PARTS`` bfloat16
+    slices on a per-column power-of-two grid (the max over the contraction
+    axis ``axis``), the scales folded in, where the tensor lies.  Returns
+    [N_PARTS, *T64.shape] torch.bfloat16.  Every step is exact (a division
+    by a power of two, a round to the slice grid, a difference), so the
+    CPU and the card give the same slices, those of the reference's
+    ``split_operator_host_batched``.  The banded polynomial interpolator's
+    guarantee path (``stages.banded_contract_ozaki``) uses it: the
+    exactness lemma holds per (channel, m, g) output cell, provided every
+    slice is bfloat16-exact (a slice pushed subnormal by a tiny column
+    max would round); ``check`` asserts that, at the cost of reading the
+    result back."""
+    T64 = T64.double()
+    amax = T64.abs().amax(dim=axis, keepdim=True)
+    # the smallest power of two >= amax (1.0 where amax == 0), exactly
+    m, e = torch.frexp(amax)
+    s = torch.ldexp(torch.ones_like(amax), e - (m == 0.5).to(e.dtype))
+    s = torch.where(amax > 0, s, torch.ones_like(amax))
     r = T64 / s
     parts = []
     for p in range(N_PARTS):
         step = 2.0 ** (-8 * (p + 1))
-        q = np.round(r / step) * step
+        q = torch.round(r / step) * step
         parts.append(q * s)
         r = r - q
-    parts = np.stack(parts)
-    pb = torch.from_numpy(parts).to(torch.bfloat16)
-    assert np.array_equal(pb.double().numpy(), parts), \
-        "operator slice not bf16-exact"
+    parts = torch.stack(parts)
+    pb = parts.to(torch.bfloat16)
+    if check:
+        assert torch.equal(pb.double(), parts), \
+            "operator slice not bf16-exact"
     return pb
 
 

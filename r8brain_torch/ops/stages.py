@@ -62,8 +62,8 @@ from ..models.plan import ConvStage, FracStage, HBDownStage, HBUpStage
 from ..utils.trace import trace
 from .dfloat import two_sum
 from .ozaki import (K0, N_DIAG, N_PARTS, channel_scale, framed_cheap,
-                    split_input, split_operator_host,
-                    split_operator_host_batched)
+                    split_input, split_operator_batched,
+                    split_operator_host)
 from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
 from .pallas_frac import KC, KC_LO, frac_whole, operator_parts
@@ -72,7 +72,8 @@ from .pallas_symconv import BH, sym_conv, sym_parts
 
 __all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "HBUpExec",
            "HBDownExec", "FracPolyExec", "chunk_drift_groups",
-           "banded_contract", "banded_contract_ozaki", "build_exec",
+           "banded_contract", "banded_contract_ozaki", "place_operator",
+           "poly_operators", "poly_contract", "build_exec",
            "FFT_ENGINES", "MATMUL_ENGINES"]
 
 #: ConvExec's FFT engines: df_fft_conv under precision "high".
@@ -219,6 +220,10 @@ class ConvExec(nn.Module):
         self.spec = spec
         self.dtype = dtype
         self.engine = engine
+        #: terms a frac_whole big-pair partial sums before its fold, on
+        #: the "toeplitz" and "pallas" engines (a long chain asks KC_LO:
+        #: models/resampler.py LONG_CHAIN)
+        self.kc = KC
         self.framed5 = self.framed5_poly = False
         k = np.asarray(spec.filt.kernel, dtype=np.float64)
         self.K = k.shape[0]
@@ -600,7 +605,7 @@ class ConvExec(nn.Module):
         xp = _shifted(x, self.s_min, (n_blocks - (-L_f // hop)) * hop,
                       self.dtype)
         y = frac_whole(xp, self.T_toep_parts, hop, L_f, B * up, n_blocks,
-                       kc=KC)
+                       kc=self.kc)
         return y if raw else y[:, :M]
 
     def _apply_toeplitz_sym(self, x: torch.Tensor, M: int) -> torch.Tensor:
@@ -621,7 +626,7 @@ class ConvExec(nn.Module):
         L_f = self.Lf_pallas
         xp = _shifted(x, self.s_min, (n_grp - 1) * B * down + L_f, self.dtype)
         return frac_whole(xp, self.T_pal_parts, B * down, L_f, B * up, n_grp,
-                          kc=KC)[:, :M]
+                          kc=self.kc)[:, :M]
 
     def _apply_direct(self, x: torch.Tensor, M: int) -> torch.Tensor:
         """The superkernel's strided product on frac_whole: I = down, D =
@@ -1114,13 +1119,14 @@ def chunk_drift_groups(sg: np.ndarray, vals: np.ndarray, scale: int,
 
 
 def _stride_segments(xc: torch.Tensor, nloc: int, S: int, W: int):
-    """([C, nloc + n_seg, S] reshape view of xc, n_seg): frame m covers
-    xc[:, m*S : m*S + W], read in n_seg = ceil(W/S) shifted segments."""
+    """([..., C, nloc + n_seg, S] reshape view of xc [..., C, T], n_seg):
+    frame m covers xc[..., m*S : m*S + W], read in n_seg = ceil(W/S)
+    shifted segments."""
     n_seg = -(-W // S)
     total = (nloc + n_seg) * S
-    if xc.shape[1] < total:
-        xc = F.pad(xc, (0, total - xc.shape[1]))
-    return xc[:, :total].reshape(xc.shape[0], nloc + n_seg, S), n_seg
+    if xc.shape[-1] < total:
+        xc = F.pad(xc, (0, total - xc.shape[-1]))
+    return xc[..., :total].reshape(*xc.shape[:-1], nloc + n_seg, S), n_seg
 
 
 @contextlib.contextmanager
@@ -1141,15 +1147,16 @@ def banded_contract(xc: torch.Tensor, R: torch.Tensor, nloc: int, S: int,
     stride S read as reshape views of ``xc`` (no gather), segment by
     segment: a batched matmul over m (the operator differs per output
     group).  Returns [C, nloc, G] in xc's dtype; the caller picks the
-    matmul precision."""
+    matmul precision.  Leading dims batch independent windows: xc
+    [..., C, T] against R [..., nloc, W, G] gives [..., C, nloc, G]."""
     ch3, n_seg = _stride_segments(xc, nloc, S, W)
     o = None
     for e in range(n_seg):
         w_e = min(S, W - e * S)
-        oe = torch.matmul(ch3[:, e : nloc + e, :w_e].transpose(0, 1),
-                          R[:, e * S : e * S + w_e])
+        oe = torch.matmul(ch3[..., e : nloc + e, :w_e].transpose(-3, -2),
+                          R[..., e * S : e * S + w_e, :])
         o = oe if o is None else o + oe
-    return o.transpose(0, 1)
+    return o.transpose(-3, -2)
 
 
 def banded_contract_ozaki(xc: torch.Tensor, R_parts: torch.Tensor,
@@ -1162,19 +1169,20 @@ def banded_contract_ozaki(xc: torch.Tensor, R_parts: torch.Tensor,
     float32 tensors holding bfloat16 values, so the products stay exact
     and float32 even under TF32.
 
-    R_parts: [N_PARTS, nloc, W, G] bfloat16 (``split_operator_host_batched``,
+    R_parts: [N_PARTS, nloc, W, G] bfloat16 (``split_operator_batched``,
     scales folded).  x_lo: the previous seam's residual stream, one pass
     against the top slice.  pair=True returns the two_sum-normalized (hi
-    float32, lo bfloat16); [C, nloc, G] either way."""
-    C = xc.shape[0]
+    float32, lo bfloat16); [C, nloc, G] either way.  Leading dims batch
+    independent windows as in ``banded_contract`` (R_parts [N_PARTS, ...,
+    nloc, W, G]), each row of each window split on its own scale."""
     ch, n_seg = _stride_segments(xc, nloc, S, W)
-    xparts, x_scale = split_input(ch.reshape(C, -1))
-    ch = [xparts[p].reshape(ch.shape).transpose(0, 1)
+    xparts, x_scale = split_input(ch.reshape(-1, ch.shape[-2] * S))
+    ch = [xparts[p].reshape(ch.shape).transpose(-3, -2)
           for p in range(N_PARTS)]
     chl = None
     if x_lo is not None:
         chl = _stride_segments(x_lo, nloc, S, W)[0].to(
-            torch.bfloat16).transpose(0, 1)
+            torch.bfloat16).transpose(-3, -2)
 
     def dot(seg, Rq):
         return torch.matmul(seg.float(), Rq.float())
@@ -1189,7 +1197,8 @@ def banded_contract_ozaki(xc: torch.Tensor, R_parts: torch.Tensor,
             d0 = small = None
             for p in range(N_PARTS):
                 for q in range(N_DIAG - p):
-                    o = dot(ch[p][e : nloc + e, :, cols], R_parts[q, :, a0:a1])
+                    o = dot(ch[p][..., e : nloc + e, :, cols],
+                            R_parts[q][..., a0:a1, :])
                     if p + q == 0:
                         d0 = o
                     else:
@@ -1201,48 +1210,102 @@ def banded_contract_ozaki(xc: torch.Tensor, R_parts: torch.Tensor,
                 lo = lo + err
             rest = small if rest is None else rest + small
             if chl is not None:
-                o = dot(chl[e : nloc + e, :, cols], R_parts[0, :, a0:a1])
+                o = dot(chl[..., e : nloc + e, :, cols],
+                        R_parts[0][..., a0:a1, :])
                 cheap = o if cheap is None else cheap + o
-    sc = x_scale[None]  # [1, C, 1]
+    sc = x_scale.reshape(*xc.shape[:-2], 1, xc.shape[-2], 1)
     y_hi = hi * sc
     y_small = (lo + rest) * sc
     if cheap is not None:
         y_small = y_small + cheap
     if not pair:
-        return (y_hi + y_small).transpose(0, 1)
+        return (y_hi + y_small).transpose(-3, -2)
     H, L = two_sum(y_hi, y_small)
-    return H.transpose(0, 1), L.to(torch.bfloat16).transpose(0, 1)
+    return H.transpose(-3, -2), L.to(torch.bfloat16).transpose(-3, -2)
 
 
-#: The polynomial interpolator builds its banded operator on the host (in
-#: float64, rounded once) while it holds at most this many entries (Mp * W:
-#: ~0.6 s of output at 44.1k -> 96001); above, the host's float64 filter
-#: values are placed into it on the device, chunk by chunk.
-POLY_HOST_R_CAP = 16_000_000
 #: Input lengths whose host-built state a FracPolyExec keeps.
 POLY_CACHE = 4
 #: The largest group size G the banded engine considers (the reference's).
 POLY_G_MAX = 256
 
 
-def _place_host(vals: np.ndarray, off: np.ndarray, W: int) -> np.ndarray:
-    """[nloc, W, G]: the filter values vals [nloc, G, fl] placed at the
-    group-local offsets off [nloc, G] (distinct rows for each (m, g, i):
-    the placement is exact)."""
-    nloc, G, fl = vals.shape
-    R = np.zeros((nloc, W, G), dtype=vals.dtype)
-    R[np.arange(nloc)[:, None, None], off[..., None] + np.arange(fl),
-      np.arange(G)[None, :, None]] = vals
-    return R
-
-
-def _place_device(vals: torch.Tensor, off: torch.Tensor,
-                  W: int) -> torch.Tensor:
-    """_place_host on the device: a one-hot scatter of each tap."""
-    nloc, G, fl = vals.shape
+def place_operator(vals: torch.Tensor, off: torch.Tensor,
+                   W: int) -> torch.Tensor:
+    """[..., W, G]: the filter values vals [..., G, fl] placed at the
+    group-local offsets off [..., G] (distinct rows for each (m, g, i):
+    the placement is exact), by a one-hot scatter of each tap where the
+    values lie."""
+    fl = vals.shape[-1]
     idx = off.long()[..., None] + torch.arange(fl, device=vals.device)
-    R = vals.new_zeros((nloc, G, W)).scatter_(2, idx, vals)
-    return R.transpose(1, 2).contiguous()
+    R = vals.new_zeros((*vals.shape[:-1], W)).scatter_(-1, idx, vals)
+    return R.transpose(-2, -1).contiguous()
+
+
+def poly_operators(flt64: torch.Tensor, off: torch.Tensor, W: int, dtype,
+                   precision: str, oz_products: bool,
+                   check: bool = False) -> dict:
+    """The banded operators of a polynomial stage's groups from their
+    float64 filter values flt64 [..., G, fl] at the group-local offsets
+    off [..., G], placed where the values lie: {"R_oz"} for the split
+    products (the float64 values split into bfloat16 slices: no residual
+    pass needed, the slices carry it to 32 bits), else {"R", "R_lo",
+    "R64"} with R the values rounded once to ``dtype``, R_lo the spline
+    residual pass and R64 the float64 copy of R that "high" sums against
+    (None where unused).  ``check`` asserts the slices bfloat16-exact."""
+    if oz_products:
+        fps = split_operator_batched(flt64, axis=-1, check=check)
+        return {"R_oz": torch.stack([
+            place_operator(fps[q].float(), off, W).to(torch.bfloat16)
+            for q in range(N_PARTS)])}
+    R = place_operator(flt64.to(dtype), off, W)
+    if precision != "high":
+        return {"R": R, "R_lo": None, "R64": None}
+    return {"R": R, "R64": R.double(), "R_lo": place_operator(
+        (flt64 - flt64.float().double()).float(), off, W)}
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: through pinned memory and an
+    asynchronous copy on a card, so the host goes on with the next call."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def poly_contract(xc: torch.Tensor, ops: dict, nloc: int, S: int, W: int,
+                  precision: str, x_lo=None, pair: bool = False):
+    """A polynomial stage's banded contraction of xc [..., C, T] against
+    ``poly_operators`` ops: (main, small) with the output main + small,
+    small None where nothing rides beside the main product (or, with the
+    split products and pair=True, the pair's lo).  The main product runs
+    in IEEE float32 whatever the caller's TF32 setting; under "high" it
+    sums in float64 (the float32 products are exact there) and rounds
+    once, its rounding carried in small with the spline residual pass;
+    x_lo is the previous seam's residual stream, one pass."""
+    if "R_oz" in ops:
+        res = banded_contract_ozaki(xc, ops["R_oz"], nloc, S, W, x_lo=x_lo,
+                                    pair=pair)
+        return res if pair else (res, None)
+    small = None
+    if precision == "high":
+        o64 = banded_contract(xc.double(), ops["R64"], nloc, S, W)
+        o = o64.float()
+        small = (o64 - o.double()).float()
+    else:
+        with _ieee_fp32():
+            o = banded_contract(xc, ops["R"], nloc, S, W)
+    if ops["R_lo"] is not None:
+        # the spline operator's rounding residual: ~2^-24 of the main
+        # term, any float32 matmul precision will do
+        lo = banded_contract(xc, ops["R_lo"], nloc, S, W)
+        small = lo if small is None else small + lo
+    if x_lo is not None:
+        # the seam residual (|x_lo| <= 2^-24 |x|), one pass
+        c = banded_contract(x_lo.to(ops["R"].dtype), ops["R"], nloc, S, W)
+        small = c if small is None else small + c
+    return o, small
 
 
 class FracPolyExec(nn.Module):
@@ -1260,22 +1323,27 @@ class FracPolyExec(nn.Module):
         operator R holding the filters at their group-local offsets.  The
         offsets drift by |G*r - S| a group, so the groups are chunked to
         the band (``chunk_drift_groups``).  The filter values are evaluated
-        on the host in float64 and rounded once; R is built there while
-        Mp*W <= ``POLY_HOST_R_CAP``, else they are placed on the device;
-        under "high" the rounding's residual rides a second pass; with ``oz_products`` (frac_engine="ozaki") the float64
-        operator is split into bfloat16 slices and contracted error-free
-        (``banded_contract_ozaki``).  The main contraction runs in IEEE
-        float32 whatever the caller's TF32 setting; under "high" it sums
-        in float64 (the float32 products are exact there) and rounds
-        once, where the reference sums in float32: a plain float32 sum of
-        a window's taps was the chain's largest error on an H100 (about
-        -146 dB re full scale, against -150 for each frac_whole stage).
+        in float64 on the device from host positions, rounded once and
+        placed into R (``operators``); under "high" the rounding's residual
+        rides a second pass; with ``oz_products`` (frac_engine="ozaki")
+        the float64 values are split into bfloat16 slices and contracted
+        error-free (``banded_contract_ozaki``).  The main contraction runs
+        in IEEE float32 whatever the caller's TF32 setting; under "high"
+        it sums in float64 (the float32 products are exact there) and
+        rounds once, where the reference sums in float32: a plain float32
+        sum of a window's taps was the chain's largest error on an H100
+        (about -146 dB re full scale, against -150 for each frac_whole
+        stage); ``poly_contract`` runs it, for the oneshot and the
+        stream.
       * "gather" (float64's "auto"): one gather a tap with the filter
-        evaluated in place, in the oracle's summation order.
+        evaluated in the stage's dtype, in the oracle's summation order
+        (``gather``).
 
-    The host-built state (positions, chunks, operators on the device)
-    depends only on the output count: it is built once for each input
-    length and kept for the last ``POLY_CACHE`` lengths."""
+    The streamed interpolator (models/stream.py) builds its operators and
+    taps through the same ``operators`` / ``gather_taps``.  The oneshot's
+    state (positions, chunks, operators on the device) depends only on
+    the output count: it is built once for each input length and kept
+    for the last ``POLY_CACHE`` lengths."""
 
     def __init__(self, spec: FracStage, dtype=torch.float32,
                  engine: str = "auto", precision: str = "fast",
@@ -1294,11 +1362,9 @@ class FracPolyExec(nn.Module):
         if engine not in ("banded", "gather"):
             raise ValueError(f"unknown poly engine {engine!r}")
         self.engine = engine
-        tab = np.asarray(spec.bank.table, dtype=np.float64)  # [rows, fl, 3]
-        self.tab64 = tab
-        np_dt = np.float32 if dtype == torch.float32 else np.float64
-        self.register_buffer("coef", torch.from_numpy(np.ascontiguousarray(
-            np.moveaxis(tab, 2, 0)).astype(np_dt)))  # c0, c1, c2
+        # the spline table, float64 [rows, fl, (c0, c1, c2)]
+        self.register_buffer("tab", torch.tensor(spec.bank.table,
+                                                 dtype=torch.float64))
         self.fracs = spec.bank.fracs
         self.fl = spec.filter_len
         self.fll = self.fl // 2 - 1
@@ -1405,6 +1471,39 @@ class FracPolyExec(nn.Module):
             self._state.move_to_end(key)
         return st
 
+    def values(self, fti: torch.Tensor, t: torch.Tensor,
+               dtype=torch.float64) -> torch.Tensor:
+        """[..., fl] spline values c0 + (c1 + c2 t) t of the table rows fti
+        at the float64 phases t, evaluated in ``dtype`` where they lie."""
+        tb = self.tab[fti].to(dtype)
+        t = t.to(dtype)[..., None]
+        return tb[..., 0] + (tb[..., 1] + tb[..., 2] * t) * t
+
+    def operators(self, fti, t, off, W: int, dev,
+                  check: bool = False) -> dict:
+        """``poly_operators`` of groups [..., G] from host positions: the
+        table rows fti, the float64 phases t and the group-local offsets
+        off, shipped in one copy and evaluated on ``dev``."""
+        d = _to_device(np.stack([fti, t, off]).astype(np.float64), dev)
+        return poly_operators(self.values(d[0].long(), d[1]), d[2].long(),
+                              W, self.dtype, self.precision,
+                              self.oz_products, check=check)
+
+    def gather_taps(self, start, fti, t, dev):
+        """(idx, flt) of ``gather`` from host positions: the window starts
+        and the values evaluated in the stage's dtype (the reference's
+        gather engine, bit for bit)."""
+        d = _to_device(np.stack([start, fti, t]).astype(np.float64), dev)
+        return d[0].long(), self.values(d[1].long(), d[2], self.dtype)
+
+    def gather(self, xp: torch.Tensor, idx, flt) -> torch.Tensor:
+        """One gather a tap of xp [C, T] at the window starts idx [M]
+        against the values flt [M, fl], in the oracle's summation order."""
+        y = xp.new_zeros((xp.shape[0], idx.shape[0]), dtype=self.dtype)
+        for i in range(self.fl):
+            y = y + flt[None, :, i] * xp[:, idx + i]
+        return y
+
     def _apply_gather(self, x: torch.Tensor, M: int) -> torch.Tensor:
         N = x.shape[1]
         dev = x.device
@@ -1413,24 +1512,17 @@ class FracPolyExec(nn.Module):
             start, fti, t = self.host_positions(M)
             pad_l = max(0, -int(start.min()))
             pad_r = max(0, int(start.max()) + self.fl - N)
-            fti = torch.from_numpy(fti.astype(np.int64)).to(dev)
-            t = torch.from_numpy(t).to(dev, self.dtype)[:, None]
-            c0, c1, c2 = (c[fti] for c in self.coef)
-            flt = c0 + (c1 + c2 * t) * t  # [M, fl]
-            idx = torch.from_numpy(start.astype(np.int64) + pad_l).to(dev)
-            return pad_l, pad_r, idx, flt
+            return (pad_l, pad_r,
+                    *self.gather_taps(start + pad_l, fti, t, dev))
 
         pad_l, pad_r, idx, flt = self._cached(("gather", M, N, dev), build)
-        xp = F.pad(x.to(self.dtype), (pad_l, pad_r))
-        y = x.new_zeros((x.shape[0], M), dtype=self.dtype)
-        for i in range(self.fl):
-            y = y + flt[None, :, i] * xp[:, idx + i]
-        return y
+        return self.gather(F.pad(x.to(self.dtype), (pad_l, pad_r)), idx, flt)
 
     def _banded_state(self, M: int, dev):
         """(chunks [(A, nloc, operators)], need_len, pad_l) of M outputs,
         M a multiple of G on the seam paths; a non-seam caller's last
-        partial group is edge-extended."""
+        partial group is edge-extended.  Built once a length, so the split
+        slices' exactness is checked here."""
         G, S, W, fl = self.G, self.S, self.W, self.fl
         start, fti, t = self.host_positions(M)
         n_grp = -(-M // G)
@@ -1444,48 +1536,11 @@ class FracPolyExec(nn.Module):
         sg = (start + pad_l).reshape(n_grp, G)  # window starts a group
         chunks, need_len, shift = chunk_drift_groups(sg, sg, 1, S, fl, W,
                                                      n_grp, W)
-        host_R = Mp * W <= POLY_HOST_R_CAP
         fti2, t2 = fti.reshape(n_grp, G), t.reshape(n_grp, G)
-        built = []
-        for g0, nloc, A, off in chunks:
-            fc, tc = fti2[g0 : g0 + nloc], t2[g0 : g0 + nloc]
-            built.append((A, nloc, self._chunk_operators(
-                fc, tc, off, host_R, dev)))
+        built = [(A, nloc, self.operators(
+            fti2[g0 : g0 + nloc], t2[g0 : g0 + nloc], off, W, dev,
+            check=True)) for g0, nloc, A, off in chunks]
         return built, need_len, pad_l + shift
-
-    def _chunk_operators(self, fc, tc, off, host_R: bool, dev):
-        """A chunk's operators on ``dev``, from its filter values
-        evaluated on the host in float64: {"R_oz"} for the split
-        products, else {"R", "R_lo", "R64"} (R_lo the spline residual
-        pass and R64 the float64 copy of R that "high" sums against; None
-        where unused)."""
-        W, tb = self.W, self.tab64
-        np_dt = np.float32 if self.dtype == torch.float32 else np.float64
-        t3 = tc[..., None]
-        flt64 = tb[fc, :, 0] + (tb[fc, :, 1] + tb[fc, :, 2] * t3) * t3
-        off_d = None if host_R else torch.from_numpy(off).to(dev)
-
-        def place(v: np.ndarray) -> torch.Tensor:
-            if host_R:
-                return torch.from_numpy(_place_host(v, off, W)).to(dev)
-            return _place_device(torch.from_numpy(v).to(dev), off_d, W)
-
-        if self.oz_products:
-            # the float64 operator split into bf16 slices: no residual
-            # pass needed, the slices carry it to 32 bits
-            if host_R:
-                R_oz = split_operator_host_batched(_place_host(flt64, off, W))
-            else:
-                fps = split_operator_host_batched(flt64, axis=-1).to(dev)
-                R_oz = torch.stack([_place_device(fps[q].float(), off_d, W)
-                                    .to(torch.bfloat16)
-                                    for q in range(N_PARTS)])
-            return {"R_oz": R_oz.to(dev)}
-        R = place(flt64.astype(np_dt))
-        if self.precision != "high":
-            return {"R": R, "R_lo": None, "R64": None}
-        return {"R": R, "R64": R.double(), "R_lo": place(
-            (flt64 - flt64.astype(np.float32)).astype(np.float32))}
 
     def _apply_banded(self, x: torch.Tensor, M: int, raw: bool = False,
                       x_lo=None, pair: bool = False):
@@ -1499,36 +1554,10 @@ class FracPolyExec(nn.Module):
         outs = []
         span = -(-W // S) * S  # past the chunk's nloc*S: its last frame
         for A, nloc, ops in chunks:
-            xlc = None if xlp is None else xlp[:, A : A + nloc * S + span]
-            if "R_oz" in ops:
-                res = banded_contract_ozaki(xp[:, A:], ops["R_oz"], nloc, S,
-                                            W, x_lo=xlc, pair=pair)
-                outs.append((res[0].reshape(C, nloc * G),
-                             res[1].reshape(C, nloc * G)) if pair else
-                            (res.reshape(C, nloc * G), None))
-                continue
-            small = None
-            if self.precision == "high":
-                # float32 products are exact in float64: the main product
-                # sums there and rounds once (its rounding carried in
-                # small), so the spline residual below is what is left
-                o64 = banded_contract(
-                    xp[:, A : A + nloc * S + span].double(), ops["R64"],
-                    nloc, S, W)
-                o = o64.float()
-                small = (o64 - o.double()).float()
-            else:
-                with _ieee_fp32():
-                    o = banded_contract(xp[:, A:], ops["R"], nloc, S, W)
-            if ops["R_lo"] is not None:
-                # the spline operator's rounding residual: ~2^-24 of the
-                # main term, any float32 matmul precision will do
-                lo = banded_contract(xp[:, A:], ops["R_lo"], nloc, S, W)
-                small = lo if small is None else small + lo
-            if xlc is not None:
-                # the seam residual (|x_lo| <= 2^-24 |x|), one pass
-                c = banded_contract(xlc.to(self.dtype), ops["R"], nloc, S, W)
-                small = c if small is None else small + c
+            end = A + nloc * S + span
+            o, small = poly_contract(
+                xp[:, A:end], ops, nloc, S, W, self.precision,
+                x_lo=None if xlp is None else xlp[:, A:end], pair=pair)
             if not pair and small is not None:
                 o = o + small
             outs.append((o.reshape(C, nloc * G),

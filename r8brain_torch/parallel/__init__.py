@@ -1,3 +1,3 @@
-"""Multi-device execution helpers (only the shift-period algebra so far)."""
+"""Multi-device execution helpers (only the chain algebra so far)."""
 
-from .sharding import chain_shift_period
+from .sharding import chain_input_span, chain_shift_period

@@ -794,11 +794,11 @@ def test_cascade_f64_on_card(cuda_device):
                                 dict(precision="high"),
                                 dict(precision="high", oz_products=True)],
                          ids=["fast", "high", "oz_products"])
-def test_poly_device_operator_on_card(cuda_device, kw, monkeypatch):
-    """The polynomial stage's operator placed on the card (the branch
-    above POLY_HOST_R_CAP, reached here by patching the cap to 0) gives
-    the host-built operator's output bit for bit, collapsed and as the
-    carry's pair."""
+def test_poly_operators_on_card_equal_cpu(cuda_device, kw):
+    """The polynomial stage's operators placed (and split) on the card
+    from the host float64 filter values are the CPU's bit for bit, chunk
+    by chunk, and the stage on the card holds the CPU's output within a
+    few float32 ulps (the batched matmuls sum in their own order)."""
     from r8brain_torch.models.plan import make_plan
     from r8brain_torch.ops import stages
 
@@ -806,12 +806,78 @@ def test_poly_device_operator_on_card(cuda_device, kw, monkeypatch):
                 if s.kind == "frac" and not s.is_whole)
     rng = np.random.default_rng(21)
     x = torch.from_numpy(rng.uniform(-1.0, 1.0, (3, 30000)).astype(
+        np.float32))
+    cpu = stages.FracPolyExec(spec, torch.float32, **kw)
+    card = stages.FracPolyExec(spec, torch.float32, **kw).to(cuda_device)
+    y_cpu, y_card = cpu.apply(x), card.apply(x.to(cuda_device)).cpu()
+    (c_cpu, *_), = cpu._state.values()
+    (c_card, *_), = card._state.values()
+    assert len(c_cpu) == len(c_card)
+    for (A, n, ops), (A2, n2, ops2) in zip(c_cpu, c_card):
+        assert (A, n) == (A2, n2) and set(ops) == set(ops2)
+        for k, v in ops.items():
+            assert (v is None) == (ops2[k] is None)
+            if v is not None:
+                assert torch.equal(v, ops2[k].cpu()), k
+    assert (y_cpu - y_card).abs().max() <= 2.0**-20 * y_cpu.abs().max()
+
+
+# (label, src, dst, Resampler keywords, bound dB): the stream on the card
+# against the port's float64 CPU path, re full scale ("fast", "high") or
+# relative to the output (the guarantee chain)
+STREAM_CASES = [("fast", 44100, 96000, {}, -141.0),
+                ("guarantee", 44100, 96000, OZ_CHAIN, -150.0),
+                ("poly", 44100, 96001, {}, -141.0),
+                ("poly_high", 44100, 96001, dict(precision="high"), -143.0),
+                ("poly_hb", 44100, 352800.3, {}, -141.0),
+                ("poly_hb_high", 44100, 352800.3, dict(precision="high"),
+                 -143.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STREAM_CASES,
+                         ids=[c[0] for c in STREAM_CASES])
+def test_stream_on_card(cuda_device, case):
+    """The push-mode stream on the card: k-block calls against per-block
+    calls (bit-equal on rational plans), the stream against the port's
+    float64 CPU oneshot at the class bound, a checkpoint resumed bit for
+    bit, and the kernels launched for the blocks (the interpolator has
+    none of its own)."""
+    from r8brain_torch import StreamResampler
+
+    label, src, dst, kw, bound = case
+    rs = Resampler(src, dst, 2.0, 180.15, device=cuda_device, **kw)
+    st_1, st_k = StreamResampler(rs, 4096), StreamResampler(rs, 4096)
+    L, k = st_1.block, 4
+    n = 3 * k * L
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, (3, n)).astype(
         np.float32)).to(cuda_device)
-    host = stages.FracPolyExec(spec, torch.float32, **kw)
-    y_host, pair_host = host.apply(x), host.apply_df(x, None)
-    monkeypatch.setattr(stages, "POLY_HOST_R_CAP", 0)
-    dev = stages.FracPolyExec(spec, torch.float32, **kw)
-    y_dev, pair_dev = dev.apply(x), dev.apply_df(x, None)
-    assert torch.equal(y_host, y_dev)
-    assert torch.equal(pair_host[0], pair_dev[0])
-    assert torch.equal(pair_host[1], pair_dev[1])
+    before = frac_whole.launches + ozaki_framed.launches
+    y1 = torch.cat([st_1.process_block_device(x[:, i : i + L])
+                    for i in range(0, n, L)], dim=1)
+    torch.cuda.synchronize()
+    assert frac_whole.launches + ozaki_framed.launches > before
+    yk = [st_k.process_blocks_device(x[:, : k * L])]
+    ckpt = st_k.get_state()
+    yk += [st_k.process_blocks_device(x[:, i : i + k * L])
+           for i in range(k * L, n, k * L)]
+    st_r = StreamResampler(rs, 4096)
+    st_r.set_state(ckpt)
+    yr = [st_r.process_blocks_device(x[:, i : i + k * L])
+          for i in range(k * L, n, k * L)]
+    assert all(torch.equal(a, b) for a, b in zip(yk[1:], yr))
+    yk = torch.cat(yk, dim=1)
+    assert yk.shape == y1.shape
+    if label in ("fast", "guarantee"):
+        assert torch.equal(yk, y1)
+    ref = Resampler(src, dst, 2.0, 180.15, dtype=torch.float64,
+                    device="cpu").oneshot(x.cpu().double()).numpy()
+    m = y1.shape[1]
+    skip = int(0.05 * dst)
+    for y in (y1, yk):
+        d = y.cpu().double().numpy()[:, skip:m] - ref[:, skip:m]
+        db = _rms_db(d)
+        if label == "guarantee":
+            db -= _rms_db(ref[:, skip:m])
+        assert db < bound, (label, db)

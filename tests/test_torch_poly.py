@@ -9,8 +9,8 @@ reference executor bit-equal in float32 "fast" and with the split
 products (the same float64 operator rounded once, the same segment sums)
 and within 1e-12 of max |y| in float64; under "high", whose main product
 the port sums in float64, -150 dB from the float64 engine and 6 dB
-closer to it than the reference; the host-built and device-placed
-operators bit-equal; the
+closer to it than the reference; the device-placed operators bit-equal
+to a numpy placement of the same values; the
 spline residual of "high" lowering the error of an impulse train's pair
 output by at least 40 dB; the chains within -141 dB of the oracle and no
 more than 1 dB above the reference's chain.
@@ -30,10 +30,11 @@ from r8brain_tpu.models.oracle import OracleResampler
 from r8brain_tpu.models.plan import make_plan as ref_make_plan
 from r8brain_tpu.models.resampler import Resampler as RefResampler
 from r8brain_tpu.ops import stages as ref_stages
+from r8brain_tpu.ops.ozaki import split_operator_host_batched as ref_split
 from r8brain_torch import Resampler
 from r8brain_torch.models.plan import make_plan
 from r8brain_torch.ops import stages
-from r8brain_torch.ops.ozaki import split_operator_host_batched
+from r8brain_torch.ops.ozaki import split_operator_batched
 from r8brain_torch.ops.stages import (ConvExec, FracPolyExec,
                                       banded_contract_ozaki, build_exec,
                                       chunk_drift_groups)
@@ -231,19 +232,15 @@ def _impulses(n: int, gap: int):
     return x
 
 
-@pytest.mark.parametrize("cap", ["host", "device"])
-def test_spline_residual_gain(cap, monkeypatch):
+def test_spline_residual_gain():
     """precision="high" carries the float32 rounding of the float64
-    spline filter values as a second pass, on the host-built and the
-    device-placed operator.  An impulse train with the impulses further
+    spline filter values as a second pass.  An impulse train with the impulses further
     apart than a window makes every output one filter value, so every
     product and sum is exact and the pair output of the carry (hi + the
     bfloat16 lo) shows the residual: at least 40 dB closer to the float64
     gather engine than "fast" (whose pair has no lo), which rounds each
     value once to float32.  On Gaussian input "high" never costs more
     than 0.5 dB."""
-    if cap == "device":
-        monkeypatch.setattr(stages, "POLY_HOST_R_CAP", 0)
     port, _ref = _spec(44100, 96001)
     x = _impulses(6000, 97)
     y64 = FracPolyExec(port, torch.float64).apply(torch.from_numpy(x))
@@ -263,30 +260,69 @@ def test_spline_residual_gain(cap, monkeypatch):
     assert db["high"] <= db["fast"] + 0.5, db
 
 
+def _numpy_operators(ex, M):
+    """The banded operators of ``ex`` for M outputs, built here in numpy:
+    the positions and drift chunks of the executor's geometry, the
+    float64 spline values of each group placed at its window offsets by
+    plain indexing, then rounded (and split) as each precision class
+    asks.  Returns [(A, nloc, operators)] in FracPolyExec's layout."""
+    G, S, W, fl = ex.G, ex.S, ex.W, ex.fl
+    start, fti, t = ex.host_positions(M)
+    n_grp = -(-M // G)
+    ext = n_grp * G - M
+    start, fti, t = (np.concatenate([a, np.repeat(a[-1], ext)])
+                     for a in (start, fti, t))
+    sg = (start + max(0, -int(start.min()))).reshape(n_grp, G)
+    chunks = chunk_drift_groups(sg, sg, 1, S, fl, W, n_grp, W)[0]
+    tb = ex.tab.numpy()
+    out = []
+    for g0, nloc, A, off in chunks:
+        fc = fti.reshape(n_grp, G)[g0 : g0 + nloc]
+        tc = t.reshape(n_grp, G)[g0 : g0 + nloc, :, None]
+        vals = tb[fc, :, 0] + (tb[fc, :, 1] + tb[fc, :, 2] * tc) * tc
+        R = np.zeros((nloc, W, G))
+        for i in range(fl):
+            R[np.arange(nloc)[:, None], off + i, np.arange(G)] = vals[..., i]
+        if ex.oz_products:
+            ops = {"R_oz": torch.from_numpy(np.asarray(
+                ref_split(R), np.float32)).to(torch.bfloat16)}
+        elif ex.precision == "high":
+            R32 = R.astype(np.float32)
+            ops = {"R": torch.from_numpy(R32),
+                   "R64": torch.from_numpy(R32.astype(np.float64)),
+                   "R_lo": torch.from_numpy((R - R32).astype(np.float32))}
+        else:
+            ops = {"R": torch.from_numpy(R.astype(np.float32)),
+                   "R_lo": None, "R64": None}
+        out.append((A, nloc, ops))
+    return out
+
+
 @pytest.mark.parametrize("kw", [dict(precision="fast"),
                                 dict(precision="high"),
                                 dict(precision="high", oz_products=True)],
                          ids=["fast", "high", "oz_products"])
-def test_host_and_device_operators_agree(kw, monkeypatch):
-    """Above POLY_HOST_R_CAP the operator is placed on the device from
-    the same host float64 filter values, so the output is bit-equal to
-    the host-built operator's (raw pair output included), and every
-    chunk keeps the operators of its precision class: the split slices
-    with oz_products, the spline residual and the float64 copy under
-    "high", neither under "fast"."""
+def test_device_placed_operators_equal_numpy(kw):
+    """The operators placed on the device (``poly_operators``: the host
+    float64 spline values scattered into place, then rounded or split)
+    are bit-equal to a plain numpy placement of the same values, chunk by
+    chunk, and each chunk holds the operators of its precision class:
+    the split slices with oz_products, the spline residual and the
+    float64 copy under "high", neither under "fast"."""
     port, _ref = _spec(44100, 96001, 180.15)
     x = torch.from_numpy(_input(seed=5, C=2, n=9000)).float()
-    y_host = FracPolyExec(port, torch.float32, **kw).apply(x)
-    pair_host = FracPolyExec(port, torch.float32, **kw).apply_df(x, None)
-    monkeypatch.setattr(stages, "POLY_HOST_R_CAP", 0)
     ex = FracPolyExec(port, torch.float32, **kw)
-    y_dev = ex.apply(x)
-    pair_dev = FracPolyExec(port, torch.float32, **kw).apply_df(x, None)
-    assert torch.equal(y_host, y_dev)
-    assert torch.equal(pair_host[0], pair_dev[0])
-    assert torch.equal(pair_host[1], pair_dev[1])
+    y = ex.apply(x)
     (chunks, _need, _pad), = ex._state.values()
-    for _A, _nloc, ops in chunks:
+    want = _numpy_operators(ex, y.shape[1])
+    assert len(chunks) == len(want)
+    for (A, nloc, ops), (A_w, nloc_w, ops_w) in zip(chunks, want):
+        assert (A, nloc) == (A_w, nloc_w)
+        assert set(ops) == set(ops_w)
+        for k, v in ops_w.items():
+            assert (ops[k] is None) == (v is None)
+            if v is not None:
+                assert ops[k].dtype == v.dtype and torch.equal(ops[k], v), k
         if kw.get("oz_products"):
             assert set(ops) == {"R_oz"}
         else:
@@ -295,18 +331,44 @@ def test_host_and_device_operators_agree(kw, monkeypatch):
             assert (ops["R64"] is not None) == high
 
 
+@pytest.mark.parametrize("scale, exact", [(1.0, True), (2.0**-60, True),
+                                          (2.0**-120, False)])
+def test_operator_split_exactness_checked(scale, exact):
+    """The guarantee interpolator's exactness lemma needs bfloat16-exact
+    operator slices.  The oneshot's operator build (once a length) asks
+    split_operator_batched to check them, so a filter scaled until its
+    third slices fall below bfloat16's subnormal grid is refused, not
+    rounded; at ordinary extreme scales the output scales with it."""
+    port, _ref = _spec(44100, 96001, 180.15)
+    x = torch.from_numpy(_input(seed=8, C=2, n=4000)).float()
+    y1 = FracPolyExec(port, torch.float32, precision="high",
+                      oz_products=True).apply(x)
+    ex = FracPolyExec(port, torch.float32, precision="high",
+                      oz_products=True)
+    ex.tab = ex.tab * scale
+    if not exact:
+        with pytest.raises(AssertionError, match="bf16-exact"):
+            ex.apply(x)
+        return
+    y = ex.apply(x)
+    assert _rel_db(_np(y) / scale, _np(y1)) < -140.0
+
+
 def test_ozaki_contraction_vs_reference():
-    """banded_contract_ozaki on the same split operator and input as the
+    """split_operator_batched equals the reference's host split, and
+    banded_contract_ozaki on that operator and the same input equals the
     reference's: bit-equal, collapsed and as a pair with a seam
     residual."""
     rng = np.random.default_rng(2)
     nloc, S, W, G, C = 6, 300, 320, 16, 3
     R64 = rng.standard_normal((nloc, W, G)) * (rng.random((nloc, W, G))
                                                < 0.1)
-    parts = split_operator_host_batched(R64)
+    parts = split_operator_batched(torch.from_numpy(R64))
     xc = rng.standard_normal((C, (nloc + 2) * S)).astype(np.float32)
     xl = (rng.standard_normal(xc.shape) * 2.0**-26).astype(np.float32)
-    rparts = jnp.asarray(parts.float().numpy(), jnp.bfloat16)
+    rparts = jnp.asarray(ref_split(R64))
+    assert np.array_equal(parts.float().numpy(),
+                          np.asarray(rparts, np.float32))
     # the operator a constant of the jitted function, as in the reference's
     # executor (XLA:CPU runs no bfloat16 dot of two arguments)
     y = banded_contract_ozaki(torch.from_numpy(xc), parts, nloc, S, W)

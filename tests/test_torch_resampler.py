@@ -230,9 +230,10 @@ def test_lone_conv_plan_runs_by_default(src, dst):
 
 
 def test_unported_options_raise(flagship):
-    """fused="poly" and streaming are still unported; the stage engines
-    and the half-band and polynomial plans are not (fused=False and any
-    engine build the stage chain)."""
+    """fused="poly" is still unported; the stage engines, the half-band
+    and polynomial plans and the chunked oneshot are not (fused=False and
+    any engine build the stage chain; oneshot(max_chunk=...) over many
+    chunks runs the stream)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Resampler(*FLAG, fused="poly", **CPU)
     for dst, kinds in ((176400, ["ConvExec", "HBUpExec"]),
@@ -244,9 +245,11 @@ def test_unported_options_raise(flagship):
         rs = Resampler(*FLAG, **kw, **CPU)
         assert [type(e).__name__ for e in rs.execs] == ["ConvExec",
                                                         "FracWholeExec"]
-    x = np.zeros((1, 3000), np.float32)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        flagship.oneshot(x, max_chunk=1000)
+    x = lcg_uniform(5, 3000).astype(np.float32)[None]
+    y = flagship.oneshot(x, max_chunk=1000)
+    assert y.shape == (1, flagship.default_out_len(3000))
+    assert rms_db(y.double().numpy()
+                  - flagship.oneshot(x).double().numpy()) < -135.0
     with pytest.raises(ValueError):
         flagship.oneshot(x, max_chunk=0)
     # one chunk is the whole-array program
