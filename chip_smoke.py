@@ -52,22 +52,38 @@ uniform float32 input:
   channel chunks against its model and its float64 product;
   ``ozaki_framed`` in every variant at each new geometry, the half-band
   ones among them) and gets a record;
+* the functional transform ``resample_fn`` on 1024 channels x 1 s: the
+  fast flagship, the ozaki guarantee chain (its gradient through the
+  default-engine twin) and 44.1 kHz -> 96001 Hz (through the polynomial
+  stage), each forward bit-equal to ``oneshot``, ``torch.func.grad`` of
+  <w, f(x)> counted (the backward's launches are ``frac_whole``'s
+  adjoint) and held at -130 dB relative to the float64 CPU gradient
+  (the twin's also at -120 dB relative to its default chain's), the
+  dot-product identity <w, f(x)> = <g, x> in float64, forward and
+  forward + backward timed, and every adjoint call shape held to its
+  plain model with a record;
+* ``fused=True`` (the flagship with ``conv_engine="pallas"`` and with
+  the ozaki engines) and ``fused="poly"`` (44.1 kHz -> 96001 Hz fast and
+  high: ``FusedPolyExec``, its composite summed in float64), checked at
+  -141 / -143 dB against the float64 CPU path and timed beside the
+  default chain;
 * the push-mode streams (``StreamResampler``) at the serving size of
   ``tools/bench_stream.py``, 1024 channels and ``block_len=8192``, each
   driven per block and in calls of 8 blocks: 44.1 kHz -> 96 kHz fast
   and its guarantee chain (-150 dB relative), each k-block output held
   bit-equal to the per-block output, 44.1 kHz -> 96001 Hz fast and high
   (the interpolator with one window base a block, and in spans of its
-  groups a k-block call; a mid-stream checkpoint resumed bit for bit) and
+  groups a k-block call; a mid-stream checkpoint resumed bit for bit),
   44.1 kHz -> 352800.3 Hz fast and high (the suffix ring and its
   half-band stage; a chain of four executors, so its conv stages fold
-  every 16 terms), each checked against the float64 CPU path at -141 /
-  -143 dB, every new
-  kernel call shape (a block's window of H + L samples, the k windows as
-  one [k*C, H+L] batch) held to its plain version with a record, the
-  steady calls timed (ms a block, Mrops, real-time streams, the device's
-  idle share); then ``oneshot(max_chunk=44100)`` on 30 s of 44.1 kHz ->
-  96001 Hz with its device memory peak.
+  every 16 terms) and 44.1 kHz -> 96 kHz on the df32-FFT engine
+  ``pallas_fft5`` (``df_fft_conv`` on each block), each checked against
+  the float64 CPU path at -141 / -143 dB, every new kernel call shape (a
+  block's window of H + L samples, the k windows as one [k*C, H+L]
+  batch) held to its plain version with a record, the steady calls
+  timed (ms a block, Mrops, real-time streams, the device's idle share);
+  then ``oneshot(max_chunk=44100)`` on 30 s of 44.1 kHz -> 96001 Hz with
+  its device memory peak.
 
 First it pins how the tensor cores add bf16 products into float32
 (``accumulation_pin``: 16- and 32-term sums through ``frac_whole``'s own
@@ -254,10 +270,50 @@ STREAM_PATHS = (
     ("44.1k->352800.3 fast", 44100, 352800.3, {}, CLASS_DB, False,
      "spans"),
     ("44.1k->352800.3 high", 44100, 352800.3, dict(precision="high"),
-     HIGH_CHAIN_DB, False, "spans"))
+     HIGH_CHAIN_DB, False, "spans"),
+    ("44.1k->96k pallas_fft5", 44100, 96000,
+     dict(precision="high", fused=False, conv_engine="pallas_fft5"),
+     CLASS_DB, False, None))
+# the TPU kernel that a stream's df_fft_conv call of each mode replaces
+FFT_REPLACES = {"poly": "r8brain_tpu/ops/pallas_dfft5.py:763",
+                "framed": "r8brain_tpu/ops/pallas_dfft5.py:693",
+                "frames": "r8brain_tpu/ops/pallas_dfft5.py:623"}
 # the chunked oneshot: seconds of input, max_chunk, channels held against
 # the float64 CPU path over the whole length
 CHUNKED_S, CHUNKED_MAX, CHUNKED_CMP = 30, 44100, 1
+
+# the functional transform (resample_fn): the card's gradient against the
+# float64 CPU gradient, relative to its RMS; a twin chain's gradient
+# against the default chain's, relative; the dot-product identity <w,
+# f(x)> = <g, x> in float64, relative to sum |w * f(x)| (the float32
+# roundings of f(x) and g leave ~1e-11 of it; a wrong adjoint, ~1e-4)
+GRAD_DB, TWIN_GRAD_DB, DOT_REL_TOL = -130.0, -120.0, 1e-9
+# the functional phases: (label, src, dst, Resampler keywords, the
+# keywords of the default chain whose gradient a twin chain's is held to,
+# or None for a chain that differentiates through its own kernels)
+FUNC_PATHS = (
+    ("flagship fast", SRC, DST, {}, None),
+    ("ozaki guarantee", SRC, DST,
+     dict(precision="high", conv_engine="ozaki", frac_engine="ozaki"),
+     dict(precision="high")),
+    ("44.1k->96001 fast", 44100, 96001, {}, None))
+# fused=True with the ozaki engines: the fused "high" operator (skT_lo)
+# replaces the guarantee chain, as in the reference, and holds -150 dB re
+# full scale, which the "fast" fused pair (no skT_lo) misses
+FUSED_OZAKI_DB = -150.0
+# fused=True (the pair fused whatever the engines) and fused="poly" at
+# 44.1k -> 96001: (label, src, dst, Resampler keywords, bound dB re full
+# scale, executors)
+FUSED_PATHS = (
+    ("fused=True pallas", SRC, DST, dict(fused=True, conv_engine="pallas"),
+     CLASS_DB, ["FusedUpExec"]),
+    ("fused=True ozaki", SRC, DST,
+     dict(fused=True, precision="high", conv_engine="ozaki",
+          frac_engine="ozaki"), FUSED_OZAKI_DB, ["FusedUpExec"]),
+    ("fused=poly fast", 44100, 96001, dict(fused="poly"), CLASS_DB,
+     ["FusedPolyExec", "ConvExec"]),
+    ("fused=poly high", 44100, 96001, dict(fused="poly", precision="high"),
+     HIGH_CHAIN_DB, ["FusedPolyExec", "ConvExec"]))
 
 # (fp32 CUDA-core, dense bf16 tensor-core, fp64 tensor-core peak FLOP/s,
 # HBM bytes/s) by SKU, at the full power limit (NVIDIA data sheets).  The
@@ -887,6 +943,57 @@ def fft_flops(n: int, f_total: int, poly: bool) -> float:
     return f_total * (2.5 * n * math.log2(n) * (1 + n_out) + 3.0 * n * n_out)
 
 
+def fft_record(label, call, replaces, launches, peaks, card):
+    """One df_fft_conv call of a path against its plain version and the
+    library route (float64 torch.fft), timed, with its bound.  Returns the
+    kernel record."""
+    import torch
+
+    from r8brain_torch.ops.pallas_dfft import df_fft_conv, df_fft_conv_ref
+
+    _peak_f32, _peak_bf16, peak_f64, peak_bytes = peaks
+    (u, plan, n_frames, head), _kw = call
+    y = df_fft_conv(u, plan, n_frames, head)
+    r = df_fft_conv_ref(u, plan, n_frames, head)
+    lib = rfft_conv(u, plan, n_frames, head)
+    rl = lib()
+    torch.cuda.synchronize()
+    rel = max_rel(y, r.double())
+    rel_lib = max_rel(rl, r.double())
+    max_abs = float((y.double() - r.double()).abs().max().item())
+    check(rel <= FFT_REL_TOL, f"df_fft_conv at the {label} path's shape: "
+          f"max rel err {rel:.3e} vs plain")
+    check(rel_lib <= FFT_REL_TOL, f"the rfft route at the {label} "
+          f"path's shape: max rel err {rel_lib:.3e} vs plain")
+    del rl
+    k_ms = cuda_ms(lambda: df_fft_conv(u, plan, n_frames, head), reps=20)
+    p_ms = cuda_ms(lambda: df_fft_conv_ref(u, plan, n_frames, head),
+                   reps=3, warmup=1)
+    lib_ms = cuda_ms(lib, reps=3, warmup=1)
+    n = plan.n
+    f_total = u.shape[0] * n_frames
+    flops = fft_flops(n, f_total, plan.poly)
+    span = min(u.shape[1], (n_frames - 1) * (n - head) + n)
+    nbytes = 4.0 * u.shape[0] * span + 4.0 * y.numel() + 32.0 * n
+    bound_ms, bound_by = bound(flops, nbytes, peak_f64, peak_bytes)
+    mode = plan.mode(head)
+    print(f"timing {card}: df_fft_conv {label} ({mode}, n={n}, head="
+          f"{head}, C={u.shape[0]}, {n_frames} frames a row) kernel "
+          f"{k_ms:.3f} ms ({flops / k_ms * 1e-9:.2f} fp64 TFLOP/s of "
+          f"real-input work), bound {bound_ms:.3f} ms by {bound_by} "
+          f"({flops:.3e} flop over {peak_f64 * 1e-12:g} TFLOP/s, "
+          f"{nbytes / 1e9:.3f} GB), plain df_fft_conv_ref (complex128 "
+          f"torch.fft) {p_ms:.3f} ms, library route (float64 torch.fft."
+          f"rfft / irfft) {lib_ms:.3f} ms; max rel err vs plain "
+          f"{rel:.3e}, library route {rel_lib:.3e}")
+    return {"name": f"df_fft_conv[{label}: {mode}, n={n}]", "route": "cuda",
+            "source": "r8brain_torch/csrc/df_fft_conv.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
 def fft_paths(dev, x, ref, skip, peaks, card):
     """The df32-FFT engines' paths: each counted (launches set to 0 just
     before, read just after), checked at -141 dB against the port's
@@ -896,10 +1003,10 @@ def fft_paths(dev, x, ref, skip, peaks, card):
 
     from r8brain_torch import Resampler
     from r8brain_torch.ops import stages
-    from r8brain_torch.ops.pallas_dfft import df_fft_conv, df_fft_conv_ref
+    from r8brain_torch.ops.pallas_dfft import df_fft_conv
     from r8brain_torch.ops.pallas_frac import frac_whole
 
-    peak_f32, peak_bf16, peak_f64, peak_bytes = peaks
+    peak_f32, peak_bf16, _peak_f64, peak_bytes = peaks
     refs = {(SRC, DST, TB, ATTEN): (ref, skip)}
     x4 = x[:N_CMP].cpu().double()
     records = []
@@ -943,48 +1050,8 @@ def fft_paths(dev, x, ref, skip, peaks, card):
             continue
 
         calls = capture_calls(rs, x, stages)
-        (u, plan, n_frames, head), _kw = calls["df_fft_conv"]
-        y = df_fft_conv(u, plan, n_frames, head)
-        r = df_fft_conv_ref(u, plan, n_frames, head)
-        lib = rfft_conv(u, plan, n_frames, head)
-        rl = lib()
-        torch.cuda.synchronize()
-        rel = max_rel(y, r.double())
-        rel_lib = max_rel(rl, r.double())
-        max_abs = float((y.double() - r.double()).abs().max().item())
-        check(rel <= FFT_REL_TOL, f"df_fft_conv at the {label} path's shape: "
-              f"max rel err {rel:.3e} vs plain")
-        check(rel_lib <= FFT_REL_TOL, f"the rfft route at the {label} "
-              f"path's shape: max rel err {rel_lib:.3e} vs plain")
-        del rl
-        k_ms = cuda_ms(lambda: df_fft_conv(u, plan, n_frames, head), reps=20)
-        p_ms = cuda_ms(lambda: df_fft_conv_ref(u, plan, n_frames, head),
-                       reps=3, warmup=1)
-        lib_ms = cuda_ms(lib, reps=3, warmup=1)
-        n = plan.n
-        f_total = u.shape[0] * n_frames
-        flops = fft_flops(n, f_total, plan.poly)
-        span = min(u.shape[1], (n_frames - 1) * (n - head) + n)
-        nbytes = 4.0 * u.shape[0] * span + 4.0 * y.numel() + 32.0 * n
-        bound_ms, bound_by = bound(flops, nbytes, peak_f64, peak_bytes)
-        mode = plan.mode(head)
-        print(f"timing {card}: df_fft_conv {label} ({mode}, n={n}, head="
-              f"{head}, C={u.shape[0]}, {n_frames} frames a row) kernel "
-              f"{k_ms:.3f} ms ({flops / k_ms * 1e-9:.2f} fp64 TFLOP/s of "
-              f"real-input work), bound {bound_ms:.3f} ms by {bound_by} "
-              f"({flops:.3e} flop over {peak_f64 * 1e-12:g} TFLOP/s, "
-              f"{nbytes / 1e9:.3f} GB), plain df_fft_conv_ref (complex128 "
-              f"torch.fft) {p_ms:.3f} ms, library route (float64 torch.fft."
-              f"rfft / irfft) {lib_ms:.3f} ms; max rel err vs plain "
-              f"{rel:.3e}, library route {rel_lib:.3e}")
-        records.append({
-            "name": f"df_fft_conv[{label}: {mode}, n={n}]", "route": "cuda",
-            "source": "r8brain_torch/csrc/df_fft_conv.cu",
-            "replaces": replaces, "launches": by.get(want, 0),
-            "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
-        del y, r, u, lib
-
+        records.append(fft_record(label, calls["df_fft_conv"], replaces,
+                                  by.get(want, 0), peaks, card))
         if label == "poly":
             records.append(frac_record(
                 "frac_whole[frac stage, skT_lo]", calls["frac_whole"],
@@ -1996,8 +2063,8 @@ def stream_frac_records(label, rs, calls, seen, peaks, card):
         seen.add(shape)
         ex = owner(rs, parts)
         kind = {"HBUpExec": "HB up", "HBDownExec": "HB down",
-                "FusedUpExec": "fused", "ConvExec": "toeplitz conv"}[
-            type(ex).__name__]
+                "FusedUpExec": "fused", "ConvExec": "toeplitz conv",
+                "FracWholeExec": "frac stage"}[type(ex).__name__]
         n_shape = sum(1 for a, _k in calls if a[2:6] == (I, D, O, n_win)
                       and (a[0].shape[0] > CHANNELS) == batch)
         records.append(frac_record(
@@ -2052,7 +2119,29 @@ def stream_ozaki_records(label, rs, calls, seen, dev, peaks, card):
     return records
 
 
-def stream_paths(dev, peaks, card):
+def stream_fft_records(label, calls, seen, peaks, card):
+    """A record (fft_record) for each df_fft_conv call shape of a stream
+    run that no earlier stream phase recorded: (mode, n, head, frames a
+    row, rows); launches: the run's calls of that shape."""
+    records = []
+    for args, kw in calls:
+        u, plan, n_frames, head = args
+        shape = (plan.mode(head), plan.n, head, n_frames, u.shape[0])
+        if shape in seen:
+            continue
+        seen.add(shape)
+        n_shape = sum(1 for a, _k in calls
+                      if (a[1].mode(a[3]), a[1].n, a[3], a[2], a[0].shape[0])
+                      == shape)
+        batch = u.shape[0] > CHANNELS
+        records.append(fft_record(
+            f"stream {label}, {'blocks batched' if batch else 'one block'}, "
+            f"{n_frames} frames", (args, kw), FFT_REPLACES[shape[0]],
+            n_shape, peaks, card))
+    return records
+
+
+def stream_paths(dev, peaks, peaks64, card):
     """The push-mode stream phases (STREAM_PATHS) on CHANNELS channels,
     block_len STREAM_BLOCK: each stream driven per block and in calls of
     STREAM_K blocks, each run counted (launch counts set to 0 just before
@@ -2067,10 +2156,11 @@ def stream_paths(dev, peaks, card):
 
     from r8brain_torch import Resampler, StreamResampler
     from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops.pallas_dfft import df_fft_conv
     from r8brain_torch.ops.pallas_frac import frac_whole
     from r8brain_torch.ops.pallas_ozaki import ozaki_framed
 
-    records, seen_f, seen_o = [], set(), set()
+    records, seen_f, seen_o, seen_d = [], set(), set(), set()
     for label, src, dst, kw, bound_db, rel, tail_path in STREAM_PATHS:
         rs = Resampler(src, dst, TB, ATTEN, device=dev, **kw)
         streams = {k: StreamResampler(rs, STREAM_BLOCK)
@@ -2083,19 +2173,27 @@ def stream_paths(dev, peaks, card):
             x[:N_CMP].cpu().double()).numpy()
         sk = int(EDGE_S * dst)
         ys, runs = {}, {}
+        fft = "conv_engine" in kw and "fft" in kw["conv_engine"]
         for k, st in streams.items():
             frac_whole.launches = 0
             ozaki_framed.launches = 0
-            (y, ocalls), fcalls = record_run(
-                lambda: record_run(lambda: stream_drive(st, x, k),
-                                   (stages,), "ozaki_framed"),
+            df_fft_conv.launches = 0
+            ((y, dcalls), ocalls), fcalls = record_run(
+                lambda: record_run(
+                    lambda: record_run(lambda: stream_drive(st, x, k),
+                                       (stages,), "df_fft_conv"),
+                    (stages,), "ozaki_framed"),
                 (stages, fused, hb_cascade), "frac_whole")
             torch.cuda.synchronize()
             got_f, got_o = frac_whole.launches, ozaki_framed.launches
+            got_d = df_fft_conv.launches
             check(got_f == len(fcalls) and got_o == len(ocalls)
                   and got_f + got_o > 0, f"stream {label} k={k}: "
                   f"frac_whole {got_f} / ozaki_framed {got_o} launches for "
                   f"{len(fcalls)} / {len(ocalls)} calls")
+            check(got_d == len(dcalls) and (got_d > 0) == fft,
+                  f"stream {label} k={k}: df_fft_conv {got_d} launches "
+                  f"for {len(dcalls)} calls")
             m = y.shape[1]
             check(y.shape[0] == CHANNELS and m > sk, f"stream {label} "
                   f"k={k} output shape {tuple(y.shape)}")
@@ -2113,14 +2211,15 @@ def stream_paths(dev, peaks, card):
                   f"channels vs port f64 CPU oneshot {db:.2f} dB "
                   f"{'relative' if rel else 're full scale'} (bound "
                   f"{bound_db:g}); launches frac_whole {got_f}, "
-                  f"ozaki_framed {got_o}; interpolator paths {paths}")
+                  f"ozaki_framed {got_o}, df_fft_conv {got_d}; "
+                  f"interpolator paths {paths}")
             check(db <= bound_db, f"stream {label} k={k}: {db:.2f} dB "
                   f"misses {bound_db:g}")
             if tail_path is not None:
                 want = "single" if k == 1 else tail_path
                 check(set(paths) == {want}, f"stream {label} k={k}: "
                       f"interpolator paths {paths}, want only {want}")
-            ys[k], runs[k] = y, (fcalls, ocalls)
+            ys[k], runs[k] = y, (fcalls, ocalls, dcalls)
         y1, yk = ys[1], ys[STREAM_K]
         m = min(y1.shape[1], yk.shape[1])
         same = y1.shape == yk.shape and torch.equal(y1, yk)
@@ -2133,12 +2232,14 @@ def stream_paths(dev, peaks, card):
                   f"per-block output")
         del ys, y1, yk
         for k in (1, STREAM_K):
-            fcalls, ocalls = runs[k]
+            fcalls, ocalls, dcalls = runs[k]
             records += stream_frac_records(label, rs, fcalls, seen_f,
                                            peaks, card)
             records += stream_ozaki_records(label, rs, ocalls, seen_o, dev,
                                             peaks, card)
-        del runs, fcalls, ocalls
+            records += stream_fft_records(label, dcalls, seen_d, peaks64,
+                                          card)
+        del runs, fcalls, ocalls, dcalls
         torch.cuda.empty_cache()
         if label == "44.1k->96001 fast":
             # a mid-stream checkpoint, resumed in a fresh stream
@@ -2224,6 +2325,304 @@ def chunked_oneshot(dev, card):
     check(peak / 1e9 <= PEAK_GB, f"chunked oneshot: {peak / 1e9:.2f} GB")
     del x, y
     torch.cuda.empty_cache()
+
+
+def adjoint_record(name, call, ex, launches, peaks, card):
+    """frac_whole's adjoint at one backward call's shape (``call``: the
+    rows C and the forward's operator, I, D, O, n_win and fold; the kernel
+    runs on I' = O, D' = ceil(D/I)*O, O' = I against the re-blocked
+    operator, as the backward launches it) on a seeded upstream gradient;
+    ``launches``: that call shape's launches in the gradient run.  Against
+    its plain model
+    (within MODEL_REL_TOL of max |xbar|) and its float64 product
+    (KERNEL_REL_TOL) in channel chunks, timed beside the plain version and
+    the library call F.conv_transpose1d (float32, TF32 off, in
+    library_call's layout: the transpose of its F.conv1d).  Returns the
+    kernel record."""
+    import torch
+    import torch.nn.functional as F
+
+    from r8brain_torch.ops.pallas_frac import (adjoint_geometry,
+                                               adjoint_parts, frac_whole,
+                                               frac_whole_ref, operator_parts)
+
+    C, parts, I, D, O, n_win, kc = call
+    skT, lo = exec_operator(ex, parts)
+    Ia, Da, Oa, K = adjoint_geometry(I, D, O)
+    adj = adjoint_parts(parts, I, D, O)
+    adj64 = adjoint_parts(operator_parts(
+        skT.double(), None if lo is None else lo.double()), I, D, O)
+    dev = parts.device
+    n_adj = n_win + K - 1
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    gy = torch.rand((C, n_win * O), generator=g, device=dev) * 2 - 1
+    gyp = F.pad(gy, ((K - 1) * O, (K - 1) * O))
+    chunks = channel_chunks(C, n_adj * Oa)
+    y = frac_whole(gyp, adj, Ia, Da, Oa, n_adj, kc=kc)
+    e_m = e_r = scale = 0.0
+    for c0, c1 in chunks:
+        m = frac_whole_ref(gyp[c0:c1], adj, Ia, Da, Oa, n_adj, kc=kc)
+        r = frac_whole_ref(gyp[c0:c1].double(), adj64, Ia, Da, Oa, n_adj)
+        yc = y[c0:c1].double()
+        e_m = max(e_m, float((yc - m.double()).abs().max().item()))
+        e_r = max(e_r, float((yc - r).abs().max().item()))
+        scale = max(scale, float(r.abs().max().item()))
+        del m, r, yc
+    del y
+    err_m, err = e_m / scale, e_r / scale
+    check(err_m <= MODEL_REL_TOL, f"{name}: {err_m:.3e} of max |xbar| from "
+          f"the plain model (tol {MODEL_REL_TOL:.2e})")
+    check(err <= KERNEL_REL_TOL, f"{name}: max rel err {err:.3e} vs f64")
+    k_ms = cuda_ms(lambda: frac_whole(gyp, adj, Ia, Da, Oa, n_adj, kc=kc),
+                   reps=10)
+    p_ms = cuda_ms(lambda: [frac_whole_ref(gyp[c0:c1], adj, Ia, Da, Oa,
+                                           n_adj, kc=kc)
+                            for c0, c1 in chunks], reps=2, warmup=1)
+    u = gy.reshape(C, n_win, O).transpose(1, 2).contiguous()
+    wt = skT.float().T.contiguous()[:, None, :]
+    lib_ms = cuda_ms(lambda: F.conv_transpose1d(u, wt, stride=I), reps=3,
+                     warmup=1)
+    del u, gyp, gy
+    torch.cuda.empty_cache()
+    R = C * n_adj
+    nnz = int((skT != 0).sum().item())
+    nnz_lo = None if lo is None else int((lo != 0).sum().item())
+    io = 4.0 * (C * ((n_adj - 1) * Ia + Da) + R * Oa)
+    (bound_ms, bound_by, form), simt, split = frac_bounds(R, nnz, nnz_lo, io,
+                                                          Da, Oa, peaks)
+    print(f"timing {card}: {name} I'={Ia} D'={Da} O'={Oa} C={C} "
+          f"n_win={n_adj} (forward I={I} D={D} O={O}), fold {kc}"
+          f"{', skT_lo' if lo is not None else ''}: kernel {k_ms:.3f} ms, "
+          f"bound {bound_ms:.3f} ms by {bound_by} ({form}; CUDA cores "
+          f"{simt[0]:.3f} ms by {simt[1]}, bf16 split {split[0]:.3f} ms by "
+          f"{split[1]}; over the operator's {nnz} nonzeros of {Da * Oa}), "
+          f"plain frac_whole_ref {p_ms:.3f} ms ({len(chunks)} channel "
+          f"chunks), F.conv_transpose1d f32 {lib_ms:.3f} ms; max rel err "
+          f"{err:.3e} vs f64 (tol {KERNEL_REL_TOL:g}), {err_m:.3e} of max "
+          f"|xbar| from the model (tol {MODEL_REL_TOL:.2e}); adjoint "
+          f"launches a gradient {launches}")
+    return {"name": name, "route": "cuda",
+            "source": "r8brain_torch/csrc/frac_whole.cu",
+            "replaces": "r8brain_tpu/ops/pallas_frac.py:111",
+            "launches": launches, "max_abs_err": e_r, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+def record_adjoints(fn):
+    """fn() with every backward call of frac_whole recorded: (rows, the
+    forward's operator buffer, I, D, O, n_win, fold, the kernel launches
+    the call made).  Returns (fn's result, calls)."""
+    from r8brain_torch.ops import pallas_frac
+    from r8brain_torch.ops.pallas_frac import _operator, frac_whole
+
+    calls, real = [], pallas_frac._adjoint
+
+    def rec(gy, parts, I, D, O, n_win, kc, L):
+        before = frac_whole.launches
+        out = real(gy, parts, I, D, O, n_win, kc, L)
+        calls.append((gy.shape[0], _operator(parts), I, D, O, n_win, kc,
+                      frac_whole.launches - before))
+        return out
+
+    pallas_frac._adjoint = rec
+    try:
+        return fn(), calls
+    finally:
+        pallas_frac._adjoint = real
+
+
+def operator_owner(rs, parts):
+    """(executor of rs, its packed operator buffer) for ``parts``: the
+    buffer itself or, for an operator of a twin (the same plan and class
+    on the default engines), the buffer of rs that holds the same
+    values."""
+    import torch
+
+    for ex in rs.execs:
+        for p, _h, _l in OPERATOR_BUFFERS:
+            b = getattr(ex, p, None)
+            if b is parts or (isinstance(b, torch.Tensor)
+                              and b.shape == parts.shape
+                              and b.dtype == parts.dtype
+                              and torch.equal(b, parts)):
+                return ex, b
+    raise SmokeFailure("a backward frac_whole call got an operator of no "
+                       "executor")
+
+
+def grad_fn(f, w):
+    """x -> grad_x <w, f(x)> (torch.func.grad)."""
+    import torch
+
+    return torch.func.grad(lambda v: (w * f(v)).sum())
+
+
+def functional_paths(dev, peaks, card):
+    """The functional transform (FUNC_PATHS) at CHANNELS x 1 s: resample_fn
+    bit-equal to oneshot; torch.func.grad of <w, f(x)> for a seeded w,
+    counted (launch counts set to 0 just before it, read just after: the
+    backward's frac_whole launches are the adjoint's, each backward call
+    recorded), held against the float64 CPU gradient on N_CMP channels
+    (GRAD_DB relative), a twin chain's also against its default chain's
+    on the card (TWIN_GRAD_DB), and the dot-product identity
+    (DOT_REL_TOL); forward and forward plus backward timed.  Each adjoint
+    call shape of that gradient run gets a record (adjoint_record) with
+    its launches in the run.  Returns the records."""
+    import torch
+
+    from r8brain_torch import Resampler, resample_fn
+    from r8brain_torch.ops.pallas_frac import frac_whole
+    from r8brain_torch.ops.pallas_ozaki import ozaki_framed
+
+    records, seen = [], set()
+    for label, src, dst, kw, twin_kw in FUNC_PATHS:
+        x = uniform_input(dev, int(src))
+        rs = Resampler(src, dst, TB, ATTEN, device=dev, **kw)
+        f = resample_fn(rs, x.shape[1])
+        y = f(x)
+        check(torch.equal(y, rs.oneshot(x)), f"functional {label}: "
+              f"resample_fn's forward is not bit-equal to oneshot")
+        g_w = torch.Generator(device=dev).manual_seed(SEED + 1)
+        w = torch.rand(y.shape, generator=g_w, device=dev) * 2 - 1
+        gfun = grad_fn(f, w)
+        frac_whole.launches = frac_whole.adjoint_launches = 0
+        ozaki_framed.launches = 0
+        g, adj_calls = record_adjoints(lambda: gfun(x))
+        torch.cuda.synchronize()
+        n_fw, n_adj = frac_whole.launches, frac_whole.adjoint_launches
+        n_oz = ozaki_framed.launches
+        check(sum(c[-1] for c in adj_calls) == n_adj, f"functional {label}:"
+              f" the backward calls launched {[c[-1] for c in adj_calls]},"
+              f" the adjoint count is {n_adj}")
+        check(tuple(g.shape) == tuple(x.shape)
+              and bool(torch.isfinite(g).all()), f"functional {label}: "
+              f"gradient shape {tuple(g.shape)} or not finite")
+        check(n_adj >= 1, f"functional {label}: the gradient never "
+              f"launched frac_whole's adjoint")
+        if twin_kw is not None:
+            check(n_oz >= 1, f"functional {label}: the forward never "
+                  f"launched ozaki_framed")
+        # the float64 CPU gradient (the twin's plan and precision class)
+        rs64 = Resampler(src, dst, TB, ATTEN, dtype=torch.float64,
+                         device="cpu")
+        wc = w[:N_CMP].cpu().double()
+        g64 = grad_fn(resample_fn(rs64, x.shape[1]), wc)(
+            x[:N_CMP].cpu().double())
+        gc = g[:N_CMP].cpu().double()
+        db64 = rms_db(gc - g64) - rms_db(g64)
+        lhs = float((w.double() * y.double()).sum().item())
+        rhs = float((g.double() * x.double()).sum().item())
+        l1 = float((w.double() * y.double()).abs().sum().item())
+        dot = abs(lhs - rhs) / l1
+        line = (f"functional {label}: resample_fn(Resampler({src}, {dst}, "
+                f"{TB}, {ATTEN}{''.join(f', {a}={b!r}' for a, b in kw.items())}"
+                f"), {x.shape[1]}) on {CHANNELS} x {x.shape[1]}: forward "
+                f"bit-equal to oneshot; torch.func.grad vs the float64 CPU "
+                f"gradient on {N_CMP} channels {db64:.2f} dB relative (bound "
+                f"{GRAD_DB:g}); <w, f(x)> - <g, x> = {abs(lhs - rhs):.3e}: "
+                f"{dot:.3e} of sum |w f(x)| (tol {DOT_REL_TOL:g}), "
+                f"{abs(lhs - rhs) / abs(lhs):.3e} of |<w, f(x)>|; launches "
+                f"in the gradient: frac_whole {n_fw} ({n_adj} adjoint), "
+                f"ozaki_framed {n_oz}")
+        if twin_kw is not None:
+            rs_d = Resampler(src, dst, TB, ATTEN, device=dev, **twin_kw)
+            f_d = resample_fn(rs_d, x.shape[1])
+            g_d = grad_fn(f_d, w)(x)
+            db_t = rms_db((g - g_d).double()) - rms_db(g_d)
+            line += (f"; twin gradient vs the default chain's on the card "
+                     f"{db_t:.2f} dB relative (bound {TWIN_GRAD_DB:g})")
+            check(db_t <= TWIN_GRAD_DB, f"functional {label}: twin gradient "
+                  f"{db_t:.2f} dB from the default chain's")
+            del g_d
+        else:
+            rs_d, f_d = rs, f
+        print(line)
+        check(db64 <= GRAD_DB, f"functional {label}: gradient "
+              f"{db64:.2f} dB from the float64 gradient")
+        check(dot <= DOT_REL_TOL, f"functional {label}: the dot-product "
+              f"identity misses by {dot:.3e}")
+        one_ms = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
+        f_ms = cuda_ms(lambda: f(x), reps=5, warmup=1)
+        g_ms = cuda_ms(lambda: gfun(x), reps=5, warmup=1)
+        print(f"timing {card}: functional {label}: oneshot {one_ms:.3f} ms, "
+              f"resample_fn forward {f_ms:.3f} ms, forward + backward "
+              f"(torch.func.grad) {g_ms:.3f} ms = {g_ms / one_ms:.2f} x the "
+              f"oneshot")
+        del y, g, g64, gc
+        # each adjoint call shape of the gradient run (a twin's operators
+        # are its default chain's, by value), with its launches there
+        for C, parts, I, D, O, n_win, kc, _n in adj_calls:
+            key = (I, D, O, n_win, parts.shape[2], kc)
+            if key in seen:
+                continue
+            seen.add(key)
+            ex, buf = operator_owner(rs_d, parts)
+            n_key = sum(c[-1] for c in adj_calls
+                        if c[2:7] == (I, D, O, n_win, kc))
+            records.append(adjoint_record(
+                f"frac_whole adjoint[{type(ex).__name__} I={I} D={D} O={O}"
+                f"{', skT_lo' if parts.shape[2] == 4 else ''}, {label}"
+                f"{', twin' if twin_kw is not None else ''}]",
+                (C, buf, I, D, O, n_win, kc), ex, n_key, peaks, card))
+        del adj_calls, x, w, rs, rs_d, f, f_d, gfun
+        torch.cuda.empty_cache()
+    return records
+
+
+def fused_paths(dev, card):
+    """fused=True and fused="poly" (FUSED_PATHS) through oneshot on
+    CHANNELS x 1 s: the executor list, counted (frac_whole launched),
+    held against the port's float64 CPU path on N_CMP channels, timed
+    beside the default chain of the same plan and precision; the first
+    call (for fused="poly" its operator build) on the host clock."""
+    import torch
+
+    from r8brain_torch import Resampler
+    from r8brain_torch.ops.pallas_frac import frac_whole
+
+    refs = {}
+    for label, src, dst, kw, bound_db, names in FUSED_PATHS:
+        x = uniform_input(dev, int(src))
+        if (src, dst) not in refs:
+            refs[(src, dst)] = f64_reference(src, dst, x)
+        ref, sk = refs[(src, dst)], int(EDGE_S * dst)
+        rs = Resampler(src, dst, TB, ATTEN, device=dev, **kw)
+        got = [type(e).__name__ for e in rs.execs]
+        check(got == names, f"{label}: executors {got}, want {names}")
+        t0 = time.perf_counter()
+        rs.oneshot(x)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        frac_whole.launches = 0
+        out = rs.oneshot(x)
+        torch.cuda.synchronize()
+        launches = frac_whole.launches
+        check(bool(torch.isfinite(out).all()), f"{label}: not finite")
+        check(launches >= 1, f"{label}: never launched frac_whole")
+        db = rms_db(out[:N_CMP].cpu().double().numpy()[:, sk:-sk]
+                    - ref[:, sk:-sk])
+        rel = db - rms_db(ref[:, sk:-sk])
+        line = (f"fused path {label}: Resampler({src}, {dst}, {TB}, {ATTEN}"
+                f"{''.join(f', {a}={b!r}' for a, b in kw.items())}) -> "
+                f"{got}, {CHANNELS} x {x.shape[1]} -> {tuple(out.shape)}; "
+                f"{N_CMP} channels vs port f64 CPU path {db:.2f} dB re full "
+                f"scale ({rel:.2f} relative; bound {bound_db:g}); frac_whole "
+                f"launches {launches}; first call {first_ms:.1f} ms (host "
+                f"clock)")
+        del out
+        print(line)
+        check(db <= bound_db, f"{label}: {db:.2f} dB misses {bound_db:g}")
+        one_ms = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
+        kw_d = {k: v for k, v in kw.items() if k == "precision"}
+        rs_d = Resampler(src, dst, TB, ATTEN, device=dev, **kw_d)
+        d_ms = cuda_ms(lambda: rs_d.oneshot(x), reps=5, warmup=1)
+        print(f"timing {card}: fused path {label} oneshot {one_ms:.3f} ms = "
+              f"{1e-6 * CHANNELS * x.shape[1] / (one_ms * 1e-3):.1f} Mrops; "
+              f"the default chain ({[type(e).__name__ for e in rs_d.execs]}"
+              f") {d_ms:.3f} ms in the same run")
+        del x, rs, rs_d
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2354,8 +2753,14 @@ def main() -> int:
     kernels += stage_paths(dev, peaks, card)
     kernels += ozaki_paths(dev, peaks, card)
 
+    # the functional transform (gradients through frac_whole's adjoint and
+    # through a twin), then fused=True and fused="poly"
+    kernels += functional_paths(dev, peaks, card)
+    fused_paths(dev, card)
+
     # the push-mode streams at the serving size, then the chunked oneshot
-    kernels += stream_paths(dev, peaks, card)
+    kernels += stream_paths(dev, peaks, (peak_f32, peak_bf16, peak_f64,
+                                         peak_bytes), card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

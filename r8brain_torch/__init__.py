@@ -9,6 +9,9 @@ Public API:
   * Resampler / Resampler16 / Resampler16IR / Resampler24 -- batched
     [channels, time] converters (models.resampler).  Entry points run on
     ``device="cuda"`` unless the caller passes ``device="cpu"``.
+  * resample_fn -- the resampler as a linear, differentiable function of
+    a fixed-length input (functional): torch.func.vmap / grad / vjp /
+    jvp and backward() compose with it.
   * StreamResampler -- push-mode streaming over a Resampler: process /
     flush, whole-block device calls (one block or k at once),
     get_state / set_state checkpoints (models.stream).
@@ -26,6 +29,7 @@ Public API:
 """
 
 from .convert import plan_from_reference, stream_state_from_reference
+from .functional import resample_fn
 from .design.lpfilter import LINEAR_PHASE, MIN_PHASE, build_lp_filter, get_lp_filter
 from .models.plan import Plan, make_plan
 from .models.resampler import (Resampler, Resampler16, Resampler16IR,
@@ -50,6 +54,7 @@ __all__ = [
     "Resampler16IR",
     "Resampler24",
     "StreamResampler",
+    "resample_fn",
     "FusedUpExec",
     "frac_whole",
     "frac_whole_ref",

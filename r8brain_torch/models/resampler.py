@@ -23,14 +23,17 @@ half-band and interpolator stages in the split form, with the df32
 inter-stage carry under ``precision="high"``) and the df32-FFT conv
 engines (``"fft"``, ``"pallas_fft"``, ``"pallas_fft4"``,
 ``"pallas_fft5"``), before the ``im2col``, ``pallas``, ``conv`` or
-``ozaki`` interpolator.  ``oneshot(max_chunk=...)`` over more than one
-chunk runs through the push-mode stream (models/stream.py).
-``fused="poly"`` raises NotImplementedError naming the ROADMAP.md item
-that ports it; nothing falls back to another path.
+``ozaki`` interpolator.  ``fused=True`` fuses whatever the engines, ``fused="poly"`` also the
+[conv, polynomial-frac] pair (ops/poly_fused.py).
+``oneshot(max_chunk=...)`` over more than one chunk runs through the
+push-mode stream (models/stream.py); ``functional.resample_fn`` is the
+differentiable transform over the same chain.  Nothing falls back to
+another path.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Optional
@@ -39,15 +42,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.fused import fuse_stage_list
+from ..ops.fused import FusedUpExec, fuse_stage_list
+from ..ops.hb_cascade import HBUpCascadeExec
 from ..ops.pallas_frac import KC, KC_LO
-from ..ops.stages import ConvExec, build_exec
+from ..ops.stages import ConvExec, _df_collapse_input, build_exec
 from ..utils.trace import trace_plan
 from .lengths import chain_in_for_out, chain_max_out_len, chain_out_len
 from .plan import Plan, make_plan
 
 __all__ = ["Resampler", "Resampler16", "Resampler16IR", "Resampler24",
-           "run_chain"]
+           "run_chain", "set_folds"]
 
 
 def resolve_device(device) -> torch.device:
@@ -67,12 +71,24 @@ def resolve_device(device) -> torch.device:
 #: on an H100 at 32-term folds, -141.83 at 16 (tools/torch_chain_error.py;
 #: ROADMAP.md section 3).  Shorter chains hold the class at 32.
 LONG_CHAIN = 4
+#: A float32 chain of this many executors or more that ends in a half-band
+#: cascade folds every fused, conv and cascade product every 16 terms,
+#: under "fast" and "high": 96k -> 2.8224M ([fused pair, conv, cascade])
+#: read -140.60 dB re full scale on an H100 at 32-term folds, -142.35 with
+#: the conv and cascade at 16 and -143.54 with all three
+#: (tools/torch_chain_error.py); its C++ golden read -140.39 / -140.69
+#: (tests/test_torch_cuda.py::test_goldens_on_card).
+CASCADE_TAIL = 3
 
 
-def set_conv_fold(execs, kc: int) -> None:
-    """Give every ConvExec of ``execs`` the frac_whole fold ``kc``."""
+def set_folds(execs, conv_kc: int, kc=None) -> None:
+    """Give every ConvExec of ``execs`` the frac_whole fold ``conv_kc`` and,
+    where ``kc`` is given, every fused pair and cascade the fold ``kc``."""
     for e in execs:
         if isinstance(e, ConvExec):
+            e.kc = conv_kc
+        elif kc is not None and isinstance(e, (FusedUpExec,
+                                               HBUpCascadeExec)):
             e.kc = kc
 
 
@@ -87,7 +103,9 @@ def run_chain(execs, x: torch.Tensor, df_carry: bool = False, x_lo=None,
     (hi float32, lo bfloat16) pair buffers plus the logical count; the
     first stage only emits (there is no residual to consume), the last
     only consumes, so the chain ends with one float32 output.  Every
-    executor build_exec returns has a carry path.  A streamed piece of a
+    executor build_exec returns has a carry path; before one without
+    (the fused executors of ``fused=True``) the pair collapses, the
+    seam's rounding without the carry.  A streamed piece of a
     chain carries the pair across its own ends: x_lo is the residual
     stream entering the first stage, and emit_pair=True returns the last
     stage's (hi, lo) pair (lo None where the stage collapses)."""
@@ -95,8 +113,12 @@ def run_chain(execs, x: torch.Tensor, df_carry: bool = False, x_lo=None,
     if df_carry:
         h, l = x, x_lo
         for i, e in enumerate(execs):
-            h, l, n = e.apply_df(h, l, n,
-                                 emit_pair=emit_pair or i < len(execs) - 1)
+            if hasattr(e, "apply_df"):
+                h, l, n = e.apply_df(
+                    h, l, n, emit_pair=emit_pair or i < len(execs) - 1)
+            else:  # no carry path (the fused executors): one rounding
+                h, l = e(_df_collapse_input(h, l, n)), None
+                n = h.shape[1]
         h = h if h.shape[1] == n else h[:, :n]
         if not emit_pair:
             return h
@@ -130,8 +152,13 @@ class Resampler(nn.Module):
         fused: "auto" composes each [conv(up), whole-frac] pair of the
         plan into one operator (ops/fused.py) and, in float32, each run of
         two or more half-band upsamplers (ops/hb_cascade.py), when both
-        engines are "auto", and runs the other stages one by one; False
-        runs every stage one by one.
+        engines are "auto", and runs the other stages one by one; True
+        (any truthy value) does the same whatever the engines, building
+        the other stages with them (the fused pair always runs
+        frac_whole; the cascade needs a matmul conv engine); "poly" also
+        fuses each [conv, polynomial-frac] pair into one drifting operator
+        in float32 on the matmul engines (ops/poly_fused.py; opt-in, as
+        in the reference); False runs every stage one by one.
 
         conv_engine: "auto" (fused; unfused, "toeplitz" in float32 and
         "fft" in float64); the float32 matmul engines "toeplitz" (the
@@ -161,10 +188,6 @@ class Resampler(nn.Module):
         device: where the operators live and the contraction runs; "cuda"
         (the default) raises RuntimeError when CUDA is not available."""
         super().__init__()
-        if fused not in ("auto", False):
-            raise NotImplementedError(
-                f"fused={fused!r} is not ported yet (ROADMAP.md queue 1 "
-                f"item 11, fused='poly'); 'auto' and False run")
         if plan is not None and not isinstance(plan, Plan):
             raise TypeError("plan must be an r8brain_torch Plan; convert a "
                             "reference plan with convert.plan_from_reference")
@@ -177,19 +200,26 @@ class Resampler(nn.Module):
         self.frac_engine = frac_engine
         trace_plan(self.plan, context=f"resampler dtype={dtype} "
                                       f"precision={precision}")
-        execs = None
-        if fused == "auto" and conv_engine == "auto" \
-                and frac_engine == "auto":
-            execs = fuse_stage_list(self.plan, dtype, precision)
+        build = functools.partial(build_exec, conv_engine=conv_engine,
+                                  frac_engine=frac_engine)
+        fuse_poly = fused == "poly"
+        if fused == "auto":
+            fused = conv_engine == "auto" and frac_engine == "auto"
+        execs = fuse_stage_list(self.plan, dtype, precision, build,
+                                engine=conv_engine,
+                                poly=fuse_poly) if fused else None
         if execs is None:
-            execs = [build_exec(s, dtype, precision, conv_engine, frac_engine)
-                     for s in self.plan.stages]
-        #: the conv stages' fold (LONG_CHAIN); a stream's own sub-chain
-        #: executors take it too
-        self.conv_kc = KC_LO if (precision == "fast"
-                                 and dtype == torch.float32
-                                 and len(execs) >= LONG_CHAIN) else KC
-        set_conv_fold(execs, self.conv_kc)
+            execs = [build(s, dtype, precision) for s in self.plan.stages]
+        #: the conv stages' fold (LONG_CHAIN, CASCADE_TAIL) and that of the
+        #: fused pairs and cascades (CASCADE_TAIL, else None: their own);
+        #: a stream's own sub-chain executors take them too
+        f32 = dtype == torch.float32
+        tail = (f32 and len(execs) >= CASCADE_TAIL
+                and isinstance(execs[-1], HBUpCascadeExec))
+        self.fold_kc = KC_LO if tail else None
+        self.conv_kc = KC_LO if tail or (precision == "fast" and f32 and
+                                         len(execs) >= LONG_CHAIN) else KC
+        set_folds(execs, self.conv_kc, self.fold_kc)
         self.execs = nn.ModuleList(execs)
         self.df_carry = (precision == "high" and conv_engine == "ozaki"
                          and dtype == torch.float32

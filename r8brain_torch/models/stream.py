@@ -34,6 +34,7 @@ total input (float64: to its rounding; tests/test_torch_stream.py).
 
 from __future__ import annotations
 
+import functools
 import math
 from collections import Counter
 from typing import Optional
@@ -49,7 +50,7 @@ from ..ops.stages import build_exec, poly_contract
 from ..parallel.sharding import chain_input_span, chain_shift_period
 from .lengths import chain_out_len, frac_positions, stage_out_len
 from .plan import FracStage, Plan
-from .resampler import Resampler, run_chain, set_conv_fold
+from .resampler import Resampler, run_chain, set_folds
 
 __all__ = ["StreamResampler"]
 
@@ -83,22 +84,22 @@ def _sub_execs(rs: Resampler, stages):
     """Executors for ``stages``, a run of ``rs.plan.stages``: the parent's
     own when the run is the whole plan or the parent runs one executor a
     stage; else a fused sub-plan when the parent fused, or one
-    ``build_exec`` a stage with the parent's engines (and its conv
-    fold)."""
+    ``build_exec`` a stage with the parent's engines (and its folds)."""
     plan_stages = rs.plan.stages
     if len(rs.execs) == len(plan_stages):
         i0 = next(i for i, s in enumerate(plan_stages) if s is stages[0])
         return list(rs.execs[i0 : i0 + len(stages)])
     if len(stages) == len(plan_stages):
         return list(rs.execs)
+    build = functools.partial(build_exec, conv_engine=rs.conv_engine,
+                              frac_engine=rs.frac_engine)
     execs = None
     if any(isinstance(e, (FusedUpExec, HBUpCascadeExec)) for e in rs.execs):
         execs = fuse_stage_list(_subplan(rs.plan, stages), rs.dtype,
-                                rs.precision)
+                                rs.precision, build, engine=rs.conv_engine)
     if execs is None:
-        execs = [build_exec(s, rs.dtype, rs.precision, rs.conv_engine,
-                            rs.frac_engine) for s in stages]
-    set_conv_fold(execs, rs.conv_kc)
+        execs = [build(s, rs.dtype, rs.precision) for s in stages]
+    set_folds(execs, rs.conv_kc, rs.fold_kc)
     return [e.to(rs.device) for e in execs]
 
 

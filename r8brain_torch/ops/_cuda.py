@@ -18,6 +18,9 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+from torch.autograd import forward_ad
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -81,3 +84,18 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return lib
+
+
+def no_gradient(name: str, *tensors) -> None:
+    """Raise when a kernel that has no gradient is handed a tensor that
+    autograd or torch.func differentiates: its output would silently drop
+    that path's share of the gradient.  Chains on such kernels
+    differentiate through ``functional.resample_fn``'s twin."""
+    for t in tensors:
+        if t is not None and ((torch.is_grad_enabled() and t.requires_grad)
+                              or forward_ad.unpack_dual(t).tangent
+                              is not None):
+            raise RuntimeError(
+                f"{name} has no gradient: differentiate the chain through "
+                f"r8brain_torch.resample_fn, whose backward runs a twin "
+                f"on the default engines")

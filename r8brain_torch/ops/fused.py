@@ -23,7 +23,9 @@ a CUDA tensor, its plain PyTorch version on a CPU tensor.
 
 Applicability: plan == [ConvStage(up, down=1), FracStage(whole)].
 ``fuse_stage_list`` also replaces each run of two or more float32
-half-band upsamplers by one ``HBUpCascadeExec`` (ops/hb_cascade.py).
+half-band upsamplers by one ``HBUpCascadeExec`` (ops/hb_cascade.py) and,
+when asked, each [conv, poly-frac] pair by a ``FusedPolyExec``
+(ops/poly_fused.py).
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from ..models.lengths import chain_out_len
 from ..models.plan import ConvStage, FracStage, Plan
 from ..parallel.sharding import chain_shift_period
 from .hb_cascade import HBUpCascadeExec, hb_up_run_fusable
-from .pallas_frac import frac_whole, operator_parts
+from .pallas_frac import KC, frac_whole, operator_parts
+from .poly_fused import FusedPolyExec
 from .stages import build_exec
 
 __all__ = ["can_fuse", "fuse_stage_list", "FusedUpExec"]
@@ -55,36 +58,56 @@ def can_fuse(plan: Plan) -> bool:
     return len(s) == 2 and _pair_fusable(s[0], s[1])
 
 
-def fuse_stage_list(plan: Plan, dtype, precision):
+def _poly_pair_fusable(a, b, dtype, engine, poly) -> bool:
+    """[conv(up, down=1), poly-frac] fuses into a FusedPolyExec when asked
+    (``poly``), in float32 on the matmul engines (float64 keeps the
+    two-stage gather chain).  Opt-in, as in the reference: its drifting
+    operator is built per input length."""
+    return (poly and isinstance(a, ConvStage) and a.down == 1
+            and isinstance(b, FracStage) and not b.is_whole
+            and dtype == torch.float32
+            and engine in ("auto", "toeplitz", "matmul"))
+
+
+def fuse_stage_list(plan: Plan, dtype, precision, build=build_exec,
+                    engine: str = "auto", poly: bool = False):
     """Executor list for the plan with every run of >= 2 half-band
-    upsamplers replaced by an HBUpCascadeExec (float32), every adjacent
-    [conv(up, down=1), whole-frac] pair by a FusedUpExec and every other
-    stage given its own executor (``build_exec``).  A pair or run
-    mid-chain is valid: its input stream starts at zero of its own input,
-    the fused executors' stream-start semantics.  Returns None if nothing
-    fuses: the caller then builds the stages one by one."""
+    upsamplers replaced by an HBUpCascadeExec (float32 matmul engines),
+    every adjacent [conv(up, down=1), whole-frac] pair by a FusedUpExec
+    (any dtype and engine: on the card it always runs frac_whole), with
+    ``poly`` every [conv(down=1), poly-frac] pair by a FusedPolyExec
+    (float32 matmul engines), and every other stage given its own
+    executor by ``build(stage, dtype, precision)`` (``build_exec`` with
+    the caller's engines).  ``engine`` is the conv engine the caller asked
+    for.  A pair or run mid-chain is valid: its input stream starts at
+    zero of its own input, the fused executors' stream-start semantics.
+    Returns None if nothing fuses: the caller then builds the stages one
+    by one."""
     stages = plan.stages
     execs = []
     fused_any = False
     i = 0
     while i < len(stages):
-        hb_run = hb_up_run_fusable(stages, i, dtype)
+        hb_run = hb_up_run_fusable(stages, i, dtype, engine)
+        nxt = stages[i + 1] if i + 1 < len(stages) else None
         if hb_run:
             execs.append(HBUpCascadeExec(stages[i : i + hb_run], dtype))
-            fused_any = True
             i += hb_run
-        elif i + 1 < len(stages) and _pair_fusable(stages[i],
-                                                   stages[i + 1]):
+        elif nxt is not None and _pair_fusable(stages[i], nxt):
             sub = Plan(plan.src_rate, plan.dst_rate, plan.trans_band,
-                       plan.atten, plan.phase,
-                       (stages[i], stages[i + 1]),
-                       stages[i + 1].latency_frac_out)
+                       plan.atten, plan.phase, (stages[i], nxt),
+                       nxt.latency_frac_out)
             execs.append(FusedUpExec(sub, dtype, precision))
-            fused_any = True
+            i += 2
+        elif nxt is not None and _poly_pair_fusable(stages[i], nxt, dtype,
+                                                    engine, poly):
+            execs.append(FusedPolyExec(stages[i], nxt, dtype, precision))
             i += 2
         else:
-            execs.append(build_exec(stages[i], dtype, precision))
+            execs.append(build(stages[i], dtype, precision))
             i += 1
+            continue
+        fused_any = True
     return execs if fused_any else None
 
 
@@ -221,6 +244,8 @@ class FusedUpExec(nn.Module):
         # the operator in the kernel's form (float32: bf16 slices), once
         self.register_buffer("sk_parts", operator_parts(self.skT,
                                                         self.skT_lo))
+        #: terms a frac_whole big-pair partial sums before its fold
+        self.kc = KC
 
     def out_len(self, n_in: int) -> int:
         return chain_out_len(self.stages, n_in)
@@ -242,7 +267,8 @@ class FusedUpExec(nn.Module):
         s0 = max(0, self.a0)
         if N > s0:
             xp[:, s0 - self.a0 : N - self.a0] = x[:, s0:]
-        y = frac_whole(xp, self.sk_parts, p_in, self.D, p_out, n_cyc)
+        y = frac_whole(xp, self.sk_parts, p_in, self.D, p_out, n_cyc,
+                       kc=self.kc)
         if self.corr_js is not None:
             qw = self.corr.shape[1]
             xw = x[:, :qw]

@@ -50,12 +50,13 @@ from .stages import HB_BLOCK, _check_dtype, _shifted
 __all__ = ["HBUpCascadeExec", "hb_up_run_fusable", "compose_run"]
 
 
-def hb_up_run_fusable(stages, i, dtype) -> int:
+def hb_up_run_fusable(stages, i, dtype, engine: str = "auto") -> int:
     """Length of the run of HBUpStages from stages[i] that fuses (0 if
-    shorter than 2): float32 only (fuse_stage_list runs under the auto
-    engines alone); float64 keeps the per-stage stencils in the oracle's
-    order."""
-    if dtype != torch.float32:
+    shorter than 2): float32 matmul engines only (the conv engine
+    ``engine`` "auto", "toeplitz" or "matmul", as the reference gates it);
+    float64 keeps the per-stage stencils in the oracle's order."""
+    if dtype != torch.float32 or engine not in ("auto", "toeplitz",
+                                                 "matmul"):
         return 0
     n = 0
     while i + n < len(stages) and isinstance(stages[i + n], HBUpStage):
@@ -160,6 +161,8 @@ class HBUpCascadeExec(nn.Module):
                 T[c - j - minr + b, p + U * b] = v
         self.register_buffer("T", torch.from_numpy(T.astype(np_dt)))
         self.register_buffer("T_parts", operator_parts(self.T))
+        #: terms a frac_whole big-pair partial sums before its fold
+        self.kc = KC
 
         # the left edge: carry each inner stage's edge width through the
         # rest of the run
@@ -226,7 +229,7 @@ class HBUpCascadeExec(nn.Module):
         xb = _shifted(x, self.minr, (n_blocks - 1) * B + self.L_f,
                       self.dtype)
         y = frac_whole(xb, self.T_parts, B, self.L_f, U * B, n_blocks,
-                       kc=KC)
+                       kc=self.kc)
         if self.edge_C is not None:
             E = min(self.E, M)
             y[:, :E] += self._edge(x, self.edge_C[:, :E])

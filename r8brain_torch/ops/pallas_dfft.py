@@ -200,12 +200,15 @@ def df_fft_conv(u: torch.Tensor, plan: DfFFTPlan, n_frames: int,
 
     u: [C, L] float32 with unit stride along time (any row stride).  On a
     CUDA tensor this launches the kernel or raises; on a CPU tensor it is
-    ``df_fft_conv_ref``.  Every kernel launched adds one to
-    ``df_fft_conv.launches`` and to ``df_fft_conv.launches_by[(mode,
-    n)]``, mode "frames" (head 0), "framed" or "poly": one launch a call
+    ``df_fft_conv_ref``.  It has no gradient: an input that autograd or
+    torch.func tracks raises (``_cuda.no_gradient``).  Every kernel
+    launched adds one to ``df_fft_conv.launches`` and to
+    ``df_fft_conv.launches_by[(mode, n)]``, mode "frames" (head 0),
+    "framed" or "poly": one launch a call
     for n <= SMEM_MAX_N; above, three (the four-step's passes) for each
     chunk of transforms that fits the scratch."""
     _check(u, plan, n_frames, head)
+    _cuda.no_gradient("df_fft_conv", u)
     if u.device.type == "cpu":
         return df_fft_conv_ref(u, plan, n_frames, head)
     if u.device.type != "cuda":

@@ -31,6 +31,12 @@ On the flagship operator the model reads -150.7 dB re full scale at
 with two_sum read -144.5 and a single running float32 sum over D = 1027
 terms about -132: the split is what holds the class on tensor cores
 without TF32.
+
+The function is linear in xp, and ``frac_whole`` is differentiable in it
+(torch.autograd and torch.func): its gradient is ``frac_whole`` itself on
+the adjoint geometry (``adjoint_geometry``) against the same operator
+re-blocked (``adjoint_parts``, built once per operator), so on the card
+the backward launches the kernel too.
 """
 
 from __future__ import annotations
@@ -39,13 +45,16 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from . import _cuda
 from .dfloat import two_sum
 from .framing import _frames, _framed_matmul
 
 __all__ = ["KC", "KC_LO", "TILE_K", "split3", "operator_parts",
-           "unpack_parts", "frac_whole", "frac_whole_ref"]
+           "unpack_parts", "adjoint_geometry", "adjoint_parts", "frac_whole",
+           "frac_whole_ref"]
 
 #: Terms per partial sum of the big pair before the two_sum fold (two k16
 #: tensor-core steps).
@@ -255,26 +264,9 @@ def _launcher(dtype):
     return fn
 
 
-def frac_whole(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
-               O: int, n_win: int, kc: int = KC) -> torch.Tensor:
-    """y [C, n_win*O]: y[c, m*O + j] = xp[c, m*I : m*I + D] . skT[:, j]
-    (+ the same dot against skT_lo), for parts = ``operator_parts(skT,
-    skT_lo)`` of xp's dtype on xp's device.
-
-    xp: [C, L] with L >= (n_win-1)*I + D and unit stride along time (any
-    row stride); kc: terms a float32 big-pair partial sums before its fold,
-    ``KC`` or ``KC_LO`` (float64 ignores it).  On a CUDA tensor this
-    launches the kernel (counted in ``frac_whole.launches``) or raises; on
-    a CPU tensor it is ``frac_whole_ref``.
-
-    The float32 kernel sums on the tensor cores in their own order, so it
-    matches ``frac_whole_ref`` to 2^-21 of max |y| (a few float32 ulps of
-    each chunk partial), not bit for bit; float64 matches to 1e-12."""
-    _check(xp, parts, I, D, O, n_win, kc)
-    if xp.device.type == "cpu":
-        return frac_whole_ref(xp, parts, I, D, O, n_win, kc)
-    if xp.device.type != "cuda":
-        raise RuntimeError(f"frac_whole runs on cuda or cpu, not {xp.device}")
+def _launch(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int, O: int,
+            n_win: int, kc: int) -> torch.Tensor:
+    """One launch of the kernel (counted in ``frac_whole.launches``)."""
     if xp.stride(1) != 1:
         raise ValueError("xp must have unit stride along time")
     if parts.device != xp.device or not parts.is_contiguous():
@@ -301,4 +293,148 @@ def frac_whole(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
     return y
 
 
+def _run(xp, parts, I, D, O, n_win, kc):
+    if xp.device.type == "cpu":
+        # a fresh tensor, not a view: callers correct outputs in place
+        y = frac_whole_ref(xp, parts, I, D, O, n_win, kc)
+        return y if y._base is None else y.clone()
+    if xp.device.type != "cuda":
+        raise RuntimeError(f"frac_whole runs on cuda or cpu, not {xp.device}")
+    return _launch(xp, parts, I, D, O, n_win, kc)
+
+
+#: Adjoint operators, per operator_parts tensor: {(I, D, O, version): the
+#: adjoint's operator_parts}, built on first use and dropped with the
+#: operator.
+_ADJOINTS = WeakTensorKeyDictionary()
+
+
+def adjoint_geometry(I: int, D: int, O: int):
+    """(I', D', O', K) of frac_whole's adjoint: with K = ceil(D / I),
+
+        xbar[a*I + i] = sum_{k<K} sum_j ybar[(a-k)*O + j] * T[k*I + i, j],
+
+    a frac_whole call at I' = O, D' = K*O, O' = I on ybar left-padded by
+    (K-1)*O zeros, against T'[(K-1-k)*O + j, i] = T[k*I + i, j] (zero
+    where k*I + i >= D)."""
+    K = -(-D // I)
+    return O, K * O, I, K
+
+
+def adjoint_parts(parts: torch.Tensor, I: int, D: int,
+                  O: int) -> torch.Tensor:
+    """The operator_parts of frac_whole's adjoint (``adjoint_geometry``)
+    from the forward's ``parts``, built once per operator.  The slices are
+    split per entry, so the adjoint's slices are a re-blocking of the same
+    values: its arithmetic is the forward's, entry for entry."""
+    per = _ADJOINTS.get(parts)
+    if per is None:
+        per = _ADJOINTS[parts] = {}
+    key = (I, D, O, parts._version)
+    adj = per.get(key)
+    if adj is None:
+        _I, Dp, _O, K = adjoint_geometry(I, D, O)
+        s = unpack_parts(parts, D, O)
+        sp = s.new_zeros((s.shape[0], K * I, O))
+        sp[:, :D] = s
+        t = sp.reshape(s.shape[0], K, I, O).flip(1).transpose(2, 3)
+        t = t.reshape(s.shape[0], Dp, I)
+        adj = per[key] = (t.contiguous() if parts.dtype == torch.float64
+                          else _pack(t, _tile_n(I)))
+    return adj
+
+
+def _operator(parts: torch.Tensor) -> torch.Tensor:
+    """The executor's operator buffer itself: torch.func hands a Function's
+    backward a fresh wrapper of it on every call, and the adjoint cache is
+    keyed on the buffer (a constant of every transform)."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(parts):
+        parts = torch._C._functorch.get_unwrapped(parts)
+    return parts
+
+
+def _adjoint(gy: torch.Tensor, parts, I, D, O, n_win, kc, L: int):
+    """xbar [C, L] = frac_whole's transpose on gy [C, n_win*O]."""
+    Ia, Da, Oa, K = adjoint_geometry(I, D, O)
+    gyp = F.pad(gy, ((K - 1) * O, (K - 1) * O))  # contiguous, as the kernel
+    before = frac_whole.launches
+    gx = _FracWhole.apply(gyp, adjoint_parts(_operator(parts), I, D, O),
+                          Ia, Da, Oa, n_win + K - 1, kc)
+    frac_whole.adjoint_launches += frac_whole.launches - before
+    n = gx.shape[1]
+    return gx[:, :L] if n >= L else F.pad(gx, (0, L - n))
+
+
+class _FracWhole(torch.autograd.Function):
+    """frac_whole as a linear map of xp (the operator is a constant): the
+    backward is frac_whole itself on the adjoint geometry, the jvp
+    frac_whole on the tangent, and vmap folds batch dimensions into rows
+    (every row is independent)."""
+
+    @staticmethod
+    def forward(xp, parts, I, D, O, n_win, kc):
+        return _run(xp, parts, I, D, O, n_win, kc)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        xp, parts, I, D, O, n_win, kc = inputs
+        ctx.geo = (I, D, O, n_win, kc, xp.shape[1])
+        ctx.save_for_backward(parts)
+        ctx.save_for_forward(parts)
+
+    @staticmethod
+    def backward(ctx, gy):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 7
+        (parts,) = ctx.saved_tensors
+        I, D, O, n_win, kc, L = ctx.geo
+        return (_adjoint(gy, parts, I, D, O, n_win, kc, L),) + (None,) * 6
+
+    @staticmethod
+    def jvp(ctx, gxp, *_rest):
+        if gxp is None:
+            return None
+        (parts,) = ctx.saved_tensors
+        I, D, O, n_win, kc, _L = ctx.geo
+        return _FracWhole.apply(gxp.contiguous(), parts, I, D, O, n_win, kc)
+
+    @staticmethod
+    def vmap(info, in_dims, xp, parts, I, D, O, n_win, kc):
+        if in_dims[1] is not None:
+            raise ValueError("frac_whole's operator cannot be batched")
+        if in_dims[0] is None:
+            return _FracWhole.apply(xp, parts, I, D, O, n_win, kc), None
+        xb = xp.movedim(in_dims[0], 0)
+        B, C = xb.shape[0], xb.shape[1]
+        y = _FracWhole.apply(xb.reshape(B * C, xb.shape[2]).contiguous(),
+                             parts, I, D, O, n_win, kc)
+        return y.reshape(B, C, y.shape[1]), 0
+
+
+def frac_whole(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
+               O: int, n_win: int, kc: int = KC) -> torch.Tensor:
+    """y [C, n_win*O]: y[c, m*O + j] = xp[c, m*I : m*I + D] . skT[:, j]
+    (+ the same dot against skT_lo), for parts = ``operator_parts(skT,
+    skT_lo)`` of xp's dtype on xp's device.
+
+    xp: [C, L] with L >= (n_win-1)*I + D and unit stride along time (any
+    row stride); kc: terms a float32 big-pair partial sums before its fold,
+    ``KC`` or ``KC_LO`` (float64 ignores it).  On a CUDA tensor this
+    launches the kernel (counted in ``frac_whole.launches``) or raises; on
+    a CPU tensor it is ``frac_whole_ref``.
+
+    Differentiable in xp (torch.autograd, torch.func): the gradient is
+    this function on the adjoint geometry (``adjoint_geometry``,
+    ``adjoint_parts``), so on a CUDA tensor the backward launches the
+    kernel too, counted in ``frac_whole.launches`` and apart in
+    ``frac_whole.adjoint_launches``.
+
+    The float32 kernel sums on the tensor cores in their own order, so it
+    matches ``frac_whole_ref`` to 2^-21 of max |y| (a few float32 ulps of
+    each chunk partial), not bit for bit; float64 matches to 1e-12."""
+    _check(xp, parts, I, D, O, n_win, kc)
+    return _FracWhole.apply(xp, parts, I, D, O, n_win, kc)
+
+
 frac_whole.launches = 0
+frac_whole.adjoint_launches = 0

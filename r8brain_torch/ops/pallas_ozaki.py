@@ -249,10 +249,12 @@ def ozaki_framed(xp: torch.Tensor, sx: torch.Tensor, T_parts: torch.Tensor,
     packed: ``pack_operator(T_parts)`` on xp's device, which the executors
     build once (packed here at each call when None).  On a CUDA tensor
     this launches the kernel or raises; on a CPU tensor it is
-    ``ozaki_framed_ref``.  Each launch adds one to ``ozaki_framed.launches``
+    ``ozaki_framed_ref``.  It has no gradient: an input that autograd or
+    torch.func tracks raises (``_cuda.no_gradient``).  Each launch adds one to ``ozaki_framed.launches``
     and to ``ozaki_framed.launches_by[(hop, L_f, Kcols, has_lo,
     emit_pair)]``, so a run can tell the stages and variants apart."""
     _check(xp, sx, T_parts, L_f, hop, Kcols, n_blocks, x_lo)
+    _cuda.no_gradient("ozaki_framed", xp, x_lo)
     if packed is not None:
         _check_packed(packed, L_f, Kcols, xp.device)
     if xp.device.type == "cpu":

@@ -302,11 +302,13 @@ def sym_conv(xp: torch.Tensor, parts: torch.Tensor, L_fs: Sequence[int],
     ``sym_parts(ops, lo, lo_rows)`` of xp's dtype on xp's device; L_fs: the
     phases' frame lengths; hop: a multiple of 256.  On a CUDA tensor this
     launches the kernel (counted in ``sym_conv.launches``) or raises; on a
-    CPU tensor it is ``sym_conv_ref``.
+    CPU tensor it is ``sym_conv_ref``.  It has no gradient: an input that
+    autograd or torch.func tracks raises (``_cuda.no_gradient``).
 
     The float32 kernel sums on the tensor cores in their own order, so it
     matches ``sym_conv_ref`` to a few ulps of max |y|, not bit for bit."""
     _check(xp, parts, L_fs, nb, hop)
+    _cuda.no_gradient("sym_conv", xp)
     if xp.device.type == "cpu":
         return sym_conv_ref(xp, parts, L_fs, nb, hop)
     if xp.device.type != "cuda":

@@ -26,6 +26,8 @@ from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
                                                sym_ops_high, sym_parts)
 from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
 
+from .helpers import lcg_uniform, load_golden, load_manifest, rms_db
+
 # (label, I, D, O): tests/test_pallas.py's two shapes and the flagship's
 SHAPES = [("aligned", 64, 772, 128), ("unaligned", 147, 171, 160),
           ("flagship", 294, 1027, 640)]
@@ -881,3 +883,121 @@ def test_stream_on_card(cuda_device, case):
         if label == "guarantee":
             db -= _rms_db(ref[:, skip:m])
         assert db < bound, (label, db)
+
+
+# (label, I, D, O): the forward call shapes whose adjoint the functional
+# transform's gradient runs (the adjoint is frac_whole at I' = O, D' =
+# ceil(D/I)*O, O' = I): the fused flagship, the toeplitz conv stage, the
+# half-band upsampler, the direct conv stage (O' = 1: the 8-column tile)
+# and the PCM -> DSD64 cascade (D' = 8192 on an operator mostly zeros)
+ADJOINT_SHAPES = [("flagship", 294, 1027, 640), ("toeplitz", 256, 964, 512),
+                  ("hb_up", 128, 150, 256), ("direct", 1, 709, 2),
+                  ("cascade", 128, 157, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo", [False, True], ids=["main", "skT_lo"])
+@pytest.mark.parametrize("shape", ADJOINT_SHAPES,
+                         ids=[s[0] for s in ADJOINT_SHAPES])
+def test_adjoint_kernel_matches_model(cuda_device, shape, lo):
+    """frac_whole's gradient on the card: one adjoint launch (counted apart
+    too), against the same Function on the CPU (the adjoint's plain model:
+    frac_whole_ref on the adjoint geometry) within 2^-21 of max |xbar| and
+    against the float64 transpose within 1e-5; and the float64 kernel's
+    adjoint within 1e-12."""
+    _label, I, D, O = shape
+    C, n_win = 13, 9
+    rng = np.random.default_rng(I + D + O)
+    L = (n_win - 1) * I + D + 5
+    x = rng.uniform(-1, 1, (C, L))
+    w = rng.uniform(-1, 1, (C, n_win * O))
+    skT = rng.standard_normal((D, O))
+    skT_lo = rng.standard_normal((D, O)) * 2.0**-15 if lo else None
+    t64 = [torch.from_numpy(a) for a in (skT, skT_lo) if a is not None]
+    xr = torch.from_numpy(x).requires_grad_()
+    (frac_whole_ref(xr, operator_parts(*t64), I, D, O, n_win)
+     * torch.from_numpy(w)).sum().backward()
+    ref = xr.grad.numpy()
+    scale = np.abs(ref).max()
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        grads = {}
+        for dev in ("cpu", cuda_device):
+            parts = operator_parts(*(t.to(dev, dtype) for t in t64))
+            xt = torch.tensor(x, dtype=dtype, device=dev,
+                              requires_grad=True)
+            before = (frac_whole.launches, frac_whole.adjoint_launches)
+            y = frac_whole(xt, parts, I, D, O, n_win)
+            y.backward(torch.tensor(w, dtype=dtype, device=dev))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert frac_whole.launches == before[0] + 2
+                assert frac_whole.adjoint_launches == before[1] + 1
+            grads[dev] = xt.grad.cpu().double().numpy()
+        g = grads[cuda_device]
+        assert np.abs(g - ref).max() / scale < tol
+        if dtype == torch.float32:
+            assert np.abs(g - grads["cpu"]).max() / scale < 2.0**-21
+
+
+GOLDENS = load_manifest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fast", "high"])
+@pytest.mark.parametrize("cfg", GOLDENS, ids=[c["label"] for c in GOLDENS])
+def test_goldens_on_card(cuda_device, cfg, precision):
+    """Every C++ golden through the default float32 chain on the card
+    within the -141 dB golden-equality class, as tests/
+    test_torch_resampler.py::test_goldens holds the CPU model; prints the
+    card's dB, the CPU model's and the card's distance from the model."""
+    x = lcg_uniform(cfg["seed"], cfg["inlen"])
+    ref = load_golden(cfg["file"])[2]
+    args = (cfg["src"], cfg["dst"], cfg["tb"], cfg["atten"], cfg["phase"])
+    ys = [Resampler(*args, precision=precision, device=dev).oneshot(
+        x, cfg["outlen"]).cpu().double().numpy()
+        for dev in (cuda_device, "cpu")]
+    db, db_cpu = (rms_db(y - ref) for y in ys)
+    print(f"golden {cfg['label']} {precision}: card {db:.2f} dB vs the C++ "
+          f"golden, CPU model {db_cpu:.2f}, card - CPU model "
+          f"{rms_db(ys[0] - ys[1]):.2f} dB re full scale")
+    assert db < -141.0, (cfg["label"], precision, db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(precision="high", conv_engine="ozaki",
+                                         frac_engine="ozaki")],
+                         ids=["default", "ozaki_twin"])
+def test_functional_on_card(cuda_device, kw):
+    """resample_fn on the card: forward bit-equal to oneshot, vmap over a
+    leading batch equal to one call a batch within 2^-21 of max |y| (the
+    batch folds into frac_whole's rows; the stream-start correction's
+    float64 product may sum in another order), and the gradient (frac_whole's adjoint; the ozaki
+    chain's through its default-engine twin) against the CPU model's
+    within 2^-19 of max |g|, with adjoint launches counted."""
+    from r8brain_torch import resample_fn
+
+    n, C = 4410, 3
+    rng = np.random.default_rng(12)
+    x = rng.uniform(-1, 1, (C, n)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        rs = Resampler(44100, 96000, 2.0, 180.15, device=dev, **kw)
+        f = resample_fn(rs, n)
+        xt = torch.from_numpy(x).to(dev)
+        w = torch.from_numpy(rng.uniform(-1, 1, (C, rs.default_out_len(n)))
+                             .astype(np.float32)).to(dev) if dev == "cpu" \
+            else w.to(dev)
+        assert torch.equal(f(xt), rs.oneshot(xt))
+        before = frac_whole.adjoint_launches
+        grads[dev] = torch.func.grad(lambda v: (w * f(v)).sum())(xt)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert frac_whole.adjoint_launches > before
+            xb = torch.stack([xt, -xt])
+            yb = torch.func.vmap(f)(xb)
+            for b, y in enumerate((f(xt), f(-xt))):
+                assert float((yb[b] - y).abs().max()) <= 2.0**-21 * float(
+                    y.abs().max())
+    g_cpu, g = grads["cpu"], grads[cuda_device].cpu()
+    assert float((g - g_cpu).abs().max()) <= 2.0**-19 * float(
+        g_cpu.abs().max())

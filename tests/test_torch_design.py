@@ -66,15 +66,20 @@ def test_plan_matches_reference_matrix(cfg):
 
 
 def test_port_imports_no_jax():
-    """The port package and the smoke script import neither JAX nor the
-    reference package (checked in a fresh interpreter)."""
+    """The port package (its functional transform and fused polynomial
+    executor too), the smoke script and the port's two bench scripts
+    import neither JAX nor the reference package (checked in a fresh
+    interpreter)."""
     import subprocess
     import sys
     from pathlib import Path
 
     root = Path(__file__).resolve().parent.parent
     code = ("import sys, r8brain_torch, r8brain_torch.convert, chip_smoke, "
-            "r8brain_torch.ops.pallas_dfft, r8brain_torch.ops.scout; "
+            "r8brain_torch.ops.pallas_dfft, r8brain_torch.ops.scout, "
+            "r8brain_torch.functional, r8brain_torch.ops.poly_fused; "
+            "sys.path.insert(0, 'tools'); "
+            "import torch_bench, torch_bench_stream; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'r8brain_tpu'))]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -139,13 +139,15 @@ def test_cpu_chain_launches_no_kernel(monkeypatch):
 
 
 def test_unported_engines_raise():
-    """What is still unported raises, naming its ROADMAP.md item:
-    fused="poly"; the half-band and polynomial stages build on every
-    engine (the ozaki chain's take the split form); the ozaki engine in
-    float64 raises, and an unknown engine name is a ValueError."""
+    """Every fused mode builds (fused="poly" fuses the [conv, poly-frac]
+    pair of 44.1k -> 96001: [FusedPolyExec, ConvExec]); the half-band and
+    polynomial stages build on every engine (the ozaki chain's take the
+    split form); the ozaki engine in float64 raises, and an unknown
+    engine name is a ValueError."""
     cpu = dict(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Resampler(44100, 96000, 2.0, 180.15, fused="poly", **cpu)
+    rs = Resampler(44100, 96001, 2.0, 180.15, fused="poly", **cpu)
+    assert [type(e).__name__ for e in rs.execs] == ["FusedPolyExec",
+                                                    "ConvExec"]
     for dst, kinds in ((176400, ["ConvExec", "HBUpExec"]),
                        (96001, ["ConvExec", "FracPolyExec", "ConvExec"])):
         for kw, engine in ((OZ, "ozaki"), (dict(fused=False), "toeplitz"),

@@ -20,6 +20,7 @@ from r8brain_tpu.ops.pallas_frac import HAVE_PALLAS, frac_whole_pallas
 from r8brain_torch.ops.fused import FusedUpExec
 from r8brain_torch.models.plan import make_plan
 from r8brain_torch.ops.pallas_frac import (KC, KC_LO, TILE_K, _swizzle,
+                                           adjoint_geometry, adjoint_parts,
                                            frac_whole, frac_whole_ref,
                                            operator_parts, split3,
                                            unpack_parts)
@@ -388,3 +389,124 @@ def test_rejects_mismatched_parts():
         frac_whole(x32, operator_parts(torch.zeros(40, 160)), 10, 40, 8, 2)
     with pytest.raises(TypeError, match="operator_parts"):
         frac_whole(x32, s32, 10, 40, 8, 2)
+
+
+# (label, I, D, O): adjoint geometries with D % I != 0, O <= 2 (the
+# 8-column tile forward, the 8-column tile for O' = I <= 2 backward), D < I
+# (K = 1), and a half-band upsampler's shape
+ADJ_SHAPES = [("ragged", 7, 51, 12), ("o1", 3, 29, 1), ("o2", 5, 40, 2),
+              ("i2", 2, 33, 9), ("d_lt_i", 9, 5, 6), ("hb_up", 128, 150, 256)]
+
+
+def _adjoint_case(I, D, O, lo, dtype, seed):
+    rng = np.random.default_rng(seed)
+    C, n_win = 3, 5
+    L = (n_win - 1) * I + D + 3
+    x = torch.tensor(rng.uniform(-1, 1, (C, L)), dtype=dtype)
+    w = torch.tensor(rng.uniform(-1, 1, (C, n_win * O)), dtype=dtype)
+    skT = torch.tensor(rng.standard_normal((D, O)), dtype=dtype)
+    skT_lo = (torch.tensor(rng.standard_normal((D, O)) * 2.0**-15,
+                           dtype=dtype) if lo else None)
+    return x, w, operator_parts(skT, skT_lo), n_win
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("lo", [False, True], ids=["main", "skT_lo"])
+@pytest.mark.parametrize("kc", [KC_LO, KC])
+@pytest.mark.parametrize("shape", ADJ_SHAPES, ids=[s[0] for s in ADJ_SHAPES])
+def test_adjoint_model_vs_autograd(shape, kc, lo, dtype):
+    """frac_whole's backward (frac_whole_ref on the adjoint geometry
+    against the re-blocked operator: the model of the card's adjoint
+    launch) against torch autograd through frac_whole_ref, within 2^-21 of
+    max |xbar| in float32 (the split sums in another order) and 1e-13 in
+    float64; no launch is counted on the CPU."""
+    _label, I, D, O = shape
+    x, w, parts, n_win = _adjoint_case(I, D, O, lo, dtype, I + D + O + kc)
+    xr = x.clone().requires_grad_()
+    (frac_whole_ref(xr, parts, I, D, O, n_win, kc) * w).sum().backward()
+    xa = x.clone().requires_grad_()
+    before = (frac_whole.launches, frac_whole.adjoint_launches)
+    (frac_whole(xa, parts, I, D, O, n_win, kc) * w).sum().backward()
+    assert (frac_whole.launches, frac_whole.adjoint_launches) == before
+    scale = float(xr.grad.abs().max())
+    tol = 2.0**-21 if dtype == torch.float32 else 1e-13
+    assert float((xa.grad - xr.grad).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("lo", [False, True], ids=["main", "skT_lo"])
+@pytest.mark.parametrize("shape", ADJ_SHAPES, ids=[s[0] for s in ADJ_SHAPES])
+def test_adjoint_operator_is_a_reblocking(shape, lo):
+    """The adjoint's packed operator equals operator_parts of the
+    transposed operator T'[(K-1-k)*O + j, i] = T[k*I + i, j], built from
+    skT (and skT_lo) directly, bit for bit: the slices are split per
+    entry, so re-blocking them changes no value.  Built once per
+    operator."""
+    _label, I, D, O = shape
+    _x, _w, parts, _n = _adjoint_case(I, D, O, lo, torch.float32, 4)
+    Ia, Da, Oa, K = adjoint_geometry(I, D, O)
+    assert (Ia, Da, Oa) == (O, K * O, I)
+    s = unpack_parts(parts, D, O)
+    skT, skT_lo = s[0] + s[1] + s[2], (s[3] if lo else None)
+    Tt = torch.zeros((Da, Oa))
+    Tt_lo = torch.zeros((Da, Oa))
+    for k in range(K):
+        for i in range(I):
+            if k * I + i < D:
+                Tt[(K - 1 - k) * O : (K - k) * O, i] = skT[k * I + i]
+                if lo:
+                    Tt_lo[(K - 1 - k) * O : (K - k) * O, i] = \
+                        skT_lo[k * I + i]
+    adj = adjoint_parts(parts, I, D, O)
+    assert torch.equal(adj, operator_parts(Tt, Tt_lo if lo else None))
+    assert adjoint_parts(parts, I, D, O) is adj
+
+
+def test_jvp_and_vmap_rules():
+    """The jvp is frac_whole on the tangent; vmap folds the batch into rows
+    (bit-equal to calls one at a time); a batched operator is refused."""
+    from torch.func import jvp, vmap
+
+    I, D, O = 7, 51, 12
+    x, _w, parts, n_win = _adjoint_case(I, D, O, True, torch.float32, 9)
+    dx = torch.flip(x, dims=[1]).contiguous()
+    y, dy = jvp(lambda v: frac_whole(v, parts, I, D, O, n_win), (x,), (dx,))
+    assert torch.equal(y, frac_whole(x, parts, I, D, O, n_win))
+    assert torch.equal(dy, frac_whole(dx, parts, I, D, O, n_win))
+    xb = torch.stack([x, dx, -x])
+    yb = vmap(lambda v: frac_whole(v, parts, I, D, O, n_win))(xb)
+    for b in range(3):
+        assert torch.equal(yb[b], frac_whole(xb[b], parts, I, D, O, n_win))
+    with pytest.raises(ValueError, match="cannot be batched"):
+        vmap(lambda p: frac_whole(x, p, I, D, O, n_win))(
+            torch.stack([parts, parts]))
+
+
+@pytest.mark.parametrize("how", ["backward", "func_grad"])
+def test_adjoint_operator_cached_under_transforms(how):
+    """The adjoint operator is built once per operator whichever way the
+    gradient is taken: torch.func hands the backward a fresh wrapper of
+    the operator on every call, and the cache is keyed on the buffer
+    itself, so a second gradient reuses the first one's adjoint."""
+    from torch.func import grad
+
+    from r8brain_torch.ops.pallas_frac import _ADJOINTS
+
+    I, D, O = 7, 51, 12
+    x, w, parts, n_win = _adjoint_case(I, D, O, True, torch.float32, 11)
+
+    def gradient():
+        if how == "func_grad":
+            return grad(lambda v: (frac_whole(v, parts, I, D, O, n_win)
+                                   * w).sum())(x)
+        xr = x.clone().requires_grad_()
+        (frac_whole(xr, parts, I, D, O, n_win) * w).sum().backward()
+        return xr.grad
+
+    g1 = gradient()
+    assert parts in _ADJOINTS and len(_ADJOINTS[parts]) == 1
+    adj = next(iter(_ADJOINTS[parts].values()))
+    g2 = gradient()
+    assert len(_ADJOINTS[parts]) == 1
+    assert next(iter(_ADJOINTS[parts].values())) is adj
+    assert torch.equal(g1, g2)

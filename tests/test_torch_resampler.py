@@ -230,12 +230,14 @@ def test_lone_conv_plan_runs_by_default(src, dst):
 
 
 def test_unported_options_raise(flagship):
-    """fused="poly" is still unported; the stage engines, the half-band
-    and polynomial plans and the chunked oneshot are not (fused=False and
-    any engine build the stage chain; oneshot(max_chunk=...) over many
-    chunks runs the stream)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Resampler(*FLAG, fused="poly", **CPU)
+    """Nothing is unported any more: fused="poly" and fused=True fuse the
+    flagship's pair (its plan has no polynomial stage), the stage
+    engines, the half-band and polynomial plans and the chunked oneshot
+    run (fused=False and any engine build the stage chain;
+    oneshot(max_chunk=...) over many chunks runs the stream)."""
+    for kw in (dict(fused="poly"), dict(fused=True, conv_engine="direct")):
+        rs = Resampler(*FLAG, **kw, **CPU)
+        assert [type(e).__name__ for e in rs.execs] == ["FusedUpExec"]
     for dst, kinds in ((176400, ["ConvExec", "HBUpExec"]),
                        (96001, ["ConvExec", "FracPolyExec", "ConvExec"])):
         rs = Resampler(44100, dst, 2.0, 180.15, fused=False, **CPU)

@@ -610,3 +610,40 @@ def test_random_poly_ratios():
         y, _ = _stream(st, x, sizes, out_len)
         assert y.shape == ref.shape, (trial, dst)
         assert rms_db(y - ref) < -280.0, (trial, dst)
+
+
+@pytest.mark.parametrize("engine", ["fft", "pallas_fft5"])
+def test_fft_engine_stream_vs_oracle(engine):
+    """tests/test_stream.py::test_stream_high_precision on the port: the
+    df32-FFT guarantee engines (df_fft_conv's plain version here, the
+    kernel on the card) stream 44.1k -> 96k in the golden-equality class
+    against the oracle, as their oneshot does."""
+    n = 16000
+    x = lcg_uniform(21, n)
+    rs = Resampler(44100, 96000, 2.0, 180.15, precision="high", fused=False,
+                   conv_engine=engine, **CPU)
+    assert rs.execs[0].dfft_plan is not None
+    st = StreamResampler(rs, 4096)
+    out_len = rs.default_out_len(n)
+    y = np.concatenate([_np(st.process(x[None].astype(np.float32))),
+                        _np(st.flush(out_len))], axis=1)[0]
+    ref = OracleResampler(44100, 96000, 4096, 2.0, 180.15, 0).oneshot(
+        x, out_len)
+    assert y.shape == ref.shape
+    assert rms_db(y - ref) < -141.0
+
+
+def test_fft_engine_propagates_to_sub_chains():
+    """tests/test_stream.py::test_stream_conv_engine_propagates on the
+    port: a forced FFT conv engine survives the split of a polynomial
+    plan (the prefix and suffix conv stages keep it), under "high" the
+    kernel's."""
+    for precision in ("fast", "high"):
+        rs = Resampler(44100, 96001, 2.0, 140.0, precision=precision,
+                       conv_engine="fft", **CPU)
+        st = StreamResampler(rs, 2048)
+        convs = [e for e in st._core.execs + st._suf.execs
+                 if isinstance(e, ConvExec)]
+        assert convs and all(c.engine == "fft" for c in convs)
+        assert all((getattr(c, "dfft_plan", None) is not None)
+                   == (precision == "high") for c in convs)

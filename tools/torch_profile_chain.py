@@ -4,7 +4,7 @@
     python tools/torch_profile_chain.py
         [--engine fast|high|ozaki|pallas_fft5|toeplitz|toeplitz_sym]
         [--carry 1|0]
-        [--src 44100] [--dst 96000] [--stream K]
+        [--src 44100] [--dst 96000] [--stream K | --grad]
 
 Runs ``Resampler(src, dst, 2, 180.15).oneshot`` (44.1 kHz -> 96 kHz by
 default; 44.1 kHz -> 192 kHz and -> 96001 Hz are the half-band and
@@ -25,13 +25,19 @@ chain (``precision="fast"``, ``fused=False``) with the banded operator on
 (``StreamResampler(rs, 8192)``, 1024 channels): steady calls of K whole
 blocks (``process_block_device`` for K = 1, else
 ``process_blocks_device``) after two warm-up calls, the times per block.
-Needs a CUDA device; exits non-zero without one.
+``--grad`` profiles the gradient of the functional transform instead:
+``torch.func.grad`` of <w, f(x)> with ``f = resample_fn(rs, n)`` and a
+seeded w (forward, ``frac_whole``'s adjoint or a twin's, and the
+autograd steps between), the times per gradient.  The first line names
+the card and its power limit.  Needs a CUDA device; exits non-zero
+without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -52,6 +58,7 @@ def main() -> int:
     ap.add_argument("--src", type=float, default=44100)
     ap.add_argument("--dst", type=float, default=96000)
     ap.add_argument("--stream", type=int, default=0)
+    ap.add_argument("--grad", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -88,9 +95,20 @@ def main() -> int:
     x = torch.rand((CHANNELS, n), generator=torch.Generator(
         device=dev).manual_seed(0), device=dev) * 2 - 1
 
+    if args.grad:
+        from r8brain_torch import resample_fn
+
+        f = resample_fn(rs, n)
+        w = torch.rand(f(x).shape, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev) * 2 - 1
+        gfun = torch.func.grad(lambda v: (w * f(v)).sum())
+        unit = "gradient"
+
     def run():
         if args.stream:
             call(x)
+        elif args.grad:
+            gfun(x)
         else:
             rs.oneshot(x)
 
@@ -117,6 +135,10 @@ def main() -> int:
     busy = sum(r[0] for r in rows)
     label = f"ozaki carry={args.carry}" if args.engine == "ozaki" else \
         args.engine
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    print(f"nvidia-smi: {smi[0] if smi else 'not readable'}")
     print(f"{torch.cuda.get_device_name(0)}: {args.src:g} -> {args.dst:g} "
           f"chain {label}, {CHANNELS} x {n}, executors "
           f"{[type(e).__name__ for e in rs.execs]}, per {unit}:")
