@@ -84,6 +84,22 @@ uniform float32 input:
   timed (ms a block, Mrops, real-time streams, the device's idle share);
   then ``oneshot(max_chunk=44100)`` on 30 s of 44.1 kHz -> 96001 Hz with
   its device memory peak.
+* channel x time-block sharding (``r8brain_torch/parallel``): the fast
+  flagship over the in-process mesh ch2 x t2 (each shard's fused pair on
+  ``frac_whole``, one launch a shard), held at -125 dB against the
+  unsharded oneshot on the card and at -141 dB against the float64 CPU
+  path; the guarantee chain (ozaki engines, df32 carry inside each
+  shard's chain) over ch2 x t2, -150 dB relative against the float64
+  path, ``ozaki_framed`` twice a shard; its sharded stream (ch2 x t2,
+  ``seg_len`` 8192, 16 calls, each call timed); 44.1 kHz -> 96001 Hz over t4 (the polynomial split chain,
+  its gather-dot summed in df32 under ``"high"``: -141 dB re full scale;
+  ``"fast"`` held to the reference's -115 dB relative); two processes on
+  the card over gloo (mesh t2, the halos through pinned host buffers; a
+  child that fails or outlives its time limit fails the run); and the
+  port's ``dryrun_multichip(4)`` (the df32-FFT chain on ``df_fft_conv``).
+  Every new kernel call shape of these runs is held to its plain version
+  and gets a record.  The kernels are built before the two processes
+  start, so they load the built libraries.
 
 First it pins how the tensor cores add bf16 products into float32
 (``accumulation_pin``: 16- and 32-term sums through ``frac_whole``'s own
@@ -304,6 +320,18 @@ FUSED_OZAKI_DB = -150.0
 # fused=True (the pair fused whatever the engines) and fused="poly" at
 # 44.1k -> 96001: (label, src, dst, Resampler keywords, bound dB re full
 # scale, executors)
+# the sharding phases: sharded against the unsharded oneshot on the card,
+# float32 (tests/test_sharding_f32.py:24); the polynomial split chain's
+# "fast" bound against the float64 path, relative
+# (tests/test_sharding.py:131); the sharded stream's segment and calls;
+# the two processes' time limit, seconds
+SHARD_PARITY_DB = -125.0
+SHARD_POLY_FAST_DB = -115.0
+SHARD_SEG, SHARD_CALLS = 8192, 16
+SHARD_PROC_TIMEOUT = 300
+# the TPU kernel a sharded path's df_fft_conv call replaces ("fft" makes
+# the call of pallas_fft)
+SHARD_FFT_REPLACES = "r8brain_tpu/ops/pallas_dfft.py:269"
 FUSED_PATHS = (
     ("fused=True pallas", SRC, DST, dict(fused=True, conv_engine="pallas"),
      CLASS_DB, ["FusedUpExec"]),
@@ -2625,6 +2653,509 @@ def fused_paths(dev, card):
         torch.cuda.empty_cache()
 
 
+def shard_records(label, rs, fcalls, dcalls, seen, peaks, peaks64, card,
+                  launches=None, rows=None):
+    """A record for each frac_whole (frac_record) and df_fft_conv
+    (fft_record) call shape of a sharded run that no earlier sharding
+    phase recorded: (operator, fold, windows, rows) and (mode, n, head,
+    frames, rows); with ``rows``, only the calls of that many rows (a
+    shard's, where the run also made unsharded calls).  ``rs`` owns the
+    operators (a dict of resamplers is searched in turn); launches: the
+    run's calls of that shape, or ``launches[shape]`` where the calls ran
+    in other processes."""
+    records = []
+    owners = list(rs.values()) if isinstance(rs, dict) else [rs]
+    if rows is not None:
+        fcalls = [c for c in fcalls if c[0][0].shape[0] == rows]
+        dcalls = [c for c in dcalls if c[0][0].shape[0] == rows]
+    for args, kw in fcalls:
+        xp, parts, I, D, O, n_win = args
+        key = ("frac", I, D, O, parts.shape[2] - (parts.shape[3] == 8),
+               kw.get("kc", 32), n_win, xp.shape[0])
+        if key in seen:
+            continue
+        seen.add(key)
+        ex = None
+        for r in owners:
+            try:
+                ex = owner(r, parts)
+                break
+            except SmokeFailure:
+                continue
+        check(ex is not None, f"sharded {label}: a frac_whole call got an "
+              f"operator of no executor")
+        kind = {"HBUpExec": "HB up", "HBDownExec": "HB down",
+                "FusedUpExec": "fused", "ConvExec": "toeplitz conv",
+                "FracWholeExec": "frac stage"}[type(ex).__name__]
+        n_shape = launches[key] if launches is not None else sum(
+            1 for a, k_ in fcalls if a[2:6] == (I, D, O, n_win)
+            and a[0].shape[0] == xp.shape[0] and a[1] is parts)
+        records.append(frac_record(
+            f"frac_whole[{kind}, sharded {label}, C={xp.shape[0]}, D={D}, "
+            f"n_win={n_win}]", (args, kw), ex, n_shape, peaks, card))
+    for args, kw in dcalls:
+        u, plan, n_frames, head = args
+        key = ("fft", plan.mode(head), plan.n, head, n_frames, u.shape[0])
+        if key in seen:
+            continue
+        seen.add(key)
+        n_shape = sum(1 for a, _k in dcalls
+                      if (a[1].mode(a[3]), a[1].n, a[3], a[2],
+                          a[0].shape[0]) == key[1:])
+        records.append(fft_record(
+            f"sharded {label}, C={u.shape[0]}, {n_frames} frames",
+            (args, kw), SHARD_FFT_REPLACES, n_shape, peaks64, card))
+    return records
+
+
+def shard_ozaki_records(label, rs, ocalls, seen, dev, peaks, card):
+    """Each ozaki_framed geometry of a sharded guarantee run (L_f, hop,
+    Kcols, n_blocks, rows) and variant (x_lo, emit_pair) that no earlier
+    sharding phase checked: every variant against its plain version and
+    the float64 product (check_ozaki_variants), and a record
+    (ozaki_record) for each variant the run made; launches: the run's
+    calls of that geometry and variant."""
+    import torch
+
+    records = []
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for args, kw in ocalls:
+        xp, _sx, parts, L_f, hop, Kcols, nb = args
+        geo = (L_f, hop, Kcols, nb)
+        var = (kw.get("x_lo") is not None, bool(kw.get("emit_pair")))
+        key = ("ozaki", *geo, xp.shape[0]) + var
+        if key in seen:
+            continue
+        seen.add(key)
+        ex = owner(rs, parts)
+        case = ozaki_case(dev, g, xp.shape[0], *geo, parts)
+        errs = check_ozaki_variants(
+            f"{type(ex).__name__} (sharded {label}, C={xp.shape[0]})", geo,
+            case, parts, kw["packed"])
+        frac = type(ex).__name__ == "FracWholeExec"
+        rep = {(True, True): "pallas_ozaki.py:207",
+               (True, False): "pallas_ozaki.py:232",
+               (False, True): "pallas_ozaki.py:263",
+               (False, False): "pallas_ozaki.py:317"}[
+            (frac, var[1] if frac else var[0] or var[1])]
+        n_key = sum(1 for a, k_ in ocalls if tuple(a[3:7]) == geo
+                    and a[0].shape[0] == xp.shape[0]
+                    and (k_.get("x_lo") is not None,
+                         bool(k_.get("emit_pair"))) == var)
+        lib = library_call(ex, case[0], parts.double().sum(dim=0), hop,
+                           torch.float64)
+        records.append(ozaki_record(
+            f"ozaki_framed[{type(ex).__name__}, sharded {label}, "
+            f"C={xp.shape[0]}, n_blocks={nb}]", rep, geo, case, parts,
+            kw["packed"], var[0], var[1], n_key, errs[var], lib, peaks,
+            card))
+        del case
+        torch.cuda.empty_cache()
+    return records
+
+
+def on_card(args) -> bool:
+    """Whether a recorded kernel call's input lies on the card (the
+    float64 CPU references run the plain versions and launch nothing)."""
+    return args[0].is_cuda
+
+
+def shard_run(fn):
+    """fn() with the launch counts set to 0 just before and read just
+    after, every frac_whole and df_fft_conv call on the card recorded:
+    (result, frac_whole calls, df_fft_conv calls, frac_whole launches,
+    df_fft_conv launches)."""
+    import torch
+
+    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops.pallas_dfft import df_fft_conv
+    from r8brain_torch.ops.pallas_frac import frac_whole
+
+    frac_whole.launches = 0
+    df_fft_conv.launches = 0
+    (y, dcalls), fcalls = record_run(
+        lambda: record_run(fn, (stages,), "df_fft_conv"),
+        (stages, fused, hb_cascade), "frac_whole")
+    torch.cuda.synchronize()
+    fcalls = [c for c in fcalls if on_card(c[0])]
+    dcalls = [c for c in dcalls if on_card(c[0])]
+    nf, nd = frac_whole.launches, df_fft_conv.launches
+    check(nf == len(fcalls) and nd == len(dcalls), f"launches frac_whole "
+          f"{nf} / df_fft_conv {nd} for {len(fcalls)} / {len(dcalls)} calls")
+    return y, fcalls, dcalls, nf, nd
+
+
+def shard_timing(card, label, fn_s, fn_u, n_in):
+    """The sharded call and the unsharded oneshot timed with CUDA events:
+    ms and Mrops."""
+    s_ms = cuda_ms(fn_s, reps=5, warmup=1)
+    u_ms = cuda_ms(fn_u, reps=5, warmup=1)
+    print(f"timing {card}: sharded {label} {s_ms:.3f} ms = "
+          f"{1e-6 * CHANNELS * n_in / (s_ms * 1e-3):.1f} Mrops; unsharded "
+          f"oneshot {u_ms:.3f} ms = "
+          f"{1e-6 * CHANNELS * n_in / (u_ms * 1e-3):.1f} Mrops (in-process "
+          f"shards run one after another on one card: the halo recompute "
+          f"and the host staging, not scaling)")
+
+
+def shard_child(rank: int, port: int, q) -> None:
+    """One of the two processes of the two-process phase: rank ``rank`` of
+    a gloo group on the one card, mesh t2.  The fast flagship on
+    CHANNELS x N_IN (this rank loads only its piece), then two
+    sharded-stream calls; rank 1 sends its pieces to rank 0, which holds
+    them against the unsharded oneshot.  Puts (rank, results) on q."""
+    import traceback
+
+    res = {}
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from r8brain_torch import (Mesh, Resampler, ShardedResampler,
+                                   ShardedStreamResampler)
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                world_size=2, rank=rank)
+        mesh = Mesh((2,), ("t",), group=dist.group.WORLD)
+        rs = Resampler(SRC, DST, TB, ATTEN, device=dev)
+        srs = ShardedResampler(rs, mesh)
+        x = uniform_input(dev, N_IN)
+        rows, t_in, t_out = srs.shard_slices(CHANNELS, N_IN)
+        xl = x[rows, t_in].contiguous()
+
+        def one():
+            return srs.oneshot(xl, n_in=N_IN, channels=CHANNELS)
+
+        y, fcalls, _d, nf, _nd = shard_run(one)
+        res["launches"] = nf
+        res["shapes"] = [("frac", a[2], a[3], a[4],
+                          a[1].shape[2] - (a[1].shape[3] == 8),
+                          k.get("kc", 32), a[5], a[0].shape[0])
+                         for a, k in fcalls]
+        res["ms"] = cuda_ms(one, reps=5, warmup=1)
+        ss = ShardedStreamResampler(rs, mesh, seg_len=SHARD_SEG)
+        xs = uniform_input(dev, 2 * ss.block)
+        srows, st_in = ss.shard_slices(CHANNELS)
+        ys, counts = [], []
+        for b in range(2):
+            ys.append(ss.process_block(
+                xs[srows, b * ss.block + st_in.start :
+                   b * ss.block + st_in.stop]))
+            counts.append(ss._counts[1])
+        ys = torch.cat(ys, dim=1)
+        torch.cuda.synchronize()
+        if rank == 1:
+            dist.send(y.cpu().contiguous(), 0)
+            dist.send(ys.cpu().contiguous(), 0)
+        else:
+            _r, _ti, t_out1 = srs.shard_slices(CHANNELS, N_IN, rank=1)
+            y1 = torch.empty((CHANNELS, t_out1.stop - t_out1.start))
+            dist.recv(y1, 1)
+            ys1 = torch.empty((CHANNELS, sum(c[1] for c in counts)))
+            dist.recv(ys1, 1)
+            full = torch.cat([y, y1.to(dev)], dim=1)
+            y_un = rs.oneshot(x)
+            res["oneshot_db"] = rms_db(full.double() - y_un.double())
+            res["shape_ok"] = tuple(full.shape) == tuple(y_un.shape)
+            # the stream's output, in time order: each call's rank-0
+            # piece, then rank 1's
+            pieces, a0, a1 = [], 0, 0
+            for c0, c1 in counts:
+                pieces += [ys[:, a0 : a0 + c0], ys1[:, a1 : a1 + c1].to(dev)]
+                a0, a1 = a0 + c0, a1 + c1
+            yst = torch.cat(pieces, dim=1)
+            ref_s = rs.oneshot(xs, rs.default_out_len(2 * ss.block))
+            res["stream_db"] = rms_db(yst.double()
+                                      - ref_s[:, : yst.shape[1]].double())
+            res["stream_out"] = int(yst.shape[1])
+            res["un_ms"] = cuda_ms(lambda: rs.oneshot(x), reps=5, warmup=1)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        q.put((rank, res))
+        raise
+    q.put((rank, res))
+
+
+def shard_processes(dev, card, peaks, peaks64, seen):
+    """Phase 4: two processes on the one card (torch.multiprocessing,
+    spawn, gloo), mesh t2, the time halos crossing the process boundary
+    through pinned host buffers.  A child that fails or outlives
+    SHARD_PROC_TIMEOUT fails the phase.  The children's frac_whole call
+    shapes are the in-process t2 run's: recorded from that run."""
+    import queue
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from r8brain_torch import Mesh, Resampler, ShardedResampler
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=shard_child, args=(r, port, q))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    res, err = {}, None
+    try:
+        while len(res) < 2 and err is None:
+            left = SHARD_PROC_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                r, out = q.get(timeout=max(1.0, left))
+            except queue.Empty:
+                err = f"no result within {SHARD_PROC_TIMEOUT} s"
+                break
+            res[r] = out
+            if "error" in out:
+                err = f"rank {r} failed:\n{out['error']}"
+        for p in procs:
+            p.join(timeout=0 if err else 60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    secs = time.perf_counter() - t0
+    check(err is None, f"two-process phase: {err}")
+    check(all(p.exitcode == 0 for p in procs), f"two-process phase: exit "
+          f"codes {[p.exitcode for p in procs]}")
+    r0 = res[0]
+    check(r0["shape_ok"], "two-process phase: output shape")
+    print(f"sharded two processes (gloo, mesh t2, halos through pinned host "
+          f"buffers): flagship {CHANNELS} x {N_IN} vs unsharded oneshot "
+          f"{r0['oneshot_db']:.2f} dB (bound {SHARD_PARITY_DB:g}); two "
+          f"stream calls ({r0['stream_out']} outputs) "
+          f"{r0['stream_db']:.2f} dB; frac_whole launches by rank "
+          f"{[res[r]['launches'] for r in (0, 1)]}; {secs:.1f} s with "
+          f"start-up")
+    check(r0["oneshot_db"] <= SHARD_PARITY_DB and r0["stream_db"]
+          <= SHARD_PARITY_DB, "two-process phase misses its bound")
+    check(all(res[r]["launches"] >= 1 for r in (0, 1)), "two-process "
+          f"phase: a rank never launched frac_whole")
+    print(f"timing {card}: sharded two processes oneshot, rank 0 / 1 "
+          f"{r0['ms']:.3f} / {res[1]['ms']:.3f} ms = "
+          f"{1e-6 * CHANNELS * N_IN / (max(r0['ms'], res[1]['ms']) * 1e-3):.1f}"
+          f" Mrops; unsharded oneshot {r0['un_ms']:.3f} ms (two processes "
+          f"share one card, halos cross the host: not scaling)")
+    # the children's call shapes, recorded from the in-process t2 run
+    rs = Resampler(SRC, DST, TB, ATTEN, device=dev)
+    x = uniform_input(dev, N_IN)
+    _y, fcalls, dcalls, _nf, _nd = shard_run(
+        lambda: ShardedResampler(rs, Mesh((2,), ("t",))).oneshot(x))
+    shapes = [("frac", a[2], a[3], a[4],
+               a[1].shape[2] - (a[1].shape[3] == 8), k.get("kc", 32), a[5],
+               a[0].shape[0]) for a, k in fcalls]
+    child = sorted(tuple(k) for r in (0, 1) for k in res[r]["shapes"])
+    check(sorted(shapes) == child, f"two-process phase: the children's "
+          f"call shapes {child} are not the in-process t2 run's {shapes}")
+    launches = {}
+    for k in child:
+        launches[k] = launches.get(k, 0) + 1
+    recs = shard_records("two processes, t2", rs, fcalls, dcalls, seen,
+                         peaks, peaks64, card, launches=launches)
+    del x, rs
+    torch.cuda.empty_cache()
+    return recs
+
+
+def sharding_paths(dev, peaks, peaks64, card):
+    """The sharding phases (parallel/): (1) the fast flagship over the
+    in-process mesh ch2 x t2 on the card, then its guarantee chain
+    (ozaki engines) over the same mesh; (2) 44.1k -> 96001 over t4 (the
+    polynomial split chain), "high" and "fast"; (3) the sharded stream,
+    ch2 x t2, SHARD_CALLS calls; (4) two processes on the card over gloo
+    (shard_processes); (5) the port's dry run, dryrun_multichip(4).
+    Each run counted (launch counts set to 0 just before, read just
+    after), held against the unsharded oneshot on the card and the
+    float64 CPU path, timed; every new kernel call shape held to its
+    plain version with a record."""
+    import torch
+
+    from r8brain_torch import (Mesh, Resampler, ShardedResampler,
+                               ShardedStreamResampler)
+    from r8brain_torch.parallel.dryrun import dryrun_multichip
+
+    records, seen = [], set()
+    sk = int(EDGE_S * DST)
+
+    # (1) the flagship over ch2 x t2
+    x = uniform_input(dev, N_IN)
+    rs = Resampler(SRC, DST, TB, ATTEN, device=dev)
+    srs = ShardedResampler(rs, Mesh((2, 2)))
+    y_un = rs.oneshot(x)
+    y, fcalls, dcalls, nf, _nd = shard_run(lambda: srs.oneshot(x))
+    check(tuple(y.shape) == tuple(y_un.shape) and
+          bool(torch.isfinite(y).all()), f"sharded flagship shape "
+          f"{tuple(y.shape)} or not finite")
+    par = rms_db(y.double() - y_un.double())
+    ref = f64_reference(SRC, DST, x)
+    db = rms_db(y[:N_CMP].cpu().double().numpy()[:, sk:-sk]
+                - ref[:, sk:-sk])
+    print(f"sharded flagship: ShardedResampler(Resampler({SRC}, {DST}), "
+          f"Mesh ch2 x t2), {CHANNELS} x {N_IN} -> {tuple(y.shape)}; vs "
+          f"unsharded oneshot {par:.2f} dB (bound {SHARD_PARITY_DB:g}); "
+          f"{N_CMP} channels vs port f64 CPU path {db:.2f} dB re full "
+          f"scale (class {CLASS_DB:g}); frac_whole launches {nf}")
+    check(par <= SHARD_PARITY_DB and db <= CLASS_DB,
+          "sharded flagship misses its bound")
+    check(nf >= 4, f"sharded flagship: {nf} frac_whole launches, want one "
+          f"a shard (4)")
+    shard_timing(card, "flagship ch2 x t2", lambda: srs.oneshot(x),
+                 lambda: rs.oneshot(x), N_IN)
+    records += shard_records("ch2 x t2", rs, fcalls, dcalls, seen, peaks,
+                             peaks64, card)
+    del y, y_un, fcalls, srs
+
+    # (1b) the guarantee chain over ch2 x t2: each shard's chain on
+    # ozaki_framed with the df32 carry
+    from r8brain_torch.ops import stages
+    from r8brain_torch.ops.pallas_ozaki import ozaki_framed
+
+    rs_g = Resampler(SRC, DST, TB, ATTEN, precision="high",
+                     conv_engine="ozaki", frac_engine="ozaki", device=dev)
+    srs_g = ShardedResampler(rs_g, Mesh((2, 2)))
+    y_un = rs_g.oneshot(x)
+    ozaki_framed.launches = 0
+    (y, _f, _d, _nf, _nd), ocalls = record_run(
+        lambda: shard_run(lambda: srs_g.oneshot(x)), (stages,),
+        "ozaki_framed")
+    ocalls = [c for c in ocalls if on_card(c[0])]
+    no = ozaki_framed.launches
+    check(rs_g.df_carry and no == len(ocalls) and no >= 8, f"sharded "
+          f"guarantee chain: carry {rs_g.df_carry}, {no} ozaki_framed "
+          f"launches for {len(ocalls)} calls, want two a shard")
+    par = rms_db(y.double() - y_un.double())
+    d = y[:N_CMP].cpu().double().numpy()[:, sk:-sk] - ref[:, sk:-sk]
+    rel = rms_db(d) - rms_db(ref[:, sk:-sk])
+    print(f"sharded guarantee chain: ShardedResampler(Resampler({SRC}, "
+          f"{DST}, precision='high', conv_engine='ozaki', "
+          f"frac_engine='ozaki'), Mesh ch2 x t2), {CHANNELS} x {N_IN} -> "
+          f"{tuple(y.shape)}; vs unsharded oneshot {par:.2f} dB (bound "
+          f"{SHARD_PARITY_DB:g}); {N_CMP} channels vs port f64 CPU path "
+          f"{rel:.2f} dB relative (bound {OZ_CARRY_DB:g}); ozaki_framed "
+          f"launches {no}")
+    check(par <= SHARD_PARITY_DB and rel <= OZ_CARRY_DB,
+          "sharded guarantee chain misses its bound")
+    shard_timing(card, "guarantee chain ch2 x t2",
+                 lambda: srs_g.oneshot(x), lambda: rs_g.oneshot(x), N_IN)
+    records += shard_ozaki_records("guarantee ch2 x t2", rs_g, ocalls, seen,
+                                   dev, peaks, card)
+    del y, y_un, ocalls, srs_g, rs_g
+    torch.cuda.empty_cache()
+
+    # (3) the sharded stream, ch2 x t2, on the same resampler
+    ss = ShardedStreamResampler(rs, Mesh((2, 2)), seg_len=SHARD_SEG)
+    n = SHARD_CALLS * ss.block
+    xs = uniform_input(dev, n)
+    y_un = rs.oneshot(xs)
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(SHARD_CALLS + 1)]
+
+    def drive():
+        outs = []
+        ev[0].record()
+        for i in range(SHARD_CALLS):
+            outs.append(ss.process_block(
+                xs[:, i * ss.block : (i + 1) * ss.block]))
+            ev[i + 1].record()
+        return torch.cat(outs, dim=1)
+
+    ys, fcalls, dcalls, nf, _nd = shard_run(drive)
+    call_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(SHARD_CALLS)]
+    par = rms_db(ys.double() - y_un[:, : ys.shape[1]].double())
+    print(f"sharded stream: ShardedStreamResampler(flagship, Mesh ch2 x "
+          f"t2, seg_len={SHARD_SEG}) block {ss.block}, {SHARD_CALLS} calls "
+          f"on {CHANNELS} x {n} -> {tuple(ys.shape)}; vs unsharded oneshot "
+          f"{par:.2f} dB (bound {SHARD_PARITY_DB:g}); frac_whole launches "
+          f"{nf}")
+    check(par <= SHARD_PARITY_DB, "sharded stream misses its bound")
+    check(nf >= 4 * SHARD_CALLS, f"sharded stream: {nf} frac_whole "
+          f"launches for {SHARD_CALLS} calls of 4 shards")
+    steady = sorted(call_ms[1:])[len(call_ms[1:]) // 2]
+    print(f"timing {card}: sharded stream ch2 x t2 per call (ms) "
+          f"{', '.join(f'{t:.3f}' for t in call_ms)}; steady median "
+          f"{steady:.3f} ms = "
+          f"{1e-6 * CHANNELS * ss.block / (steady * 1e-3):.1f} Mrops; "
+          f"unsharded oneshot of the same {n} samples "
+          f"{cuda_ms(lambda: rs.oneshot(xs), reps=3, warmup=1):.3f} ms")
+    records += shard_records("stream ch2 x t2", rs, fcalls, dcalls, seen,
+                             peaks, peaks64, card)
+    del ss, xs, ys, y_un, fcalls, rs, x
+    torch.cuda.empty_cache()
+
+    # (2) 44.1k -> 96001, the polynomial split chain over t4
+    dst = 96001
+    x = uniform_input(dev, N_IN)
+    ref = f64_reference(SRC, dst, x)
+    sk = int(EDGE_S * dst)
+    for precision in ("high", "fast"):
+        rs = Resampler(SRC, dst, TB, ATTEN, precision=precision, device=dev)
+        srs = ShardedResampler(rs, Mesh((4,), ("t",)))
+        y_un = rs.oneshot(x)
+        y, fcalls, dcalls, nf, _nd = shard_run(lambda: srs.oneshot(x))
+        check(srs._poly is not None and tuple(y.shape) == tuple(y_un.shape)
+              and bool(torch.isfinite(y).all()), f"sharded poly "
+              f"{precision}: not the split chain, shape or not finite")
+        par = rms_db(y.double() - y_un.double())
+        d = y[:N_CMP].cpu().double().numpy()[:, sk:-sk] - ref[:, sk:-sk]
+        db = rms_db(d)
+        rel = db - rms_db(ref[:, sk:-sk])
+        bound_db = CLASS_DB if precision == "high" else SHARD_POLY_FAST_DB
+        print(f"sharded poly {precision}: ShardedResampler(Resampler({SRC},"
+              f" {dst}, precision={precision!r}), Mesh t4) split chain, "
+              f"{CHANNELS} x {N_IN} -> {tuple(y.shape)}; vs unsharded "
+              f"oneshot {par:.2f} dB (bound {SHARD_PARITY_DB:g}); {N_CMP} "
+              f"channels vs port f64 CPU path {db:.2f} dB re full scale, "
+              f"{rel:.2f} relative (bound {bound_db:g} "
+              f"{'re full scale' if precision == 'high' else 'relative'});"
+              f" frac_whole launches {nf}")
+        check(par <= SHARD_PARITY_DB and (db if precision == "high"
+                                          else rel) <= bound_db,
+              f"sharded poly {precision} misses its bound")
+        check(nf >= 4, f"sharded poly {precision}: {nf} frac_whole launches")
+        shard_timing(card, f"poly t4 {precision}", lambda: srs.oneshot(x),
+                     lambda: rs.oneshot(x), N_IN)
+        records += shard_records(f"poly t4 {precision}", rs, fcalls, dcalls,
+                                 seen, peaks, peaks64, card)
+        del y, y_un, fcalls, srs, rs
+        torch.cuda.empty_cache()
+    del x
+
+    # (4) two processes on the card
+    records += shard_processes(dev, card, peaks, peaks64, seen)
+
+    # (5) the port's dry run on the card
+    built = {}
+    out, fcalls, dcalls, nf, nd = shard_run(
+        lambda: dryrun_multichip(4, device=dev, resamplers=built))
+    print(f"sharded dry run: dryrun_multichip(4) on the card, mesh "
+          f"{out['mesh']}: 24-bit preset (high, fft) vs unsharded "
+          f"{out['preset24']['vs_unsharded_db']:.2f} dB, vs f64 "
+          f"{out['preset24']['vs_f64_rel_db']:.2f} dB relative; stream "
+          f"{out['stream']['vs_unsharded_db']:.2f} dB; 44.1k -> 96001 "
+          f"{out['poly']['vs_unsharded_db']:.2f} / "
+          f"{out['poly']['vs_f64_rel_db']:.2f} dB; launches frac_whole "
+          f"{nf}, df_fft_conv {nd}")
+    # the shards' calls: C_loc = 2 rows of the ch2 x t2 mesh (the run's
+    # unsharded comparisons make calls of 4)
+    check(all(any(a[0].shape[0] == 2 for a, _k in calls)
+              for calls in (fcalls, dcalls)), "the dry run's shards never "
+          "launched frac_whole or df_fft_conv")
+    records += shard_records("dry run", built, fcalls, dcalls, seen, peaks,
+                             peaks64, card, rows=2)
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2761,6 +3292,11 @@ def main() -> int:
     # the push-mode streams at the serving size, then the chunked oneshot
     kernels += stream_paths(dev, peaks, (peak_f32, peak_bf16, peak_f64,
                                          peak_bytes), card)
+
+    # channel x time-block sharding: in-process meshes, two processes,
+    # the dry run
+    kernels += sharding_paths(dev, peaks, (peak_f32, peak_bf16, peak_f64,
+                                           peak_bytes), card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

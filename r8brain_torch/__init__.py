@@ -15,9 +15,13 @@ Public API:
   * StreamResampler -- push-mode streaming over a Resampler: process /
     flush, whole-block device calls (one block or k at once),
     get_state / set_state checkpoints (models.stream).
+  * ShardedResampler / ShardedStreamResampler / Mesh -- channel x
+    time-block sharding of the oneshot and the stream over a ("ch", "t")
+    mesh, in-process or on torch.distributed (parallel).
   * make_plan / Plan -- stage planner (models.plan).
-  * plan_from_reference / stream_state_from_reference -- carry a
-    reference-package plan, or stream checkpoint, across (convert).
+  * plan_from_reference / stream_state_from_reference /
+    sharded_stream_state_from_reference -- carry a reference-package
+    plan, or stream checkpoint, across (convert).
   * FusedUpExec -- the fused [conv(up), whole-frac] executor (ops.fused).
   * frac_whole / frac_whole_ref -- the framed-matmul CUDA kernel and its
     plain PyTorch version (ops.pallas_frac).
@@ -28,13 +32,16 @@ Public API:
     halfband, fracbank).
 """
 
-from .convert import plan_from_reference, stream_state_from_reference
+from .convert import (plan_from_reference,
+                      sharded_stream_state_from_reference,
+                      stream_state_from_reference)
 from .functional import resample_fn
 from .design.lpfilter import LINEAR_PHASE, MIN_PHASE, build_lp_filter, get_lp_filter
 from .models.plan import Plan, make_plan
 from .models.resampler import (Resampler, Resampler16, Resampler16IR,
                                Resampler24)
 from .models.stream import StreamResampler
+from .parallel import Mesh, ShardedResampler, ShardedStreamResampler
 from .ops.fused import FusedUpExec
 from .ops.pallas_frac import frac_whole, frac_whole_ref
 
@@ -49,11 +56,15 @@ __all__ = [
     "make_plan",
     "plan_from_reference",
     "stream_state_from_reference",
+    "sharded_stream_state_from_reference",
     "Resampler",
     "Resampler16",
     "Resampler16IR",
     "Resampler24",
     "StreamResampler",
+    "Mesh",
+    "ShardedResampler",
+    "ShardedStreamResampler",
     "resample_fn",
     "FusedUpExec",
     "frac_whole",

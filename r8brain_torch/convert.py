@@ -10,7 +10,9 @@ computes with exactly the reference's filters.
 ``stream_state_from_reference`` carries a reference ``StreamResampler``
 checkpoint (``get_state()``, a dict of numpy arrays and integers) into the
 layout of this package's ``StreamResampler.set_state``, after checking
-that the two streams cut the signal into the same blocks.
+that the two streams cut the signal into the same blocks;
+``sharded_stream_state_from_reference`` does the same for a reference
+``ShardedStreamResampler`` checkpoint and the port's sharded stream.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from .design.halfband import HBFilter
 from .design.lpfilter import LPFilter
 from .models.plan import ConvStage, FracStage, HBDownStage, HBUpStage, Plan
 
-__all__ = ["plan_from_reference", "stream_state_from_reference"]
+__all__ = ["plan_from_reference", "stream_state_from_reference",
+           "sharded_stream_state_from_reference"]
 
 _STAGES = {"conv": ConvStage, "hb_up": HBUpStage, "hb_down": HBDownStage,
            "frac": FracStage}
@@ -132,3 +135,46 @@ def stream_state_from_reference(state: dict, stream, reference=None) -> dict:
                      "pending": np.concatenate(parts, axis=1)
                      if parts else None}
     return st
+
+
+def sharded_stream_state_from_reference(state: dict, stream) -> dict:
+    """The checkpoint of ``stream`` (an r8brain_torch ShardedStreamResampler
+    on an in-process mesh) from the reference ShardedStreamResampler state
+    ``state`` (numpy ``carry`` [C_pad, H] and ``pending``, counters, and
+    ``call`` for polynomial plans).  The carry must have this stream's
+    history H and one row for each padded channel, the input count must
+    be whole blocks and the pending samples less than a block; raises
+    ValueError otherwise."""
+    if stream.mesh.distributed:
+        raise ValueError("a reference checkpoint holds every shard's carry; "
+                         "resume it on an in-process mesh")
+    geo = stream.geometry()
+    bad = []
+    n_in = int(state["n_in"])
+    if n_in % geo["block"]:
+        bad.append(f"n_in {n_in} not whole blocks of {geo['block']}")
+    call = int(state.get("call", n_in // geo["block"]))
+    if call != n_in // geo["block"]:
+        bad.append(f"call {call} != n_in / block {n_in // geo['block']}")
+    carry = state["carry"]
+    if (carry is None) != (call == 0):
+        bad.append("carry missing after a call" if carry is None
+                   else "carry before the first call")
+    channels = state["channels"]
+    if carry is not None:
+        rows = -(-int(channels) // geo["n_ch"]) * geo["n_ch"]
+        if np.asarray(carry).shape != (rows, geo["H"]):
+            bad.append(f"carry {np.asarray(carry).shape} != ({rows}, "
+                       f"{geo['H']})")
+    pend = _width(state["pending"])
+    if pend is not None and pend >= geo["block"]:
+        bad.append(f"pending {pend} >= block {geo['block']}")
+    if bad:
+        raise ValueError("reference state does not fit this stream: "
+                         + "; ".join(bad))
+    return {"geometry": geo,
+            "carry": None if carry is None else np.array(carry, copy=True),
+            "n_in": n_in, "n_out": int(state["n_out"]), "call": call,
+            "channels": channels,
+            "pending": None if state["pending"] is None
+            else np.array(state["pending"], copy=True)}

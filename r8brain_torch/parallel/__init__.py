@@ -1,3 +1,9 @@
-"""Multi-device execution helpers (only the chain algebra so far)."""
+"""Channel x time-block sharding over a Mesh (in-process or
+torch.distributed)."""
 
-from .sharding import chain_input_span, chain_shift_period
+from .mesh import Mesh
+from .sharding import ShardedResampler, chain_input_span, chain_shift_period
+from .stream_sharding import ShardedStreamResampler
+
+__all__ = ["Mesh", "ShardedResampler", "ShardedStreamResampler",
+           "chain_input_span", "chain_shift_period"]
