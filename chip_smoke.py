@@ -100,6 +100,21 @@ uniform float32 input:
   Every new kernel call shape of these runs is held to its plain version
   and gets a record.  The kernels are built before the two processes
   start, so they load the built libraries.
+* the WAV converter (``r8brain_torch.cli.main``, in this process) on a
+  300 s stereo 24-bit master written by the port's ``write_wav``
+  (band-limited noise plus a sine, nothing clipping): 44.1 kHz -> 96 kHz
+  whole-file ``"high"`` as float64 and as 24-bit PCM (the 24-bit file
+  equal to the float64 run's samples through the same encoder),
+  ``--stream``, ``--max-chunk 1048576`` and ``"fast"``; then a 96 kHz
+  master to 44.1 kHz ``"high"``.  Each held at -141 dB re full scale
+  against ``--precision native`` (the shared C++ engine in float64,
+  built on the host while the kernels build; a failed build fails the
+  phase), its frame count against floor(frames * dst / src), its wall
+  time and ``--bench`` Mrops printed, ``frac_whole``'s launches counted
+  and every new call shape (two rows of 13-29 M samples, the stream's
+  and the chunks' windows) held to its plain version with a record;
+  the whole-file conversion's parts (WAV decode, host design, copies,
+  the chain, encode) timed apart.
 
 First it pins how the tensor cores add bf16 products into float32
 (``accumulation_pin``: 16- and 32-term sums through ``frac_whole``'s own
@@ -332,6 +347,12 @@ SHARD_PROC_TIMEOUT = 300
 # the TPU kernel a sharded path's df_fft_conv call replaces ("fft" makes
 # the call of pallas_fft)
 SHARD_FFT_REPLACES = "r8brain_tpu/ops/pallas_dfft.py:269"
+# the CLI phase: a stereo 24-bit master of CLI_SECONDS at each source rate
+# (band-limited noise to CLI_BAND Hz plus a CLI_TONE Hz sine, each at
+# CLI_PEAK peak, so that neither the file nor the resampler's overshoot
+# clips), converted by r8brain_torch.cli.main; the outputs held against
+# the native float64 engine's at CLASS_DB re full scale past EDGE_S
+CLI_SECONDS, CLI_BAND, CLI_TONE, CLI_PEAK = 300, 20000.0, 997.0, 0.45
 FUSED_PATHS = (
     ("fused=True pallas", SRC, DST, dict(fused=True, conv_engine="pallas"),
      CLASS_DB, ["FusedUpExec"]),
@@ -2653,21 +2674,16 @@ def fused_paths(dev, card):
         torch.cuda.empty_cache()
 
 
-def shard_records(label, rs, fcalls, dcalls, seen, peaks, peaks64, card,
-                  launches=None, rows=None):
-    """A record for each frac_whole (frac_record) and df_fft_conv
-    (fft_record) call shape of a sharded run that no earlier sharding
-    phase recorded: (operator, fold, windows, rows) and (mode, n, head,
-    frames, rows); with ``rows``, only the calls of that many rows (a
-    shard's, where the run also made unsharded calls).  ``rs`` owns the
-    operators (a dict of resamplers is searched in turn); launches: the
-    run's calls of that shape, or ``launches[shape]`` where the calls ran
-    in other processes."""
+def frac_shape_records(label, rs, fcalls, seen, peaks, card,
+                       launches=None):
+    """A record (frac_record) for each frac_whole call shape of a run that
+    no earlier run of its phase recorded: (operator, fold, windows,
+    rows).  ``rs`` owns the operators (a dict or list of resamplers is
+    searched in turn); launches: the run's calls of that shape, or
+    ``launches[shape]`` where the calls ran in other processes."""
     records = []
-    owners = list(rs.values()) if isinstance(rs, dict) else [rs]
-    if rows is not None:
-        fcalls = [c for c in fcalls if c[0][0].shape[0] == rows]
-        dcalls = [c for c in dcalls if c[0][0].shape[0] == rows]
+    owners = list(rs.values()) if isinstance(rs, dict) else (
+        list(rs) if isinstance(rs, (list, tuple)) else [rs])
     for args, kw in fcalls:
         xp, parts, I, D, O, n_win = args
         key = ("frac", I, D, O, parts.shape[2] - (parts.shape[3] == 8),
@@ -2682,8 +2698,8 @@ def shard_records(label, rs, fcalls, dcalls, seen, peaks, peaks64, card,
                 break
             except SmokeFailure:
                 continue
-        check(ex is not None, f"sharded {label}: a frac_whole call got an "
-              f"operator of no executor")
+        check(ex is not None, f"{label}: a frac_whole call got an operator "
+              f"of no executor")
         kind = {"HBUpExec": "HB up", "HBDownExec": "HB down",
                 "FusedUpExec": "fused", "ConvExec": "toeplitz conv",
                 "FracWholeExec": "frac stage"}[type(ex).__name__]
@@ -2691,8 +2707,23 @@ def shard_records(label, rs, fcalls, dcalls, seen, peaks, peaks64, card,
             1 for a, k_ in fcalls if a[2:6] == (I, D, O, n_win)
             and a[0].shape[0] == xp.shape[0] and a[1] is parts)
         records.append(frac_record(
-            f"frac_whole[{kind}, sharded {label}, C={xp.shape[0]}, D={D}, "
+            f"frac_whole[{kind}, {label}, C={xp.shape[0]}, D={D}, "
             f"n_win={n_win}]", (args, kw), ex, n_shape, peaks, card))
+    return records
+
+
+def shard_records(label, rs, fcalls, dcalls, seen, peaks, peaks64, card,
+                  launches=None, rows=None):
+    """A record for each frac_whole (frac_shape_records) and df_fft_conv
+    (fft_record) call shape of a sharded run that no earlier sharding
+    phase recorded: (operator, fold, windows, rows) and (mode, n, head,
+    frames, rows); with ``rows``, only the calls of that many rows (a
+    shard's, where the run also made unsharded calls)."""
+    if rows is not None:
+        fcalls = [c for c in fcalls if c[0][0].shape[0] == rows]
+        dcalls = [c for c in dcalls if c[0][0].shape[0] == rows]
+    records = frac_shape_records(f"sharded {label}", rs, fcalls, seen, peaks,
+                                 card, launches)
     for args, kw in dcalls:
         u, plan, n_frames, head = args
         key = ("fft", plan.mode(head), plan.n, head, n_frames, u.shape[0])
@@ -3156,6 +3187,223 @@ def sharding_paths(dev, peaks, peaks64, card):
     return records
 
 
+def cli_master(dev, rate: int, path: str) -> int:
+    """Write the phase's stereo 24-bit master at ``rate`` (CLI_SECONDS)
+    with the port's write_wav: per channel, white noise from SEED low-passed
+    to CLI_BAND on the card and scaled to CLI_PEAK peak, plus a CLI_TONE
+    sine at CLI_PEAK.  Returns its frame count."""
+    import torch
+
+    from r8brain_torch.io import write_wav
+
+    n = CLI_SECONDS * rate
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    spec = torch.fft.rfft(torch.randn((2, n), generator=g, device=dev))
+    spec[:, int(CLI_BAND * n / rate) + 1 :] = 0
+    noise = torch.fft.irfft(spec, n=n)
+    del spec
+    noise *= CLI_PEAK / noise.abs().amax(dim=1, keepdim=True)
+    t = torch.arange(n, device=dev, dtype=torch.float64) / rate
+    x = noise.double() + CLI_PEAK * torch.sin(2 * math.pi * CLI_TONE * t)
+    write_wav(path, rate, x.cpu().numpy(), 24)
+    return n
+
+
+def cli_run(card, label, argv, resamplers=None, split=False):
+    """r8brain_torch.cli.main(argv) in this process, its --bench line
+    captured and printed with the wall time.  With ``resamplers`` (a
+    list), every Resampler the CLI builds is appended to it, and the run
+    is counted (shard_run: launch counts set to 0 just before, read just
+    after, every kernel call on the card recorded).  With ``split`` (and
+    ``resamplers``), this run's own parts are printed too: the CLI's WAV
+    decode, Resampler build (the host design) and WAV encode, each timed
+    where the CLI calls it; the rest of its --bench window (the copy to
+    the card, the chain, the copy back and the float64 cast); and
+    torch.profiler's device time of the run's kernels and copies, with the
+    card's idle share of the run's wall.  Returns (frac_whole calls,
+    frac_whole launches)."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from r8brain_torch import cli
+
+    err = io.StringIO()
+    parts = {}
+    real = {n: getattr(cli, n) for n in ("Resampler", "read_wav",
+                                         "write_wav")}
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def build(*a, **kw):
+        rs = real["Resampler"](*a, **kw)
+        resamplers.append(rs)
+        return rs
+
+    prof = profile(activities=[ProfilerActivity.CUDA]) if split else \
+        contextlib.nullcontext()
+
+    wall = []
+
+    def run():
+        # the wall is cli.main's alone: the profiler's start and its
+        # trace's collection lie outside it
+        with contextlib.redirect_stderr(err), prof:
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["--bench"])
+            wall.append(time.perf_counter() - t0)
+        return rc
+
+    fcalls, nf = [], 0
+    if resamplers is None:
+        rc = run()
+    else:
+        cli.Resampler = timed("design", build) if split else build
+        if split:
+            cli.read_wav = timed("decode", real["read_wav"])
+            cli.write_wav = timed("encode", real["write_wav"])
+        try:
+            rc, fcalls, _dc, nf, _nd = shard_run(run)
+        finally:
+            for n, fn in real.items():
+                setattr(cli, n, fn)
+    wall = wall[0]
+    m = re.search(r"in ([0-9.]+)s = ([0-9.]+) Mrops", err.getvalue())
+    check(rc == 0 and m is not None, f"cli {label}: exit {rc}, stderr "
+          f"{err.getvalue()[-500:]!r}")
+    print(f"timing {card}: cli {label}: wall {wall:.3f} s; --bench "
+          f"{m[1]} s = {m[2]} Mrops"
+          + (f"; frac_whole launches {nf}" if resamplers is not None
+             else ""))
+    if split:
+        dev_s = {"kernels": 0.0, "copies": 0.0}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                dev_s["copies" if e.key.startswith("Memcpy") else
+                      "kernels"] += e.self_device_time_total * 1e-6
+        rest = float(m[1]) - parts["design"]
+        busy = dev_s["kernels"] + dev_s["copies"]
+        print(f"timing {card}: cli {label} split (this run, profiled): "
+              f"decode {parts['decode']:.3f} s, design {parts['design']:.3f}"
+              f" s, H2D + chain + D2H + cast {rest:.3f} s, encode "
+              f"{parts['encode']:.3f} s; device: kernels "
+              f"{dev_s['kernels'] * 1e3:.3f} ms, copies "
+              f"{dev_s['copies'] * 1e3:.3f} ms, idle "
+              f"{100.0 * (1.0 - busy / wall):.2f} % of the wall")
+    return fcalls, nf
+
+
+def cli_paths(dev, peaks, card, native_build):
+    """The CLI phase: r8brain_torch.cli.main on a CLI_SECONDS stereo 24-bit
+    master, in this process.  44.1 kHz -> 96 kHz: the native float64
+    engine (--precision native, the reference), the whole file "high"
+    as float64 and as 24-bit PCM (the 24-bit samples equal to the 24-bit
+    quantisation of the float64 file's), --stream, --max-chunk 1048576
+    and "fast"; then a 96 kHz master to 44.1 kHz, "high" and native.
+    Every device run counted (launch counts set to 0 just before, read
+    just after: frac_whole launched), held against the native output at
+    CLASS_DB re full scale past EDGE_S at each edge, and its frame count
+    to floor(frames * dst / src); each run's wall time and --bench Mrops
+    printed; every new frac_whole call shape held to its plain version
+    with a record.  ``native_build``: the future of the engine's build,
+    started with the kernels' (its failure fails the phase)."""
+    import filecmp
+    import tempfile
+
+    import numpy as np
+
+    from r8brain_torch.io import read_wav, write_wav
+
+    native_build.result()
+    records, seen = [], set()
+    f64 = ["--float", "--bits", "64"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for src, dst in ((44100, 96000), (96000, 44100)):
+            master = f"{tmp}/master_{src}.wav"
+            t0 = time.perf_counter()
+            frames = cli_master(dev, src, master)
+            out_len = int(math.floor(frames * dst / src))
+            skip = int(EDGE_S * dst)
+            print(f"cli master: {master.rsplit('/', 1)[1]} 2 x {frames} "
+                  f"frames 24-bit at {src} Hz written in "
+                  f"{time.perf_counter() - t0:.3f} s")
+            tag = f"{src / 1000:g}k -> {dst / 1000:g}k"
+
+            def out(name):
+                return f"{tmp}/{name}_{src}.wav"
+
+            def read(path, bits):
+                w = read_wav(path)
+                check((w.rate, w.channels, w.bits, w.frames) ==
+                      (dst, 2, bits, out_len), f"cli {path}: rate "
+                      f"{w.rate}, {w.channels} ch, {w.bits} bits, "
+                      f"{w.frames} frames (want {out_len})")
+                return w.data
+
+            cli_run(card, f"{tag} native", [master, out("native"), str(dst),
+                                            "--precision", "native"] + f64)
+            ref = read(out("native"), 64)[:, skip:-skip]
+            runs = ([("high f64", []), ("high 24-bit", None),
+                     ("stream", ["--stream"]),
+                     ("max-chunk", ["--max-chunk", "1048576"]),
+                     ("fast", ["--precision", "fast"])]
+                    if src == 44100 else [("high f64", [])])
+            for label, flags in runs:
+                built = []
+                pcm = flags is None
+                path = out(label.replace(" ", "_"))
+                argv = [master, path, str(dst)] + (
+                    [] if pcm else flags + f64)
+                fcalls, nf = cli_run(card, f"{tag} {label}", argv, built,
+                                     split=label == "high f64"
+                                     and src == 44100)
+                check(nf >= 1 and len(built) == 1, f"cli {tag} {label}: "
+                      f"{nf} frac_whole launches, {len(built)} resamplers")
+                if pcm:
+                    # the 24-bit file is the float64 file's samples
+                    # through the same encoder
+                    y64 = read(out("high_f64"), 64)
+                    write_wav(f"{tmp}/requant.wav", dst, y64, 24)
+                    same = filecmp.cmp(path, f"{tmp}/requant.wav",
+                                       shallow=False)
+                    read(path, 24)
+                    print(f"cli {tag} {label}: 24-bit samples "
+                          f"{'equal' if same else 'DIFFER from'} the "
+                          f"24-bit quantisation of the float64 run's")
+                    check(same, f"cli {tag} {label}: 24-bit file is not "
+                          f"the float64 run's quantised")
+                    for p in (path, f"{tmp}/requant.wav", out("high_f64")):
+                        os.remove(p)
+                else:
+                    y = read(path, 64)
+                    db = rms_db(y[:, skip:-skip] - ref)
+                    print(f"cli {tag} {label}: 2 x {out_len} vs native "
+                          f"float64 {db:.2f} dB re full scale (class "
+                          f"{CLASS_DB:g})")
+                    check(db <= CLASS_DB and bool(np.isfinite(y).all()),
+                          f"cli {tag} {label} misses {CLASS_DB:g} dB")
+                    del y
+                    if label != "high f64":
+                        os.remove(path)
+                records += frac_shape_records(f"cli {tag} {label}", built,
+                                              fcalls, seen, peaks, card)
+                del fcalls, built
+            del ref
+            for p in (master, out("native"), out("high_f64")):
+                if os.path.exists(p):
+                    os.remove(p)
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3185,6 +3433,15 @@ def main() -> int:
     peak_f32, peak_bf16, peak_f64, peak_bytes = next(
         (f, h, d, b) for k, f, h, d, b in PEAKS if k in name)
 
+    # the native engine (the CLI phase's float64 reference) builds on the
+    # host while nvcc builds the kernels
+    from concurrent.futures import ThreadPoolExecutor
+
+    from r8brain_torch.native import build_library
+
+    pool = ThreadPoolExecutor(1)
+    native_build = pool.submit(build_library)
+    pool.shutdown(wait=False)
     build_kernels()
 
     x = torch.rand((CHANNELS, N_IN), generator=torch.Generator(
@@ -3297,6 +3554,9 @@ def main() -> int:
     # the dry run
     kernels += sharding_paths(dev, peaks, (peak_f32, peak_bf16, peak_f64,
                                            peak_bytes), card)
+
+    # the CLI on a five-minute stereo master, each way
+    kernels += cli_paths(dev, peaks, card, native_build)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

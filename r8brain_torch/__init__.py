@@ -18,6 +18,9 @@ Public API:
   * ShardedResampler / ShardedStreamResampler / Mesh -- channel x
     time-block sharding of the oneshot and the stream over a ("ch", "t")
     mesh, in-process or on torch.distributed (parallel).
+  * OracleResampler -- the float64 host executor of a plan, sample-exact
+    against the C++ reference's goldens: the specification the device
+    paths are held to (models.oracle, NumPy).
   * make_plan / Plan -- stage planner (models.plan).
   * plan_from_reference / stream_state_from_reference /
     sharded_stream_state_from_reference -- carry a reference-package
@@ -29,7 +32,13 @@ Public API:
     (ozaki) CUDA kernel of the guarantee chain and its plain version;
     ops.stages.ConvExec / FracWholeExec -- the chain's stage executors.
   * design.* -- host-side filter design (sinc, lpfilter, minphase,
-    halfband, fracbank).
+    halfband, fracbank); utils.fir / utils.scan -- FIR responses and
+    their scanners (extrema, level crossings).
+  * io -- WAV read / write, whole-file and incremental (io.wavio).
+  * native -- the shared C++ engine's binding: plan blobs
+    (build_plan_blob, native_design_blob) and NativeResampler.
+  * cli -- the WAV converter, ``python -m r8brain_torch.cli`` (script
+    ``r8btorch``).
 """
 
 from .convert import (plan_from_reference,
@@ -37,6 +46,7 @@ from .convert import (plan_from_reference,
                       stream_state_from_reference)
 from .functional import resample_fn
 from .design.lpfilter import LINEAR_PHASE, MIN_PHASE, build_lp_filter, get_lp_filter
+from .models.oracle import OracleResampler
 from .models.plan import Plan, make_plan
 from .models.resampler import (Resampler, Resampler16, Resampler16IR,
                                Resampler24)
@@ -52,6 +62,7 @@ __all__ = [
     "MIN_PHASE",
     "build_lp_filter",
     "get_lp_filter",
+    "OracleResampler",
     "Plan",
     "make_plan",
     "plan_from_reference",

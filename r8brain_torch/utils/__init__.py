@@ -1,1 +1,2 @@
-"""Host-side analysis utilities (FIR response, math, tracing)."""
+"""Host-side analysis utilities (FIR response, response scanners, math,
+tracing)."""
