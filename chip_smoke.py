@@ -115,6 +115,20 @@ uniform float32 input:
   and the chunks' windows) held to its plain version with a record;
   the whole-file conversion's parts (WAV decode, host design, copies,
   the chain, encode) timed apart.
+* the acceptance layer (``tools/torch_*.py``): the differential fuzzer's
+  first 64 draws (one channel of 2500-6000 samples each, random plans of
+  the reference fuzzer's four ratio families, atten 49-218 dB, tb
+  0.75-12, 15 % minimum phase) through every executor (the float64
+  oracle, float32 fast, the guarantee chain, the stream at block_len
+  2048 in random chunks, the native engine, "high", ``pallas_fft5`` and
+  ``toeplitz_sym``), every pair held to its bound, every launch counted
+  and every kernel call recorded; the fuzzer's pins and class pins; the
+  quick float32 zerotest (62 ratios, n 12000, -135 dB band-limited); the
+  fractional bank's SNR; the serving latency curve (1024 channels, block
+  lengths 256 to 8192, 44.1 kHz -> 96 kHz and -> 96001 Hz); then every
+  call shape of the sweep held to its kernel's plain version and each
+  kernel's smallest shape timed beside its plain version and library
+  call.
 
 First it pins how the tensor cores add bf16 products into float32
 (``accumulation_pin``: 16- and 32-term sums through ``frac_whole``'s own
@@ -353,6 +367,19 @@ SHARD_FFT_REPLACES = "r8brain_tpu/ops/pallas_dfft.py:269"
 # clips), converted by r8brain_torch.cli.main; the outputs held against
 # the native float64 engine's at CLASS_DB re full scale past EDGE_S
 CLI_SECONDS, CLI_BAND, CLI_TONE, CLI_PEAK = 300, 20000.0, 997.0, 0.45
+# the acceptance phase: the differential fuzzer's first ACC_TRIALS draws
+# with every executor (tools/torch_fuzz.py; one channel of 2500-6000
+# samples, the reference's sizes), its pins, the quick f32 zerotest (62
+# ratios, n 12000), the fractional bank's SNR, and the serving latency
+# curve (1024 channels) on a rational and a polynomial plan
+ACC_TRIALS = 64
+LAT_CHANNELS, LAT_BLOCKS, LAT_ITERS = 1024, (256, 1024, 4096, 8192), 16
+LAT_DSTS = (96000, 96001)
+# the kernels whose every call shape the sweep holds to its plain version:
+# kernel -> the modules that call it
+ACC_KERNELS = {"frac_whole": ("stages", "fused", "hb_cascade"),
+               "ozaki_framed": ("stages",), "df_fft_conv": ("stages",),
+               "sym_conv": ("stages",)}
 FUSED_PATHS = (
     ("fused=True pallas", SRC, DST, dict(fused=True, conv_engine="pallas"),
      CLASS_DB, ["FusedUpExec"]),
@@ -1927,6 +1954,16 @@ def ozaki_record(name, rep, geo, case, parts, packed, has_lo, emit,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def ozaki_replaces(ex, has_lo: bool, emit: bool) -> str:
+    """The TPU kernel an ozaki_framed call of executor ``ex`` in variant
+    (x_lo, emit_pair) replaces: the frac stage's dense kernels, the other
+    stages' framed ones."""
+    if type(ex).__name__ == "FracWholeExec":
+        return "pallas_ozaki.py:207" if emit else "pallas_ozaki.py:232"
+    return ("pallas_ozaki.py:263" if has_lo or emit else
+            "pallas_ozaki.py:317")
+
+
 def ozaki_paths(dev, peaks, card):
     """The guarantee chains of OZ_PATHS, carry on and off: counted (every
     ozaki_framed call recorded with its geometry), held to -150 / -141 dB
@@ -2017,11 +2054,7 @@ def ozaki_paths(dev, peaks, card):
                 continue
             done.add(key[3:])
             kind = type(ex).__name__
-            rep = ("pallas_ozaki.py:263" if key[3] or key[4] else
-                   "pallas_ozaki.py:317")
-            if kind == "FracWholeExec":
-                rep = ("pallas_ozaki.py:207" if key[4] else
-                       "pallas_ozaki.py:232")
+            rep = ozaki_replaces(ex, key[3], key[4])
             lib = library_call(ex, case[0], parts.double().sum(dim=0), hop,
                                torch.float64)
             records.append(ozaki_record(
@@ -2148,10 +2181,7 @@ def stream_ozaki_records(label, rs, calls, seen, dev, peaks, card):
             f"{type(ex).__name__} (stream {label}, "
             f"{'blocks batched' if batch else 'one block'})", geo, case,
             parts, kw["packed"])
-        rep = ("pallas_ozaki.py:263" if var[0] or var[1] else
-               "pallas_ozaki.py:317")
-        if type(ex).__name__ == "FracWholeExec":
-            rep = "pallas_ozaki.py:207" if var[1] else "pallas_ozaki.py:232"
+        rep = ozaki_replaces(ex, *var)
         n_key = sum(1 for a, k_ in calls if tuple(a[3:7]) == geo
                     and (a[0].shape[0] > CHANNELS) == batch
                     and (k_.get("x_lo") is not None,
@@ -2763,12 +2793,7 @@ def shard_ozaki_records(label, rs, ocalls, seen, dev, peaks, card):
         errs = check_ozaki_variants(
             f"{type(ex).__name__} (sharded {label}, C={xp.shape[0]})", geo,
             case, parts, kw["packed"])
-        frac = type(ex).__name__ == "FracWholeExec"
-        rep = {(True, True): "pallas_ozaki.py:207",
-               (True, False): "pallas_ozaki.py:232",
-               (False, True): "pallas_ozaki.py:263",
-               (False, False): "pallas_ozaki.py:317"}[
-            (frac, var[1] if frac else var[0] or var[1])]
+        rep = ozaki_replaces(ex, *var)
         n_key = sum(1 for a, k_ in ocalls if tuple(a[3:7]) == geo
                     and a[0].shape[0] == xp.shape[0]
                     and (k_.get("x_lo") is not None,
@@ -3404,6 +3429,268 @@ def cli_paths(dev, peaks, card, native_build):
     return records
 
 
+def acc_shape(name, args, kw):
+    """A kernel call's shape: (kernel, rows, windows, the rest of its
+    geometry)."""
+    if name == "frac_whole":
+        xp, parts, I, D, O, n_win = args
+        return (name, xp.shape[0], n_win, I, D, O, tuple(parts.shape),
+                kw.get("kc", 32))
+    if name == "ozaki_framed":
+        xp, _sx, _parts, L_f, hop, Kcols, nb = args
+        return (name, xp.shape[0], nb, L_f, hop, Kcols,
+                kw.get("x_lo") is not None, bool(kw.get("emit_pair")))
+    if name == "df_fft_conv":
+        u, plan, n_frames, head = args
+        return (name, u.shape[0], n_frames, plan.mode(head), plan.n, head,
+                u.shape[1])
+    xp, parts, L_fs, nb, hop = args
+    return (name, xp.shape[0], nb, tuple(L_fs), hop, tuple(parts.shape))
+
+
+def acc_recorder(store, name, real):
+    """A stand-in for the kernel wrapper ``name`` that runs ``real`` (which
+    counts its launch) and keeps in ``store``, for each call shape
+    (acc_shape), the first call's [args, kw, executor, stage input] and
+    the number of calls on the card (a CPU model's calls are not kept):
+    the executor is the nearest calling frame's ``self`` that is a torch
+    module, the stage input that frame's ``x``."""
+    import torch
+
+    def rec(*args, **kw):
+        if args[0].device.type != "cuda":  # a CPU model's call
+            return real(*args, **kw)
+        key = acc_shape(name, args, kw)
+        if key not in store:
+            f, ex, x_in = sys._getframe(1), None, None
+            while f is not None and ex is None:
+                s = f.f_locals.get("self")
+                if isinstance(s, torch.nn.Module):
+                    ex, x_in = s, f.f_locals.get("x")
+                f = f.f_back
+            store[key] = [args, kw, ex, x_in, 0]
+        store[key][4] += 1
+        return real(*args, **kw)
+    return rec
+
+
+def acc_hold(store, dev, peaks, peaks64, card, launches):
+    """Every call shape of the acceptance sweep against its kernel's plain
+    version on the card: frac_whole within MODEL_REL_TOL of max |y| of its
+    model (and KERNEL_REL_TOL of its float64 product), ozaki_framed
+    bit-equal without x_lo (OZ_LO_REL_TOL / OZ_PAIR_REL_TOL with it),
+    df_fft_conv within FFT_REL_TOL, sym_conv within SYM_ULPS; then each
+    kernel's smallest shape (rows x windows) timed beside its plain
+    version and its library call, one record a kernel.  Returns the
+    records."""
+    import torch
+
+    from r8brain_torch.ops.pallas_dfft import df_fft_conv, df_fft_conv_ref
+    from r8brain_torch.ops.pallas_frac import (frac_whole, frac_whole_ref,
+                                               operator_parts)
+    from r8brain_torch.ops.pallas_ozaki import ozaki_framed, ozaki_framed_ref
+    from r8brain_torch.ops.pallas_symconv import sym_conv, sym_conv_ref
+
+    worst = {k: 0.0 for k in ACC_KERNELS}
+    shapes = {k: [] for k in ACC_KERNELS}
+    for key, (args, kw, ex, _x, _n) in store.items():
+        name = key[0]
+        label = f"acceptance {name} {key[1:]}"
+        if name == "frac_whole":
+            check(ex is not None, f"{label}: no executor")
+            skT, lo = exec_operator(ex, args[1])
+            y, model = frac_whole(*args, **kw), frac_whole_ref(*args, **kw)
+            r = frac_whole_ref(args[0].double(), operator_parts(
+                skT.double(), None if lo is None else lo.double()),
+                *args[2:])
+            err = check_frac_model(label, y, model, r)[1]
+        elif name == "ozaki_framed":
+            lo, emit = kw.get("x_lo"), bool(kw.get("emit_pair"))
+            y = ozaki_framed(*args, **kw)
+            r = ozaki_framed_ref(*args, x_lo=lo, emit_pair=emit)
+            ys, rs = (y, r) if emit else ((y,), (r,))
+            yc = sum(t.double() for t in ys)
+            rc = sum(t.double() for t in rs)
+            err = float((yc - rc).abs().max().item()) / max(
+                float(rc.abs().max().item()), 1e-300)
+            if lo is None:
+                check(all(torch.equal(a, b) for a, b in zip(ys, rs)),
+                      f"{label}: not bit-equal to ozaki_framed_ref")
+            else:
+                tol = OZ_PAIR_REL_TOL if emit else OZ_LO_REL_TOL
+                check(err <= tol, f"{label}: max rel {err:.3e} vs plain")
+        elif name == "df_fft_conv":
+            y, r = df_fft_conv(*args), df_fft_conv_ref(*args)
+            err = max_rel(y, r.double())
+            check(err <= FFT_REL_TOL, f"{label}: max rel err {err:.3e} vs "
+                  f"plain")
+        else:
+            y, r = sym_conv(*args), sym_conv_ref(*args)
+            err = ulps_of_max(y, r)
+            check(err <= SYM_ULPS["float32"], f"{label}: {err:.2f} ulps of "
+                  f"max |y| from plain")
+        worst[name] = max(worst[name], err)
+        shapes[name].append(key)
+    torch.cuda.synchronize()
+    records = []
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for name, keys in shapes.items():
+        key = min(keys, key=lambda k: (k[1] * k[2], k[3:]))
+        args, kw, ex, x_in, _n = store[key]
+        rows, wins = key[1], key[2]
+        what = {"frac_whole": "of max |y| from the model",
+                "ozaki_framed": "of max |y| from plain (bit-equal without "
+                                "x_lo)",
+                "df_fft_conv": "of max |y| from plain",
+                "sym_conv": "ulps of max |y| from plain"}[name]
+        print(f"acceptance {name}: {len(keys)} distinct call shapes, "
+              f"{launches[name]} launches; smallest {rows} x {wins} "
+              f"windows {key[3:]}; worst {worst[name]:.3e} {what}")
+        tag = (f"{name}[acceptance sweep: {len(keys)} shapes, smallest "
+               f"{rows} x {wins}]")
+        if name == "frac_whole":
+            records.append(frac_record(tag, (args, kw), ex, launches[name],
+                                       peaks, card))
+        elif name == "df_fft_conv":
+            records.append(fft_record(
+                f"acceptance sweep, {len(keys)} shapes, smallest {rows} x "
+                f"{wins}", (args, kw), FFT_REPLACES[key[3]], launches[name],
+                peaks64, card))
+        elif name == "sym_conv":
+            records.append(matmul_record("acceptance sweep", name, tag,
+                                         (args, kw), ex, x_in,
+                                         launches[name], peaks, card))
+        else:
+            _xp, _sx, parts, L_f, hop, Kcols, nb = args
+            geo = (L_f, hop, Kcols, nb)
+            var = key[6:8]
+            case = ozaki_case(dev, g, rows, *geo, parts)
+            errs = check_ozaki_variants(f"{type(ex).__name__} (acceptance "
+                                        f"sweep, smallest shape)", geo, case,
+                                        parts, kw["packed"])
+            rep = ozaki_replaces(ex, *var)
+            lib = library_call(ex, case[0], parts.double().sum(dim=0), hop,
+                               torch.float64)
+            records.append(ozaki_record(tag, rep, geo, case, parts,
+                                        kw["packed"], var[0], var[1],
+                                        launches[name], errs[var], lib,
+                                        peaks, card))
+    return records
+
+
+def acceptance_paths(dev, peaks, peaks64, card, native_build):
+    """The acceptance layer on the card: tools/torch_fuzz.py's first
+    ACC_TRIALS draws through every executor (orc, f32, oz, stm, nat,
+    high, fft, sym; every pair at its bound, a float32 executor above
+    -141 dB re full scale printed beside its CPU model), counted (launch
+    counts set to 0 just before it and read just after: every kernel of
+    ACC_KERNELS launched) with every kernel call recorded; the fuzzer's
+    pins (relative) and its class pins (CLASS_DB re full scale);
+    torch_zerotest --impl f32 --quick; torch_flt_test; the serving
+    latency curve at LAT_BLOCKS on LAT_CHANNELS channels for each of
+    LAT_DSTS; then every call shape of the sweep held to its plain version
+    and each kernel's smallest shape recorded (acc_hold)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_flt_test
+    import torch_fuzz
+    import torch_latency_curve
+    import torch_zerotest
+
+    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops.pallas_dfft import df_fft_conv
+    from r8brain_torch.ops.pallas_frac import frac_whole
+    from r8brain_torch.ops.pallas_ozaki import ozaki_framed
+    from r8brain_torch.ops.pallas_symconv import sym_conv
+
+    native_build.result()
+    t_phase = time.perf_counter()
+    mods = {"stages": stages, "fused": fused, "hb_cascade": hb_cascade}
+    real = {"frac_whole": frac_whole, "ozaki_framed": ozaki_framed,
+            "df_fft_conv": df_fft_conv, "sym_conv": sym_conv}
+    store = {}
+    for fn in real.values():
+        fn.launches = 0
+    try:
+        for name, ms in ACC_KERNELS.items():
+            for m in ms:
+                setattr(mods[m], name, acc_recorder(store, name, real[name]))
+        t0 = time.perf_counter()
+        summary, fails = torch_fuzz.sweep(
+            ACC_TRIALS, 0, torch_fuzz.BASE + torch_fuzz.CARD, dev, log=print)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        for name, ms in ACC_KERNELS.items():
+            for m in ms:
+                setattr(mods[m], name, real[name])
+    launches = {k: fn.launches for k, fn in real.items()}
+    calls = {k: sum(v[4] for key, v in store.items() if key[0] == k)
+             for k in real}
+    print(f"acceptance fuzzer {card}: {ACC_TRIALS} draws in {dt:.1f} s "
+          f"({dt / ACC_TRIALS:.3f} s a draw); launches {launches}, calls "
+          f"{calls}")
+    print("acceptance fuzzer: " + json.dumps(summary))
+    check(not fails, f"acceptance fuzzer: {len(fails)} pairs miss their "
+          f"bound, first {fails[0] if fails else None}")
+    check(all(launches[k] >= 1 for k in real), f"acceptance fuzzer: a "
+          f"kernel never launched: {launches}")
+    check(all(launches[k] == calls[k] for k in real if k != "df_fft_conv")
+          and launches["df_fft_conv"] >= calls["df_fft_conv"],
+          f"acceptance fuzzer: launches {launches} for calls {calls}")
+    check(all(summary["runs"][k] >= 1 for k in torch_fuzz.BASE +
+              torch_fuzz.CARD), f"acceptance fuzzer: runs {summary['runs']}")
+
+    for pin in torch_fuzz.PINS:
+        label, cfg, ex, bound_db = pin[:4]
+        y, ref = torch_fuzz.run_pin(pin, dev)
+        d = torch_fuzz.rel_db(y, ref)
+        print(f"acceptance pin {label} {cfg} {ex}: {d:.2f} dB relative "
+              f"(bound {bound_db:g}), {rms_db(y - ref):.2f} re full scale")
+        check(d < bound_db, f"acceptance pin {label}: {d:.2f} dB misses "
+              f"{bound_db:g}")
+    for pin in torch_fuzz.CLASS_PINS:
+        label, cfg, ex, bound_db = pin[:4]
+        y, ref = torch_fuzz.run_pin(pin, dev)
+        d = rms_db(y - ref)
+        print(f"acceptance class pin {label} {cfg} {ex}: {d:.2f} dB re full "
+              f"scale (bound {bound_db:g})")
+        check(d < bound_db, f"acceptance class pin {label}: {d:.2f} dB "
+              f"misses {bound_db:g}")
+
+    t0 = time.perf_counter()
+    rc = torch_zerotest.main(["--impl", "f32", "--quick", "--device",
+                              "cuda"])
+    check(rc == 0 and torch_zerotest.last["ratios"] == 62,
+          f"torch_zerotest --impl f32 --quick: rc {rc}, "
+          f"{torch_zerotest.last}")
+    print(f"acceptance zerotest {card}: {time.perf_counter() - t0:.1f} s")
+    rc = torch_flt_test.main(["--device", "cuda"])
+    check(rc == 0, f"torch_flt_test on the card: rc {rc}")
+
+    for dst in LAT_DSTS:
+        points, mode = torch_latency_curve.curve(
+            44100.0, float(dst), 180.15, "fast", LAT_CHANNELS, LAT_BLOCKS,
+            LAT_ITERS, dev)
+        print(f"acceptance latency curve {card}: " + json.dumps({
+            "metric": "stream_latency_curve", "channels": LAT_CHANNELS,
+            "src": 44100.0, "dst": float(dst), "mode": mode,
+            "points": points}))
+        lens = [p["block_len"] for p in points]
+        check(len(points) >= 2 and len(set(lens)) == len(lens) and all(
+            math.isfinite(p["ms_per_block"]) and p["ms_per_block"] > 0
+            for p in points), f"latency curve {dst}: {points}")
+        torch.cuda.empty_cache()
+
+    records = acc_hold(store, dev, peaks, peaks64, card, launches)
+    del store
+    torch.cuda.empty_cache()
+    print(f"acceptance_paths: {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3557,6 +3844,11 @@ def main() -> int:
 
     # the CLI on a five-minute stereo master, each way
     kernels += cli_paths(dev, peaks, card, native_build)
+
+    # the acceptance layer: the differential fuzzer's sweep through every
+    # executor, its pins, the zerotest, the bank's SNR, the latency curve
+    kernels += acceptance_paths(dev, peaks, (peak_f32, peak_bf16, peak_f64,
+                                             peak_bytes), card, native_build)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,10 +42,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.fused import FusedUpExec, fuse_stage_list
+from ..ops.fused import fuse_stage_list
 from ..ops.hb_cascade import HBUpCascadeExec
 from ..ops.pallas_frac import KC, KC_LO
-from ..ops.stages import ConvExec, _df_collapse_input, build_exec
+from ..ops.stages import (ConvExec, HBUpExec, _df_collapse_input,
+                          build_exec)
 from ..utils.trace import trace_plan
 from .lengths import chain_in_for_out, chain_max_out_len, chain_out_len
 from .plan import Plan, make_plan
@@ -69,26 +70,35 @@ def resolve_device(device) -> torch.device:
 #: truncating tensor-core sums add coherently along the chain, and 44.1k ->
 #: 352800.3 ([conv, poly, conv, half-band]) reads -140.00 dB re full scale
 #: on an H100 at 32-term folds, -141.83 at 16 (tools/torch_chain_error.py;
-#: ROADMAP.md section 3).  Shorter chains hold the class at 32.
+#: ROADMAP.md section 3); that chain now takes HB_TAIL's folds, and this
+#: rule folds the conv stages of the four-executor decimating chains
+#: ([half-band down, ..., conv, poly]).  Shorter chains hold the class at
+#: 32.
 LONG_CHAIN = 4
 #: A float32 chain of this many executors or more that ends in a half-band
-#: cascade folds every fused, conv and cascade product every 16 terms,
-#: under "fast" and "high": 96k -> 2.8224M ([fused pair, conv, cascade])
-#: read -140.60 dB re full scale on an H100 at 32-term folds, -142.35 with
-#: the conv and cascade at 16 and -143.54 with all three
-#: (tools/torch_chain_error.py); its C++ golden read -140.39 / -140.69
-#: (tests/test_torch_cuda.py::test_goldens_on_card).
-CASCADE_TAIL = 3
+#: upsampler (one, or a cascade of them) folds every product every 16
+#: terms, under "fast" and "high".  Such a chain upsamples by 4 or more:
+#: the half-band stages pass every earlier stage's error to the output in
+#: band (a decimating chain filters part of it away), and the truncating
+#: tensor-core sums of the stages add coherently there.  On an H100 at
+#: 32-term folds 96k -> 2.8224M ([fused pair, conv, cascade]) read -140.60
+#: dB re full scale (its C++ golden -140.39 / -140.69, tests/
+#: test_torch_cuda.py::test_goldens_on_card), -143.54 with every product
+#: at 16; the differential fuzzer's 44.1k -> 328545 at tb 1.383, atten
+#: 194.9 ([fused pair, conv, half-band], tools/torch_fuzz.py CLASS_PINS)
+#: -140.11, -142.70 at 16 (tools/torch_chain_error.py; ROADMAP.md section
+#: 3).
+HB_TAIL = 3
 
 
 def set_folds(execs, conv_kc: int, kc=None) -> None:
     """Give every ConvExec of ``execs`` the frac_whole fold ``conv_kc`` and,
-    where ``kc`` is given, every fused pair and cascade the fold ``kc``."""
+    where ``kc`` is given, every other executor that has a fold (fused
+    pairs, half-band stages and cascades, frac stages) the fold ``kc``."""
     for e in execs:
         if isinstance(e, ConvExec):
             e.kc = conv_kc
-        elif kc is not None and isinstance(e, (FusedUpExec,
-                                               HBUpCascadeExec)):
+        elif kc is not None and hasattr(e, "kc"):
             e.kc = kc
 
 
@@ -210,12 +220,12 @@ class Resampler(nn.Module):
                                 poly=fuse_poly) if fused else None
         if execs is None:
             execs = [build(s, dtype, precision) for s in self.plan.stages]
-        #: the conv stages' fold (LONG_CHAIN, CASCADE_TAIL) and that of the
-        #: fused pairs and cascades (CASCADE_TAIL, else None: their own);
-        #: a stream's own sub-chain executors take them too
+        #: the conv stages' fold (LONG_CHAIN, HB_TAIL) and that of every
+        #: other product (HB_TAIL, else None: their own); a stream's own
+        #: sub-chain executors take them too
         f32 = dtype == torch.float32
-        tail = (f32 and len(execs) >= CASCADE_TAIL
-                and isinstance(execs[-1], HBUpCascadeExec))
+        tail = (f32 and len(execs) >= HB_TAIL
+                and isinstance(execs[-1], (HBUpExec, HBUpCascadeExec)))
         self.fold_kc = KC_LO if tail else None
         self.conv_kc = KC_LO if tail or (precision == "fast" and f32 and
                                          len(execs) >= LONG_CHAIN) else KC

@@ -222,7 +222,7 @@ class ConvExec(nn.Module):
         self.engine = engine
         #: terms a frac_whole big-pair partial sums before its fold, on
         #: the "toeplitz" and "pallas" engines (a long chain asks KC_LO:
-        #: models/resampler.py LONG_CHAIN, CASCADE_TAIL)
+        #: models/resampler.py LONG_CHAIN, HB_TAIL)
         self.kc = KC
         self.framed5 = self.framed5_poly = False
         k = np.asarray(spec.filt.kernel, dtype=np.float64)

@@ -26,6 +26,8 @@ from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
                                                sym_ops_high, sym_parts)
 from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
 
+from tools import torch_fuzz
+
 from .helpers import lcg_uniform, load_golden, load_manifest, rms_db
 
 # (label, I, D, O): tests/test_pallas.py's two shapes and the flagship's
@@ -1001,3 +1003,53 @@ def test_functional_on_card(cuda_device, kw):
     g_cpu, g = grads["cpu"], grads[cuda_device].cpu()
     assert float((g - g_cpu).abs().max()) <= 2.0**-19 * float(
         g_cpu.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pin", torch_fuzz.PINS,
+                         ids=[p[0] for p in torch_fuzz.PINS])
+def test_fuzzer_pins_on_card(cuda_device, pin):
+    """tools/torch_fuzz.py's pins (the reference fuzzer's thinnest margins
+    and the faults the port's sweeps found) on the card, each at its bound
+    against the port's float64 oracle, relative."""
+    from tools import torch_fuzz
+
+    y, ref = torch_fuzz.run_pin(pin, cuda_device)
+    d = torch_fuzz.rel_db(y, ref)
+    print(f"pin {pin[0]} {pin[1]} {pin[2]}: {d:.2f} dB relative, "
+          f"{rms_db(y - ref):.2f} re full scale")
+    assert d < pin[3], (pin[0], d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pin", torch_fuzz.CLASS_PINS,
+                         ids=[p[0] for p in torch_fuzz.CLASS_PINS])
+def test_class_fault_pins_on_card(cuda_device, pin):
+    """The faults the port's sweep found on the card at the sold class
+    (tools/torch_fuzz.py CLASS_PINS): each within -141 dB re full scale
+    of the float64 oracle; prints the CPU model's dB beside the card's."""
+    y, ref = torch_fuzz.run_pin(pin, cuda_device)
+    y_cpu, _ = torch_fuzz.run_pin(pin, "cpu")
+    d = rms_db(y - ref)
+    print(f"class pin {pin[0]} {pin[1]} {pin[2]}: card {d:.2f} dB re full "
+          f"scale, CPU model {rms_db(y_cpu - ref):.2f}")
+    assert d < pin[3], (pin[0], d)
+
+
+@pytest.mark.cuda
+def test_fuzzer_32_draws_on_card(cuda_device):
+    """The differential fuzzer's first 32 draws with every executor on
+    the card (orc, f32, oz, stm, nat, high, fft, sym): every pair within
+    its bound, and no executor of the default, "high", guarantee or
+    df32-FFT chains above -141 dB re full scale.  The toeplitz_sym chains'
+    count above it is printed, not held: long ones miss the class on the
+    card, an open fault (ROADMAP.md section 3)."""
+    import shutil
+
+    ex = [e for e in torch_fuzz.BASE + torch_fuzz.CARD
+          if e != "nat" or shutil.which("g++") is not None]
+    summary, fails = torch_fuzz.sweep(32, 0, ex, cuda_device)
+    print(summary)
+    assert not fails, fails
+    over = summary["re_fs_over_141"]
+    assert all(over[k] == 0 for k in over if k != "sym"), summary

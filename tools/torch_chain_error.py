@@ -3,28 +3,33 @@
 stage and by summation variant, with each variant's oneshot time.
 
     python tools/torch_chain_error.py [--src 44100] [--dst 352800.3 ...]
-        [--precision fast] [--fused auto] [--channels 8] [--cmp 8]
+        [--tb 2] [--atten 180.15] [--phase 0] [--precision fast]
+        [--fused auto] [--conv-engine auto] [--channels 8] [--cmp 8]
         [--seconds 1] [--reps 0] [--variants built conv16 ...]
 
 For each ``--dst``, on full-scale uniform float32 input (seed 0) of
 ``--channels`` rows, the first ``--cmp`` of them held against the float64
 path:
 
-* by stage: each float32 executor of ``Resampler(src, dst, 2, 180.15)``
-  on the card and on the CPU (its plain model) is fed the float64 chain's
-  own input to the stages it covers, rounded to float32, and held against
-  those stages' float64 executors: dB re full scale, and the error's mean
-  (its DC part) beside its RMS;
+* by stage: each float32 executor of ``Resampler(src, dst, tb, atten,
+  phase)`` (``--tb``, ``--atten``, ``--phase``; by default chip_smoke.py's
+  filter, 2 and 180.15, linear phase; ``--conv-engine`` for the stage
+  chains) on the card and on the CPU (its plain model) is fed the float64
+  chain's own input to the stages it covers, rounded to float32, and held
+  against those stages' float64 executors: dB re full scale, and the
+  error's mean (its DC part) beside its RMS;
 * the whole oneshot as built (``built``: the folds of
-  ``models/resampler.py`` LONG_CHAIN) and under variants, tokens joined by
-  ``+``: an executor class's ``frac_whole`` folds at 16 or 32 terms
-  (``conv16``, ``conv32``, ``hb16``, ``hb32``, ``fused16``, ``fused32``,
-  ``casc16``, ``casc32``; ``all16`` / ``all32`` every executor that has a
-  fold), the polynomial stage's main sum in float64 (``poly64``),
-  ``FusedPolyExec``'s composite in the reference's form, the float32
-  operator summed in float32 (``polyf32``); with ``--reps N`` each
-  variant's oneshot over all rows timed with CUDA events (mean of N after
-  one warm-up call).
+  ``models/resampler.py`` LONG_CHAIN and HB_TAIL) and under variants,
+  tokens joined by ``+``: an executor class's ``frac_whole`` folds at 16
+  or 32 terms (``conv16``, ``conv32``, ``hb16``, ``hb32``, ``fused16``,
+  ``fused32``, ``casc16``, ``casc32``, ``frac16``, ``frac32``; ``all16``
+  / ``all32`` every executor that has a fold), the ``toeplitz_sym`` conv
+  stages of a "fast" chain in their "high" form (``symhigh``: the fold
+  adds' errors and the operators' residual rows), the polynomial stage's
+  main sum in float64 (``poly64``), ``FusedPolyExec``'s composite in the
+  reference's form, the float32 operator summed in float32
+  (``polyf32``); with ``--reps N`` each variant's oneshot over all rows
+  timed with CUDA events (mean of N after one warm-up call).
 
 Every line carries the card's name and power limit.  Needs a CUDA device;
 exits non-zero without one.
@@ -40,7 +45,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-TB, ATTEN = 2.0, 180.15   # chip_smoke.py's filter
+TB, ATTEN = 2.0, 180.15   # chip_smoke.py's filter, the defaults
 EDGE_S = 0.05             # edge skip, seconds of the output rate
 VARIANTS = ("built", "conv32", "conv32+hb16", "conv32+poly64", "conv16",
             "conv16+hb16", "conv16+hb16+poly64", "fused16", "casc16",
@@ -77,17 +82,26 @@ def apply_variant(rs, variant: str, stages):
 
     classes = {"conv": stages.ConvExec, "hb": stages.HBUpExec,
                "fused": FusedUpExec, "casc": HBUpCascadeExec,
-               "all": object}
+               "frac": stages.FracWholeExec, "all": object}
     tokens = [] if variant == "built" else variant.split("+")
     undo = []
     for tok in tokens:
-        m = re.fullmatch(r"(conv|hb|fused|casc|all)(16|32)", tok)
-        if m is None and tok not in ("poly64", "polyf32"):
+        m = re.fullmatch(r"(conv|hb|fused|casc|frac|all)(16|32)", tok)
+        if m is None and tok not in ("poly64", "polyf32", "symhigh"):
             raise SystemExit(f"unknown variant token {tok!r}")
         for ex in rs.execs if m else ():
             if isinstance(ex, classes[m[1]]) and hasattr(ex, "kc"):
                 undo.append((ex, "kc", ex.kc))
                 ex.kc = int(m[2])
+    swapped = []
+    for i, ex in enumerate(rs.execs):
+        if ("symhigh" in tokens and isinstance(ex, stages.ConvExec)
+                and ex.engine == "toeplitz_sym" and ex.precision == "fast"):
+            hi = stages.ConvExec(ex.spec, ex.dtype, "high",
+                                 engine="toeplitz_sym").to(rs.device)
+            hi.kc = ex.kc
+            swapped.append((i, ex))
+            rs.execs[i] = hi
     for ex in rs.execs:
         if "poly64" in tokens and isinstance(ex, stages.FracPolyExec):
             undo.append((ex, "precision", ex.precision))
@@ -104,6 +118,8 @@ def apply_variant(rs, variant: str, stages):
     def restore():
         for ex, name, v in undo:
             setattr(ex, name, v)
+        for i, ex in swapped:
+            rs.execs[i] = ex
         for ex in rs.execs:
             if hasattr(ex, "_state"):
                 ex._state.clear()
@@ -132,9 +148,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=float, default=44100)
     ap.add_argument("--dst", type=float, nargs="+", default=[352800.3])
+    ap.add_argument("--tb", type=float, default=TB)
+    ap.add_argument("--atten", type=float, default=ATTEN)
+    ap.add_argument("--phase", type=int, choices=(0, 1), default=0)
     ap.add_argument("--precision", choices=("fast", "high"), default="fast")
     ap.add_argument("--fused", choices=("auto", "true", "poly", "false"),
                     default="auto")
+    ap.add_argument("--conv-engine", default="auto")
     ap.add_argument("--channels", type=int, default=8)
     ap.add_argument("--cmp", type=int, default=8,
                     help="rows held against the float64 path")
@@ -160,7 +180,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     fused = {"auto": "auto", "true": True, "poly": "poly",
              "false": False}[args.fused]
-    kw = dict(precision=args.precision, fused=fused)
+    kw = dict(precision=args.precision, fused=fused,
+              conv_engine=args.conv_engine)
+    filt = (args.tb, args.atten, args.phase)
     g = torch.Generator().manual_seed(0)
     n = int(round(args.src * args.seconds))
     x = torch.rand((args.channels, n), generator=g, dtype=torch.float64) \
@@ -170,12 +192,14 @@ def main() -> int:
     xd = x.float().to(dev)
     for dst in args.dst:
         sk = int(EDGE_S * dst)
-        tag = f"{card} | {args.src:g}->{dst} {args.precision}"
-        r64 = Resampler(args.src, dst, TB, ATTEN, dtype=torch.float64,
+        tag = (f"{card} | {args.src:g}->{dst} tb {args.tb:g} atten "
+               f"{args.atten:g} phase {args.phase} {args.precision}")
+        r64 = Resampler(args.src, dst, *filt, dtype=torch.float64,
                         device="cpu")
-        r32 = Resampler(args.src, dst, TB, ATTEN, device=dev, **kw)
-        rcpu = Resampler(args.src, dst, TB, ATTEN, device="cpu", **kw)
-        print(f"{tag} fused={args.fused} executors "
+        r32 = Resampler(args.src, dst, *filt, device=dev, **kw)
+        rcpu = Resampler(args.src, dst, *filt, device="cpu", **kw)
+        print(f"{tag} fused={args.fused} conv_engine={args.conv_engine} "
+              f"executors "
               f"{[type(e).__name__ for e in r32.execs]}, folds "
               f"{[getattr(e, 'kc', None) for e in r32.execs]}")
         # each float32 executor against the float64 executors of the
