@@ -21,9 +21,9 @@
 // interleaved place: the fold halves the products of the unfolded
 // operator and adds no pass.
 //
-// float32: an exact three-slice bfloat16 split on the tensor cores (wgmma),
-// the arithmetic of frac_whole.cu (its plain model is r8brain_torch/ops/
-// pallas_symconv.py::sym_conv_ref).
+// float32: a three-slice bfloat16 split on the tensor cores (wgmma), the
+// arithmetic of frac_whole.cu with the lead slices on fixed grids (its
+// plain model is r8brain_torch/ops/pallas_symconv.py::sym_conv_ref).
 //
 // What bounds it: operations.  44.1k -> 96k at 1024 channels is 7.6e10
 // flop of the function over the folded operators' nonzeros against ~0.55
@@ -34,20 +34,27 @@
 //
 // Arithmetic:
 //   * z, w formed in float32 (and under "high" their two_sum errors), each
-//     split into three bf16 slices z = z0 + z1 + z2 (exact in bf16's normal
-//     range); the operators come split the same way, once, by the executor
-//     (sym_parts: s0, s1, s2, and under "high" bf16 of the residual rows at
-//     their offsets).  Every slice product is exact in float32.
+//     split into three bf16 slices z = z0 + z1 + z2 + O(2^(E-27)): z0 is z
+//     rounded to nearest on one grid for each frame and k16 step, 2^(E-8)
+//     with 2^E above the step's largest |z| (a quad's max, E from its
+//     exponent field; one too large is harmless), by adding and
+//     subtracting 1.5 * 2^(E+15); z - z0 is exact and splits into z1, z2
+//     by the floating rule.  The operators come split the same way, once,
+//     by the executor (sym_parts: s0 on a grid for each column and k16
+//     step, s1, s2, and under "high" bf16 of the residual rows at their
+//     offsets).  Every slice product is exact in float32.
 //   * Kept pairs: p+q <= 2; under "high" also bf16(z_err)*s0 and z0*s3.
 //   * The big pair z0*s0 sums into a partial of FOLD = 32 terms: each of
 //     its two k16 steps starts fresh (wgmma scale-d = 0, one accumulator
-//     each), and the steps' sums, which the tensor cores truncate toward
-//     zero, are added in float32; the partial is folded into (hi, lo) with
-//     two_sum on the CUDA cores.  Chaining the steps in one accumulator
-//     sums in a way the model does not follow: its error sits between
-//     truncating once and twice, and the kernel's "high" gain came out as
-//     far from the model's as chip_smoke.py allows.  The other products
-//     accumulate straight into lo.  The halves combine as
+//     each).  z0 = k 2^(E-8) and s0 = m 2^(F-8) with |k|, |m| <= 256, so
+//     a step's 16 products lie on the grid 2^(E+F-16) and sum to under
+//     2^20 of its units: the sum is exact in float32 and the tensor cores,
+//     which truncate an inexact sum toward zero, have nothing to truncate
+//     (a truncated sum is a loss of gain, correlated with the signal, that
+//     adds up coherently along a chain of stages).  The steps' sums are
+//     added in float32 and the partial is folded into (hi, lo) with
+//     two_sum on the CUDA cores.  The other products accumulate straight
+//     into lo.  The halves combine as
 //         (s, e) = two_sum(hi_e, +-hi_o),  y = s + (e + (lo_e +- lo_o)),
 //     so each output rounds once.  Plain __f*_rn arithmetic (no
 //     --use_fast_math): nothing is contracted or reassociated.
@@ -125,16 +132,17 @@ constexpr int NR = TN / 2;       // accumulator floats a thread a fragment
 constexpr int NT = 256;          // two warpgroups
 constexpr int SLICE = TN * TK;   // bf16 elements of one slice's tile
 // terms of a big-pair partial (ops/pallas_frac.py KC): two k16 steps, each
-// summed fresh on the tensor cores and added in float32 before the fold
+// summed fresh (and exactly) on the tensor cores and added in float32
+// before the fold
 constexpr int FOLD = 32;
 static_assert(TK % FOLD == 0 && FOLD % 16 == 0, "folds tile the k-tile");
 
 // Ablation, for tools/torch_sym_ablation.py only: a build with
 // -DR8B_ABLATE=mask drops parts of the work (its output is then wrong) so
 // that the rest can be timed.  Bits: 1 the two_sum fold (one add
-// instead), 2 the split (z1 = z2 = z0), 4 the small-pair (and "high")
-// MMAs, 8 the span staging, 16 the output stores, 32 the reversed window
-// (z = w = a).
+// instead), 2 the split and its grids (z1 = z2 = z0 = bf16(z)), 4 the
+// small-pair (and "high") MMAs, 8 the span staging, 16 the output stores,
+// 32 the reversed window (z = w = a).
 #ifndef R8B_ABLATE
 #define R8B_ABLATE 0
 #endif
@@ -145,16 +153,35 @@ constexpr bool kNoStage = R8B_ABLATE & 8;
 constexpr bool kNoStore = R8B_ABLATE & 16;
 constexpr bool kNoSym = R8B_ABLATE & 32;
 
-// the three bf16 slices of a float pair, as packed fragment registers (the
-// lower column in the low half), each difference exact
-__device__ __forceinline__ void split3(float2 v, uint32_t& a0, uint32_t& a1,
-                                       uint32_t& a2) {
-  const __nv_bfloat162 h0 = __float22bfloat162_rn(v);
+// the magic constant 1.5 * 2^(E+15) of one fragment row's k16 step: m is
+// the largest |value| of the four this lane holds, the quad's lanes hold
+// the row's other twelve, and 2^E > their maximum (E = its exponent field
+// less 126, at least -125); adding and subtracting it rounds a value of
+// the step to nearest on the grid 2^(E-8)
+__device__ __forceinline__ float grid_magic(float m) {
+  if constexpr (kNoSplit) return 0.0f;
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  const unsigned e = max(__float_as_uint(m) >> 23, 1u);
+  return __uint_as_float(((e + 16u) << 23) | 0x400000u);
+}
+
+__device__ __forceinline__ float absmax4(float2 a, float2 b) {
+  return fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(b.x), fabsf(b.y)));
+}
+
+// the three bf16 slices of a float pair as packed fragment registers (the
+// lower column in the low half): the lead slice on its row's grid (magic
+// M, exact in bf16), then the remainder's two, each difference exact
+__device__ __forceinline__ void split_grid(float2 v, float M, uint32_t& a0,
+                                           uint32_t& a1, uint32_t& a2) {
   if constexpr (kNoSplit) {
-    a0 = a1 = a2 = bits(h0);
+    a0 = a1 = a2 = bits(__float22bfloat162_rn(v));
     return;
   }
-  const float2 f0 = __bfloat1622float2(h0);
+  const float2 f0 = make_float2(__fsub_rn(__fadd_rn(v.x, M), M),
+                                __fsub_rn(__fadd_rn(v.y, M), M));
+  const __nv_bfloat162 h0 = __float22bfloat162_rn(f0);
   const float2 r = make_float2(__fsub_rn(v.x, f0.x), __fsub_rn(v.y, f0.y));
   const __nv_bfloat162 h1 = __float22bfloat162_rn(r);
   const float2 f1 = __bfloat1622float2(h1);
@@ -337,14 +364,28 @@ sym_split_kernel(const float* __restrict__ xp, long long ldx,
                 r[q] = make_float2(w[0], w[1]);
               }
             }
+            float2 zv[4], wv[4];
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              const float2 zv = make_float2(__fadd_rn(a[q].x, r[q].x),
-                                            __fadd_rn(a[q].y, r[q].y));
-              const float2 wv = make_float2(__fsub_rn(a[q].x, r[q].x),
-                                            __fsub_rn(a[q].y, r[q].y));
-              split3(zv, az[ks][0][q], az[ks][1][q], az[ks][2][q]);
-              split3(wv, aw[ks][0][q], aw[ks][1][q], aw[ks][2][q]);
+              zv[q] = make_float2(__fadd_rn(a[q].x, r[q].x),
+                                  __fadd_rn(a[q].y, r[q].y));
+              wv[q] = make_float2(__fsub_rn(a[q].x, r[q].x),
+                                  __fsub_rn(a[q].y, r[q].y));
+            }
+            // each fragment row's grids (q even: row g, q odd: row g + 8),
+            // from the whole quad: every lane runs these shuffles
+            float mz[2], mw[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              mz[h] = grid_magic(absmax4(zv[h], zv[h + 2]));
+              mw[h] = grid_magic(absmax4(wv[h], wv[h + 2]));
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              split_grid(zv[q], mz[q & 1], az[ks][0][q], az[ks][1][q],
+                         az[ks][2][q]);
+              split_grid(wv[q], mw[q & 1], aw[ks][0][q], aw[ks][1][q],
+                         aw[ks][2][q]);
               if constexpr (P == 4) {
                 float s, ex, ey, fx, fy;
                 two_sum(a[q].x, r[q].x, s, ex);

@@ -19,21 +19,26 @@ it (``ops/stages.py`` ``_apply_sym_pallas``): the same function, written
 straight to the stage's interleaved output order.  ``sym_conv`` launches
 ``csrc/sym_conv.cu`` on a CUDA tensor and runs ``sym_conv_ref`` on a CPU
 tensor.  Both take the operators as ``sym_parts(ops, lo, lo_rows)``, which
-the executor builds once.  In float32 both compute the exact three-slice
+the executor builds once.  In float32 both compute the three-slice
 bfloat16 split that the kernel runs on the tensor cores, as
-``frac_whole`` does (ops/pallas_frac.py):
+``frac_whole`` does (ops/pallas_frac.py), with its lead slices on fixed
+grids:
 
 * z and w are formed in float32 (and under "high" their exact fold
   errors z_err, w_err), then split into three bfloat16 slices each
-  (``split3``); Te_j and To_j come split the same way, with a fourth slice
-  under "high": bf16 of the residual rows at their offsets, zero
-  elsewhere;
+  (``split_grid``): the lead slice z0 rounded to nearest on one grid for
+  each frame and 16-row step, 2^(E-8) with 2^E above the step's largest
+  |z|, and the float32 remainder (exact) split by the floating rule;
+  Te_j and To_j come split the same way, their lead slice on one grid for
+  each column and 16-row step, with a fourth slice under "high": bf16 of
+  the residual rows at their offsets, zero elsewhere;
 * every slice product is exact in float32; the big pair z0*s0 sums in
   ``KC``-term chunks, each folded into (hi, lo) with two_sum; a chunk is
-  two 16-term steps, each summed as the tensor cores sum it (the exact
-  sum truncated toward zero to float32), added in float32; the five small
-  pairs with p+q <= 2, and under "high" bf16(z_err)*s0 and z0*s3, sum
-  per chunk into lo;
+  two 16-term steps, each summed on the tensor cores: all 16 products of
+  a step lie on one grid and their sum is under 2^20 of its units, so
+  the sum is exact and the tensor cores have nothing to truncate; the
+  steps are added in float32; the five small pairs with p+q <= 2, and
+  under "high" bf16(z_err)*s0 and z0*s3, sum per chunk into lo;
 * the halves combine with one more two_sum, so each output rounds once:
   (s, e) = two_sum(hi_e, +-hi_o), y = s + (e + (lo_e +- lo_o)).
 
@@ -51,10 +56,10 @@ import torch
 from . import _cuda
 from .dfloat import two_sum
 from .framing import _frames
-from .pallas_frac import KC, TILE_K, _swizzle, split3
+from .pallas_frac import KC, TILE_K, _swizzle
 
-__all__ = ["BH", "TILE_N", "sym_conv", "sym_conv_ref", "sym_ops_high",
-           "sym_parts", "unpack_sym"]
+__all__ = ["BH", "TILE_N", "split_grid", "sym_conv", "sym_conv_ref",
+           "sym_ops_high", "sym_parts", "unpack_sym"]
 
 #: Columns of each half of a folded block (the reference pins B at 256).
 BH = 128
@@ -64,15 +69,48 @@ MAX_PHASES = 8
 #: warpgroup's MMA width, for both operators of a phase.
 TILE_N = 32
 N_TILES = BH // TILE_N
+#: Rows of one k16 step: the lead slices' grids are set per step
+STEP = 16
 
 LoRows = Sequence[Tuple[Tuple[int, int], Tuple[int, int]]]
 
 
+def split_grid(x: torch.Tensor, dim: int = -1):
+    """(x0, x1, x2), float32 tensors of bfloat16 values, of float32 x:
+    x0 is x rounded to nearest on one grid for each run of STEP entries
+    along ``dim`` (runs from index 0; the last one may be short), 2^(E-8)
+    where 2^E > the run's largest |x| (E = the exponent field of that
+    largest |x| less 126, at least -125, as the kernel takes it); x1 =
+    bf16_rn(x - x0), x2 = bf16_rn(x - x0 - x1), each difference exact.
+
+    x0 is k * 2^(E-8) with |k| <= 256, so it is exact in bfloat16, and the
+    products of two runs' lead slices all lie on one grid: STEP of them
+    sum to under 2^20 of its units, exactly in float32.  x - x0 is under
+    2^(E-9) and exact; x0 + x1 + x2 is within 2^(E-27) of x (rounded to
+    nearest: no bias)."""
+    x = x.float()
+    xm = x.movedim(dim, -1)
+    n = xm.shape[-1]
+    g = torch.nn.functional.pad(xm, (0, -n % STEP))
+    g = g.reshape(*xm.shape[:-1], -1, STEP)
+    E = torch.frexp(g.abs().amax(-1, keepdim=True)).exponent.clamp(min=-125)
+    scale = torch.pow(2.0, (E - 8).double())
+    x0 = (torch.round(g.double() / scale) * scale).float()
+    x0 = x0.reshape(*xm.shape[:-1], -1)[..., :n].movedim(-1, dim)
+    r = x - x0
+    x1 = r.to(torch.bfloat16).float()
+    x2 = (r - x1).to(torch.bfloat16).float()
+    return x0, x1, x2
+
+
 def _sym_slices(ops: torch.Tensor, lo: Optional[torch.Tensor],
                 lo_rows: Optional[LoRows]) -> torch.Tensor:
-    """[up, 2, P, Hp, BH] float32 slices of Te, To: split3, and under
-    "high" bf16 of the residual rows at their offsets."""
-    s = list(split3(ops))
+    """[up, 2, P, Hp, BH] float32 slices of Te, To: split_grid along the
+    rows (a grid for each column and 16-row step), and under "high" bf16
+    of the residual rows at their offsets."""
+    s = list(split_grid(ops, dim=2))
+    if not torch.equal(s[0].to(torch.bfloat16).float(), s[0]):
+        raise AssertionError("a lead slice is not exact in bfloat16")
     if lo is not None:
         s3 = torch.zeros_like(s[0])
         for j, ph in enumerate(lo_rows):
@@ -94,10 +132,11 @@ def sym_parts(ops: torch.Tensor, lo: Optional[torch.Tensor] = None,
 
     float64: ops as it is.  float32: bfloat16 [up, N_TILES, Kt, 2, P,
     TILE_N, TILE_K]: per phase, 32-column tile and 64-row k-tile the P
-    slices (split3, and under "high" the residual slice) of Te, then of
-    To, each [TILE_N, TILE_K] tile K-major and 128-byte swizzled; one
-    contiguous block per (phase, column tile, k-tile), which the kernel
-    copies to shared memory as it lies.  Rows past Hp_max are zero."""
+    slices (split_grid along the rows, and under "high" the residual
+    slice) of Te, then of To, each [TILE_N, TILE_K] tile K-major and
+    128-byte swizzled; one contiguous block per (phase, column tile,
+    k-tile), which the kernel copies to shared memory as it lies.  Rows
+    past Hp_max are zero."""
     if ops.dim() != 4 or ops.shape[1] != 2 or ops.shape[3] != BH:
         raise ValueError(f"ops must be [up, 2, Hp, {BH}], got "
                          f"{tuple(ops.shape)}")
@@ -183,25 +222,18 @@ def _check(xp, parts, L_fs, nb, hop):
                          f"{(nb - 1) * hop + max(L_fs)}")
 
 
-def _rz(x: torch.Tensor) -> torch.Tensor:
-    """float64 -> float32 rounded toward zero."""
-    y = x.float()
-    return torch.where(y.double().abs() > x.abs(),
-                       torch.nextafter(y, torch.zeros_like(y)), y)
-
-
 def _split_dot(v: torch.Tensor, S: torch.Tensor,
                v_err: Optional[torch.Tensor]):
     """(hi, lo) of v @ (S[0] + S[1] + S[2] (+ S[3])) in the kernel's split
-    arithmetic.  Per KC-row chunk: the big pair v0 @ s0 by 16-row steps,
-    each step's products summed exactly and truncated toward zero to
-    float32 (as the tensor cores do), the steps added in float32, the
-    chunk folded into (hi, lo) with two_sum; the small pairs (and the
-    "high" terms bf16(v_err) @ s0 and v0 @ s3) summed in float64, rounded
-    once, and added to lo before the fold's error.  The float64 sums are
-    exact for any terms within 2^37 of each other, so the result does not
-    depend on their order."""
-    v0, v1, v2 = (t.double() for t in split3(v))
+    arithmetic, v split by ``split_grid`` along its rows.  Per KC-row
+    chunk: the big pair v0 @ s0 by 16-row steps, each step's sum exact in
+    float32 (checked: its products lie on one grid), the steps added in
+    float32, the chunk folded into (hi, lo) with two_sum; the small pairs
+    (and the "high" terms bf16(v_err) @ s0 and v0 @ s3) summed in float64,
+    rounded once, and added to lo before the fold's error.  The float64
+    sums are exact for any terms within 2^37 of each other, so the result
+    does not depend on their order."""
+    v0, v1, v2 = (t.double() for t in split_grid(v))
     S = S.double()
     pairs = [(v0, S[1] + S[2]), (v1, S[0] + S[1]), (v2, S[0])]
     if v_err is not None:
@@ -209,8 +241,14 @@ def _split_dot(v: torch.Tensor, S: torch.Tensor,
     hi = lo = None
     for l0 in range(0, S.shape[1], KC):
         acc = None
-        for k0 in range(l0, min(l0 + KC, S.shape[1]), 16):
-            p = _rz(torch.matmul(v0[..., k0 : k0 + 16], S[0, k0 : k0 + 16]))
+        for k0 in range(l0, min(l0 + KC, S.shape[1]), STEP):
+            p64 = torch.matmul(v0[..., k0 : k0 + STEP], S[0, k0 : k0 + STEP])
+            p = p64.float()
+            # exact, but below float32's normal range the grid may be finer
+            # than its subnormals
+            if not bool(((p.double() == p64)
+                         | (p64.abs() < 2.0**-126)).all()):
+                raise AssertionError("a big-pair step sum is not exact")
             acc = p if acc is None else acc + p
         c = slice(l0, l0 + KC)
         small = sum(torch.matmul(a[..., c], b[c]) for a, b in pairs).float()

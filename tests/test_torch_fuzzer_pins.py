@@ -63,18 +63,20 @@ def test_class_fault_pinned(pin):
     """The faults the port's sweep found at the sold class (a float32
     executor above -141 dB re full scale on the card, its CPU model
     within): the CPU path holds the class against the oracle, and the port
-    is within -112 dB relative of the reference's float32 chain."""
+    is within -112 dB relative of the reference's float32 chain with the
+    executor's options (a stream's: the f32 chain's)."""
     import jax.numpy as jnp
 
     from r8brain_tpu.models.plan import make_plan as ref_make_plan
     from r8brain_tpu.models.resampler import Resampler as RefResampler
 
-    _label, cfg, _ex, bound, _n, _seed = pin
+    _label, cfg, ex, bound, _n, _seed = pin
     ref_plan = ref_make_plan(*cfg)
     y, ref = torch_fuzz.run_pin(pin, "cpu", plan_from_reference(ref_plan))
     d = rms_db(y - ref)
     assert d < bound, f"{d:.2f} dB re full scale"
-    yj = np.asarray(RefResampler(*cfg, dtype=jnp.float32, plan=ref_plan)
+    yj = np.asarray(RefResampler(*cfg, dtype=jnp.float32, plan=ref_plan,
+                                 **torch_fuzz.OPTIONS.get(ex, {}))
                     .oneshot(torch_fuzz.pin_input(pin), y.shape[0]),
                     np.float64)
     dj = torch_fuzz.rel_db(y, yj)

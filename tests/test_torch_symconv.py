@@ -20,9 +20,10 @@ import jax
 import jax.numpy as jnp
 
 from r8brain_tpu.ops.stages import ConvExec as RefConvExec
-from r8brain_torch.ops.framing import _framed_matmul
-from r8brain_torch.ops.pallas_symconv import (BH, sym_conv, sym_conv_ref,
-                                               sym_ops_high, sym_parts)
+from r8brain_torch.ops.framing import _frames, _framed_matmul
+from r8brain_torch.ops.pallas_symconv import (BH, STEP, split_grid, sym_conv,
+                                               sym_conv_ref, sym_ops_high,
+                                               sym_parts, unpack_sym)
 from r8brain_torch.ops.stages import ConvExec
 
 from .helpers import lcg_uniform, rms_db
@@ -172,6 +173,80 @@ def test_high_gain_at_every_spec(pair):
     assert full >= 0.3 and fold >= 0.15 and full - fold >= 0.15, (full, fold)
     grid = torch.from_numpy(np.round(x64 * 2.0**23) * 2.0**-23).float()
     assert gains(grid)[1] == 0.0
+
+
+#: RMS error (dB re full scale) of sym_conv_ref against its own float64
+#: function at each spec, (fast, "high"), with the floating lead slices
+#: (split3) that summed each big-pair step inexactly, truncated toward zero
+FLOATING_LEAD_DB = {"K1417_u2_d1": (-150.38, -151.74),
+                    "K611_u2_d1": (-150.26, -151.57),
+                    "K1543_u1_d1": (-153.59, -154.84),
+                    "K471_u1_d1": (-153.87, -155.23)}
+
+
+def _bias_case(st):
+    """The "high" executor of spec st and 8 channels x 64 frames of
+    uniform full-mantissa input (numpy seed 5): at least 131072 outputs."""
+    ex = ConvExec(st, torch.float32, "high", engine="toeplitz_sym")
+    C, nb, hop = 8, 64, 256 * st.down
+    L = (nb - 1) * hop + max(ex.sym_Lf)
+    x = np.random.default_rng(5).uniform(-1, 1, (C, L)).astype(np.float32)
+    return ex, torch.from_numpy(x), (ex.sym_Lf, nb, hop)
+
+
+@pytest.mark.parametrize("precision", ["fast", "high"])
+@pytest.mark.parametrize("pair", SPECS, ids=IDS)
+def test_unbiased_at_every_spec(pair, precision):
+    """sym_conv_ref's error against its own float64 function (the fast
+    operators as float64, or sym_ops_high under "high") has no sign of
+    its own: beta = mean(e * sign(y64)) / rms(e) within 0.02 of 0, where
+    a sum truncated toward zero reads clearly negative (-0.21 to -0.30
+    with floating lead slices).  Its RMS is no worse than that of the
+    floating lead slices (FLOATING_LEAD_DB); with the fixed grids it reads
+    fast / "high": K1417_u2_d1 -151.26 / -152.99, K611_u2_d1 -151.48 /
+    -153.29, K1543_u1_d1 -155.54 / -157.78, K471_u1_d1 -155.63 / -157.87
+    (against -150.38 / -151.74, -150.26 / -151.57, -153.59 / -154.84,
+    -153.87 / -155.23)."""
+    st, _rst = pair
+    ex, x, args = _bias_case(st)
+    ops, lo, rows = ex.sym_ops, ex.sym_lo, ex.sym_lo_rows
+    if precision == "fast":
+        parts, ops64 = sym_parts(ops), ops.double()
+    else:
+        parts, ops64 = ex.sym_parts, sym_ops_high(ops, lo, rows)
+    y = sym_conv_ref(x, parts, *args).double().numpy()
+    y64 = sym_conv_ref(x.double(), ops64, *args).numpy()
+    e = y - y64
+    assert e.size >= 10**5
+    beta = np.mean(e * np.sign(y64)) / np.sqrt(np.mean(e**2))
+    assert abs(beta) <= 0.02, beta
+    floating = FLOATING_LEAD_DB[
+        f"K{st.filt.kernel.shape[0]}_u{st.up}_d{st.down}"]
+    assert rms_db(e) <= floating[precision == "high"], rms_db(e)
+
+
+@pytest.mark.parametrize("pair", SPECS, ids=IDS)
+def test_big_pair_step_sums_exact(pair):
+    """Every big-pair step sum of every output, z0 and w0 against Te's and
+    To's lead slices over each 16-row step, is exact in float32: its
+    products lie on one grid (split_grid), so the tensor cores' sum has
+    nothing to round."""
+    st, _rst = pair
+    ex, x, (L_fs, nb, hop) = _bias_case(st)
+    S0 = unpack_sym(ex.sym_parts)[:, :, 0].double()  # [up, 2, rows, BH]
+    n = 0
+    for j, L_f in enumerate(L_fs):
+        Hp = (L_f + 1) // 2
+        fr = _frames(x, nb, hop, L_f)
+        a, r = fr[..., :Hp], fr.flip(-1)[..., :Hp]
+        for o, v in enumerate((a + r, a - r)):
+            v0 = split_grid(v)[0].double()
+            for k0 in range(0, Hp, STEP):
+                p = v0[..., k0 : k0 + STEP] @ S0[j, o, k0 : min(k0 + STEP,
+                                                                 Hp)]
+                assert torch.equal(p.float().double(), p)
+                n += p.numel()
+    assert n >= 10**6
 
 
 def test_argument_checks():

@@ -6,8 +6,9 @@ The CUDA kernel reads the folded operators as ``sym_parts`` packs them
 then of To, each K-major and 128-byte swizzled; under "high" a fourth
 slice holding bf16 of the residual rows at their offsets) and computes,
 per phase and column tile, k-tile by k-tile, folds of ``KC`` rows: the
-big pair's 16-row steps summed fresh and added into a partial, folded
-with two_sum, the small pairs into lo; then the epilogue's two_sum of the
+big pair's 16-row steps summed fresh (exactly: the lead slices lie on
+fixed grids, ``split_grid``) and added into a partial, folded with
+two_sum, the small pairs into lo; then the epilogue's two_sum of the
 halves.  These
 tests hold the packing to the executors' operators bit for bit, refuse a
 packing of another tiling, and hold a plain model of that work order (from
@@ -25,9 +26,9 @@ from r8brain_torch.ops.dfloat import two_sum
 from r8brain_torch.ops.framing import _frames
 from r8brain_torch.ops.pallas_frac import (KC, TILE_K, _swizzle,
                                            operator_parts, split3)
-from r8brain_torch.ops.pallas_symconv import (BH, TILE_N, _rz, sym_conv,
-                                              sym_conv_ref, sym_parts,
-                                              unpack_sym)
+from r8brain_torch.ops.pallas_symconv import (BH, TILE_N, split_grid,
+                                              sym_conv, sym_conv_ref,
+                                              sym_parts, unpack_sym)
 from r8brain_torch.ops.stages import ConvExec
 
 # the first conv stage of each (src, dst, trans_band, atten): the folded
@@ -54,9 +55,10 @@ def execs():
 
 
 def _expected_slices(ex):
-    """[up, 2, P, Hp, 128] float64: split3 of the executor's Te, To, and
-    under "high" bf16 of its residual rows at their offsets."""
-    s = [t.double() for t in split3(ex.sym_ops)]
+    """[up, 2, P, Hp, 128] float64: split_grid of the executor's Te, To
+    along their rows, and under "high" bf16 of its residual rows at their
+    offsets."""
+    s = [t.double() for t in split_grid(ex.sym_ops, dim=2)]
     if ex.sym_lo is not None:
         s3 = torch.zeros_like(s[0])
         for j, ph in enumerate(ex.sym_lo_rows):
@@ -124,9 +126,20 @@ def test_packing_for_another_tiling_is_refused(execs):
         sym_conv(xp, parts[:, :, : Kt - 2].contiguous(), *args)
 
 
+def _rz(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero, as the tensor cores round an
+    inexact sum."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
 def test_truncation_model():
     """_rz rounds float64 to float32 toward zero: never above |x|, and the
-    next float32 away from zero is above |x| (or x is one)."""
+    next float32 away from zero is above |x| (or x is one).  The big
+    pair's 16-row step sums of split_grid's lead slices are exact, so the
+    tensor cores' truncation leaves every one as it is; of those of the
+    floating lead slices (split3) it moves many (13 % here)."""
     rng = np.random.default_rng(3)
     x = torch.tensor(rng.standard_normal(10000)
                      * 2.0 ** rng.integers(-30, 30, 10000))
@@ -137,6 +150,17 @@ def test_truncation_model():
     assert bool(((up.double().abs() > x.abs()) | (y.double() == x)).all())
     assert torch.equal(_rz(torch.tensor([1.0, -2.5, 0.0])),
                        torch.tensor([1.0, -2.5, 0.0]))
+    v = torch.tensor(rng.uniform(-1, 1, (200, 256)), dtype=torch.float32)
+    S = torch.tensor(rng.standard_normal((256, 32))
+                     * 2.0 ** rng.integers(-20, 0, (16, 1, 32)).repeat(
+                         16, 0).reshape(256, 32), dtype=torch.float32)
+    for split, exact in ((split_grid, True), (split3, False)):
+        v0 = split(v)[0].double().reshape(200, 16, 1, 16)
+        s0 = (split(S, dim=0) if split is split_grid
+              else split(S))[0].double().reshape(16, 16, 32)
+        p = (v0 @ s0).squeeze(2)  # [200, 16 steps, 32]
+        moved = (_rz(p).double() != p).double().mean().item()
+        assert (moved == 0.0) if exact else moved > 0.1, (split, moved)
 
 
 def _tiles(parts):
@@ -149,11 +173,10 @@ def kernel_model(xp, parts, L_fs, nb, hop):
     """Plain model of the kernel's work order: per phase and 32-column
     tile, k-tile by k-tile from the packed blocks, folds of KC rows (the
     folds that start past Hp skipped); in each fold the big pair by 16-row
-    steps (each an exact sum truncated toward zero, the steps added in
-    float32), the small pairs and "high" terms summed exactly and rounded
-    once into lo, then the two_sum fold;
-    at the end of the tile the halves combined and written to both mirrored
-    columns of the interleaved output."""
+    steps (each sum exact in float32, the steps added in float32), the
+    small pairs and "high" terms summed exactly and rounded once into lo,
+    then the two_sum fold; at the end of the tile the halves combined and
+    written to both mirrored columns of the interleaved output."""
     T = _tiles(parts)
     up, n_tiles, Kt, _, P, _, _ = T.shape
     C = xp.shape[0]
@@ -168,7 +191,7 @@ def kernel_model(xp, parts, L_fs, nb, hop):
         A = {}
         for o, (v, e) in enumerate(((z, ez), (w, ew))):
             v0, v1, v2 = (torch.nn.functional.pad(s, pad).double()
-                          for s in split3(v))
+                          for s in split_grid(v))
             A[o] = (v0, v1, v2, torch.nn.functional.pad(
                 e.to(torch.bfloat16).double(), pad))
         for n in range(n_tiles):
@@ -186,7 +209,9 @@ def kernel_model(xp, parts, L_fs, nb, hop):
                         for s0 in range(f * KC, (f + 1) * KC, 16):
                             k = slice(s0, s0 + 16)
                             g = slice(t * TILE_K + s0, t * TILE_K + s0 + 16)
-                            p = _rz(v0[..., g] @ B[0, k])
+                            p64 = v0[..., g] @ B[0, k]
+                            p = p64.float()
+                            assert torch.equal(p.double(), p64)
                             acc = p if acc is None else acc + p
                         c = slice(f * KC, (f + 1) * KC)
                         g = slice(l0, l0 + KC)

@@ -112,6 +112,11 @@ CLASS_PINS = [
      CLASS_DB, 3466, 7137),
     ("stm_short_conv_hb", (44100.0, 328545.0, 1.383, 194.9, 0), "stm",
      CLASS_DB, 3466, 7137),
+    # draw 261: [sym conv, frac, sym conv, half-band, ...] on sym_conv;
+    # -139.03 on an H100 while its tensor cores truncated the big-pair
+    # step sums, CPU model -142.11 (ops/pallas_symconv.py split_grid)
+    ("sym_long_chain", (44100.0, 1292130.0, 1.908, 214.74, 0), "sym",
+     CLASS_DB, 2764, 7261),
 ]
 
 

@@ -9,8 +9,8 @@ Builds csrc/sym_conv.cu as it is and, from the same source with
 parts of the work (their outputs are wrong; only their times are read):
 
   no_stage        the span of the windows is never staged
-  no_fold_split   neither the reversed window nor the split: z = w = a,
-                  one bf16 conversion a float pair
+  no_fold_split   neither the reversed window nor the split and its
+                  grids: z = w = a, one bf16 conversion a float pair
   no_twosum       the two_sum fold of the big pair becomes one add
   only_big        the small-pair (and "high") MMAs go: the big pairs alone
   no_store        the epilogue computes but stores nothing
