@@ -129,6 +129,18 @@ uniform float32 input:
   call shape of the sweep held to its kernel's plain version and each
   kernel's smallest shape timed beside its plain version and library
   call.
+* the accuracy grid of the benchmark matrix (``ACCURACY_RUNS`` of
+  ``tools/torch_bench_matrix.py``, the reference matrix's grid) but the
+  rows an earlier phase runs: attenuation 109.56 / 136.45 / 218, tb 0.5
+  and 45, minimum phase, 96 kHz -> 44.1 kHz at 218 dB, 44.1 kHz -> 48 kHz
+  (at 180.15 and 136.45 dB), 44.1 kHz -> 96001 Hz at 136.45 and 218 dB,
+  and both DSD64 directions, through ``tools/torch_chip_accuracy.py`` at
+  its sizes (4 x 0.5 s; DSD 2 x 0.25 s and 2 x 0.05 s) with each row's
+  configurations (fast, high, ozaki; fast and ozaki on the DSD rows),
+  every cell printed and held to its class re full scale against the
+  float64 oracle (-141 dB; the guarantee chain -150), the launches
+  counted, every call shape held to its plain version and ``frac_whole``
+  recorded at the grid's three new fused shapes (D = 3155, 2204, 2330).
 
 First it pins how the tensor cores add bf16 products into float32
 (``accumulation_pin``: 16- and 32-term sums through ``frac_whole``'s own
@@ -386,6 +398,20 @@ LAT_DSTS = (96000, 96001)
 ACC_KERNELS = {"frac_whole": ("stages", "fused", "hb_cascade"),
                "ozaki_framed": ("stages",), "df_fft_conv": ("stages",),
                "sym_conv": ("stages",)}
+# the accuracy-grid phase: the rows of tools/torch_bench_matrix.py's
+# ACCURACY_RUNS (the reference matrix's grid) that no earlier phase runs
+# (the flagship, 44.1k -> 96001 and 96k -> 44.1k at 180.15 dB run above),
+# through tools/torch_chip_accuracy.py at its sizes (4 x 0.5 s; the DSD
+# rows 2 x 0.25 s and 2 x 0.05 s), each configuration held to its class
+# re full scale against the float64 oracle (torch_chip_accuracy.CLASS_DB)
+GRID_SKIP = ("acc_flagship", "acc_poly", "acc_down")
+# the kernels the grid launches (its rows run no df32-FFT configuration:
+# those are the flagship row's, which fft_paths runs)
+GRID_KERNELS = ("frac_whole", "ozaki_framed")
+# the fused frac_whole shapes of the grid that get a record, by D: tb 0.5
+# (I=294, O=640), 96k -> 44.1k at 218 dB (I=320, O=147), the SACD fused
+# stage (I=147, O=40, 2 rows)
+GRID_FRAC_D = (3155, 2204, 2330)
 FUSED_PATHS = (
     ("fused=True pallas", SRC, DST, dict(fused=True, conv_engine="pallas"),
      CLASS_DB, ["FusedUpExec"]),
@@ -3500,14 +3526,18 @@ def acc_recorder(store, name, real):
     return rec
 
 
-def acc_hold(store, dev, peaks, peaks64, card, launches):
-    """Every call shape of the acceptance sweep against its kernel's plain
+def acc_hold(store, dev, peaks, peaks64, card, launches,
+             phase="acceptance sweep", frac_keys=None):
+    """Every call shape in ``store`` (recorded by ``phase``: the
+    acceptance sweep, or the accuracy grid) against its kernel's plain
     version on the card: frac_whole within MODEL_REL_TOL of max |y| of its
     model (and KERNEL_REL_TOL of its float64 product), ozaki_framed
     bit-equal without x_lo (OZ_LO_REL_TOL / OZ_PAIR_REL_TOL with it),
     df_fft_conv within FFT_REL_TOL, sym_conv within SYM_ULPS; then each
     kernel's smallest shape (rows x windows) timed beside its plain
-    version and its library call, one record a kernel.  Returns the
+    version and its library call, one record a kernel; with
+    ``frac_keys``, frac_whole's record is one for each of those shapes
+    instead (its launches the phase's calls of that shape).  Returns the
     records."""
     import torch
 
@@ -3518,10 +3548,10 @@ def acc_hold(store, dev, peaks, peaks64, card, launches):
     from r8brain_torch.ops.pallas_symconv import sym_conv, sym_conv_ref
 
     worst = {k: 0.0 for k in ACC_KERNELS}
-    shapes = {k: [] for k in ACC_KERNELS}
+    shapes = {k: [] for k in ACC_KERNELS if any(key[0] == k for key in store)}
     for key, (args, kw, ex, _x, _n) in store.items():
         name = key[0]
-        label = f"acceptance {name} {key[1:]}"
+        label = f"{phase} {name} {key[1:]}"
         if name == "frac_whole":
             check(ex is not None, f"{label}: no executor")
             skT, lo = exec_operator(ex, args[1])
@@ -3561,6 +3591,15 @@ def acc_hold(store, dev, peaks, peaks64, card, launches):
     records = []
     g = torch.Generator(device=dev).manual_seed(SEED)
     for name, keys in shapes.items():
+        if name == "frac_whole" and frac_keys is not None:
+            for key in frac_keys:
+                args, kw, ex, _x, n = store[key]
+                records.append(frac_record(
+                    f"frac_whole[{phase}: {type(ex).__name__}, C={key[1]}, "
+                    f"n_win={key[2]}, I={key[3]}, D={key[4]}, O={key[5]}, "
+                    f"{'high' if key[6][2] == 4 else 'fast'}]", (args, kw),
+                    ex, n, peaks, card))
+            continue
         key = min(keys, key=lambda k: (k[1] * k[2], k[3:]))
         args, kw, ex, x_in, _n = store[key]
         rows, wins = key[1], key[2]
@@ -3569,21 +3608,21 @@ def acc_hold(store, dev, peaks, peaks64, card, launches):
                                 "x_lo)",
                 "df_fft_conv": "of max |y| from plain",
                 "sym_conv": "ulps of max |y| from plain"}[name]
-        print(f"acceptance {name}: {len(keys)} distinct call shapes, "
+        print(f"{phase} {name}: {len(keys)} distinct call shapes, "
               f"{launches[name]} launches; smallest {rows} x {wins} "
               f"windows {key[3:]}; worst {worst[name]:.3e} {what}")
-        tag = (f"{name}[acceptance sweep: {len(keys)} shapes, smallest "
+        tag = (f"{name}[{phase}: {len(keys)} shapes, smallest "
                f"{rows} x {wins}]")
         if name == "frac_whole":
             records.append(frac_record(tag, (args, kw), ex, launches[name],
                                        peaks, card))
         elif name == "df_fft_conv":
             records.append(fft_record(
-                f"acceptance sweep, {len(keys)} shapes, smallest {rows} x "
+                f"{phase}, {len(keys)} shapes, smallest {rows} x "
                 f"{wins}", (args, kw), FFT_REPLACES[key[3]], launches[name],
                 peaks64, card))
         elif name == "sym_conv":
-            records.append(matmul_record("acceptance sweep", name, tag,
+            records.append(matmul_record(phase, name, tag,
                                          (args, kw), ex, x_in,
                                          launches[name], peaks, card))
         else:
@@ -3591,8 +3630,8 @@ def acc_hold(store, dev, peaks, peaks64, card, launches):
             geo = (L_f, hop, Kcols, nb)
             var = key[6:8]
             case = ozaki_case(dev, g, rows, *geo, parts)
-            errs = check_ozaki_variants(f"{type(ex).__name__} (acceptance "
-                                        f"sweep, smallest shape)", geo, case,
+            errs = check_ozaki_variants(f"{type(ex).__name__} ({phase}, "
+                                        f"smallest shape)", geo, case,
                                         parts, kw["packed"])
             rep = ozaki_replaces(ex, *var)
             lib = library_call(ex, case[0], parts.double().sum(dim=0), hop,
@@ -3714,6 +3753,84 @@ def acceptance_paths(dev, peaks, peaks64, card, native_build):
     del store
     torch.cuda.empty_cache()
     print(f"acceptance_paths: {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def grid_paths(dev, peaks, peaks64, card):
+    """The accuracy grid on the card: every row of the matrix's
+    ACCURACY_RUNS but GRID_SKIP through torch_chip_accuracy.audit, each
+    configuration's dB re full scale against the float64 oracle printed
+    and held to torch_chip_accuracy.CLASS_DB; the launch counts set to 0
+    just before and read just after (every kernel of GRID_KERNELS
+    launched, each launch a recorded call); then every call shape held to
+    its plain version (acc_hold), frac_whole recorded at the GRID_FRAC_D
+    fused shapes and the other kernels at their smallest."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_bench_matrix
+    import torch_chip_accuracy
+
+    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops.pallas_frac import frac_whole
+    from r8brain_torch.ops.pallas_ozaki import ozaki_framed
+
+    t_phase = time.perf_counter()
+    mods = {"stages": stages, "fused": fused, "hb_cascade": hb_cascade}
+    real = {"frac_whole": frac_whole, "ozaki_framed": ozaki_framed}
+    rows = [r for r in torch_bench_matrix.ACCURACY_RUNS
+            if r[0] not in GRID_SKIP]
+    store, misses, n_cells = {}, [], 0
+    for fn in real.values():
+        fn.launches = 0
+    try:
+        for name in GRID_KERNELS:
+            for m in ACC_KERNELS[name]:
+                setattr(mods[m], name, acc_recorder(store, name, real[name]))
+        for label, argv, _timeout in rows:
+            args = torch_chip_accuracy.parser().parse_args(
+                argv + ["--device", "cuda"])
+            t0 = time.perf_counter()
+            res = torch_chip_accuracy.audit(args, dev, log=lambda _l: None)
+            dt = time.perf_counter() - t0
+            for cfg, db in res.items():
+                bound_db = torch_chip_accuracy.CLASS_DB[cfg]
+                ok = not isinstance(db, str) and db <= bound_db
+                n_cells += 1
+                print(f"grid {label} {cfg} {card}: {db} dB re full scale vs "
+                      f"the f64 oracle (class {bound_db:g}; {args.channels} "
+                      f"x {args.seconds:g} s of {args.src:g} Hz -> "
+                      f"{args.dst:g} Hz, atten {args.atten:g}, tb "
+                      f"{args.tb:g}, phase {args.phase}; row {dt:.1f} s)")
+                if not ok:
+                    misses.append((label, cfg, db, bound_db))
+    finally:
+        for name in GRID_KERNELS:
+            for m in ACC_KERNELS[name]:
+                setattr(mods[m], name, real[name])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in real.items()}
+    calls = {k: sum(v[4] for key, v in store.items() if key[0] == k)
+             for k in real}
+    print(f"grid: {len(rows)} rows, {n_cells} cells; launches {launches}, "
+          f"calls {calls}")
+    check(not misses, f"grid: {len(misses)} cells miss their class: "
+          f"{misses}")
+    check(all(launches[k] >= 1 for k in real), f"grid: a kernel never "
+          f"launched: {launches}")
+    check(launches == calls, f"grid: launches {launches} for calls {calls}")
+    frac_keys = [k for k in store if k[0] == "frac_whole"
+                 and k[4] in GRID_FRAC_D
+                 and type(store[k][2]).__name__ == "FusedUpExec"]
+    check(sorted({k[4] for k in frac_keys}) == sorted(GRID_FRAC_D),
+          f"grid: fused frac_whole shapes {sorted({k[4] for k in frac_keys})}"
+          f", want D in {GRID_FRAC_D}")
+    records = acc_hold(store, dev, peaks, peaks64, card, launches,
+                       phase="accuracy grid", frac_keys=frac_keys)
+    del store
+    torch.cuda.empty_cache()
+    print(f"grid_paths: {time.perf_counter() - t_phase:.1f} s")
     return records
 
 
@@ -3875,6 +3992,11 @@ def main() -> int:
     # executor, its pins, the zerotest, the bank's SNR, the latency curve
     kernels += acceptance_paths(dev, peaks, (peak_f32, peak_bf16, peak_f64,
                                              peak_bytes), card, native_build)
+
+    # the accuracy grid of the matrix: every corner no earlier phase runs,
+    # each configuration held to its class against the float64 oracle
+    kernels += grid_paths(dev, peaks, (peak_f32, peak_bf16, peak_f64,
+                                       peak_bytes), card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -82,3 +82,17 @@ def test_bench_scripts_refuse_without_cuda():
                            timeout=600)
         assert r.returncode != 0 and "CUDA is not available" in r.stderr
         assert not r.stdout.strip()
+
+
+def test_torch_bench_profile(tmp_path):
+    """R8B_BENCH_PROFILE names a directory: the script writes a Chrome
+    trace of two more calls there, named after the record's metric, and
+    still prints its record."""
+    prof = tmp_path / "prof"
+    rec = _run("torch_bench.py", dict(
+        R8B_BENCH_CHANNELS="2", R8B_BENCH_SECONDS="0.05",
+        R8B_BENCH_ITERS="2", R8B_BENCH_REPEATS="1",
+        R8B_BENCH_METRIC="profiled", R8B_BENCH_PROFILE=str(prof)))
+    assert rec["metric"] == "profiled"
+    trace = json.loads((prof / "profiled.pt.trace.json").read_text())
+    assert trace["traceEvents"]

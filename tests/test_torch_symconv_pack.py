@@ -30,6 +30,8 @@ from r8brain_torch.ops.pallas_symconv import (BH, TILE_N, split_grid,
                                               sym_conv, sym_conv_ref,
                                               sym_parts, unpack_sym)
 from r8brain_torch.ops.stages import ConvExec
+from tools.torch_sym_beta import rz as _rz
+from tools.torch_sym_beta import truncation_model
 
 # the first conv stage of each (src, dst, trans_band, atten): the folded
 # engine's specs (tests/test_torch_toeplitz.py's CONFIGS)
@@ -124,14 +126,6 @@ def test_packing_for_another_tiling_is_refused(execs):
         sym_conv(xp, parts.float(), *args)
     with pytest.raises(ValueError, match="operator rows"):
         sym_conv(xp, parts[:, :, : Kt - 2].contiguous(), *args)
-
-
-def _rz(x: torch.Tensor) -> torch.Tensor:
-    """float64 -> float32 rounded toward zero, as the tensor cores round an
-    inexact sum."""
-    y = x.float()
-    return torch.where(y.double().abs() > x.abs(),
-                       torch.nextafter(y, torch.zeros_like(y)), y)
 
 
 def test_truncation_model():
@@ -255,3 +249,25 @@ def test_work_order_model_bit_equal_to_ref(cfg, prec, execs):
     y = kernel_model(xp, ex.sym_parts, ex.sym_Lf, nb, hop)
     r = sym_conv_ref(xp, ex.sym_parts, ex.sym_Lf, nb, hop)
     assert torch.equal(y, r)
+
+
+@pytest.mark.parametrize("prec", ["fast", "high"])
+@pytest.mark.parametrize("cfg", CFGS, ids=IDS)
+def test_truncation_model_near_plain(cfg, prec, execs):
+    """tools/torch_sym_beta.py's truncation model (the kernel's work
+    order with each small-pair MMA added into lo rounded toward zero, as
+    the tensor cores add it; the card test holds the kernel's beta to
+    it) moves bits of sym_conv_ref's output, by at most one ulp of max
+    |y|, on full-mantissa input at a frame count that fits no tile."""
+    ex = execs[(cfg, prec)]
+    nb = 5
+    hop = 256 * ex.spec.down
+    L = (nb - 1) * hop + max(ex.sym_Lf)
+    rng = np.random.default_rng(12)
+    xp = torch.tensor(rng.uniform(-1, 1, (3, L)), dtype=torch.float32)
+    y = truncation_model(xp, ex.sym_parts, ex.sym_Lf, nb, hop)
+    r = sym_conv_ref(xp, ex.sym_parts, ex.sym_Lf, nb, hop)
+    assert y.dtype == torch.float32 and y.shape == r.shape
+    ulp = 2.0 ** (np.floor(np.log2(r.abs().max().item())) - 23)
+    d = (y.double() - r.double()).abs()
+    assert d.max().item() <= ulp and bool((d > 0).any())

@@ -25,7 +25,9 @@ R8B_BENCH_ITERS (10), R8B_BENCH_REPEATS (3), R8B_BENCH_DTYPE (float32),
 R8B_BENCH_PRECISION (fast), R8B_BENCH_SRC (44100), R8B_BENCH_DST (96000),
 R8B_BENCH_ATTEN (180.15), R8B_BENCH_TB (2.0), R8B_BENCH_ENGINE (auto),
 R8B_BENCH_FRAC_ENGINE (ozaki when the engine is, else auto),
-R8B_BENCH_FUSED (auto, 1, 0), R8B_BENCH_METRIC.
+R8B_BENCH_FUSED (auto, 1, 0), R8B_BENCH_METRIC, R8B_BENCH_PROFILE (a
+directory: ``torch.profiler`` traces two more calls into
+``<metric>.pt.trace.json`` there, a Chrome trace, after the timing).
 """
 
 from __future__ import annotations
@@ -84,6 +86,8 @@ def main() -> int:
 
     from r8brain_torch import Resampler
 
+    metric = env("R8B_BENCH_METRIC") or metric_name(src, dst, atten,
+                                                     precision)
     cuda = args.device == "cuda"
     if cuda and not torch.cuda.is_available():
         raise RuntimeError("torch_bench: CUDA is not available (--device "
@@ -126,10 +130,22 @@ def main() -> int:
             dev_s = e0.elapsed_time(e1) * 1e-3 / (3 * iters)
         else:
             dev_s = wall
+        prof_dir = env("R8B_BENCH_PROFILE")
+        if prof_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if cuda else [])
+            with profile(activities=acts) as prof:
+                for _ in range(2):
+                    rs(x0)
+                sync()
+            os.makedirs(prof_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(prof_dir,
+                                                  f"{metric}.pt.trace.json"))
     mrops = 1e-6 * channels * n_in / wall
     exec_mrops = 1e-6 * channels * n_in / dev_s
-    rec = {"metric": env("R8B_BENCH_METRIC") or metric_name(
-               src, dst, atten, precision),
+    rec = {"metric": metric,
            "value": round(mrops, 1), "unit": "Mrops",
            "vs_baseline": round(mrops / BASELINE_MROPS, 2),
            "exec_value": round(exec_mrops, 1),
