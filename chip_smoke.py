@@ -144,9 +144,14 @@ uniform float32 input:
 
 First it pins how the tensor cores add bf16 products into float32
 (``accumulation_pin``: 16- and 32-term sums through ``frac_whole``'s own
-wgmma chain on the slices of real data), and holds every ``frac_whole``
-call to its plain model (within 2^-21 of max |y|) and to its float64
-product, and the residual slice of each ``"high"`` call's shape (fused,
+wgmma chain): exactly where the products lie on one grid, and within the
+bound of a truncating float32 sum, with a census of the rounding, on the
+floating slices of real data), and
+holds every ``frac_whole`` call to its plain model (within 2^-21 of max
+|y|), to its float64 product and, at 10^5 outputs or more, to no bias of
+its own (``frac_beta``: beta within 0.02 of its model's; on
+full-mantissa input at the flagship, HB-up, toeplitz and direct calls
+within 0.02 of 0, ``check_frac_beta``), and the residual slice of each ``"high"`` call's shape (fused,
 frac stage, ``direct``) with a planted ``skT_lo`` large enough that a
 kernel which drops or misplaces the slice fails (``check_residual``).
 Before the guarantee chain it pins the exactness lemma the
@@ -186,8 +191,19 @@ EDGE_S = 0.05          # edge skip of that comparison, seconds
 CLASS_DB = -141.0      # the reference's golden-equality class
 KERNEL_REL_TOL = 1e-5  # frac_whole (f32) vs frac_whole_ref (f64), max rel err
 # frac_whole (f32) vs its plain model frac_whole_ref (f32), of max |y|: the
-# tensor cores sum each chunk in their own order (a few ulps of a partial)
+# big-pair fold sums are exact in both, but the tensor cores add the small
+# pairs into lo in their own order, truncated
 MODEL_REL_TOL = 2.0**-21
+# frac_whole's float32 error against its float64 function has no sign of
+# its own: beta = mean(e * sign(y64)) / rms(e) (tensor cores truncating
+# its big-pair fold sums read -0.40 to -0.50).  At every call of at least
+# FRAC_BETA_MIN_N outputs the kernel's beta is held within FRAC_BETA_MAX
+# of its plain model's (the kernel adds no bias of its own; the model's
+# arithmetic may have a little on a given input and operator: +0.027 at
+# the accuracy grid's 44.1k -> 96001 second conv, 4 rows), and on
+# full-mantissa input at the flagship, HB-up and toeplitz calls within
+# FRAC_BETA_MAX of 0 (check_frac_beta)
+FRAC_BETA_MAX, FRAC_BETA_MIN_N = 0.02, 10**5
 F64_REL_TOL = 1e-12    # frac_whole (f64) vs frac_whole_ref (f64)
 # frac_whole's residual slice x0*bf16(skT_lo): the real residual moves y by
 # ~2^-25 of its size, inside MODEL_REL_TOL, so it is held at each "high"
@@ -543,10 +559,71 @@ def build_kernels() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
 
+def beta_sums(y, y64):
+    """(sum of e * sign(y64), sum of e^2, count) of e = y - y64, to add up
+    over chunks for frac_beta."""
+    e = y.double() - y64
+    return (float((e * y64.sign()).sum().item()),
+            float(e.square().sum().item()), e.numel())
+
+
+def beta_of(sums):
+    """The bias statistic mean(e * sign(y64)) / rms(e) from beta_sums
+    (added over chunks), 0 where e is all zero."""
+    es, e2, n = sums
+    return es / n / math.sqrt(e2 / n) if e2 > 0 else 0.0
+
+
+def frac_beta(label, sums, model_sums):
+    """(kernel's, model's) bias statistic (beta_of) from their beta_sums;
+    where the call has FRAC_BETA_MIN_N outputs or more the kernel's is
+    held within FRAC_BETA_MAX of the model's."""
+    bk, bm = beta_of(sums), beta_of(model_sums)
+    if sums[2] >= FRAC_BETA_MIN_N:
+        check(abs(bk - bm) <= FRAC_BETA_MAX, f"{label}: beta {bk:+.4f}, "
+              f"its model's {bm:+.4f} ({sums[2]} outputs): more than "
+              f"{FRAC_BETA_MAX} apart")
+    return bk, bm
+
+
+def check_frac_beta(dev) -> None:
+    """frac_whole's bias at the flagship's fused call, the half-band
+    upsampler's, the toeplitz conv stage's and its direct form's, "fast"
+    and "high", on 1024 channels of full-mantissa input
+    (tools/torch_frac_beta.py's calls, as tests/test_torch_cuda.py::
+    test_frac_whole_unbiased): |beta| at most FRAC_BETA_MAX."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_frac_beta
+
+    from r8brain_torch.ops.pallas_frac import frac_whole, frac_whole_ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = []
+    for label, I, D, O, n_win, parts, p64, kc in torch_frac_beta.calls(dev):
+        xp = full_mantissa(g, (CHANNELS, (n_win - 1) * I + D),
+                           torch.float32, dev)
+        y64 = frac_whole_ref(xp.double(), p64, I, D, O, n_win)
+        bk, bm = frac_beta(f"frac_whole beta {label}",
+                           beta_sums(frac_whole(xp, parts, I, D, O, n_win,
+                                                kc), y64),
+                           beta_sums(frac_whole_ref(xp, parts, I, D, O,
+                                                    n_win, kc), y64))
+        check(abs(bk) <= FRAC_BETA_MAX, f"frac_whole {label}: beta "
+              f"{bk:+.4f} over {FRAC_BETA_MAX}")
+        out.append(f"{label} {bk:+.4f} ({bm:+.4f})")
+    print(f"frac_whole beta, {CHANNELS} channels of full-mantissa input, "
+          f"kernel (model): {', '.join(out)} (kernel within "
+          f"{FRAC_BETA_MAX} of 0 and of its model)")
+
+
 def check_frac_model(label, y, model, ref64):
     """frac_whole's float32 output y against its plain model (within
-    MODEL_REL_TOL of max |y|) and the float64 product (KERNEL_REL_TOL);
-    returns (max abs err vs float64, rel err vs model, rel err vs f64)."""
+    MODEL_REL_TOL of max |y|) and the float64 product (KERNEL_REL_TOL),
+    and its bias (frac_beta); returns (max abs err vs float64, rel err vs
+    model, rel err vs f64, beta, the model's beta)."""
     scale = float(ref64.abs().max().item())
     err_m = float((y.double() - model.double()).abs().max().item()) / scale
     max_abs = float((y.double() - ref64).abs().max().item())
@@ -554,7 +631,9 @@ def check_frac_model(label, y, model, ref64):
           f"the plain model (tol {MODEL_REL_TOL:.2e})")
     check(max_abs / scale <= KERNEL_REL_TOL, f"{label}: max rel err "
           f"{max_abs / scale:.3e} vs f64 plain")
-    return max_abs, err_m, max_abs / scale
+    beta, beta_m = frac_beta(label, beta_sums(y, ref64),
+                             beta_sums(model, ref64))
+    return max_abs, err_m, max_abs / scale, beta, beta_m
 
 
 # the executors' operator buffers: (packed operator, skT, skT_lo)
@@ -644,16 +723,19 @@ def fast_path(dev, x, ref, skip, peaks, card):
         y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
         model = frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc)
         torch.cuda.synchronize()
-        m_abs, err_m, err = check_frac_model(f"flagship fold {kc}", y, model,
-                                             ref64)
+        m_abs, err_m, err, beta, beta_m = check_frac_model(
+            f"flagship fold {kc}", y, model, ref64)
         if kc == KC:
             max_abs = m_abs
+        check(abs(beta) <= FRAC_BETA_MAX, f"flagship fold {kc}: beta "
+              f"{beta:+.4f} over {FRAC_BETA_MAX}")
         print(f"frac_whole flagship I={I} D={D} O={O} C={CHANNELS} "
               f"n_win={n_win}, fold {kc}: {rms_db(y.double() - ref64):.2f} "
               f"dB re full scale vs f64 plain (model "
               f"{rms_db(model.double() - ref64):.2f}); max rel err "
               f"{err:.3e} (tol {KERNEL_REL_TOL:g}), {err_m:.3e} of max |y| "
-              f"from the model (tol {MODEL_REL_TOL:.2e})")
+              f"from the model (tol {MODEL_REL_TOL:.2e}); beta {beta:+.4f} "
+              f"(model {beta_m:+.4f}, kernel within {FRAC_BETA_MAX})")
         del y, model
     del ref64
 
@@ -669,7 +751,7 @@ def fast_path(dev, x, ref, skip, peaks, card):
     ro = frac_whole_ref(xo.double(), po64, Io, Do, Oo, no)
     yo64 = frac_whole(xo.double(), po64, Io, Do, Oo, no)
     torch.cuda.synchronize()
-    _a, erro_m, erro = check_frac_model("odd geometry", yo, mo, ro)
+    _a, erro_m, erro, _b, _bm = check_frac_model("odd geometry", yo, mo, ro)
     erro64 = max_rel(yo64, ro)
     print(f"frac_whole odd I={Io} D={Do} O={Oo} C={Co} n_win={no} with "
           f"skT_lo: max rel err f32 {erro:.3e} (tol {KERNEL_REL_TOL:g}), "
@@ -736,38 +818,57 @@ def fast_path(dev, x, ref, skip, peaks, card):
 
 def accumulation_pin(dev, skT) -> None:
     """How the tensor cores add bf16 x bf16 products into float32: 16- and
-    32-term accumulations through the kernel's own wgmma chain (input and
-    operator bf16-exact, so every pair but x0*s0 is zero and each output
-    is one fold's partial), on the split slices of real data -- the
-    flagship operator's s0, 16 or 32 consecutive taps at a time, against
-    full-scale uniform x0 -- held to the float64 sum: max and RMS error in
-    float32 ulps of sum |products| (the scale the accumulation works at;
-    the sum itself may cancel), how many outputs equal the float64 sum
-    rounded once to float32, and which way the inexact outputs round.
-    Fails if an output leaves the bound of a recursive float32 sum that
-    truncates, (terms - 1) * 2^-23 * sum |products|."""
+    32-term sums through the kernel's own wgmma chain, a fold each, on
+    input k/256 (uniform k, |k| <= 255), which the kernel's grid split
+    leaves as it is (x1 = x2 = 0):
+
+    * on lead slices that lie on one grid, the flagship operator scaled to
+      255/256 of its largest |tap| and rounded to 2^-8: every pair but
+      x0*s0 is zero and each output is one fold's sum, its products on
+      the grid 2^-16 and under 2^21 of it in sum, so exact in float32.
+      Every output must equal the float64 sum (the tensor cores truncate
+      an inexact sum; the kernel's grids leave them none);
+    * on floating slices of real data, the flagship operator's split3
+      lead slice, 16 or 32 taps at a time, as the residual slice
+      bf16(skT_lo) of an operator whose skT is zero: every pair but
+      x0*bf16(skT_lo) is zero, and the tensor cores add its products into
+      lo as they add the small pairs, so each output is one chain of
+      products not on one grid.  Held to the bound of a recursive float32
+      sum that truncates, (terms - 1) * 2^-23 * sum |products|; printed:
+      max and RMS error in float32 ulps of sum |products| (the sum itself
+      may cancel), how many outputs equal the float64 sum rounded once,
+      and which way the inexact ones round, so that a change in how the
+      tensor cores round shows here."""
     import torch
 
     from r8brain_torch.ops.pallas_frac import (frac_whole, operator_parts,
                                                split3)
 
-    s0 = split3(skT)[0]
+    s0 = torch.round(skT / skT.abs().max() * 255) / 256
+    sf = split3(skT)[0]
     D, O = s0.shape
     g = torch.Generator(device=dev).manual_seed(SEED)
     C, n_win = 16, 128
     for terms in (16, 32):
-        x0 = split3(torch.rand((C, n_win * terms), generator=g,
-                               device=dev) * 2 - 1)[0]
+        x0 = torch.randint(-255, 256, (C, n_win * terms), generator=g,
+                           device=dev).float() / 256
         xw = x0.double().reshape(C, n_win, terms)
-        n = n_all = n_exact = n_rn = n_inexact = n_down = 0
+        n_all = n_exact = n = n_rn = n_f64 = n_inexact = n_down = 0
         worst, sq = 0.0, 0.0
         for d0 in range(0, D - terms + 1, terms):
             op = s0[d0 : d0 + terms].contiguous()
             y = frac_whole(x0, operator_parts(op), terms, terms, O, n_win,
                            kc=terms)
             y = y.double().reshape(C, n_win, O)
-            exact = xw @ op.double()
-            mag = xw.abs() @ op.double().abs()
+            n_exact += int((y == xw @ op.double()).sum().item())
+            n_all += y.numel()
+
+            of = sf[d0 : d0 + terms].contiguous()
+            y = frac_whole(x0, operator_parts(torch.zeros_like(of), of),
+                           terms, terms, O, n_win, kc=terms)
+            y = y.double().reshape(C, n_win, O)
+            exact = xw @ of.double()
+            mag = xw.abs() @ of.double().abs()
             check(bool(((y - exact).abs()
                         <= (terms - 1) * 2.0**-23 * mag).all()),
                   f"accumulation pin: {terms}-term sum at taps {d0}.. "
@@ -783,21 +884,25 @@ def accumulation_pin(dev, skT) -> None:
             n_inexact += int(inexact.sum().item())
             n_down += int((inexact & (y.abs() < exact.abs())).sum().item())
             n_rn += int((y == rn).sum().item())
-            n_all += y.numel()
-            n_exact += int((exact == rn).sum().item())
+            n_f64 += int((exact == rn).sum().item())
+        print(f"accumulation pin: {terms}-term wgmma bf16 -> f32 sums of "
+              f"products on one grid (flagship s0 and uniform x0, each "
+              f"rounded to 2^-8), {n_all} outputs: {n_exact} equal to the "
+              f"f64 sum")
+        check(n_exact == n_all, f"accumulation pin: {n_all - n_exact} of "
+              f"{n_all} {terms}-term sums of products on one grid inexact")
         share_down = n_down / max(1, n_inexact)
-        nearest = n_rn / n_all
         mode = ("truncating (toward zero)" if share_down > 0.9 else
                 "to nearest (errors symmetric)"
                 if 0.4 <= share_down <= 0.6 else "neither")
-        print(f"accumulation pin: {terms}-term wgmma bf16 -> f32 sums, "
-              f"{n} outputs (flagship s0 x uniform x0): vs the f64 sum, "
-              f"max {worst:.3f} ulps of sum |products|, RMS "
-              f"{math.sqrt(sq / max(1, n)):.4f}; {100 * nearest:.3f} % "
-              f"equal to it rounded once to f32 "
-              f"({100 * n_exact / n_all:.3f} % of the f64 sums exact in "
-              f"f32); of the {n_inexact} inexact outputs "
-              f"{100 * share_down:.2f} % toward zero: {mode}")
+        print(f"accumulation pin: {terms}-term wgmma bf16 -> f32 sums into "
+              f"lo, {n} outputs (flagship split3 s0 as bf16(skT_lo) x "
+              f"uniform x0 on 2^-8): vs the f64 sum, max {worst:.3f} ulps "
+              f"of sum |products|, RMS {math.sqrt(sq / max(1, n)):.4f}; "
+              f"{100 * n_rn / n_all:.3f} % equal to it rounded once to f32 "
+              f"({100 * n_f64 / n_all:.3f} % of the f64 sums exact in f32); "
+              f"of the {n_inexact} inexact outputs {100 * share_down:.2f} % "
+              f"toward zero: {mode}")
 
 
 def lemma_pin(dev) -> None:
@@ -1441,11 +1546,11 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
             skT.double(), None if lo is None else lo.double()), I, D, O,
             n_win)
         torch.cuda.synchronize()
-        _a, err_m, err = check_frac_model(name, y, model, r)
+        _a, err_m, err, beta, _bm = check_frac_model(name, y, model, r)
         del model
         tol = (f"max rel err {err:.3e} vs f64 plain (tol "
                f"{KERNEL_REL_TOL:g}), {err_m:.3e} of max |y| from the "
-               f"model (tol {MODEL_REL_TOL:.2e})")
+               f"model (tol {MODEL_REL_TOL:.2e}), beta {beta:+.4f}")
         nnz_main = int((skT != 0).sum().item())
         nnz_lo = None if lo is None else int((lo != 0).sum().item())
         nnz = nnz_main + (nnz_lo or 0)
@@ -1743,7 +1848,8 @@ def frac_record(name, call, ex, launches, peaks, card,
                 expect_lo: bool = False):
     """One frac_whole call of a path (``ex`` made it): against its plain
     model (within MODEL_REL_TOL of max |y|) and its float64 product
-    (KERNEL_REL_TOL), in channel chunks; with skT_lo (which ``expect_lo``
+    (KERNEL_REL_TOL), in channel chunks, its bias held (frac_beta); with
+    skT_lo (which ``expect_lo``
     requires) its residual slice held with a planted skT_lo
     (check_residual) and the kernel timed at both fold lengths; timed beside the plain version (the same chunks)
     and library_call (float32; float64 of skT + skT_lo with skT_lo).  The
@@ -1762,7 +1868,8 @@ def frac_record(name, call, ex, launches, peaks, card,
     chunks = channel_chunks(C, n_win * O)
     y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
     p64 = operator_parts(skT.double(), None if lo is None else lo.double())
-    e_m = e_r = scale = sq = 0.0
+    e_m = e_r = scale = 0.0
+    sums = sums_m = (0.0, 0.0, 0)
     for c0, c1 in chunks:
         m = frac_whole_ref(xp[c0:c1], parts, I, D, O, n_win, kc=kc).double()
         r = frac_whole_ref(xp[c0:c1].double(), p64, I, D, O, n_win)
@@ -1770,9 +1877,11 @@ def frac_record(name, call, ex, launches, peaks, card,
         e_m = max(e_m, float((yc - m).abs().max().item()))
         e_r = max(e_r, float((yc - r).abs().max().item()))
         scale = max(scale, float(r.abs().max().item()))
-        sq += float((yc - r).square().sum().item())
+        sums = tuple(a + b for a, b in zip(sums, beta_sums(yc, r)))
+        sums_m = tuple(a + b for a, b in zip(sums_m, beta_sums(m, r)))
         del m, r, yc
-    db = 10.0 * math.log10(sq / y.numel() + 1e-300)
+    db = 10.0 * math.log10(sums[1] / y.numel() + 1e-300)
+    beta, beta_m = frac_beta(name, sums, sums_m)
     del y
     torch.cuda.empty_cache()
     err_m, err = e_m / scale, e_r / scale
@@ -1813,7 +1922,8 @@ def frac_record(name, call, ex, launches, peaks, card,
           f"{'f32' if lo is None else 'f64'} {lib_ms:.3f} ms; "
           f"{db:.2f} dB re full scale vs f64 plain, max rel err {err:.3e} "
           f"(tol {KERNEL_REL_TOL:g}), {err_m:.3e} of max |y| from the model "
-          f"(tol {MODEL_REL_TOL:.2e})")
+          f"(tol {MODEL_REL_TOL:.2e}), beta {beta:+.4f} (model "
+          f"{beta_m:+.4f})")
     return {"name": name, "route": "cuda",
             "source": "r8brain_torch/csrc/frac_whole.cu",
             "replaces": "r8brain_tpu/ops/pallas_frac.py:111",
@@ -2466,7 +2576,8 @@ def adjoint_record(name, call, ex, launches, peaks, card):
     ``launches``: that call shape's launches in the gradient run.  Against
     its plain model
     (within MODEL_REL_TOL of max |xbar|) and its float64 product
-    (KERNEL_REL_TOL) in channel chunks, timed beside the plain version and
+    (KERNEL_REL_TOL) in channel chunks, its bias held (frac_beta), timed
+    beside the plain version and
     the library call F.conv_transpose1d (float32, TF32 off, in
     library_call's layout: the transpose of its F.conv1d).  Returns the
     kernel record."""
@@ -2491,6 +2602,7 @@ def adjoint_record(name, call, ex, launches, peaks, card):
     chunks = channel_chunks(C, n_adj * Oa)
     y = frac_whole(gyp, adj, Ia, Da, Oa, n_adj, kc=kc)
     e_m = e_r = scale = 0.0
+    sums = sums_m = (0.0, 0.0, 0)
     for c0, c1 in chunks:
         m = frac_whole_ref(gyp[c0:c1], adj, Ia, Da, Oa, n_adj, kc=kc)
         r = frac_whole_ref(gyp[c0:c1].double(), adj64, Ia, Da, Oa, n_adj)
@@ -2498,7 +2610,10 @@ def adjoint_record(name, call, ex, launches, peaks, card):
         e_m = max(e_m, float((yc - m.double()).abs().max().item()))
         e_r = max(e_r, float((yc - r).abs().max().item()))
         scale = max(scale, float(r.abs().max().item()))
+        sums = tuple(a + b for a, b in zip(sums, beta_sums(yc, r)))
+        sums_m = tuple(a + b for a, b in zip(sums_m, beta_sums(m, r)))
         del m, r, yc
+    beta, beta_m = frac_beta(name, sums, sums_m)
     del y
     err_m, err = e_m / scale, e_r / scale
     check(err_m <= MODEL_REL_TOL, f"{name}: {err_m:.3e} of max |xbar| from "
@@ -2530,8 +2645,9 @@ def adjoint_record(name, call, ex, launches, peaks, card):
           f"plain frac_whole_ref {p_ms:.3f} ms ({len(chunks)} channel "
           f"chunks), F.conv_transpose1d f32 {lib_ms:.3f} ms; max rel err "
           f"{err:.3e} vs f64 (tol {KERNEL_REL_TOL:g}), {err_m:.3e} of max "
-          f"|xbar| from the model (tol {MODEL_REL_TOL:.2e}); adjoint "
-          f"launches a gradient {launches}")
+          f"|xbar| from the model (tol {MODEL_REL_TOL:.2e}), beta "
+          f"{beta:+.4f} (model {beta_m:+.4f}); adjoint launches a gradient "
+          f"{launches}")
     return {"name": name, "route": "cuda",
             "source": "r8brain_torch/csrc/frac_whole.cu",
             "replaces": "r8brain_tpu/ops/pallas_frac.py:111",
@@ -3883,6 +3999,7 @@ def main() -> int:
     peaks = (peak_f32, peak_bf16, peak_bytes)
     accumulation_pin(dev, Resampler(SRC, DST, TB, ATTEN,
                                     device=dev).execs[0].skT)
+    check_frac_beta(dev)
     kernels = [fast_path(dev, x, ref, skip, peaks, card),
                fused_high_path(dev, x, ref, skip, peaks, card)]
 

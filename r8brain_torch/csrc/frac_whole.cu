@@ -8,7 +8,8 @@
 // r8brain_tpu/ops/pallas_frac.py::frac_whole_pallas (its pallas_call and
 // kernel body: the main HIGHEST dot and the optional residual dot).
 //
-// float32: an exact three-slice bfloat16 split on the tensor cores (wgmma).
+// float32: a three-slice bfloat16 split on the tensor cores (wgmma), its
+// lead slices on fixed grids.
 //
 // What bounds it: operations.  The flagship (C=1024, n_win=150, D=1027,
 // O=640) is 2.0e11 flop of the function against 0.57 GB of compulsory
@@ -19,20 +20,47 @@
 //
 // Arithmetic (the plain model is r8brain_torch/ops/pallas_frac.py::
 // frac_whole_ref):
-//   * x = x0 + x1 + x2, each slice the nearest bf16 to the residual the
-//     ones before left (exact for float32 in bf16's normal range); the
-//     operator comes split the same way, once, by its executor (s0, s1,
-//     s2, and under "high" bf16(skT_lo)).  Every slice product is exact in
-//     float32 (8 x 8 significant bits).
+//   * The big pair x0*s0 sums into a partial of FOLD = 16 or 32 terms (one
+//     or two k16 steps, one accumulator: wgmma scale-d = 0 on the fold's
+//     first), each fold starting at a multiple of FOLD from d = 0, and is
+//     folded into (hi, lo) with two_sum on the CUDA cores.
+//   * Each window row's values over a fold are split into three bf16
+//     slices x = x0 + x1 + x2 + O(2^(E-27)): x0 is x rounded to nearest on
+//     one grid for the row and fold, 2^(E-8) with 2^E above the fold's
+//     largest |x| of the row (the max over this lane's values of the fold,
+//     then the quad's; E from its exponent field; one too large is
+//     harmless), by adding and subtracting 1.5 * 2^(E+15) (grid_magic,
+//     split_grid in hopper.cuh); x - x0 is exact and splits into x1, x2 by
+//     the floating rule.  The grid belongs to the row, not the sample:
+//     overlapping windows share samples, not grids (but at I = 1 on the
+//     8-column tile a warp's 16 rows share one, see Design).  This trades
+//     an exact input for exact fold sums: the floating split (split3)
+//     holds every float32 x exactly, x0 + x1 + x2 here only to 2^(E-27)
+//     (x1 and x2 hold the 16 bits below 2^(E-9), so a value far below its
+//     row's largest loses its last bits), rounded to nearest, without a
+//     sign of its own; the reference's f32-HIGHEST dot reads x exactly.
+//     The operator comes
+//     split the same way, once, by its executor (operator_parts: s0 on a
+//     grid for each column and 32-row group of D, so a fold of 16 or 32
+//     terms lies in one group; s1, s2, and under "high" bf16(skT_lo)).
+//     Every slice product is exact in float32.  Inputs below 2^112 in
+//     magnitude (the magic constant's range).
+//   * x0 = k 2^(E-8) and s0 = m 2^(F-8) with |k|, |m| <= 256, so a fold's
+//     products lie on the grid 2^(E+F-16) and sum to under 2^21 of its
+//     units: the sum is exact in float32 and the tensor cores, which
+//     truncate an inexact sum toward zero, have nothing to truncate (a
+//     truncated sum is a loss of gain, correlated with the signal, that
+//     adds up coherently along a chain of stages).
 //   * Kept pairs: p+q <= 2 (and x0 * bf16(skT_lo)); the dropped ones are
-//     below 2^-26 of a product.
-//   * The big pair x0*s0 sums into a partial that each fold starts fresh
-//     (wgmma scale-d = 0) over FOLD = 16 or 32 terms (one or two k16
-//     steps), and is folded into (hi, lo) with two_sum on the CUDA cores.
-//     The small pairs accumulate straight into the lo fragment, so an
-//     output holds three fragments, not four.  y = hi + lo, rounded once.
-//     The fold is plain __f*_rn arithmetic (no --use_fast_math), so nothing
-//     is contracted or reassociated.
+//     below 2^-26 of a product.  The small pairs accumulate straight into
+//     the lo fragment, so an output holds three fragments, not four.  Once
+//     a k-tile lo moves into hi (Fast2Sum): lo then stays within an ulp
+//     of hi, and the tensor cores truncate each small-pair sum they add
+//     into it at that scale (a lo grown over all of D, up to 2^-9 of y,
+//     put a bias on y of the toeplitz conv stage: beta -0.034 on an
+//     H100).  y = hi + lo, rounded once.  The fold is plain __f*_rn
+//     arithmetic (no --use_fast_math), so nothing is contracted or
+//     reassociated.
 //
 // Design:
 //   * Rows r = c*n_win + m of an implicit im2col matrix A[r, d] = xp[c,
@@ -66,21 +94,26 @@
 //   * The 8-column tile (O <= 2) multiplies the slices side by side: one
 //     tile [s0 | s1 | s2 | bf16(skT_lo)], so a k16 step is 3 MMAs, not 6
 //     or 7 (x1*s2 and the like ride along, below 2^-26 of a product);
-//     the small-pair columns sum per fold into lo and across the quad at
-//     the end.  At I = 1 a step splits 2 of its 4 float pairs (the
-//     windows are shifted copies: row g+8 at column c is row g at c+8).
-//     With I <= 64 it stages stretches instead of rows:
-//     channel-aligned row tiles, and per k-tile one contiguous stretch a
-//     warpgroup (63*I + 64 samples: 127 at I = 1, against 64 rows of 64),
-//     so two blocks fit an SM.
-//   * A fold is: split its A, fence, its 6 (7) MMAs a k16 step, commit,
-//     wait, two_sum.  All of a fold's input registers are written before
-//     its MMAs start, so ptxas keeps them asynchronous (a pipeline that
-//     split the next step under the MMAs in flight was serialized by
-//     ptxas, C7513/C7518).  The fold of one warpgroup runs on the CUDA
-//     cores while the other's MMAs run (making them take turns through
-//     an mbarrier pair was slower on the H100).  Folds that lie wholly in
-//     the zero padding past D are skipped.
+//     the small-pair columns fold into their own lane's hi and lo and
+//     sum across the quad at the end; only column block 0 of x0's
+//     product (x0*s0) is the big pair, on the grids.  With I <= 64 it
+//     stages stretches instead of rows: channel-aligned row tiles, and
+//     per k-tile one contiguous stretch a warpgroup (63*I + 64 samples:
+//     127 at I = 1, against 64 rows of 64), so two blocks fit an SM.
+//     At I = 1 the rows are shifted copies of one another (row g+8 at
+//     column c is row g at c+8), so a lane splits two float pairs a step,
+//     not four, on one grid for the warp's 16 rows and the fold (the max
+//     of the 15 + FOLD samples they read: a sample splits alike in every
+//     row, and the fold's x0 still lie on one grid); at other I each row
+//     splits its own four pairs on its own grid.
+//   * A fold is: the rows' maxima over its A, split its A, fence, its 6
+//     (7) MMAs a k16 step, commit, wait, two_sum.  All of a fold's input
+//     registers are written before its MMAs start, so ptxas keeps them
+//     asynchronous (a pipeline that split the next step under the MMAs
+//     in flight was serialized by ptxas, C7513/C7518).  The fold of one
+//     warpgroup runs on the CUDA cores while the other's MMAs run (making
+//     them take turns through an mbarrier pair was slower on the H100).
+//     Folds that lie wholly in the zero padding past D are skipped.
 //
 // float64: an FMA kernel on the CUDA cores (the port's f64 path), 64 x 64
 // tiles, 16-term partials folded with two_sum.
@@ -112,7 +145,8 @@ constexpr int MAX_STRETCH_I = 64;    // the 8-column tile stages stretches
 // Ablation, for tools/torch_frac_ablation.py only: a build with
 // -DR8B_ABLATE=mask drops parts of the work (its output is then wrong) so
 // that the rest can be timed.  Bits: 1 the two_sum fold (one add instead),
-// 2 the split (x1 = x2 = x0), 4 the small-pair MMAs, 8 the input staging.
+// 2 the split and its grids (x0 = x1 = x2 = bf16(x)), 4 the small-pair
+// MMAs, 8 the input staging.
 #ifndef R8B_ABLATE
 #define R8B_ABLATE 0
 #endif
@@ -137,27 +171,6 @@ struct Smem {
            1024;  // + alignment
   }
 };
-
-// the three bf16 slices of a float pair, as packed fragment registers (the
-// lower column in the low half): x0 = bf16_rn(v), x1 = bf16_rn(v - x0), x2
-// = bf16_rn(v - x0 - x1), each difference exact
-__device__ __forceinline__ void split3(float2 v, uint32_t& a0, uint32_t& a1,
-                                       uint32_t& a2) {
-  const __nv_bfloat162 h0 = __float22bfloat162_rn(v);
-  if constexpr (kNoSplit) {
-    a0 = a1 = a2 = bits(h0);
-    return;
-  }
-  const float2 f0 = __bfloat1622float2(h0);
-  const float2 r = make_float2(__fsub_rn(v.x, f0.x), __fsub_rn(v.y, f0.y));
-  const __nv_bfloat162 h1 = __float22bfloat162_rn(r);
-  const float2 f1 = __bfloat1622float2(h1);
-  const __nv_bfloat162 h2 = __float22bfloat162_rn(
-      make_float2(__fsub_rn(r.x, f1.x), __fsub_rn(r.y, f1.y)));
-  a0 = bits(h0);
-  a1 = bits(h1);
-  a2 = bits(h2);
-}
 
 // n_mt > 0 (8-column tile, I <= MAX_STRETCH_I): stretch mode.  Row tiles
 // are channel-aligned (n_mt a channel) and each warpgroup stages, per
@@ -316,47 +329,81 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
     for (int f = 0; f < TK / FOLD; ++f) {
       if (t * TK + f * FOLD >= D) break;  // all padding: adds nothing
       // the fold's A fragments, split into three bf16 sets: all written
-      // before its MMAs start (no register of an MMA in flight changes)
+      // before its MMAs start (no register of an MMA in flight changes).
+      // Pair q of step ks: row g (q even) or g + 8 (q odd), columns 2tq,
+      // 2tq + 1 (q < 2) or those + 8.  In stretch mode a row reads on past
+      // D into the next windows' samples, which the fold that crosses D
+      // zeroes (the operator is zero there; the grid is the model's).
+      const int d_f = t * TK + f * FOLD;
+      const bool edge = stretch && d_f + FOLD > D;
+      auto pair = [&](int ks, int q) {
+        const float* p = a_s + (f * KS + ks) * 16 + (q & 1) * 8 * rs +
+                         (q >> 1) * 8;
+        float2 v = stretch ? make_float2(p[0], p[1])  // any float start
+                           : *reinterpret_cast<const float2*>(p);
+        if (edge) {
+          const int d = d_f + ks * 16 + 2 * tq + (q >> 1) * 8;
+          if (d >= D) v.x = 0.0f;
+          if (d + 1 >= D) v.y = 0.0f;
+        }
+        return v;
+      };
       uint32_t a[KS][3][4];
+      if (stretch && I == 1) {
+        // unit stride: row g+8 at column c is row g at c+8 (pair 2 is
+        // pair 1), and pair 0 is the step before's pair 3, so a lane
+        // reads and splits two pairs a step (and pair 0 once).  That needs
+        // one grid for every row that reads a sample: the warp's 16 rows
+        // share one over the fold, from the max of the 15 + FOLD samples
+        // they read (each zeroed past D in its own row and column, the
+        // quad's max and then across the quads).  Their x0 then lie on
+        // one grid 2^(E-8), |k| <= 256, so a fold's sums stay exact.
+        const float2 v0 = pair(0, 0);
+        float2 v[KS][2];
+        float mx = fmaxf(fabsf(v0.x), fabsf(v0.y));
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const float* p0 = a_s + (f * KS + ks) * 16;
-        const float* p1 = p0 + 8 * rs;
-        if (stretch && I == 1) {
-          // unit stride: row g+8 at column c is row g at c+8 (pair 1 is
-          // pair 2), and pair 0 is the step before's pair 3
-          float2 v1 = make_float2(p1[0], p1[1]);
-          float2 v3 = make_float2(p1[8], p1[9]);
-#pragma unroll
-          for (int q = 1; q < 4; q += 2) {
-            split3(q == 1 ? v1 : v3, a[ks][0][q], a[ks][1][q], a[ks][2][q]);
-          }
-#pragma unroll
-          for (int p = 0; p < 3; ++p) a[ks][p][2] = a[ks][p][1];
-          if (ks == 0) {
-            split3(make_float2(p0[0], p0[1]), a[ks][0][0], a[ks][1][0],
-                   a[ks][2][0]);
-          } else {
-#pragma unroll
-            for (int p = 0; p < 3; ++p) a[ks][p][0] = a[ks > 0 ? ks - 1 : 0][p][3];
-          }
-          continue;
+        for (int ks = 0; ks < KS; ++ks) {
+          v[ks][0] = pair(ks, 1);
+          v[ks][1] = pair(ks, 3);
+          mx = fmaxf(mx, absmax4(v[ks][0], v[ks][1]));
         }
-        float2 v[4];
-        if (stretch) {  // a row may start at any float
-          v[0] = make_float2(p0[0], p0[1]);
-          v[1] = make_float2(p1[0], p1[1]);
-          v[2] = make_float2(p0[8], p0[9]);
-          v[3] = make_float2(p1[8], p1[9]);
-        } else {
-          v[0] = *reinterpret_cast<const float2*>(p0);
-          v[1] = *reinterpret_cast<const float2*>(p1);
-          v[2] = *reinterpret_cast<const float2*>(p0 + 8);
-          v[3] = *reinterpret_cast<const float2*>(p1 + 8);
-        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float M = grid_magic<kNoSplit>(mx);
+        split_grid<kNoSplit>(v0, M, a[0][0][0], a[0][1][0], a[0][2][0]);
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          split3(v[q], a[ks][0][q], a[ks][1][q], a[ks][2][q]);
+        for (int ks = 0; ks < KS; ++ks) {
+          split_grid<kNoSplit>(v[ks][0], M, a[ks][0][1], a[ks][1][1],
+                               a[ks][2][1]);
+          split_grid<kNoSplit>(v[ks][1], M, a[ks][0][3], a[ks][1][3],
+                               a[ks][2][3]);
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            a[ks][p][2] = a[ks][p][1];
+            if (ks > 0) a[ks][p][0] = a[ks > 0 ? ks - 1 : 0][p][3];
+          }
+        }
+      } else {
+        // each fragment row's grid over the whole fold (m[0]: row g,
+        // m[1]: row g + 8), from the quad's max: every lane runs the
+        // shuffles
+        float m[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            m[h] = fmaxf(m[h], absmax4(pair(ks, h), pair(ks, h + 2)));
+        }
+        const float M[2] = {grid_magic<kNoSplit>(m[0]),
+                            grid_magic<kNoSplit>(m[1])};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            split_grid<kNoSplit>(pair(ks, q), M[q & 1], a[ks][0][q],
+                                 a[ks][1][q], a[ks][2][q]);
+        }
       }
       reg_fence(acc);
       reg_fence(lo);
@@ -393,21 +440,31 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
       wg_wait0();
       reg_fence(acc);
       reg_fence(lo);
-      if (BN != 8 || tq == 0) {  // the 8-column tile: columns 0, 1
+      // (the 8-column tile: lanes tq > 0 fold their slice's small pair
+      // x0*s_tq the same way, into their own hi and lo)
 #pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          if constexpr (kNoFold) {
-            hi[i] = __fadd_rn(hi[i], acc[i]);
-          } else {
-            float sum, e;
-            two_sum(hi[i], acc[i], sum, e);
-            hi[i] = sum;
-            lo[i] = __fadd_rn(lo[i], e);
-          }
+      for (int i = 0; i < NR; ++i) {
+        if constexpr (kNoFold) {
+          hi[i] = __fadd_rn(hi[i], acc[i]);
+        } else {
+          float sum, e;
+          two_sum(hi[i], acc[i], sum, e);
+          hi[i] = sum;
+          lo[i] = __fadd_rn(lo[i], e);
         }
-      } else {  // small pairs of the 8-column tile: sum per fold
+      }
+    }
+    // once a k-tile, lo moves into hi (Fast2Sum: |hi| >= |lo| but where
+    // the folds so far cancel): lo keeps within an ulp of hi, so the
+    // tensor cores, which truncate each small-pair sum they add into lo,
+    // truncate at that scale (a lo grown over all of D would put a bias
+    // on y)
+    if constexpr (!kNoFold) {
 #pragma unroll
-        for (int i = 0; i < NR; ++i) lo[i] = __fadd_rn(lo[i], acc[i]);
+      for (int i = 0; i < NR; ++i) {
+        const float sum = __fadd_rn(hi[i], lo[i]);
+        lo[i] = __fsub_rn(lo[i], __fsub_rn(sum, hi[i]));
+        hi[i] = sum;
       }
     }
     // this warpgroup is done with the slot; thread 0 refills it with
@@ -424,10 +481,11 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
   const int row0 = wg * 64 + wq * 16 + g;
   if constexpr (BN == 8) {
     // a row's small-pair sums lie across the quad (column 2tq + j holds
-    // slice tq's): add them to the thread that holds columns 0, 1
+    // slice tq's, as hi + lo): add them into the lo of the thread that
+    // holds columns 0, 1
 #pragma unroll
     for (int e = 0; e < NR; ++e) {
-      float v = lo[e];
+      float v = tq == 0 ? lo[e] : __fadd_rn(hi[e], lo[e]);
       v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
       v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
       lo[e] = v;

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's Hopper kernels (frac_whole.cu,
 // ozaki_framed.cu, sym_conv.cu), for sm_90a: cp.async copies, mbarriers and TMA bulk
 // copies, warpgroup MMAs (wgmma) with A from registers and B from a
-// K-major 128-byte-swizzled bf16 tile in shared memory, and two_sum.
+// K-major 128-byte-swizzled bf16 tile in shared memory, two_sum, and the
+// split of float pairs into bf16 slices with the lead slice on a grid.
 
 #pragma once
 
@@ -264,6 +265,51 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
   uint32_t u;
   memcpy(&u, &h, 4);
   return u;
+}
+
+// Lead slices on fixed grids (frac_whole.cu, sym_conv.cu; the plain model
+// is r8brain_torch/ops/pallas_frac.py::split_grid).  NoSplit is a kernel's
+// ablation switch: no grids, x0 = x1 = x2 = bf16(v).
+
+// the magic constant 1.5 * 2^(E+15) of one fragment row's run of values:
+// m is the largest |value| of those this lane holds, the quad's lanes hold
+// the row's others, and 2^E > their maximum (E = its exponent field less
+// 126, at least -125; one too large is harmless); adding and subtracting
+// it rounds a value of the run to nearest on the grid 2^(E-8)
+template <bool NoSplit>
+__device__ __forceinline__ float grid_magic(float m) {
+  if constexpr (NoSplit) return 0.0f;
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  const unsigned e = max(__float_as_uint(m) >> 23, 1u);
+  return __uint_as_float(((e + 16u) << 23) | 0x400000u);
+}
+
+__device__ __forceinline__ float absmax4(float2 a, float2 b) {
+  return fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(b.x), fabsf(b.y)));
+}
+
+// the three bf16 slices of a float pair as packed fragment registers (the
+// lower column in the low half): the lead slice on its row's grid (magic
+// M, exact in bf16), then the remainder's two, each difference exact
+template <bool NoSplit>
+__device__ __forceinline__ void split_grid(float2 v, float M, uint32_t& a0,
+                                           uint32_t& a1, uint32_t& a2) {
+  if constexpr (NoSplit) {
+    a0 = a1 = a2 = bits(__float22bfloat162_rn(v));
+    return;
+  }
+  const float2 f0 = make_float2(__fsub_rn(__fadd_rn(v.x, M), M),
+                                __fsub_rn(__fadd_rn(v.y, M), M));
+  const __nv_bfloat162 h0 = __float22bfloat162_rn(f0);
+  const float2 r = make_float2(__fsub_rn(v.x, f0.x), __fsub_rn(v.y, f0.y));
+  const __nv_bfloat162 h1 = __float22bfloat162_rn(r);
+  const float2 f1 = __bfloat1622float2(h1);
+  const __nv_bfloat162 h2 = __float22bfloat162_rn(
+      make_float2(__fsub_rn(r.x, f1.x), __fsub_rn(r.y, f1.y)));
+  a0 = bits(h0);
+  a1 = bits(h1);
+  a2 = bits(h2);
 }
 
 }  // namespace

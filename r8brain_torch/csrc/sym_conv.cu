@@ -153,45 +153,6 @@ constexpr bool kNoStage = R8B_ABLATE & 8;
 constexpr bool kNoStore = R8B_ABLATE & 16;
 constexpr bool kNoSym = R8B_ABLATE & 32;
 
-// the magic constant 1.5 * 2^(E+15) of one fragment row's k16 step: m is
-// the largest |value| of the four this lane holds, the quad's lanes hold
-// the row's other twelve, and 2^E > their maximum (E = its exponent field
-// less 126, at least -125); adding and subtracting it rounds a value of
-// the step to nearest on the grid 2^(E-8)
-__device__ __forceinline__ float grid_magic(float m) {
-  if constexpr (kNoSplit) return 0.0f;
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-  const unsigned e = max(__float_as_uint(m) >> 23, 1u);
-  return __uint_as_float(((e + 16u) << 23) | 0x400000u);
-}
-
-__device__ __forceinline__ float absmax4(float2 a, float2 b) {
-  return fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(b.x), fabsf(b.y)));
-}
-
-// the three bf16 slices of a float pair as packed fragment registers (the
-// lower column in the low half): the lead slice on its row's grid (magic
-// M, exact in bf16), then the remainder's two, each difference exact
-__device__ __forceinline__ void split_grid(float2 v, float M, uint32_t& a0,
-                                           uint32_t& a1, uint32_t& a2) {
-  if constexpr (kNoSplit) {
-    a0 = a1 = a2 = bits(__float22bfloat162_rn(v));
-    return;
-  }
-  const float2 f0 = make_float2(__fsub_rn(__fadd_rn(v.x, M), M),
-                                __fsub_rn(__fadd_rn(v.y, M), M));
-  const __nv_bfloat162 h0 = __float22bfloat162_rn(f0);
-  const float2 r = make_float2(__fsub_rn(v.x, f0.x), __fsub_rn(v.y, f0.y));
-  const __nv_bfloat162 h1 = __float22bfloat162_rn(r);
-  const float2 f1 = __bfloat1622float2(h1);
-  const __nv_bfloat162 h2 = __float22bfloat162_rn(
-      make_float2(__fsub_rn(r.x, f1.x), __fsub_rn(r.y, f1.y)));
-  a0 = bits(h0);
-  a1 = bits(h1);
-  a2 = bits(h2);
-}
-
 // span index of sample p of a tile (SK floats of skew after every 256)
 __device__ __forceinline__ int skewed(int p, int sk) {
   return p + sk * (p >> 8);
@@ -377,15 +338,15 @@ sym_split_kernel(const float* __restrict__ xp, long long ldx,
             float mz[2], mw[2];
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              mz[h] = grid_magic(absmax4(zv[h], zv[h + 2]));
-              mw[h] = grid_magic(absmax4(wv[h], wv[h + 2]));
+              mz[h] = grid_magic<kNoSplit>(absmax4(zv[h], zv[h + 2]));
+              mw[h] = grid_magic<kNoSplit>(absmax4(wv[h], wv[h + 2]));
             }
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              split_grid(zv[q], mz[q & 1], az[ks][0][q], az[ks][1][q],
-                         az[ks][2][q]);
-              split_grid(wv[q], mw[q & 1], aw[ks][0][q], aw[ks][1][q],
-                         aw[ks][2][q]);
+              split_grid<kNoSplit>(zv[q], mz[q & 1], az[ks][0][q],
+                                   az[ks][1][q], az[ks][2][q]);
+              split_grid<kNoSplit>(wv[q], mw[q & 1], aw[ks][0][q],
+                                   aw[ks][1][q], aw[ks][2][q]);
               if constexpr (P == 4) {
                 float s, ex, ey, fx, fy;
                 two_sum(a[q].x, r[q].x, s, ex);

@@ -50,7 +50,7 @@ from ..ops.stages import build_exec, poly_contract
 from ..parallel.sharding import chain_input_span, chain_shift_period
 from .lengths import chain_out_len, frac_positions, stage_out_len
 from .plan import FracStage, Plan
-from .resampler import Resampler, run_chain, set_folds
+from .resampler import Resampler, run_chain
 
 __all__ = ["StreamResampler"]
 
@@ -84,7 +84,7 @@ def _sub_execs(rs: Resampler, stages):
     """Executors for ``stages``, a run of ``rs.plan.stages``: the parent's
     own when the run is the whole plan or the parent runs one executor a
     stage; else a fused sub-plan when the parent fused, or one
-    ``build_exec`` a stage with the parent's engines (and its folds)."""
+    ``build_exec`` a stage with the parent's engines."""
     plan_stages = rs.plan.stages
     if len(rs.execs) == len(plan_stages):
         i0 = next(i for i, s in enumerate(plan_stages) if s is stages[0])
@@ -99,7 +99,6 @@ def _sub_execs(rs: Resampler, stages):
                                 rs.precision, build, engine=rs.conv_engine)
     if execs is None:
         execs = [build(s, rs.dtype, rs.precision) for s in stages]
-    set_folds(execs, rs.conv_kc, rs.fold_kc)
     return [e.to(rs.device) for e in execs]
 
 

@@ -11,32 +11,48 @@ against the f64->f32 operator residual that ``precision="high"`` passes.
 ``frac_whole`` launches ``csrc/frac_whole.cu`` on a CUDA tensor and runs
 ``frac_whole_ref`` on a CPU tensor.  Both take the operator as
 ``operator_parts(skT, skT_lo)``, which each executor builds once.  In
-float32 both compute the exact three-slice bfloat16 split form that the
-kernel runs on the tensor cores:
+float32 both compute the three-slice bfloat16 split that the kernel runs
+on the tensor cores, with its lead slices on fixed grids:
 
-* each input sample and each operator entry is split into three bfloat16
-  slices, x = x0 + x1 + x2 (``split3``: each slice the nearest bfloat16 to
-  what the ones before left; exact for every float32 input in bfloat16's
-  normal range, see ``split3``), the operator in ``operator_parts``, under
-  "high" with one more slice, bf16(skT_lo);
-* every slice product is exact in float32 (8 x 8 significant bits);
-* the big pair x0*s0 sums in ``kc``-term float32 chunks (``KC`` = 32, or
-  ``KC_LO`` = 16 where the caller asks), each folded into a (hi, lo) pair
-  with ``two_sum``; the five small pairs with p+q <= 2 (and x0*bf16(skT_lo))
-  sum into lo over all of D; y = hi + lo, rounded once.
+* the big pair x0*s0 sums in ``kc``-term folds (``KC`` = 32, or ``KC_LO``
+  = 16 where the caller asks), each starting at a multiple of kc from d =
+  0; each window row's values over a fold are split by ``split_grid``:
+  x0 rounded to nearest on one grid 2^(E-8), 2^E above the row's largest
+  |x| in the fold (at I = 1 on the 8-column tile, the direct stage's, one
+  grid for each 16 windows, as the kernel splits each sample once for
+  all its rows), and the float32 remainder (exact) split into x1, x2 by
+  the floating rule; the operator comes split the same way, its lead
+  slice on one grid for each column and 32-row group of D (so a fold of
+  16 or of 32 terms lies in one group), and under "high" with one more
+  slice, bf16(skT_lo);
+* x0 = k 2^(E-8) and s0 = m 2^(F-8) with |k|, |m| <= 256, so a fold's
+  products lie on one grid and sum to under 2^21 of its units: every fold
+  sum is exact in float32 (the tensor cores, which truncate an inexact
+  sum toward zero, have nothing to truncate), and each is folded into a
+  (hi, lo) pair with ``two_sum``;
+* the five small pairs with p+q <= 2 (and x0*bf16(skT_lo)) sum into lo,
+  which once a 64-row k-tile moves into hi (Fast2Sum): the tensor cores
+  truncate each small-pair sum they add into lo, and a lo kept within an
+  ulp of hi keeps that truncation from biasing y; y = hi + lo, rounded
+  once.
 
-The dropped pairs (x1*s2, x2*s1, x2*s2) are below 2^-26 of each product.
-On the flagship operator the model reads -150.7 dB re full scale at
-32-term folds, where float32 products summed in 32-term chunks folded
-with two_sum read -144.5 and a single running float32 sum over D = 1027
-terms about -132: the split is what holds the class on tensor cores
-without TF32.
+Every slice product is exact in float32; the dropped pairs (x1*s2, x2*s1,
+x2*s2) are below 2^-26 of each product.  The grids trade an exact input
+for exact fold sums: split3's floating slices hold every float32 x
+exactly, but x0 + x1 + x2 here is only within 2^(E-27) of x (x1 and x2
+hold the 16 bits below 2^(E-9), so a value far below its row's largest
+loses its last bits), rounded to nearest: the error has no sign of its
+own.  The JAX kernel's f32-HIGHEST dot reads its input exactly.  On
+the flagship operator the model reads about -150 dB re full scale, where
+float32 products summed in 32-term chunks folded with two_sum read -144.5
+and a single running float32 sum over D = 1027 terms about -132.
 
 The function is linear in xp, and ``frac_whole`` is differentiable in it
 (torch.autograd and torch.func): its gradient is ``frac_whole`` itself on
-the adjoint geometry (``adjoint_geometry``) against the same operator
-re-blocked (``adjoint_parts``, built once per operator), so on the card
-the backward launches the kernel too.
+the adjoint geometry (``adjoint_geometry``) against the float32 operator
+re-blocked and split anew on the adjoint's own grids (``adjoint_parts``,
+built once per operator), so on the card the backward launches the
+kernel too, with the same exact fold sums.
 """
 
 from __future__ import annotations
@@ -50,14 +66,15 @@ from torch.utils.weak import WeakTensorKeyDictionary
 
 from . import _cuda
 from .dfloat import two_sum
-from .framing import _frames, _framed_matmul
+from .framing import _framed_matmul
 
-__all__ = ["KC", "KC_LO", "TILE_K", "split3", "operator_parts",
+__all__ = ["KC", "KC_LO", "TILE_K", "split3", "split_grid", "operator_parts",
            "unpack_parts", "adjoint_geometry", "adjoint_parts", "frac_whole",
            "frac_whole_ref"]
 
 #: Terms per partial sum of the big pair before the two_sum fold (two k16
-#: tensor-core steps).
+#: tensor-core steps), and the rows of D that share one grid of the
+#: operator's lead slice.
 KC = 32
 #: The short fold (one k16 step) the stage interpolator and the "high"
 #: direct stage ask for: a whole-stepping interpolator's ~24 nonzero taps a
@@ -95,9 +112,40 @@ def split3(x: torch.Tensor):
     return x0, x1, x2
 
 
+def split_grid(x: torch.Tensor, dim: int = -1, run: int = 16):
+    """(x0, x1, x2), float32 tensors of bfloat16 values, of float32 x:
+    x0 is x rounded to nearest on one grid for each run of ``run`` entries
+    along ``dim`` (runs from index 0; the last one may be short), 2^(E-8)
+    where 2^E > the run's largest |x| (E = the exponent field of that
+    largest |x| less 126, at least -125, as the kernels take it); x1 =
+    bf16_rn(x - x0), x2 = bf16_rn(x - x0 - x1), each difference exact.
+
+    x0 is k * 2^(E-8) with |k| <= 256, so it is exact in bfloat16, and the
+    products of two runs' lead slices all lie on one grid: 32 of them sum
+    to under 2^21 of its units, exactly in float32.  x - x0 is under
+    2^(E-9) and exact; x0 + x1 + x2 is within 2^(E-27) of x (rounded to
+    nearest: no bias).  The split passes gradients straight through x0."""
+    x = x.float()
+    xd = x.detach().movedim(dim, -1)
+    n = xd.shape[-1]
+    g = torch.nn.functional.pad(xd, (0, -n % run))
+    g = g.reshape(*xd.shape[:-1], -1, run)
+    E = torch.frexp(g.abs().amax(-1, keepdim=True)).exponent.clamp(min=-125)
+    scale = torch.ldexp(torch.ones_like(E, dtype=torch.float32), E - 8)
+    x0 = torch.round(g / scale) * scale  # both exact: scale is 2^(E-8)
+    x0 = x0.reshape(*xd.shape[:-1], -1)[..., :n].movedim(-1, dim)
+    r = x.detach() - x0
+    x1 = r.to(torch.bfloat16).float()
+    x2 = (r - x1).to(torch.bfloat16).float()
+    if x.requires_grad:
+        x0 = x0 + (x - x.detach())
+    return x0, x1, x2
+
+
 def _slices(skT: torch.Tensor, skT_lo: Optional[torch.Tensor]):
-    """[P, D, O] float32 operator slices: s0, s1, s2 (and bf16(skT_lo))."""
-    s = list(split3(skT))
+    """[P, D, O] float32 operator slices: split_grid along D (a grid for
+    each column and KC-row group) and, under "high", bf16(skT_lo)."""
+    s = list(split_grid(skT, dim=0, run=KC))
     if skT_lo is not None:
         s.append(skT_lo.float().to(torch.bfloat16).float())
     return torch.stack(s)
@@ -204,9 +252,29 @@ def _check(xp, parts, I, D, O, n_win, kc):
                          f"need {(n_win - 1) * I + D}")
 
 
-def _two_sum_fold(hi, lo, acc):
-    s, e = two_sum(hi, acc)
-    return s, lo + e
+def _fold_slices(x: torch.Tensor, n_win: int, I: int, D: int, O: int,
+                 kc: int):
+    """Per fold of kc terms (d0 = 0, kc, 2kc, ...): (d0, d1, (x0, x1,
+    x2)), the window rows' values x[c, m*I + d] for d0 <= d < d1 as
+    [C, n_win, d1 - d0] slices, split by ``split_grid`` over the fold: one
+    grid for each window row (the grid belongs to the row, not the
+    sample), or at I = 1 on the 8-column tile (O <= 2), where the kernel
+    splits each sample once for all the rows of a warp that read it, for
+    each 16 windows from m = 0, the last group's windows past n_win
+    reading on into zeros past x's end, as the kernel's rows do."""
+    rows = 16 if I == 1 and _tile_n(O) == 8 else 1
+    n = -(-n_win // rows) * rows
+    if n > n_win:
+        x = F.pad(x, (0, (n - n_win) * I))
+    for d0 in range(0, D, kc):
+        d1 = min(D, d0 + kc)
+        w = x[:, d0:].unfold(1, d1 - d0, I)[:, :n]  # a strided view
+        if rows == 1:
+            yield d0, d1, split_grid(w, run=kc)
+            continue
+        C, k = w.shape[0], d1 - d0
+        s = split_grid(w.reshape(C, n // rows, rows * k), run=rows * k)
+        yield d0, d1, tuple(v.reshape(C, n, k)[:, :n_win] for v in s)
 
 
 def frac_whole_ref(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
@@ -215,10 +283,12 @@ def frac_whole_ref(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
 
     float64: one framed contraction per stacked operator (segmented reshape
     views).  float32: the kernel's split arithmetic on the slices of
-    ``parts`` -- the big pair x0*s0 in ``kc``-term chunks, each a
-    segmented matmul, folded with two_sum into (hi, lo); the small pairs as
-    three framed products x0*(s1+s2) + x1*(s0+s1) + x2*s0 (+
-    x0*bf16(skT_lo)) added to lo; hi + lo."""
+    ``parts``, fold by fold (``_fold_slices``): the small pairs x0*(s1+s2)
+    + x1*(s0+s1) + x2*s0 (+ x0*bf16(skT_lo)) as one float32 matmul a fold,
+    added to lo; the big pair x0*s0 as one matmul a fold, exact in float32
+    whatever its order (its products lie on one grid), folded with
+    two_sum into (hi, lo); once a TILE_K-row k-tile lo moves into hi
+    (Fast2Sum: t = hi + lo, lo = lo - (t - hi), hi = t); hi + lo."""
     _check(xp, parts, I, D, O, n_win, kc)
     C = xp.shape[0]
     s = unpack_parts(parts, D, O)
@@ -228,21 +298,26 @@ def frac_whole_ref(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
             y = y + _framed_matmul(xp, s[1], n_win, I)
         return y.reshape(C, n_win * O)
     L = (n_win - 1) * I + D
-    x0, x1, x2 = split3(xp[:, :L])
+    # the small pairs' operator rows, stacked along K to match the
+    # concatenated slices [x0, x1, x2 (, x0)] of a fold
+    rhs = [s[1] + s[2], s[0] + s[1], s[0]] + ([s[3]] if s.shape[0] == 4
+                                             else [])
     hi = lo = None
-    for d0 in range(0, D, kc):
-        d1 = min(D, d0 + kc)
-        acc = torch.matmul(_frames(x0[:, d0:], n_win, I, d1 - d0), s[0, d0:d1])
+    for d0, d1, (x0, x1, x2) in _fold_slices(xp[:, :L], n_win, I, D, O,
+                                               kc):
+        acc = torch.matmul(x0, s[0, d0:d1])
+        lhs = [x0, x1, x2, x0][:len(rhs)]
+        sm = torch.matmul(torch.cat(lhs, dim=-1),
+                          torch.cat([r[d0:d1] for r in rhs]))
         if hi is None:
-            hi, lo = acc, torch.zeros_like(acc)
+            hi, lo = acc, sm
         else:
-            hi, lo = _two_sum_fold(hi, lo, acc)
-    small = (_framed_matmul(x0, s[1] + s[2], n_win, I)
-             + _framed_matmul(x1, s[0] + s[1], n_win, I)
-             + _framed_matmul(x2, s[0], n_win, I))
-    if s.shape[0] == 4:
-        small = small + _framed_matmul(x0, s[3], n_win, I)
-    return (hi + (lo + small)).reshape(C, n_win * O)
+            hi, e = two_sum(hi, acc)
+            lo = (lo + sm) + e
+        if d1 % TILE_K == 0:  # Fast2Sum, as the kernel
+            t = hi + lo
+            hi, lo = t, lo - (t - hi)
+    return (hi + lo).reshape(C, n_win * O)
 
 
 _F64_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -324,9 +399,12 @@ def adjoint_geometry(I: int, D: int, O: int):
 def adjoint_parts(parts: torch.Tensor, I: int, D: int,
                   O: int) -> torch.Tensor:
     """The operator_parts of frac_whole's adjoint (``adjoint_geometry``)
-    from the forward's ``parts``, built once per operator.  The slices are
-    split per entry, so the adjoint's slices are a re-blocking of the same
-    values: its arithmetic is the forward's, entry for entry."""
+    from the forward's ``parts``, built once per operator.  float32: the
+    operator the forward computes with, s0 + s1 + s2 (exact in float32),
+    re-blocked and split anew (``operator_parts``), so that its lead slice
+    lies on the adjoint's own grids, one for each of its columns and
+    KC-row groups, and the adjoint's fold sums are exact too; bf16(skT_lo)
+    re-blocked as it is.  float64: the stacked operators re-blocked."""
     per = _ADJOINTS.get(parts)
     if per is None:
         per = _ADJOINTS[parts] = {}
@@ -335,12 +413,15 @@ def adjoint_parts(parts: torch.Tensor, I: int, D: int,
     if adj is None:
         _I, Dp, _O, K = adjoint_geometry(I, D, O)
         s = unpack_parts(parts, D, O)
+        if parts.dtype != torch.float64:
+            ops = [s[0] + s[1] + s[2]] + ([s[3]] if s.shape[0] == 4 else [])
+            s = torch.stack(ops)
         sp = s.new_zeros((s.shape[0], K * I, O))
         sp[:, :D] = s
         t = sp.reshape(s.shape[0], K, I, O).flip(1).transpose(2, 3)
         t = t.reshape(s.shape[0], Dp, I)
         adj = per[key] = (t.contiguous() if parts.dtype == torch.float64
-                          else _pack(t, _tile_n(I)))
+                          else operator_parts(*t))
     return adj
 
 
@@ -429,9 +510,10 @@ def frac_whole(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
     kernel too, counted in ``frac_whole.launches`` and apart in
     ``frac_whole.adjoint_launches``.
 
-    The float32 kernel sums on the tensor cores in their own order, so it
-    matches ``frac_whole_ref`` to 2^-21 of max |y| (a few float32 ulps of
-    each chunk partial), not bit for bit; float64 matches to 1e-12."""
+    The float32 kernel's big-pair fold sums equal the model's, but it adds
+    the small pairs into lo on the tensor cores, in their own order and
+    truncated, so it matches ``frac_whole_ref`` to 2^-21 of max |y|, not
+    bit for bit; float64 matches to 1e-12."""
     _check(xp, parts, I, D, O, n_win, kc)
     return _FracWhole.apply(xp, parts, I, D, O, n_win, kc)
 

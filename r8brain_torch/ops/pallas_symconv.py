@@ -56,7 +56,7 @@ import torch
 from . import _cuda
 from .dfloat import two_sum
 from .framing import _frames
-from .pallas_frac import KC, TILE_K, _swizzle
+from .pallas_frac import KC, TILE_K, _swizzle, split_grid
 
 __all__ = ["BH", "TILE_N", "split_grid", "sym_conv", "sym_conv_ref",
            "sym_ops_high", "sym_parts", "unpack_sym"]
@@ -69,38 +69,11 @@ MAX_PHASES = 8
 #: warpgroup's MMA width, for both operators of a phase.
 TILE_N = 32
 N_TILES = BH // TILE_N
-#: Rows of one k16 step: the lead slices' grids are set per step
+#: Rows of one k16 step: the lead slices' grids are set per step (the run
+#: of ``split_grid``, ops/pallas_frac.py, by default)
 STEP = 16
 
 LoRows = Sequence[Tuple[Tuple[int, int], Tuple[int, int]]]
-
-
-def split_grid(x: torch.Tensor, dim: int = -1):
-    """(x0, x1, x2), float32 tensors of bfloat16 values, of float32 x:
-    x0 is x rounded to nearest on one grid for each run of STEP entries
-    along ``dim`` (runs from index 0; the last one may be short), 2^(E-8)
-    where 2^E > the run's largest |x| (E = the exponent field of that
-    largest |x| less 126, at least -125, as the kernel takes it); x1 =
-    bf16_rn(x - x0), x2 = bf16_rn(x - x0 - x1), each difference exact.
-
-    x0 is k * 2^(E-8) with |k| <= 256, so it is exact in bfloat16, and the
-    products of two runs' lead slices all lie on one grid: STEP of them
-    sum to under 2^20 of its units, exactly in float32.  x - x0 is under
-    2^(E-9) and exact; x0 + x1 + x2 is within 2^(E-27) of x (rounded to
-    nearest: no bias)."""
-    x = x.float()
-    xm = x.movedim(dim, -1)
-    n = xm.shape[-1]
-    g = torch.nn.functional.pad(xm, (0, -n % STEP))
-    g = g.reshape(*xm.shape[:-1], -1, STEP)
-    E = torch.frexp(g.abs().amax(-1, keepdim=True)).exponent.clamp(min=-125)
-    scale = torch.pow(2.0, (E - 8).double())
-    x0 = (torch.round(g.double() / scale) * scale).float()
-    x0 = x0.reshape(*xm.shape[:-1], -1)[..., :n].movedim(-1, dim)
-    r = x - x0
-    x1 = r.to(torch.bfloat16).float()
-    x2 = (r - x1).to(torch.bfloat16).float()
-    return x0, x1, x2
 
 
 def _sym_slices(ops: torch.Tensor, lo: Optional[torch.Tensor],
@@ -108,7 +81,7 @@ def _sym_slices(ops: torch.Tensor, lo: Optional[torch.Tensor],
     """[up, 2, P, Hp, BH] float32 slices of Te, To: split_grid along the
     rows (a grid for each column and 16-row step), and under "high" bf16
     of the residual rows at their offsets."""
-    s = list(split_grid(ops, dim=2))
+    s = list(split_grid(ops, dim=2, run=STEP))
     if not torch.equal(s[0].to(torch.bfloat16).float(), s[0]):
         raise AssertionError("a lead slice is not exact in bfloat16")
     if lo is not None:
@@ -233,7 +206,7 @@ def _split_dot(v: torch.Tensor, S: torch.Tensor,
     rounded once, and added to lo before the fold's error.  The float64
     sums are exact for any terms within 2^37 of each other, so the result
     does not depend on their order."""
-    v0, v1, v2 = (t.double() for t in split_grid(v))
+    v0, v1, v2 = (t.double() for t in split_grid(v, run=STEP))
     S = S.double()
     pairs = [(v0, S[1] + S[2]), (v1, S[0] + S[1]), (v2, S[0])]
     if v_err is not None:

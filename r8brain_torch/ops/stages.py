@@ -221,8 +221,8 @@ class ConvExec(nn.Module):
         self.dtype = dtype
         self.engine = engine
         #: terms a frac_whole big-pair partial sums before its fold, on
-        #: the "toeplitz" and "pallas" engines (a long chain asks KC_LO:
-        #: models/resampler.py LONG_CHAIN, HB_TAIL)
+        #: the "toeplitz" and "pallas" engines (its fold sums are exact, so
+        #: a chain of any length holds its class at KC)
         self.kc = KC
         self.framed5 = self.framed5_poly = False
         k = np.asarray(spec.filt.kernel, dtype=np.float64)

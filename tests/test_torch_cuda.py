@@ -7,6 +7,8 @@ runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +28,7 @@ from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
                                                sym_ops_high, sym_parts)
 from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
 
-from tools import torch_fuzz
+from tools import torch_frac_beta, torch_fuzz
 from tools.torch_sym_beta import truncation_model
 
 from .helpers import lcg_uniform, load_golden, load_manifest, rms_db
@@ -162,31 +164,73 @@ def test_split_kernel_matches_model(cuda_device, shape, kc, lo):
 @pytest.mark.cuda
 @pytest.mark.parametrize("terms", [16, 32])
 def test_tensor_core_accumulation_pin(cuda_device, terms):
-    """16- and 32-term bf16 x bf16 -> float32 accumulations through the
-    kernel's own wgmma chain (bf16-exact input and operator, so only the
-    big pair is nonzero and y is one fold's partial) on the slices of the
-    flagship operator and uniform input: every output within the error
-    bound of a recursive float32 sum that truncates, (terms - 1) * 2^-23 *
-    sum |products|."""
+    """16- and 32-term bf16 x bf16 -> float32 sums through the kernel's
+    own wgmma chain, a fold each, on input k/256 (the kernel's grid split
+    leaves it as it is).  On products that lie on one grid (the flagship
+    operator scaled to 255/256 of its largest |tap| and rounded to 2^-8,
+    so only the big pair is nonzero): the products lie on 2^-16 and sum to
+    under 2^21 of it, so every output equals the float64 sum (the tensor
+    cores, which truncate an inexact sum, have nothing to truncate).  On
+    floating slices of real data (the flagship operator's split3 lead
+    slice as the residual slice bf16(skT_lo) of a zero skT, so only the
+    pair x0*bf16(skT_lo) is nonzero, added into lo as the small pairs
+    are): every output within the error bound of a recursive float32 sum
+    that truncates, (terms - 1) * 2^-23 * sum |products|."""
     from r8brain_torch.models.plan import make_plan
     from r8brain_torch.ops.fused import FusedUpExec
 
     skT = FusedUpExec(make_plan(44100, 96000, 2.0, 180.15, 0),
                       torch.float32).skT
-    s0 = split3(skT)[0]
+    s0 = torch.round(skT / skT.abs().max() * 255) / 256
+    sf = split3(skT)[0]
     rng = np.random.default_rng(17)
     C, n_win = 8, 64
-    x0 = split3(torch.tensor(rng.uniform(-1, 1, (C, n_win * terms)),
-                             dtype=torch.float32))[0].to(cuda_device)
+    x0 = torch.tensor(rng.integers(-255, 256, (C, n_win * terms)) / 256,
+                      dtype=torch.float32, device=cuda_device)
+    xw = x0.double().reshape(C, n_win, terms)
     for d0 in range(0, skT.shape[0] - terms, 8 * terms):
         op = s0[d0 : d0 + terms].to(cuda_device)
         y = frac_whole(x0, operator_parts(op), terms, terms, op.shape[1],
                        n_win, kc=terms)
-        xw = x0.double().reshape(C, n_win, terms)
         exact = (xw @ op.double()).reshape(C, -1)
-        mag = (xw.abs() @ op.double().abs()).reshape(C, -1)
+        assert torch.equal(y.double(), exact), d0
+        of = sf[d0 : d0 + terms].to(cuda_device)
+        y = frac_whole(x0, operator_parts(torch.zeros_like(of), of), terms,
+                       terms, of.shape[1], n_win, kc=terms)
+        exact = (xw @ of.double()).reshape(C, -1)
+        mag = (xw.abs() @ of.double().abs()).reshape(C, -1)
         err = (y.double() - exact).abs()
         assert bool((err <= (terms - 1) * 2.0**-23 * mag).all()), d0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", torch_frac_beta.LABELS)
+def test_frac_whole_unbiased(cuda_device, label):
+    """frac_whole's float32 error against its own float64 function on
+    1024 channels of full-mantissa input has no sign of its own: beta =
+    mean(e * sign(y64)) / rms(e) within FRAC_BETA_MAX (chip_smoke's) of
+    0, at the flagship's fused call, the half-band upsampler's, the
+    toeplitz conv stage's and its direct form's (the 8-column tile),
+    "fast" and "high" (tools/torch_frac_beta.py); prints the kernel's beta
+    beside its model's and that of the floating split with truncated fold
+    sums (the arithmetic before the fixed grids)."""
+    (_l, I, D, O, n_win, parts, p64, kc), = torch_frac_beta.calls(
+        cuda_device, (label,))
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    u = torch.rand((1024, (n_win - 1) * I + D), generator=g,
+                   device=cuda_device, dtype=torch.float64)
+    xp = (u * 2 - 1).float()
+    y64 = frac_whole_ref(xp.double(), p64, I, D, O, n_win)
+    betas = {name: torch_frac_beta.beta(fn(xp, parts, I, D, O, n_win, kc),
+                                        y64)
+             for name, fn in (
+                 ("kernel", frac_whole), ("plain", frac_whole_ref),
+                 ("floating split truncated",
+                  partial(torch_frac_beta.floating_split,
+                          fold_sum="truncate")))}
+    print(f"frac_whole {label}: beta "
+          + ", ".join(f"{k} {b:+.4f}" for k, b in betas.items()))
+    assert abs(betas["kernel"]) <= torch_frac_beta.FRAC_BETA_MAX, betas
 
 
 @pytest.mark.cuda

@@ -83,31 +83,31 @@ def test_class_fault_pinned(pin):
     assert dj < JAX_DB, f"port vs JAX {dj:.1f} dB"
 
 
-#: the fold rules' choices (models/resampler.py): (src, dst, tb, atten,
-#: precision, each executor's fold).  A float32 chain of three or more
-#: executors ending in a half-band upsampler folds every product every 16
-#: (HB_TAIL), a "fast" chain of four or more its conv stages (LONG_CHAIN);
-#: under "high" the half-band and frac stages fold 16 of their own
+#: each executor's frac_whole fold: (src, dst, tb, atten, precision, each
+#: executor's fold).  No chain rule folds a chain at 16: the big-pair fold
+#: sums are exact (ops/pallas_frac.py), so a chain of any length holds its
+#: class at 32; under "high" the half-band (not the cascade) and frac
+#: stages fold 16 of their own
 FOLDS = [
     ((44100, 96000, 2.0, 180.15), "fast", [32]),
-    ((44100, 192000, 2.0, 180.15), "fast", [16, 16, 16]),
-    ((44100, 192000, 2.0, 180.15), "high", [16, 16, 16]),
+    ((44100, 192000, 2.0, 180.15), "fast", [32, 32, 32]),
+    ((44100, 192000, 2.0, 180.15), "high", [32, 32, 16]),
     ((44100, 96001, 2.0, 180.15), "fast", [32, None, 32]),
-    ((44100, 352800.3, 2.0, 180.15), "fast", [16, None, 16, 16]),
-    ((96000, 2822400, 2.0, 180.15), "high", [16, 16, 16]),
+    ((44100, 352800.3, 2.0, 180.15), "fast", [32, None, 32, 32]),
+    ((96000, 2822400, 2.0, 180.15), "high", [32, 32, 32]),
     ((44100, 2822400, 2.0, 180.15), "fast", [32, 32]),
     ((2822400, 96000, 2.0, 180.15), "fast", [32, 32, 32, 32]),
     ((2822400, 96000, 2.0, 180.15), "high", [16, 16, 16, 32]),
-    ((2822400, 44100, 2.0, 180.15), "fast", [32] * 5 + [16]),
-    ((44100.0, 328545.0, 1.383, 194.9), "fast", [16, 16, 16]),
+    ((2822400, 44100, 2.0, 180.15), "fast", [32] * 6),
+    ((44100.0, 328545.0, 1.383, 194.9), "fast", [32, 32, 32]),
 ]
 
 
 @pytest.mark.parametrize("cfg,precision,folds", FOLDS,
                          ids=[f"{c[0]:g}-{c[1]:g}-{p}" for c, p, _f in FOLDS])
 def test_chain_fold_rule(cfg, precision, folds):
-    """Each executor's frac_whole fold as the fold rules set it (a
-    polynomial stage has none)."""
+    """Each executor's frac_whole fold, its own whatever the chain's
+    length or last stage (a polynomial stage has none)."""
     from r8brain_torch import Resampler
 
     rs = Resampler(*cfg, 0, precision=precision, device="cpu")
@@ -117,13 +117,14 @@ def test_chain_fold_rule(cfg, precision, folds):
 
 def test_chain_fold_rule_in_stream_sub_chains():
     """A stream's own sub-chain executors (a run of a fused parent's
-    stages, built anew) take the parent chain's folds: 96k -> 2.8224M's
-    run after its fused pair is [conv, cascade], folded 16 as in the
-    parent's three-executor chain that ends in a half-band cascade."""
+    stages, built anew) fold as the parent's executors do: 96k ->
+    2.8224M's run after its fused pair is [conv, cascade], each at 32 as
+    in the parent's three-executor chain."""
     from r8brain_torch import Resampler
     from r8brain_torch.models.stream import _sub_execs
 
     rs = Resampler(96000, 2822400, 2.0, 180.15, 0, device="cpu")
     sub = _sub_execs(rs, rs.plan.stages[2:])
     assert [type(e).__name__ for e in sub] == ["ConvExec", "HBUpCascadeExec"]
-    assert [e.kc for e in sub] == [16, 16]
+    assert [e.kc for e in sub] == [32, 32]
+    assert [e.kc for e in rs.execs[1:]] == [32, 32]

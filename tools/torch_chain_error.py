@@ -18,9 +18,9 @@ path:
   chain's own input to the stages it covers, rounded to float32, and held
   against those stages' float64 executors: dB re full scale, and the
   error's mean (its DC part) beside its RMS;
-* the whole oneshot as built (``built``: the folds of
-  ``models/resampler.py`` LONG_CHAIN and HB_TAIL) and under variants,
-  tokens joined by ``+``: an executor class's ``frac_whole`` folds at 16
+* the whole oneshot as built (``built``: each executor's own fold) and
+  under variants, tokens joined by ``+``: an executor class's
+  ``frac_whole`` folds at 16
   or 32 terms (``conv16``, ``conv32``, ``hb16``, ``hb32``, ``fused16``,
   ``fused32``, ``casc16``, ``casc32``, ``frac16``, ``frac32``; ``all16``
   / ``all32`` every executor that has a fold), the ``toeplitz_sym`` conv

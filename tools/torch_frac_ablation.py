@@ -3,14 +3,15 @@
 builds of it with parts of the work taken out, and its 64-column tile
 against the 128-column one, on the card.
 
-    python tools/torch_frac_ablation.py [--iters 10]
+    python tools/torch_frac_ablation.py [--iters 10] [--variants base ...]
+        [--against NAME=DIR ...]
 
 Builds csrc/frac_whole.cu as it is and, from the same source with
 -DR8B_ABLATE=mask (the kernel's ablation switches), variants that drop
 parts of the work (their outputs are wrong; only their times are read):
 
   no_fold         the two_sum fold becomes one add
-  no_split        x1 and x2 are copies of x0 (one cvt a float pair)
+  no_split        no grids, x1 and x2 copies of x0 (one cvt a float pair)
   only_big        the small-pair MMAs go (the big pair alone)
   no_stage        the input is never staged into shared memory
   mma_only        no fold, no split, no staging: MMAs, operator loads and
@@ -23,9 +24,14 @@ and the direct conv stage's (C=1024, I=1, D=709, O=2, 44106 windows).
 Then it times the kernel as built with the operator packed for the
 64-column tile (no register spill) against the 128-column tile the
 executors use (255 registers, spilling), at the flagship's call and at the
-toeplitz conv stage's (C=1024, I=256, D=964, O=512, 173 blocks).  Prints
-one line a variant and the card's name.  Needs a CUDA device and nvcc;
-exits non-zero without them.
+toeplitz conv stage's (C=1024, I=256, D=964, O=512, 173 blocks).
+``--variants`` builds and times only those (``base``: the kernel as it
+is).  ``--against NAME=DIR`` also builds DIR/r8brain_torch/csrc/
+frac_whole.cu as it is (another tree of this repository, say an unpacked
+parent commit) under NAME; the builds are then timed in one order and
+again in the reverse one (parent, change, change, parent), at the same
+calls with the same operators.  Prints one line a timing and the card's
+name.  Needs a CUDA device and nvcc; exits non-zero without them.
 """
 
 from __future__ import annotations
@@ -53,7 +59,12 @@ VARIANTS = {"base": 0, "no_fold": FOLD, "no_split": SPLIT,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--variants", nargs="+", choices=tuple(VARIANTS),
+                    default=list(VARIANTS))
+    ap.add_argument("--against", nargs="+", default=[], metavar="NAME=DIR")
     args = ap.parse_args(argv)
+    variants = {k: VARIANTS[k] for k in args.variants}
+    against = dict(a.split("=", 1) for a in args.against)
 
     import torch
 
@@ -69,11 +80,15 @@ def main(argv=None) -> int:
     src = ROOT / "r8brain_torch" / "csrc" / "frac_whole.cu"
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=_cuda.BUILD_DIR))
+    builds = {name: (src, mask) for name, mask in variants.items()}
+    builds.update({name: (Path(d) / "r8brain_torch" / "csrc"
+                          / "frac_whole.cu", 0)
+                   for name, d in against.items()})
     procs = {}
-    for name, mask in VARIANTS.items():
+    for name, (path, mask) in builds.items():
         procs[name] = subprocess.Popen(
             [_cuda._nvcc(), *flags, f"-DR8B_ABLATE={mask}", "-o",
-             str(tmp / f"{name}.so"), str(src)],
+             str(tmp / f"{name}.so"), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, p in procs.items():
         log, _ = p.communicate()
@@ -110,12 +125,15 @@ def main(argv=None) -> int:
         return f"{label} {cuda_ms(run, args.iters):8.3f} ms"
 
     lib = {}
-    for name in VARIANTS:
+    for name in builds:
         fn = ctypes.CDLL(str(tmp / f"{name}.so")).r8b_frac_whole_f32
         fn.argtypes, fn.restype = _F32_ARGS, ctypes.c_int
         lib[name] = fn
+    order = list(against) + list(variants)
+    for name in order + (order[::-1] if against else []):
         print(f"{name:15s} " + "   ".join(
-            timed(fn, name, label, *call) for label, call in calls.items()))
+            timed(lib[name], name, label, *call)
+            for label, call in calls.items()))
 
     # the 64-column tile against the 128-column one, as built
     cx = Resampler(44100, 96000, 2.0, 180.15, fused=False,
@@ -127,7 +145,8 @@ def main(argv=None) -> int:
     xf, _p, If, Df, Of, nf, _y = calls["flagship"]
     wide = {"flagship": (xf, If, Df, Of, nf, ex.skT),
             "toeplitz": (xt, B * down, L_f, B * up, n_blk, cx.T_toep)}
-    for label, (xp, I, D, O, n_win, skT) in wide.items():
+    for label, (xp, I, D, O, n_win, skT) in (wide.items() if "base" in lib
+                                             else ()):
         y = torch.empty((C, n_win * O), device=dev)
         times = [timed(lib["base"], f"bn{bn}", f"{label} BN={bn}", xp,
                        _pack(_slices(skT, None), bn), I, D, O, n_win, y)

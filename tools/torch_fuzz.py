@@ -107,14 +107,17 @@ PINS = [
 #: scale, n, input seed)
 CLASS_PINS = [
     # draw 137: [fused pair, conv, half-band]; -140.12 on an H100 at
-    # 32-term folds, CPU model -144.01 (models/resampler.py HB_TAIL)
+    # 32-term folds while frac_whole's tensor cores truncated its
+    # big-pair fold sums; with those sums exact (ops/pallas_frac.py
+    # split_grid) f32 / stm -145.99 / -146.01 at 32, CPU model -146.00
     ("f32_short_conv_hb", (44100.0, 328545.0, 1.383, 194.9, 0), "f32",
      CLASS_DB, 3466, 7137),
     ("stm_short_conv_hb", (44100.0, 328545.0, 1.383, 194.9, 0), "stm",
      CLASS_DB, 3466, 7137),
     # draw 261: [sym conv, frac, sym conv, half-band, ...] on sym_conv;
     # -139.03 on an H100 while its tensor cores truncated the big-pair
-    # step sums, CPU model -142.11 (ops/pallas_symconv.py split_grid)
+    # step sums, -141.12 with sym_conv's exact and frac_whole's still
+    # truncating, -145.58 with both exact (CPU model -145.59)
     ("sym_long_chain", (44100.0, 1292130.0, 1.908, 214.74, 0), "sym",
      CLASS_DB, 2764, 7261),
 ]
