@@ -44,7 +44,7 @@ from torch import nn
 
 from ..ops.fused import fuse_stage_list
 from ..ops.stages import _df_collapse_input, build_exec
-from ..utils.trace import trace_plan
+from ..utils.trace import count, exec_span, spanned, trace_plan
 from .lengths import chain_in_for_out, chain_max_out_len, chain_out_len
 from .plan import Plan, make_plan
 
@@ -60,6 +60,14 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' for the "
                            "plain PyTorch path")
     return device
+
+
+def to_device(x: torch.Tensor, device: torch.device, dtype) -> torch.Tensor:
+    """x on ``device`` in ``dtype``; a host tensor's upload to a card is
+    counted in ``h2d_bytes``."""
+    if x.device.type == "cpu" and device.type == "cuda":
+        count("h2d_bytes", x.numel() * dtype.itemsize)
+    return x.to(device=device, dtype=dtype)
 
 
 def run_chain(execs, x: torch.Tensor, df_carry: bool = False, x_lo=None,
@@ -78,29 +86,34 @@ def run_chain(execs, x: torch.Tensor, df_carry: bool = False, x_lo=None,
     seam's rounding without the carry.  A streamed piece of a
     chain carries the pair across its own ends: x_lo is the residual
     stream entering the first stage, and emit_pair=True returns the last
-    stage's (hi, lo) pair (lo None where the stage collapses)."""
+    stage's (hi, lo) pair (lo None where the stage collapses).
+
+    Each executor call runs inside its ``r8b.exec.<class>`` span
+    (utils/trace.py)."""
     n = x.shape[1]
     if df_carry:
         h, l = x, x_lo
         for i, e in enumerate(execs):
-            if hasattr(e, "apply_df"):
-                h, l, n = e.apply_df(
-                    h, l, n, emit_pair=emit_pair or i < len(execs) - 1)
-            else:  # no carry path (the fused executors): one rounding
-                h, l = e(_df_collapse_input(h, l, n)), None
-                n = h.shape[1]
+            with exec_span(e):
+                if hasattr(e, "apply_df"):
+                    h, l, n = e.apply_df(
+                        h, l, n, emit_pair=emit_pair or i < len(execs) - 1)
+                else:  # no carry path (the fused executors): one rounding
+                    h, l = e(_df_collapse_input(h, l, n)), None
+                    n = h.shape[1]
         h = h if h.shape[1] == n else h[:, :n]
         if not emit_pair:
             return h
         return h, (l if l is None or l.shape[1] == n else l[:, :n])
     for e in execs:
-        if hasattr(e, "apply_v"):
-            x, n = e.apply_v(x, n)
-        else:
-            if x.shape[1] != n:
-                x = x[:, :n]
-            x = e(x)
-            n = x.shape[1]
+        with exec_span(e):
+            if hasattr(e, "apply_v"):
+                x, n = e.apply_v(x, n)
+            else:
+                if x.shape[1] != n:
+                    x = x[:, :n]
+                x = e(x)
+                n = x.shape[1]
     return x if x.shape[1] == n else x[:, :n]
 
 
@@ -236,6 +249,7 @@ class Resampler(nn.Module):
         return self.get_input_required_for_output(req_out_pos + 1) - 1
 
     @torch.no_grad()
+    @spanned("r8b.oneshot")
     def oneshot(self, x, out_len: Optional[int] = None,
                 max_chunk: Optional[int] = None) -> torch.Tensor:
         """Offline conversion with zero-flush.  x: [C, N] or [N], a tensor
@@ -258,7 +272,7 @@ class Resampler(nn.Module):
         if out_len is None:
             out_len = self.default_out_len(N)
         if not self.plan.stages:  # src == dst passthrough
-            y = x.to(device=self.device, dtype=self.dtype)[:, :out_len]
+            y = to_device(x, self.device, self.dtype)[:, :out_len]
             if out_len > N:
                 y = torch.nn.functional.pad(y, (0, out_len - N))
             return y[0] if squeeze else y
@@ -267,7 +281,7 @@ class Resampler(nn.Module):
         if max_chunk is not None and N > max_chunk:
             y = self._oneshot_chunked(x, out_len, int(max_chunk))
             return y[0] if squeeze else y
-        x = x.to(device=self.device, dtype=self.dtype)
+        x = to_device(x, self.device, self.dtype)
         T = max(N, self.in_len_for_out(out_len))
         if T > N:
             x = torch.nn.functional.pad(x, (0, T - N))

@@ -48,9 +48,10 @@ from ..ops.dfloat import two_sum
 from ..ops.hb_cascade import HBUpCascadeExec
 from ..ops.stages import build_exec, poly_contract
 from ..parallel.sharding import chain_input_span, chain_shift_period
+from ..utils.trace import span, spanned
 from .lengths import chain_out_len, frac_positions, stage_out_len
 from .plan import FracStage, Plan
-from .resampler import Resampler, run_chain
+from .resampler import Resampler, run_chain, to_device
 
 __all__ = ["StreamResampler"]
 
@@ -190,9 +191,10 @@ class _PeriodStream:
         def windows(hist, x):
             # the k windows [hist | x_1 .. x_k][j*L : j*L + H + L],
             # block-major
-            full = torch.cat([hist, x], dim=1)
-            return (full.unfold(1, H + L, L).transpose(0, 1)
-                    .reshape(k * C, H + L), full[:, k * L :].clone())
+            with span("r8b.stream.window"):
+                full = torch.cat([hist, x], dim=1)
+                return (full.unfold(1, H + L, L).transpose(0, 1)
+                        .reshape(k * C, H + L), full[:, k * L :].clone())
 
         win, self.hist = windows(self.hist, xk)
         win_lo = None
@@ -241,6 +243,7 @@ class _PolyTailStream:
         self.skip_left = self.spec.in_latency
         self.buf = self.buf_lo = None  # [C, H] history; absolute end n_in
 
+    @spanned("r8b.stream.poly")
     def process(self, z: torch.Tensor, z_lo=None):
         """z [C, n] interpolator input (z_lo: the prefix's residual stream
         under the df32 carry, or None) -> (y, y_lo): the outputs it
@@ -268,20 +271,22 @@ class _PolyTailStream:
         count = m_avail - self.m_out
         if count <= 0:
             return z.new_zeros((C, 0)), None
-        s, f = frac_positions(self.spec, self.m_out, count)
-        fr = f * self.exec.fracs
-        fti = np.floor(fr)
-        t64 = fr - fti  # the exact float64 phase
-        start = s - self.exec.fll - base
-        assert start.min() >= 0, "poly window underrun"
-        assert start.max() + self.exec.fl <= window.shape[1]
+        with span("r8b.poly.positions"):
+            s, f = frac_positions(self.spec, self.m_out, count)
+            fr = f * self.exec.fracs
+            fti = np.floor(fr)
+            t64 = fr - fti  # the exact float64 phase
+            start = s - self.exec.fll - base
+            assert start.min() >= 0, "poly window underrun"
+            assert start.max() + self.exec.fl <= window.shape[1]
         self.m_out = m_avail
         if self.exec.engine == "gather":
             if window_lo is not None:  # no carry path: collapse the pair
                 window = window + window_lo
             self.paths["gather"] += 1
-            return self.exec.gather(window, *self.exec.gather_taps(
-                start, fti, t64, window.device)), None
+            with span("r8b.poly.operators"):
+                taps = self.exec.gather_taps(start, fti, t64, window.device)
+            return self.exec.gather(window, *taps), None
         return self._banded(window, window_lo, start, fti, t64, count)
 
     def _geometry(self, start, count: int, P: int):
@@ -312,20 +317,21 @@ class _PolyTailStream:
         G, S, fl = ex.G, ex.S, ex.fl
         n_grp = -(-count // G)
         P = n_grp if n_grp < TAIL_SPAN_MIN else TAIL_SPAN_GROUPS
-        while True:
-            n_span, a0s, off, W = self._geometry(start, count, P)
-            if P == 1 or (W <= 4 * ex.W + 256 and int(a0s.min()) >= 0):
-                break
-            P = min(P // 2, TAIL_SPAN_GROUPS)
-        need = (P + -(-W // S)) * S
-        padl = S + fl + TAIL_MARGIN
-        _check_span_bases(a0s, need, padl + window.shape[1] + need)
-        Mp = n_span * P * G
-        padG = Mp - count
-        ops = ex.operators(
-            np.pad(fti, (0, padG), mode="edge").reshape(n_span, P, G),
-            np.pad(t64, (0, padG), mode="edge").reshape(n_span, P, G),
-            off, W, window.device)
+        with span("r8b.poly.positions"):
+            while True:
+                n_span, a0s, off, W = self._geometry(start, count, P)
+                if P == 1 or (W <= 4 * ex.W + 256 and int(a0s.min()) >= 0):
+                    break
+                P = min(P // 2, TAIL_SPAN_GROUPS)
+            need = (P + -(-W // S)) * S
+            padl = S + fl + TAIL_MARGIN
+            _check_span_bases(a0s, need, padl + window.shape[1] + need)
+            Mp = n_span * P * G
+            padG = Mp - count
+            fti = np.pad(fti, (0, padG), mode="edge").reshape(n_span, P, G)
+            t64 = np.pad(t64, (0, padG), mode="edge").reshape(n_span, P, G)
+        with span("r8b.poly.operators"):
+            ops = ex.operators(fti, t64, off, W, window.device)
 
         def spans(w):
             wp = F.pad(w, (padl, need))
@@ -498,7 +504,7 @@ class StreamResampler:
     def _as_input(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
-        return x.to(device=self.device, dtype=self.dtype)
+        return to_device(x, self.device, self.dtype)
 
     def _start(self, C: int, squeeze: bool) -> None:
         if self._channels is None:
@@ -507,6 +513,7 @@ class StreamResampler:
             raise ValueError(f"chunk has {C} channels, stream started with "
                              f"{self._channels}")
 
+    @spanned("r8b.stream.block")
     def _run(self, xk: torch.Tensor, k: int) -> torch.Tensor:
         """k whole blocks [C, k*block] -> the outputs they complete: the
         one body of every entry point."""
@@ -519,6 +526,7 @@ class StreamResampler:
         y, y_lo = self._tail.process(z, z_lo)
         return y if self._suf is None else self._suffix(y, y_lo)
 
+    @spanned("r8b.stream.suffix")
     def _suffix(self, y: torch.Tensor, y_lo) -> torch.Tensor:
         """The interpolator's outputs through the suffix ring.  The ring
         grows before the push whenever its fill, a restored pending and

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.trace import spanned
 from . import _cuda
 from .framing import _frames
 
@@ -191,6 +192,7 @@ def _lib():
     return lib
 
 
+@spanned("r8b.kernel.df_fft_conv")
 def df_fft_conv(u: torch.Tensor, plan: DfFFTPlan, n_frames: int,
                 head: int = 0) -> torch.Tensor:
     """w [C, n_frames*hop] float32 (``[C, 2*n_frames*hop]`` interleaved in

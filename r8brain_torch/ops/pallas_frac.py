@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
+from ..utils.trace import spanned
 from . import _cuda
 from .dfloat import two_sum
 from .framing import _framed_matmul
@@ -492,6 +493,7 @@ class _FracWhole(torch.autograd.Function):
         return y.reshape(B, C, y.shape[1]), 0
 
 
+@spanned("r8b.kernel.frac_whole")
 def frac_whole(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
                O: int, n_win: int, kc: int = KC) -> torch.Tensor:
     """y [C, n_win*O]: y[c, m*O + j] = xp[c, m*I : m*I + D] . skT[:, j]

@@ -53,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.trace import spanned
 from . import _cuda
 from .dfloat import two_sum
 from .framing import _frames
@@ -234,6 +235,7 @@ def launch_args(xp, sx, packed, L_f, hop, Kcols, n_blocks, x_lo, y, yl):
             hop, L_f, Kcols)
 
 
+@spanned("r8b.kernel.ozaki_framed")
 def ozaki_framed(xp: torch.Tensor, sx: torch.Tensor, T_parts: torch.Tensor,
                  L_f: int, hop: int, Kcols: int, n_blocks: int,
                  x_lo: Optional[torch.Tensor] = None,

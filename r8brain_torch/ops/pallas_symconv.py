@@ -53,6 +53,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.trace import spanned
 from . import _cuda
 from .dfloat import two_sum
 from .framing import _frames
@@ -303,6 +304,7 @@ def _launcher(dtype):
     return fn
 
 
+@spanned("r8b.kernel.sym_conv")
 def sym_conv(xp: torch.Tensor, parts: torch.Tensor, L_fs: Sequence[int],
              nb: int, hop: int) -> torch.Tensor:
     """y [C, nb*256*up]: every phase of one folded conv stage, in the

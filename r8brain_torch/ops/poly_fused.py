@@ -51,8 +51,8 @@ from torch import nn
 
 from ..models.lengths import chain_out_len, frac_positions
 from ..models.plan import ConvStage, FracStage
-from .stages import (POLY_CACHE, _check_dtype, _check_precision,
-                     _to_device, chunk_drift_groups, poly_contract)
+from .stages import (_check_dtype, _check_precision, _to_device,
+                     chunk_drift_groups, poly_cached, poly_contract)
 
 __all__ = ["FusedPolyExec"]
 
@@ -210,15 +210,8 @@ class FusedPolyExec(nn.Module):
         M = self.out_len(N)
         if M <= 0:
             return x.new_zeros((C, 0), dtype=self.dtype)
-        key = (M, x.device)
-        st = self._state.get(key)
-        if st is None:
-            st = self._state[key] = self._build(M, x.device)
-            while len(self._state) > POLY_CACHE:
-                self._state.popitem(last=False)
-        else:
-            self._state.move_to_end(key)
-        chunks, need_len, pad_l = st
+        chunks, need_len, pad_l = poly_cached(
+            self._state, (M, x.device), lambda: self._build(M, x.device))
         S, W, G = self.S, self.W, self.G
         xp = F.pad(x.to(self.dtype), (pad_l, max(0, need_len - (N + pad_l))))
         span = -(-W // S) * S  # past the chunk's nloc*S: its last frame

@@ -59,7 +59,7 @@ from torch import nn
 
 from ..models.lengths import frac_positions, stage_out_len
 from ..models.plan import ConvStage, FracStage, HBDownStage, HBUpStage
-from ..utils.trace import trace
+from ..utils.trace import count, trace
 from .dfloat import two_sum
 from .ozaki import (K0, N_DIAG, N_PARTS, channel_scale, framed_cheap,
                     split_input, split_operator_batched,
@@ -1267,11 +1267,29 @@ def poly_operators(flt64: torch.Tensor, off: torch.Tensor, W: int, dtype,
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``: through pinned memory and an
-    asynchronous copy on a card, so the host goes on with the next call."""
+    asynchronous copy on a card, so the host goes on with the next call
+    (counted in ``h2d_bytes``)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type == "cuda":
+        count("h2d_bytes", t.nbytes)
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def poly_cached(state: OrderedDict, key, build):
+    """``state[key]``, built by ``build()`` when absent, in a cache of the
+    last ``POLY_CACHE`` keys used (counted in ``poly_cache.hit`` and
+    ``poly_cache.miss``)."""
+    st = state.get(key)
+    if st is None:
+        count("poly_cache.miss")
+        st = state[key] = build()
+        while len(state) > POLY_CACHE:
+            state.popitem(last=False)
+    else:
+        count("poly_cache.hit")
+        state.move_to_end(key)
+    return st
 
 
 def poly_contract(xc: torch.Tensor, ops: dict, nloc: int, S: int, W: int,
@@ -1461,16 +1479,6 @@ class FracPolyExec(nn.Module):
 
     forward = apply
 
-    def _cached(self, key, build):
-        st = self._state.get(key)
-        if st is None:
-            st = self._state[key] = build()
-            while len(self._state) > POLY_CACHE:
-                self._state.popitem(last=False)
-        else:
-            self._state.move_to_end(key)
-        return st
-
     def values(self, fti: torch.Tensor, t: torch.Tensor,
                dtype=torch.float64) -> torch.Tensor:
         """[..., fl] spline values c0 + (c1 + c2 t) t of the table rows fti
@@ -1515,7 +1523,8 @@ class FracPolyExec(nn.Module):
             return (pad_l, pad_r,
                     *self.gather_taps(start + pad_l, fti, t, dev))
 
-        pad_l, pad_r, idx, flt = self._cached(("gather", M, N, dev), build)
+        pad_l, pad_r, idx, flt = poly_cached(
+            self._state, ("gather", M, N, dev), build)
         return self.gather(F.pad(x.to(self.dtype), (pad_l, pad_r)), idx, flt)
 
     def _banded_state(self, M: int, dev):
@@ -1546,8 +1555,9 @@ class FracPolyExec(nn.Module):
                       x_lo=None, pair: bool = False):
         C, N = x.shape
         G, S, W = self.G, self.S, self.W
-        chunks, need_len, pad_l = self._cached(
-            ("banded", M, x.device), lambda: self._banded_state(M, x.device))
+        chunks, need_len, pad_l = poly_cached(
+            self._state, ("banded", M, x.device),
+            lambda: self._banded_state(M, x.device))
         pad_r = max(0, need_len - (N + pad_l))
         xp = F.pad(x.to(self.dtype), (pad_l, pad_r))
         xlp = None if x_lo is None else F.pad(x_lo, (pad_l, pad_r))
