@@ -151,7 +151,11 @@ holds every ``frac_whole`` call to its plain model (within 2^-21 of max
 |y|), to its float64 product and, at 10^5 outputs or more, to no bias of
 its own (``frac_beta``: beta within 0.02 of its model's; on
 full-mantissa input at the flagship, HB-up, toeplitz and direct calls
-within 0.02 of 0, ``check_frac_beta``), and the residual slice of each ``"high"`` call's shape (fused,
+within 0.02 of 0, ``check_frac_beta``), its band walk bit-equal to the
+full walk at the fused flagship fast and "high", both toeplitz convs of
+44.1k -> 96001, the half-band up and down stages, the direct stage and a
+stream block, timed beside it (``check_frac_band``), and the residual
+slice of each ``"high"`` call's shape (fused,
 frac stage, ``direct``) with a planted ``skT_lo`` large enough that a
 kernel which drops or misplaces the slice fails (``check_residual``).
 Before the guarantee chain it pins the exactness lemma the
@@ -602,21 +606,34 @@ def check_frac_beta(dev) -> None:
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     out = []
-    for label, I, D, O, n_win, parts, p64, kc in torch_frac_beta.calls(dev):
+    for label, I, D, O, n_win, parts, p64, kc, band in torch_frac_beta.calls(
+            dev):
         xp = full_mantissa(g, (CHANNELS, (n_win - 1) * I + D),
                            torch.float32, dev)
         y64 = frac_whole_ref(xp.double(), p64, I, D, O, n_win)
         bk, bm = frac_beta(f"frac_whole beta {label}",
                            beta_sums(frac_whole(xp, parts, I, D, O, n_win,
-                                                kc), y64),
+                                                kc, band), y64),
                            beta_sums(frac_whole_ref(xp, parts, I, D, O,
-                                                    n_win, kc), y64))
+                                                    n_win, kc, band), y64))
         check(abs(bk) <= FRAC_BETA_MAX, f"frac_whole {label}: beta "
               f"{bk:+.4f} over {FRAC_BETA_MAX}")
         out.append(f"{label} {bk:+.4f} ({bm:+.4f})")
     print(f"frac_whole beta, {CHANNELS} channels of full-mantissa input, "
           f"kernel (model): {', '.join(out)} (kernel within "
           f"{FRAC_BETA_MAX} of 0 and of its model)")
+
+
+def check_frac_band() -> None:
+    """frac_whole walking each column tile's band against the full walk
+    (tools/torch_frac_band.py): y bit-equal at every call of its LABELS,
+    1024 channels, the folds walked and both timed in turns."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_frac_band
+
+    check(torch_frac_band.main(["--reps", "5"]) == 0,
+          "frac_whole's band walk differs from the full walk")
 
 
 def check_frac_model(label, y, model, ref64):
@@ -666,14 +683,16 @@ def check_residual(label, xp, skT, I, D, O, n_win, kc):
     import torch
 
     from r8brain_torch.ops.pallas_frac import (frac_whole, frac_whole_ref,
-                                               operator_parts)
+                                               operator_band, operator_parts)
 
     g = torch.Generator(device=xp.device).manual_seed(SEED)
     lo = skT * torch.randn(skT.shape, generator=g, device=xp.device)
     with_lo = operator_parts(skT, lo * RESIDUAL_SCALE)
     bare = operator_parts(skT)
-    y = frac_whole(xp, with_lo, I, D, O, n_win, kc=kc).double()
-    dy = y - frac_whole(xp, bare, I, D, O, n_win, kc=kc).double()
+    y = frac_whole(xp, with_lo, I, D, O, n_win, kc=kc,
+                   band=operator_band(with_lo)).double()
+    dy = y - frac_whole(xp, bare, I, D, O, n_win, kc=kc,
+                        band=operator_band(bare)).double()
     m = frac_whole_ref(xp, with_lo, I, D, O, n_win, kc=kc).double()
     dm = m - frac_whole_ref(xp, bare, I, D, O, n_win, kc=kc).double()
     torch.cuda.synchronize()
@@ -706,11 +725,12 @@ def fast_path(dev, x, ref, skip, peaks, card):
 
     from r8brain_torch import Resampler
     from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
-                                               frac_whole_ref, operator_parts)
+                                               frac_whole_ref, operator_band,
+                                               operator_parts)
 
     rs = Resampler(SRC, DST, TB, ATTEN, device=dev)
     ex = rs.execs[0]
-    I, D, O, parts = ex.p_in, ex.D, ex.p_out, ex.sk_parts
+    I, D, O, parts, band = ex.p_in, ex.D, ex.p_out, ex.sk_parts, ex.sk_band
     # the window count oneshot gives the kernel (its zero-flush pad)
     T = max(N_IN, rs.in_len_for_out(rs.default_out_len(N_IN)))
     n_win = -(-rs.out_len_for_in(T) // O)
@@ -720,8 +740,8 @@ def fast_path(dev, x, ref, skip, peaks, card):
     ref64 = frac_whole_ref(xp.double(), operator_parts(ex.skT.double()), I,
                            D, O, n_win)
     for kc in (KC_LO, KC):
-        y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
-        model = frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc)
+        y = frac_whole(xp, parts, I, D, O, n_win, kc=kc, band=band)
+        model = frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc, band=band)
         torch.cuda.synchronize()
         m_abs, err_m, err, beta, beta_m = check_frac_model(
             f"flagship fold {kc}", y, model, ref64)
@@ -745,7 +765,7 @@ def fast_path(dev, x, ref, skip, peaks, card):
     so = torch.randn((Do, Oo), generator=g, device=dev)
     slo = torch.randn((Do, Oo), generator=g, device=dev) * 2.0**-24
     po = operator_parts(so, slo)
-    yo = frac_whole(xo, po, Io, Do, Oo, no)
+    yo = frac_whole(xo, po, Io, Do, Oo, no, band=operator_band(po))
     mo = frac_whole_ref(xo, po, Io, Do, Oo, no)
     po64 = operator_parts(so.double(), slo.double())
     ro = frac_whole_ref(xo.double(), po64, Io, Do, Oo, no)
@@ -782,10 +802,12 @@ def fast_path(dev, x, ref, skip, peaks, card):
     mrops = 1e-6 * CHANNELS * N_IN / (one_ms * 1e-3)
     print(f"timing {card}: fast oneshot {one_ms:.3f} ms = {mrops:.1f} Mrops "
           f"(1e-6 x channels x input samples / s)")
-    ms = {k: cuda_ms(lambda: frac_whole(xp, parts, I, D, O, n_win, kc=k),
+    ms = {k: cuda_ms(lambda: frac_whole(xp, parts, I, D, O, n_win, kc=k,
+                                        band=band),
                      reps=20)
           for k in (KC_LO, KC)}
-    p_ms = cuda_ms(lambda: frac_whole_ref(xp, parts, I, D, O, n_win),
+    p_ms = cuda_ms(lambda: frac_whole_ref(xp, parts, I, D, O, n_win,
+                                          band=band),
                    reps=3, warmup=1)
     w = ex.skT.T.contiguous()[:, None, :]
     lib_ms = cuda_ms(lambda: F.conv1d(xp[:, None, :], w, stride=I), reps=10)
@@ -841,8 +863,8 @@ def accumulation_pin(dev, skT) -> None:
       tensor cores round shows here."""
     import torch
 
-    from r8brain_torch.ops.pallas_frac import (frac_whole, operator_parts,
-                                               split3)
+    from r8brain_torch.ops.pallas_frac import (frac_whole, operator_band,
+                                               operator_parts, split3)
 
     s0 = torch.round(skT / skT.abs().max() * 255) / 256
     sf = split3(skT)[0]
@@ -857,15 +879,17 @@ def accumulation_pin(dev, skT) -> None:
         worst, sq = 0.0, 0.0
         for d0 in range(0, D - terms + 1, terms):
             op = s0[d0 : d0 + terms].contiguous()
-            y = frac_whole(x0, operator_parts(op), terms, terms, O, n_win,
-                           kc=terms)
+            p = operator_parts(op)
+            y = frac_whole(x0, p, terms, terms, O, n_win, kc=terms,
+                           band=operator_band(p))
             y = y.double().reshape(C, n_win, O)
             n_exact += int((y == xw @ op.double()).sum().item())
             n_all += y.numel()
 
             of = sf[d0 : d0 + terms].contiguous()
-            y = frac_whole(x0, operator_parts(torch.zeros_like(of), of),
-                           terms, terms, O, n_win, kc=terms)
+            p = operator_parts(torch.zeros_like(of), of)
+            y = frac_whole(x0, p, terms, terms, O, n_win, kc=terms,
+                           band=operator_band(p))
             y = y.double().reshape(C, n_win, O)
             exact = xw @ of.double()
             mag = xw.abs() @ of.double().abs()
@@ -1687,7 +1711,8 @@ def gemm_records(dev, peaks, card):
     slices), each the larger of its operations and bytes time."""
     import torch
 
-    from r8brain_torch.ops.pallas_frac import frac_whole, operator_parts
+    from r8brain_torch.ops.pallas_frac import (frac_whole, operator_band,
+                                               operator_parts)
     from r8brain_torch.ops.scout import dense_gemm, dense_gemm_ref
 
     peak_f32, peak_bf16, peak_bytes = peaks
@@ -1705,9 +1730,11 @@ def gemm_records(dev, peaks, card):
     xp = torch.randn((CHANNELS, (nb - 1) * GEMM_HOP + K), generator=g,
                      device=dev)
     parts = operator_parts(B)
-    fw_ms = cuda_ms(lambda: frac_whole(xp, parts, GEMM_HOP, K, N, nb),
+    band = operator_band(parts)
+    fw_ms = cuda_ms(lambda: frac_whole(xp, parts, GEMM_HOP, K, N, nb,
+                                       band=band),
                     reps=10)
-    del xp, parts
+    del xp, parts, band
     ref = dense_gemm_ref(A, B)
     lib_err = max_rel(torch.matmul(A, B), ref)
     print(f"timing {card}: GEMM {M}x{K} @ {K}x{N} ({flops:.3e} flop): "
@@ -1860,18 +1887,19 @@ def frac_record(name, call, ex, launches, peaks, card,
                                                frac_whole_ref, operator_parts)
 
     (xp, parts, I, D, O, n_win), kw = call
-    kc = kw.get("kc", KC)
+    kc, band = kw.get("kc", KC), kw["band"]
     skT, lo = exec_operator(ex, parts)
     if expect_lo:
         check(lo is not None, f"{name}: the call has no skT_lo")
     C = xp.shape[0]
     chunks = channel_chunks(C, n_win * O)
-    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
+    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc, band=band)
     p64 = operator_parts(skT.double(), None if lo is None else lo.double())
     e_m = e_r = scale = 0.0
     sums = sums_m = (0.0, 0.0, 0)
     for c0, c1 in chunks:
-        m = frac_whole_ref(xp[c0:c1], parts, I, D, O, n_win, kc=kc).double()
+        m = frac_whole_ref(xp[c0:c1], parts, I, D, O, n_win, kc=kc,
+                           band=band).double()
         r = frac_whole_ref(xp[c0:c1].double(), p64, I, D, O, n_win)
         yc = y[c0:c1].double()
         e_m = max(e_m, float((yc - m).abs().max().item()))
@@ -1891,12 +1919,14 @@ def frac_record(name, call, ex, launches, peaks, card,
           f"plain")
     if lo is not None:
         check_residual(name, xp, skT, I, D, O, n_win, kc)
-    ms = {k: cuda_ms(lambda: frac_whole(xp, parts, I, D, O, n_win, kc=k),
+    ms = {k: cuda_ms(lambda: frac_whole(xp, parts, I, D, O, n_win, kc=k,
+                                        band=band),
                      reps=10)
           for k in ((KC_LO, KC) if lo is not None else (kc,))}
     k_ms = ms[kc]
     p_ms = cuda_ms(lambda: [frac_whole_ref(xp[c0:c1], parts, I, D, O, n_win,
-                                           kc=kc) for c0, c1 in chunks],
+                                           kc=kc, band=band)
+                            for c0, c1 in chunks],
                    reps=2, warmup=1)
     lib_dt = torch.float32 if lo is None else torch.float64
     lib, lib_what = library_call(
@@ -2584,14 +2614,16 @@ def adjoint_record(name, call, ex, launches, peaks, card):
     import torch
     import torch.nn.functional as F
 
-    from r8brain_torch.ops.pallas_frac import (adjoint_geometry,
+    from r8brain_torch.ops.pallas_frac import (_adjoint_operator,
+                                               adjoint_geometry,
                                                adjoint_parts, frac_whole,
                                                frac_whole_ref, operator_parts)
 
     C, parts, I, D, O, n_win, kc = call
     skT, lo = exec_operator(ex, parts)
     Ia, Da, Oa, K = adjoint_geometry(I, D, O)
-    adj = adjoint_parts(parts, I, D, O)
+    # the operator and band the backward launches against
+    adj, band = _adjoint_operator(parts, I, D, O)
     adj64 = adjoint_parts(operator_parts(
         skT.double(), None if lo is None else lo.double()), I, D, O)
     dev = parts.device
@@ -2600,11 +2632,12 @@ def adjoint_record(name, call, ex, launches, peaks, card):
     gy = torch.rand((C, n_win * O), generator=g, device=dev) * 2 - 1
     gyp = F.pad(gy, ((K - 1) * O, (K - 1) * O))
     chunks = channel_chunks(C, n_adj * Oa)
-    y = frac_whole(gyp, adj, Ia, Da, Oa, n_adj, kc=kc)
+    y = frac_whole(gyp, adj, Ia, Da, Oa, n_adj, kc=kc, band=band)
     e_m = e_r = scale = 0.0
     sums = sums_m = (0.0, 0.0, 0)
     for c0, c1 in chunks:
-        m = frac_whole_ref(gyp[c0:c1], adj, Ia, Da, Oa, n_adj, kc=kc)
+        m = frac_whole_ref(gyp[c0:c1], adj, Ia, Da, Oa, n_adj, kc=kc,
+                           band=band)
         r = frac_whole_ref(gyp[c0:c1].double(), adj64, Ia, Da, Oa, n_adj)
         yc = y[c0:c1].double()
         e_m = max(e_m, float((yc - m.double()).abs().max().item()))
@@ -2619,10 +2652,11 @@ def adjoint_record(name, call, ex, launches, peaks, card):
     check(err_m <= MODEL_REL_TOL, f"{name}: {err_m:.3e} of max |xbar| from "
           f"the plain model (tol {MODEL_REL_TOL:.2e})")
     check(err <= KERNEL_REL_TOL, f"{name}: max rel err {err:.3e} vs f64")
-    k_ms = cuda_ms(lambda: frac_whole(gyp, adj, Ia, Da, Oa, n_adj, kc=kc),
+    k_ms = cuda_ms(lambda: frac_whole(gyp, adj, Ia, Da, Oa, n_adj, kc=kc,
+                                      band=band),
                    reps=10)
     p_ms = cuda_ms(lambda: [frac_whole_ref(gyp[c0:c1], adj, Ia, Da, Oa,
-                                           n_adj, kc=kc)
+                                           n_adj, kc=kc, band=band)
                             for c0, c1 in chunks], reps=2, warmup=1)
     u = gy.reshape(C, n_win, O).transpose(1, 2).contiguous()
     wt = skT.float().T.contiguous()[:, None, :]
@@ -4000,6 +4034,7 @@ def main() -> int:
     accumulation_pin(dev, Resampler(SRC, DST, TB, ATTEN,
                                     device=dev).execs[0].skT)
     check_frac_beta(dev)
+    check_frac_band()
     kernels = [fast_path(dev, x, ref, skip, peaks, card),
                fused_high_path(dev, x, ref, skip, peaks, card)]
 

@@ -113,7 +113,26 @@
 //     in flight was serialized by ptxas, C7513/C7518).  The fold of one
 //     warpgroup runs on the CUDA cores while the other's MMAs run (making
 //     them take turns through an mbarrier pair was slower on the H100).
-//     Folds that lie wholly in the zero padding past D are skipped.
+//   * A block walks only its column tile's band: the folds that meet the
+//     k16 steps of D where some slice of the operator is nonzero in the
+//     tile's columns (operator_band, built once with the operator; past
+//     D the operator is zero padding).  The operators are banded (a
+//     column of the fused flagship or a toeplitz conv reads about 780 of
+//     D's rows, the band sliding about one k-tile a column tile), so this
+//     drops 19-33 % of their folds: split, MMAs, two_sum and TMA traffic.
+//     The k-loop runs over the band's k-tiles, the rings count from its
+//     first, and the folds outside it in its edge k-tiles are skipped.
+//     y is the full walk's bit for bit (finite x): a skipped fold would
+//     add exact zeros (x0 * 0, nothing for the tensor cores to truncate,
+//     two_sum(hi, 0) = (hi, 0)); before the band hi = lo = 0; after it
+//     each further k-tile's Fast2Sum keeps hi + lo exactly (it may move
+//     an ulp between them), so y = hi + lo is unchanged.  The work then
+//     approaches the bound over nonzero operator entries rather than the
+//     dense one (flagship 0.859 against 1.225 ms).  The 8-column tile
+//     (O <= 2: the direct stage, whose superkernel is dense) walks all of
+//     D as before: reading a band there made ptxas schedule its fold loop
+//     worse (+7.5 % on the direct stage, H100), and its epilogue sums lo
+//     across the quad apart from hi, which a skipped Fast2Sum would move.
 //
 // float64: an FMA kernel on the CUDA cores (the port's f64 path), 64 x 64
 // tiles, 16-term partials folded with two_sum.
@@ -179,13 +198,15 @@ struct Smem {
 template <int BN, int FOLD, int P>
 __global__ void __launch_bounds__(NT, BN == 8 ? 2 : 1)
 frac_split_kernel(const float* __restrict__ xp, long long ldx,
-                  const bf16* __restrict__ parts, float* __restrict__ y,
+                  const bf16* __restrict__ parts,
+                  const int* __restrict__ band, float* __restrict__ y,
                   long long R, int n_win, int I, int D, int O, int n_kt,
                   int n_col_tiles, int vec, int a_stage, int n_mt) {
   using S = Smem<BN, P>;
   constexpr int ST = S::ST;
   constexpr int NR = BN / 2;     // accumulator floats a thread, a fragment
   constexpr int KS = FOLD / 16;  // k16 steps a fold
+  constexpr int FK = TK / FOLD;  // folds a k-tile
   constexpr int TILE = BN * TK;  // bf16 elements of one slice's tile
   static_assert(TK % FOLD == 0 && FOLD % 16 == 0, "folds tile the k-tile");
 
@@ -203,6 +224,16 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
   const int tid = threadIdx.x;
   const long long tile = blockIdx.x;
   const int col_t = static_cast<int>(tile % n_col_tiles);
+  // the column tile's band: the folds [f_lo, f_hi) that meet its nonzero
+  // k16 steps, in the k-tiles [t_lo, t_hi); the others add exact zeros.
+  // The 8-column tile walks all of D (see Design).
+  int f_lo = 0, f_hi = INT_MAX, t_lo = 0, t_hi = n_kt;
+  if constexpr (BN != 8) {
+    f_lo = band[2 * col_t] / KS;
+    f_hi = max(f_lo, (band[2 * col_t + 1] + KS - 1) / KS);
+    t_lo = f_lo / FK;
+    t_hi = min(n_kt, (f_hi + FK - 1) / FK);
+  }
   // the tile's first output row and the end of its rows
   long long r0, r_end = R, c0 = 0;
   int m0 = 0;
@@ -234,18 +265,19 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
   __syncthreads();
 
   // thread 0 moves the operator: one bulk copy a k-tile into its slot, the
-  // first ST now, each later one once both warpgroups freed the slot
+  // band's first ST now, each later one once both warpgroups freed the
+  // slot (slots and phases count from t_lo)
   constexpr int PT = S::PT;
   const bf16* b_src = parts + static_cast<long long>(col_t) * n_kt * PT * TILE;
   auto load_b = [&](int t) {
-    const int slot = t % ST;
+    const int slot = (t - t_lo) % ST;
     mbar_expect_tx(full + slot, S::B_STAGE);
     bulk_g2s(Bs + slot * PT * TILE,
              b_src + static_cast<long long>(t) * PT * TILE, S::B_STAGE,
              full + slot);
   };
   if (tid == 0) {
-    for (int t = 0; t < ST && t < n_kt; ++t) load_b(t);
+    for (int t = t_lo; t < t_lo + ST && t < t_hi; ++t) load_b(t);
   }
 
   const int wg = tid >> 7, tw = tid & 127;
@@ -260,7 +292,7 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
   // an instruction, 8-byte copies on rows whose start is 8-byte aligned
   auto stage_a = [&](int t) {
     if constexpr (kNoStage) return;
-    float* dst = Aw + (t % ST) * a_stage;
+    float* dst = Aw + ((t - t_lo) % ST) * a_stage;
     const int d0 = t * TK;
     if (stretch) {
       // positions in channel c0; past the windows' extent zero
@@ -309,25 +341,28 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
 
 #pragma unroll
   for (int s = 0; s < ST - 1; ++s) {
-    if (s < n_kt) stage_a(s);
+    if (t_lo + s < t_hi) stage_a(t_lo + s);
     cp_async_commit();
   }
 
-  for (int t = 0; t < n_kt; ++t) {
+  for (int t = t_lo; t < t_hi; ++t) {
     // k-tile t staged by the whole warpgroup, which is also done reading
     // the slot that the next copies refill
     cp_async_wait<ST - 2>();
     named_bar_sync(1 + wg, 128);
-    if (t + ST - 1 < n_kt) stage_a(t + ST - 1);
+    if (t + ST - 1 < t_hi) stage_a(t + ST - 1);
     cp_async_commit();
-    const int slot = t % ST;
-    mbar_wait(full + slot, (t / ST) & 1);
+    const int u = t - t_lo;  // k-tiles walked before this one
+    const int slot = u % ST;
+    mbar_wait(full + slot, (u / ST) & 1);
     const float* a_s = Aw + slot * a_stage + (wq * 16 + g) * rs + 2 * tq;
     const unsigned b_s = smem_u32(Bs + slot * PT * TILE);
 
 #pragma unroll
-    for (int f = 0; f < TK / FOLD; ++f) {
-      if (t * TK + f * FOLD >= D) break;  // all padding: adds nothing
+    for (int f = 0; f < FK; ++f) {
+      // outside the band or all padding: adds nothing
+      if (t * FK + f < f_lo) continue;
+      if (t * FK + f >= f_hi || t * TK + f * FOLD >= D) break;
       // the fold's A fragments, split into three bf16 sets: all written
       // before its MMAs start (no register of an MMA in flight changes).
       // Pair q of step ks: row g (q even) or g + 8 (q odd), columns 2tq,
@@ -470,8 +505,8 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
     // this warpgroup is done with the slot; thread 0 refills it with
     // tile t + ST once the other warpgroup is too
     mbar_arrive(empty + slot);
-    if (tid == 0 && t + ST < n_kt) {
-      mbar_wait(empty + slot, (t / ST) & 1);
+    if (tid == 0 && t + ST < t_hi) {
+      mbar_wait(empty + slot, (u / ST) & 1);
       load_b(t + ST);
     }
   }
@@ -506,8 +541,8 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
 
 template <int BN, int FOLD, int P>
 cudaError_t launch_split(cudaStream_t s, const float* xp, long long ldx,
-                         const bf16* parts, float* y, int C, int n_win, int I,
-                         int D, int O, int n_kt) {
+                         const bf16* parts, const int* band, float* y, int C,
+                         int n_win, int I, int D, int O, int n_kt) {
   const long long R = static_cast<long long>(C) * n_win;
   const int n_col = (O + BN - 1) / BN;
   const bool stretch = BN == 8 && I <= MAX_STRETCH_I;
@@ -526,7 +561,8 @@ cudaError_t launch_split(cudaStream_t s, const float* xp, long long ldx,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   kern<<<static_cast<unsigned>(blocks), NT, smem, s>>>(
-      xp, ldx, parts, y, R, n_win, I, D, O, n_kt, n_col, vec, a_stage, n_mt);
+      xp, ldx, parts, band, y, R, n_win, I, D, O, n_kt, n_col, vec, a_stage,
+      n_mt);
   return cudaGetLastError();
 }
 
@@ -761,15 +797,17 @@ int launch(const T* xp, long long ldx, const T* skT, const T* skT_lo, T* y,
 // xp: [C, >= (n_win-1)*I + D] float32 with row stride ldx elements; parts:
 // the packed bf16 operator slices [n_col_tiles, n_kt, n_parts, bn, 64]
 // (ops/pallas_frac.py::operator_parts; n_parts 3, or 4 with bf16(skT_lo));
-// y: [C, n_win*O] row-major.  fold: the terms of one big-pair partial, 16
-// or 32.
+// band: int32 [n_col_tiles, 2], each column tile's first and one past its
+// last nonzero k16 step of D (operator_band); y: [C, n_win*O] row-major.
+// fold: the terms of one big-pair partial, 16 or 32.
 extern "C" int r8b_frac_whole_f32(const float* xp, long long ldx,
-                                  const void* parts, int n_parts, int bn,
-                                  int n_kt, float* y, int C, int n_win, int I,
-                                  int D, int O, int fold, void* stream) {
+                                  const void* parts, const int* band,
+                                  int n_parts, int bn, int n_kt, float* y,
+                                  int C, int n_win, int I, int D, int O,
+                                  int fold, void* stream) {
   using split::TK;
   if (C < 0 || n_win < 1 || I < 1 || D < 1 || O < 1 || ldx < 0 ||
-      n_kt * TK < D || n_kt > D / TK + 1)
+      n_kt * TK < D || n_kt > D / TK + 1 || band == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -777,7 +815,7 @@ extern "C" int r8b_frac_whole_f32(const float* xp, long long ldx,
 #define R8B_SPLIT(BN_, FOLD_, P_)                                    \
   if (bn == BN_ && fold == FOLD_ && n_parts == P_)                   \
     return static_cast<int>(split::launch_split<BN_, FOLD_, P_>(     \
-        s, xp, ldx, pb, y, C, n_win, I, D, O, n_kt));
+        s, xp, ldx, pb, band, y, C, n_win, I, D, O, n_kt));
   R8B_SPLIT(128, 32, 3)
   R8B_SPLIT(128, 32, 4)
   R8B_SPLIT(128, 16, 3)

@@ -38,7 +38,7 @@ from ..models.lengths import chain_out_len
 from ..models.plan import ConvStage, FracStage, Plan
 from ..parallel.sharding import chain_shift_period
 from .hb_cascade import HBUpCascadeExec, hb_up_run_fusable
-from .pallas_frac import KC, frac_whole, operator_parts
+from .pallas_frac import KC, frac_whole, operator_band, operator_parts
 from .poly_fused import FusedPolyExec
 from .stages import build_exec
 
@@ -241,9 +241,11 @@ class FusedUpExec(nn.Module):
                 (sk.T - hi.astype(np.float64)).astype(np.float32))))
         else:
             self.skT_lo = None
-        # the operator in the kernel's form (float32: bf16 slices), once
+        # the operator in the kernel's form (float32: bf16 slices) and its
+        # nonzero band, once
         self.register_buffer("sk_parts", operator_parts(self.skT,
                                                         self.skT_lo))
+        self.sk_band = operator_band(self.sk_parts)
         #: terms a frac_whole big-pair partial sums before its fold
         self.kc = KC
 
@@ -268,7 +270,7 @@ class FusedUpExec(nn.Module):
         if N > s0:
             xp[:, s0 - self.a0 : N - self.a0] = x[:, s0:]
         y = frac_whole(xp, self.sk_parts, p_in, self.D, p_out, n_cyc,
-                       kc=self.kc)
+                       kc=self.kc, band=self.sk_band)
         if self.corr_js is not None:
             qw = self.corr.shape[1]
             xw = x[:, :qw]

@@ -44,7 +44,7 @@ from torch import nn
 
 from ..models.lengths import stage_in_for_out, stage_out_len
 from ..models.plan import HBUpStage
-from .pallas_frac import KC, frac_whole, operator_parts
+from .pallas_frac import KC, frac_whole, operator_band, operator_parts
 from .stages import HB_BLOCK, _check_dtype, _shifted
 
 __all__ = ["HBUpCascadeExec", "hb_up_run_fusable", "compose_run"]
@@ -161,6 +161,7 @@ class HBUpCascadeExec(nn.Module):
                 T[c - j - minr + b, p + U * b] = v
         self.register_buffer("T", torch.from_numpy(T.astype(np_dt)))
         self.register_buffer("T_parts", operator_parts(self.T))
+        self.T_band = operator_band(self.T_parts)
         #: terms a frac_whole big-pair partial sums before its fold
         self.kc = KC
 
@@ -229,7 +230,7 @@ class HBUpCascadeExec(nn.Module):
         xb = _shifted(x, self.minr, (n_blocks - 1) * B + self.L_f,
                       self.dtype)
         y = frac_whole(xb, self.T_parts, B, self.L_f, U * B, n_blocks,
-                       kc=self.kc)
+                       kc=self.kc, band=self.T_band)
         if self.edge_C is not None:
             E = min(self.E, M)
             y[:, :E] += self._edge(x, self.edge_C[:, :E])

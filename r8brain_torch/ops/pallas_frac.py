@@ -10,9 +10,10 @@ against the f64->f32 operator residual that ``precision="high"`` passes.
 
 ``frac_whole`` launches ``csrc/frac_whole.cu`` on a CUDA tensor and runs
 ``frac_whole_ref`` on a CPU tensor.  Both take the operator as
-``operator_parts(skT, skT_lo)``, which each executor builds once.  In
-float32 both compute the three-slice bfloat16 split that the kernel runs
-on the tensor cores, with its lead slices on fixed grids:
+``operator_parts(skT, skT_lo)`` and, in float32, its nonzero band
+``operator_band(parts)``, which each executor builds once.  In float32
+both compute the three-slice bfloat16 split that the kernel runs on the
+tensor cores, with its lead slices on fixed grids:
 
 * the big pair x0*s0 sums in ``kc``-term folds (``KC`` = 32, or ``KC_LO``
   = 16 where the caller asks), each starting at a multiple of kc from d =
@@ -35,6 +36,13 @@ on the tensor cores, with its lead slices on fixed grids:
   truncate each small-pair sum they add into lo, and a lo kept within an
   ulp of hi keeps that truncation from biasing y; y = hi + lo, rounded
   once.
+
+For each column tile both walk only the folds that meet the tile's band
+(the k16 steps of D where some slice of the operator has a nonzero entry
+in the tile's columns; the 8-column tile of O <= 2 walks all of D): every
+other fold would add exact zeros, and the Fast2Sums of the k-tiles past
+the band keep hi + lo exactly, so y is the full walk's bit for bit (for
+finite x).
 
 Every slice product is exact in float32; the dropped pairs (x1*s2, x2*s1,
 x2*s2) are below 2^-26 of each product.  The grids trade an exact input
@@ -62,15 +70,17 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 from torch.utils.weak import WeakTensorKeyDictionary
 
-from ..utils.trace import spanned
+from ..utils.trace import count, spanned
 from . import _cuda
 from .dfloat import two_sum
 from .framing import _framed_matmul
 
-__all__ = ["KC", "KC_LO", "TILE_K", "split3", "split_grid", "operator_parts",
-           "unpack_parts", "adjoint_geometry", "adjoint_parts", "frac_whole",
+__all__ = ["KC", "KC_LO", "TILE_K", "K_STEP", "split3", "split_grid",
+           "operator_parts", "OperatorBand", "operator_band", "unpack_parts",
+           "adjoint_geometry", "adjoint_parts", "frac_whole",
            "frac_whole_ref"]
 
 #: Terms per partial sum of the big pair before the two_sum fold (two k16
@@ -86,6 +96,13 @@ KC_LO = 16
 #: Rows of D a k-tile of the packed operator holds (one 128-byte swizzle
 #: row of bfloat16).
 TILE_K = 64
+#: Rows of D one tensor-core step (wgmma k16) takes: the unit of a band.
+K_STEP = 16
+#: Output rows a block of the float32 kernel computes; the 8-column tile
+#: tiles each channel's rows apart up to this stride (the kernel's
+#: MAX_STRETCH_I).
+_BLOCK_M = 128
+_MAX_STRETCH_I = 64
 
 
 def _tile_n(O: int) -> int:
@@ -217,6 +234,57 @@ def unpack_parts(parts: torch.Tensor, D: int, O: int) -> torch.Tensor:
     return t.reshape(P, Kt * TK, Nt * BN)[:, :D, :O]
 
 
+class OperatorBand(nn.Module):
+    """The nonzero band of a float32 ``operator_parts``: for each column
+    tile, the first k16 step of D (``K_STEP`` rows) where some slice holds
+    a nonzero entry in the tile's columns and one past the last ((0, 0)
+    for an all-zero tile).  ``steps`` is an int32 buffer [n_col_tiles, 2]
+    on the operator's device, which the kernel reads, and ``host`` the same
+    pairs as Python integers, kept from the build, so that a call reads
+    nothing back from the card.  A module, so that it moves with its
+    executor."""
+
+    def __init__(self, steps: torch.Tensor):
+        super().__init__()
+        if steps.dtype != torch.int32 or steps.dim() != 2 \
+                or steps.shape[1] != 2:
+            raise ValueError(f"a band is int32 [n_col_tiles, 2], got "
+                             f"{steps.dtype} {tuple(steps.shape)}")
+        self.register_buffer("steps", steps.contiguous())
+        self.host = tuple((a, b) for a, b in steps.tolist())
+        #: folds of KC_LO and of KC terms one row tile walks
+        self.folds = {kc: sum(len(self.fold_range(t, kc))
+                              for t in range(len(self.host)))
+                      for kc in (KC_LO, KC)}
+
+    def fold_range(self, tile: int, kc: int) -> range:
+        """The folds of kc terms (fold f: d in [f*kc, (f+1)*kc)) that
+        column tile ``tile`` walks: those that meet its band."""
+        a, b = self.host[tile]
+        k = kc // K_STEP
+        return range(a // k, -(-b // k)) if b > a else range(0)
+
+
+def operator_band(parts: torch.Tensor) -> Optional[OperatorBand]:
+    """The ``OperatorBand`` of a float32 ``operator_parts``, computed on its
+    device (one read back of n_col_tiles pairs), built once beside it;
+    None for the float64 stack, whose kernel walks all of D.  Every slice
+    counts, bf16(skT_lo) too."""
+    if parts.dtype == torch.float64:
+        return None
+    Nt, Kt, PT, BN, TK = parts.shape
+    n = Kt * TK // K_STEP
+    nz = (_swizzle(parts) != 0).reshape(Nt, Kt, PT, BN, TK // K_STEP, K_STEP)
+    nz = nz.any(dim=5).any(dim=3).any(dim=2).reshape(Nt, n)
+    step = torch.arange(n, device=parts.device)
+    hit = nz.any(dim=1)
+    first = torch.where(nz, step, n).amin(dim=1)
+    last = torch.where(nz, step, -1).amax(dim=1) + 1
+    steps = torch.stack([torch.where(hit, first, 0),
+                         torch.where(hit, last, 0)], dim=1)
+    return OperatorBand(steps.to(torch.int32))
+
+
 def _check(xp, parts, I, D, O, n_win, kc):
     if kc not in (KC_LO, KC):
         raise ValueError(f"kc must be {KC_LO} or {KC}, got {kc}")
@@ -253,6 +321,25 @@ def _check(xp, parts, I, D, O, n_win, kc):
                          f"need {(n_win - 1) * I + D}")
 
 
+def _check_band(xp, parts, band):
+    """A float32 call on the card takes its operator's band; one given
+    must fit the operator and lie on xp's device."""
+    if xp.dtype != torch.float32:
+        return
+    if band is None:
+        if xp.device.type == "cuda":
+            raise ValueError("a float32 frac_whole on the card takes the "
+                             "operator's band, operator_band(parts)")
+        return
+    if not isinstance(band, OperatorBand) \
+            or tuple(band.steps.shape) != (parts.shape[0], 2):
+        raise ValueError(f"band must be the OperatorBand of the operator's "
+                         f"{parts.shape[0]} column tiles")
+    if band.steps.device != xp.device:
+        raise ValueError(f"the band lies on {band.steps.device}, xp on "
+                         f"{xp.device}")
+
+
 def _fold_slices(x: torch.Tensor, n_win: int, I: int, D: int, O: int,
                  kc: int):
     """Per fold of kc terms (d0 = 0, kc, 2kc, ...): (d0, d1, (x0, x1,
@@ -278,8 +365,21 @@ def _fold_slices(x: torch.Tensor, n_win: int, I: int, D: int, O: int,
         yield d0, d1, tuple(v.reshape(C, n, k)[:, :n_win] for v in s)
 
 
+def _band_mask(band, f: int, kc: int, BN: int, O: int, device):
+    """Which of the O columns walk fold f (a bool [O] on ``device``);
+    None where all do, as without a band and on the 8-column tile (which
+    walks all of D)."""
+    if band is None or BN == 8:
+        return None
+    walk = [f in band.fold_range(t, kc) for t in range(len(band.host))]
+    if all(walk):
+        return None
+    return torch.tensor(walk, device=device).repeat_interleave(BN)[:O]
+
+
 def frac_whole_ref(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
-                   O: int, n_win: int, kc: int = KC) -> torch.Tensor:
+                   O: int, n_win: int, kc: int = KC,
+                   band: Optional[OperatorBand] = None) -> torch.Tensor:
     """Plain PyTorch version of ``frac_whole``, on any device.
 
     float64: one framed contraction per stacked operator (segmented reshape
@@ -288,8 +388,12 @@ def frac_whole_ref(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
     + x1*(s0+s1) + x2*s0 (+ x0*bf16(skT_lo)) as one float32 matmul a fold,
     added to lo; the big pair x0*s0 as one matmul a fold, exact in float32
     whatever its order (its products lie on one grid), folded with
-    two_sum into (hi, lo); once a TILE_K-row k-tile lo moves into hi
-    (Fast2Sum: t = hi + lo, lo = lo - (t - hi), hi = t); hi + lo."""
+    two_sum into (hi, lo), both 0 at the start; once a TILE_K-row k-tile lo
+    moves into hi (Fast2Sum: t = hi + lo, lo = lo - (t - hi), hi = t); hi
+    + lo.  With ``band`` (``operator_band(parts)``) a column takes a fold
+    only where the fold meets its tile's band, as the kernel walks it (the
+    8-column tile walks all of D), and a fold that meets no tile's band is
+    not computed."""
     _check(xp, parts, I, D, O, n_win, kc)
     C = xp.shape[0]
     s = unpack_parts(parts, D, O)
@@ -303,18 +407,22 @@ def frac_whole_ref(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
     # concatenated slices [x0, x1, x2 (, x0)] of a fold
     rhs = [s[1] + s[2], s[0] + s[1], s[0]] + ([s[3]] if s.shape[0] == 4
                                              else [])
-    hi = lo = None
+    hi = xp.new_zeros((C, n_win, O))
+    lo = xp.new_zeros((C, n_win, O))
     for d0, d1, (x0, x1, x2) in _fold_slices(xp[:, :L], n_win, I, D, O,
                                                kc):
-        acc = torch.matmul(x0, s[0, d0:d1])
-        lhs = [x0, x1, x2, x0][:len(rhs)]
-        sm = torch.matmul(torch.cat(lhs, dim=-1),
-                          torch.cat([r[d0:d1] for r in rhs]))
-        if hi is None:
-            hi, lo = acc, sm
-        else:
-            hi, e = two_sum(hi, acc)
-            lo = (lo + sm) + e
+        walk = _band_mask(band, d0 // kc, kc, parts.shape[3], O, xp.device)
+        if walk is None or bool(walk.any()):
+            acc = torch.matmul(x0, s[0, d0:d1])
+            lhs = [x0, x1, x2, x0][:len(rhs)]
+            sm = torch.matmul(torch.cat(lhs, dim=-1),
+                              torch.cat([r[d0:d1] for r in rhs]))
+            h, e = two_sum(hi, acc)
+            l_ = (lo + sm) + e
+            if walk is None:
+                hi, lo = h, l_
+            else:
+                hi, lo = torch.where(walk, h, hi), torch.where(walk, l_, lo)
         if d1 % TILE_K == 0:  # Fast2Sum, as the kernel
             t = hi + lo
             hi, lo = t, lo - (t - hi)
@@ -325,9 +433,9 @@ _F64_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _F32_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _launcher(dtype):
@@ -341,7 +449,7 @@ def _launcher(dtype):
 
 
 def _launch(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int, O: int,
-            n_win: int, kc: int) -> torch.Tensor:
+            n_win: int, kc: int, band) -> torch.Tensor:
     """One launch of the kernel (counted in ``frac_whole.launches``)."""
     if xp.stride(1) != 1:
         raise ValueError("xp must have unit stride along time")
@@ -357,8 +465,8 @@ def _launch(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int, O: int,
         if xp.dtype == torch.float32:
             Nt, Kt, P, BN, _ = parts.shape
             rc = fn(xp.data_ptr(), xp.stride(0), parts.data_ptr(),
-                    P - (BN == 8), BN, Kt, y.data_ptr(), C, n_win, I, D, O,
-                    kc, stream)
+                    _operator(band.steps).data_ptr(), P - (BN == 8), BN,
+                    Kt, y.data_ptr(), C, n_win, I, D, O, kc, stream)
         else:
             rc = fn(xp.data_ptr(), xp.stride(0), parts[0].data_ptr(),
                     parts[1].data_ptr() if parts.shape[0] == 2 else None,
@@ -369,19 +477,39 @@ def _launch(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int, O: int,
     return y
 
 
-def _run(xp, parts, I, D, O, n_win, kc):
+def _count_folds(xp, parts, I, D, n_win, kc, band):
+    """``frac_whole.folds`` (folds walked: each column tile's band, or all
+    of D without one and on the 8-column tile) and
+    ``frac_whole.folds_full`` (all of D), over the kernel's row tiles
+    (channel-aligned on the 8-column tile at I <= 64), from host
+    integers."""
+    Nt, BN = parts.shape[0], parts.shape[3]
+    C = xp.shape[0]
+    if BN == 8 and I <= _MAX_STRETCH_I:
+        rows = C * -(-n_win // _BLOCK_M)
+    else:
+        rows = -(-C * n_win // _BLOCK_M)
+    full = Nt * -(-D // kc)
+    count("frac_whole.folds", rows * (full if band is None or BN == 8
+                                      else band.folds[kc]))
+    count("frac_whole.folds_full", rows * full)
+
+
+def _run(xp, parts, I, D, O, n_win, kc, band):
+    if xp.dtype == torch.float32:
+        _count_folds(xp, parts, I, D, n_win, kc, band)
     if xp.device.type == "cpu":
         # a fresh tensor, not a view: callers correct outputs in place
-        y = frac_whole_ref(xp, parts, I, D, O, n_win, kc)
+        y = frac_whole_ref(xp, parts, I, D, O, n_win, kc, band)
         return y if y._base is None else y.clone()
     if xp.device.type != "cuda":
         raise RuntimeError(f"frac_whole runs on cuda or cpu, not {xp.device}")
-    return _launch(xp, parts, I, D, O, n_win, kc)
+    return _launch(xp, parts, I, D, O, n_win, kc, band)
 
 
-#: Adjoint operators, per operator_parts tensor: {(I, D, O, version): the
-#: adjoint's operator_parts}, built on first use and dropped with the
-#: operator.
+#: Adjoint operators, per operator_parts tensor: {(I, D, O, version): (the
+#: adjoint's operator_parts, its band)}, built on first use and dropped
+#: with the operator.
 _ADJOINTS = WeakTensorKeyDictionary()
 
 
@@ -397,39 +525,58 @@ def adjoint_geometry(I: int, D: int, O: int):
     return O, K * O, I, K
 
 
-def adjoint_parts(parts: torch.Tensor, I: int, D: int,
-                  O: int) -> torch.Tensor:
-    """The operator_parts of frac_whole's adjoint (``adjoint_geometry``)
-    from the forward's ``parts``, built once per operator.  float32: the
-    operator the forward computes with, s0 + s1 + s2 (exact in float32),
-    re-blocked and split anew (``operator_parts``), so that its lead slice
-    lies on the adjoint's own grids, one for each of its columns and
-    KC-row groups, and the adjoint's fold sums are exact too; bf16(skT_lo)
-    re-blocked as it is.  float64: the stacked operators re-blocked."""
+def _adjoint_operator(parts: torch.Tensor, I: int, D: int, O: int):
+    """(operator_parts, operator_band) of the adjoint, built once per
+    operator (see ``adjoint_parts``) from the buffer itself, outside
+    torch.func's transforms: a backward under one would otherwise make
+    them its wrappers, which outlive it in the cache and have no storage
+    for the kernel to read."""
     per = _ADJOINTS.get(parts)
     if per is None:
         per = _ADJOINTS[parts] = {}
     key = (I, D, O, parts._version)
     adj = per.get(key)
     if adj is None:
-        _I, Dp, _O, K = adjoint_geometry(I, D, O)
-        s = unpack_parts(parts, D, O)
-        if parts.dtype != torch.float64:
-            ops = [s[0] + s[1] + s[2]] + ([s[3]] if s.shape[0] == 4 else [])
-            s = torch.stack(ops)
-        sp = s.new_zeros((s.shape[0], K * I, O))
-        sp[:, :D] = s
-        t = sp.reshape(s.shape[0], K, I, O).flip(1).transpose(2, 3)
-        t = t.reshape(s.shape[0], Dp, I)
-        adj = per[key] = (t.contiguous() if parts.dtype == torch.float64
-                          else operator_parts(*t))
+        with torch._C._DisableFuncTorch():
+            adj = per[key] = _build_adjoint(parts, I, D, O)
     return adj
 
 
+def _build_adjoint(parts: torch.Tensor, I: int, D: int, O: int):
+    _I, Dp, _O, K = adjoint_geometry(I, D, O)
+    s = unpack_parts(parts, D, O)
+    if parts.dtype != torch.float64:
+        ops = [s[0] + s[1] + s[2]] + ([s[3]] if s.shape[0] == 4 else [])
+        s = torch.stack(ops)
+    sp = s.new_zeros((s.shape[0], K * I, O))
+    sp[:, :D] = s
+    t = sp.reshape(s.shape[0], K, I, O).flip(1).transpose(2, 3)
+    t = t.reshape(s.shape[0], Dp, I)
+    ap = (t.contiguous() if parts.dtype == torch.float64
+          else operator_parts(*t))
+    return ap, operator_band(ap)
+
+
+def adjoint_parts(parts: torch.Tensor, I: int, D: int,
+                  O: int) -> torch.Tensor:
+    """The operator_parts of frac_whole's adjoint (``adjoint_geometry``)
+    from the forward's ``parts``, built once per operator, with its band.
+    float32: the operator the forward computes with, s0 + s1 + s2 (exact
+    in float32), re-blocked and split anew (``operator_parts``), so that
+    its lead slice lies on the adjoint's own grids, one for each of its
+    columns and KC-row groups, and the adjoint's fold sums are exact too;
+    bf16(skT_lo) re-blocked as it is.  float64: the stacked operators
+    re-blocked."""
+    return _adjoint_operator(parts, I, D, O)[0]
+
+
 def _operator(parts: torch.Tensor) -> torch.Tensor:
-    """The executor's operator buffer itself: torch.func hands a Function's
-    backward a fresh wrapper of it on every call, and the adjoint cache is
-    keyed on the buffer (a constant of every transform)."""
+    """The executor's buffer itself (its operator, or its band's steps):
+    torch.func hands a Function's backward a fresh wrapper of the operator
+    on every call, and the adjoint cache is keyed on the buffer (a
+    constant of every transform); an executor built under a transform
+    (a gradient's twin) holds its buffers as that transform's wrappers,
+    which have no storage for the kernel to read."""
     while torch._C._functorch.is_functorch_wrapped_tensor(parts):
         parts = torch._C._functorch.get_unwrapped(parts)
     return parts
@@ -440,8 +587,8 @@ def _adjoint(gy: torch.Tensor, parts, I, D, O, n_win, kc, L: int):
     Ia, Da, Oa, K = adjoint_geometry(I, D, O)
     gyp = F.pad(gy, ((K - 1) * O, (K - 1) * O))  # contiguous, as the kernel
     before = frac_whole.launches
-    gx = _FracWhole.apply(gyp, adjoint_parts(_operator(parts), I, D, O),
-                          Ia, Da, Oa, n_win + K - 1, kc)
+    ap, ab = _adjoint_operator(_operator(parts), I, D, O)
+    gx = _FracWhole.apply(gyp, ap, Ia, Da, Oa, n_win + K - 1, kc, ab)
     frac_whole.adjoint_launches += frac_whole.launches - before
     n = gx.shape[1]
     return gx[:, :L] if n >= L else F.pad(gx, (0, L - n))
@@ -454,23 +601,24 @@ class _FracWhole(torch.autograd.Function):
     (every row is independent)."""
 
     @staticmethod
-    def forward(xp, parts, I, D, O, n_win, kc):
-        return _run(xp, parts, I, D, O, n_win, kc)
+    def forward(xp, parts, I, D, O, n_win, kc, band):
+        return _run(xp, parts, I, D, O, n_win, kc, band)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        xp, parts, I, D, O, n_win, kc = inputs
+        xp, parts, I, D, O, n_win, kc, band = inputs
         ctx.geo = (I, D, O, n_win, kc, xp.shape[1])
+        ctx.band = band
         ctx.save_for_backward(parts)
         ctx.save_for_forward(parts)
 
     @staticmethod
     def backward(ctx, gy):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 7
+            return (None,) * 8
         (parts,) = ctx.saved_tensors
         I, D, O, n_win, kc, L = ctx.geo
-        return (_adjoint(gy, parts, I, D, O, n_win, kc, L),) + (None,) * 6
+        return (_adjoint(gy, parts, I, D, O, n_win, kc, L),) + (None,) * 7
 
     @staticmethod
     def jvp(ctx, gxp, *_rest):
@@ -478,33 +626,41 @@ class _FracWhole(torch.autograd.Function):
             return None
         (parts,) = ctx.saved_tensors
         I, D, O, n_win, kc, _L = ctx.geo
-        return _FracWhole.apply(gxp.contiguous(), parts, I, D, O, n_win, kc)
+        return _FracWhole.apply(gxp.contiguous(), parts, I, D, O, n_win, kc,
+                                ctx.band)
 
     @staticmethod
-    def vmap(info, in_dims, xp, parts, I, D, O, n_win, kc):
+    def vmap(info, in_dims, xp, parts, I, D, O, n_win, kc, band):
         if in_dims[1] is not None:
             raise ValueError("frac_whole's operator cannot be batched")
         if in_dims[0] is None:
-            return _FracWhole.apply(xp, parts, I, D, O, n_win, kc), None
+            return _FracWhole.apply(xp, parts, I, D, O, n_win, kc,
+                                    band), None
         xb = xp.movedim(in_dims[0], 0)
         B, C = xb.shape[0], xb.shape[1]
         y = _FracWhole.apply(xb.reshape(B * C, xb.shape[2]).contiguous(),
-                             parts, I, D, O, n_win, kc)
+                             parts, I, D, O, n_win, kc, band)
         return y.reshape(B, C, y.shape[1]), 0
 
 
 @spanned("r8b.kernel.frac_whole")
 def frac_whole(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
-               O: int, n_win: int, kc: int = KC) -> torch.Tensor:
+               O: int, n_win: int, kc: int = KC,
+               band: Optional[OperatorBand] = None) -> torch.Tensor:
     """y [C, n_win*O]: y[c, m*O + j] = xp[c, m*I : m*I + D] . skT[:, j]
     (+ the same dot against skT_lo), for parts = ``operator_parts(skT,
     skT_lo)`` of xp's dtype on xp's device.
 
     xp: [C, L] with L >= (n_win-1)*I + D and unit stride along time (any
     row stride); kc: terms a float32 big-pair partial sums before its fold,
-    ``KC`` or ``KC_LO`` (float64 ignores it).  On a CUDA tensor this
-    launches the kernel (counted in ``frac_whole.launches``) or raises; on
-    a CPU tensor it is ``frac_whole_ref``.
+    ``KC`` or ``KC_LO`` (float64 ignores it); band: ``operator_band(parts)``
+    on xp's device, which a float32 call on the card must give (float64
+    ignores it; on the CPU without one every fold is walked).  On a CUDA
+    tensor this launches the kernel (counted in ``frac_whole.launches``) or
+    raises; on a CPU tensor it is ``frac_whole_ref``.  Each float32 call
+    adds the folds it walks to the counter ``frac_whole.folds`` and those
+    of all of D to ``frac_whole.folds_full`` (``utils/trace.py``: while a
+    profiler records).
 
     Differentiable in xp (torch.autograd, torch.func): the gradient is
     this function on the adjoint geometry (``adjoint_geometry``,
@@ -517,7 +673,8 @@ def frac_whole(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
     truncated, so it matches ``frac_whole_ref`` to 2^-21 of max |y|, not
     bit for bit; float64 matches to 1e-12."""
     _check(xp, parts, I, D, O, n_win, kc)
-    return _FracWhole.apply(xp, parts, I, D, O, n_win, kc)
+    _check_band(xp, parts, band)
+    return _FracWhole.apply(xp, parts, I, D, O, n_win, kc, band)
 
 
 frac_whole.launches = 0

@@ -66,7 +66,8 @@ from .ozaki import (K0, N_DIAG, N_PARTS, channel_scale, framed_cheap,
                     split_operator_host)
 from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
-from .pallas_frac import KC, KC_LO, frac_whole, operator_parts
+from .pallas_frac import (KC, KC_LO, frac_whole, operator_band,
+                          operator_parts)
 from .pallas_ozaki import ozaki_framed, pack_operator
 from .pallas_symconv import BH, sym_conv, sym_parts
 
@@ -339,6 +340,8 @@ class ConvExec(nn.Module):
         self.register_buffer("skT_direct_lo", lo)
         self.register_buffer("skT_direct_parts", operator_parts(
             self.skT_direct, lo) if self.engine == "direct" else None)
+        self.skT_direct_band = (operator_band(self.skT_direct_parts)
+                                if self.engine == "direct" else None)
 
     def _np_dtype(self):
         return np.float32 if self.dtype == torch.float32 else np.float64
@@ -372,6 +375,7 @@ class ConvExec(nn.Module):
                              _placed(Tlo[1], Tlo[0], T.shape[0]))
         self.register_buffer("T_toep_parts",
                              operator_parts(self.T_toep, self.T_toep_lo))
+        self.T_toep_band = operator_band(self.T_toep_parts)
 
     def _build_toeplitz_sym(self) -> bool:
         """Centrosymmetry-folded operators (the reference's
@@ -502,6 +506,7 @@ class ConvExec(nn.Module):
                              else torch.from_numpy(self.T_pallas_lo))
         self.register_buffer("T_pal_parts",
                              operator_parts(self.T_pal, self.T_pal_lo))
+        self.T_pal_band = operator_band(self.T_pal_parts)
 
     def _build_ozaki(self, B: int):
         """Split form of the banded-Toeplitz operator (ops/ozaki.py): the
@@ -605,7 +610,7 @@ class ConvExec(nn.Module):
         xp = _shifted(x, self.s_min, (n_blocks - (-L_f // hop)) * hop,
                       self.dtype)
         y = frac_whole(xp, self.T_toep_parts, hop, L_f, B * up, n_blocks,
-                       kc=self.kc)
+                       kc=self.kc, band=self.T_toep_band)
         return y if raw else y[:, :M]
 
     def _apply_toeplitz_sym(self, x: torch.Tensor, M: int) -> torch.Tensor:
@@ -626,7 +631,7 @@ class ConvExec(nn.Module):
         L_f = self.Lf_pallas
         xp = _shifted(x, self.s_min, (n_grp - 1) * B * down + L_f, self.dtype)
         return frac_whole(xp, self.T_pal_parts, B * down, L_f, B * up, n_grp,
-                          kc=self.kc)[:, :M]
+                          kc=self.kc, band=self.T_pal_band)[:, :M]
 
     def _apply_direct(self, x: torch.Tensor, M: int) -> torch.Tensor:
         """The superkernel's strided product on frac_whole: I = down, D =
@@ -639,7 +644,8 @@ class ConvExec(nn.Module):
         lo = self.skT_direct_lo
         xp = _shifted(x, self.s_min, (n_cyc - 1) * down + D, self.dtype)
         return frac_whole(xp, self.skT_direct_parts, down, D, up, n_cyc,
-                          kc=KC if lo is None else KC_LO)[:, :M]
+                          kc=KC if lo is None else KC_LO,
+                          band=self.skT_direct_band)[:, :M]
 
     def apply_v(self, x: torch.Tensor, n_valid: int):
         M = self.out_len(n_valid)
@@ -747,6 +753,7 @@ class FracWholeExec(nn.Module):
                              torch.from_numpy(lo))
         self.register_buffer("sk_parts", operator_parts(self.skT,
                                                         self.skT_lo))
+        self.sk_band = operator_band(self.sk_parts)
         self.kc = KC if lo is None else KC_LO
 
     def out_len(self, n_in: int) -> int:
@@ -788,7 +795,7 @@ class FracWholeExec(nn.Module):
             return ozaki_framed(xp, self._scale(xp, M), self.oz_parts, D, I,
                                 O, n_cyc, packed=self.oz_packed)[:, :M]
         return frac_whole(xp, self.sk_parts, I, D, O, n_cyc,
-                          kc=self.kc)[:, :M]
+                          kc=self.kc, band=self.sk_band)[:, :M]
 
     def apply_v(self, x: torch.Tensor, n_valid: int):
         """Valid-prefix seam protocol; latency-shifted specs slice to the
@@ -927,6 +934,7 @@ class _HalfBandExec(nn.Module):
         self.register_buffer("T", torch.from_numpy(Thi))
         self.register_buffer("T_lo", lo)
         self.register_buffer("T_parts", operator_parts(self.T, self.T_lo))
+        self.T_band = operator_band(self.T_parts)
         self.kc = KC_LO if self.precision == "high" else KC
 
     @property
@@ -946,7 +954,7 @@ class _HalfBandExec(nn.Module):
         if self.engine == "matmul":
             xp = _shifted(x, start, need, self.dtype)
             return frac_whole(xp, self.T_parts, hop, self.L_f, self.Kcols,
-                              n_blocks, kc=self.kc)
+                              n_blocks, kc=self.kc, band=self.T_band)
         xp = _shifted(x, start, need, torch.float32)
         xl = None if x_lo is None else _shifted(x_lo, start, need,
                                                 x_lo.dtype)

@@ -19,8 +19,8 @@ from r8brain_torch.ops.framing import _framed_matmul
 from r8brain_torch.ops.pallas_dfft import (SMEM_MAX_N, DfFFTPlan,
                                            df_fft_conv, df_fft_conv_ref)
 from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
-                                           frac_whole_ref, operator_parts,
-                                           split3)
+                                           frac_whole_ref, operator_band,
+                                           operator_parts, split3)
 from r8brain_torch.ops.pallas_ozaki import (lemma_operands, mma_dot,
                                             ozaki_framed, ozaki_framed_ref,
                                             pack_operator, wgmma_dot)
@@ -28,7 +28,7 @@ from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
                                                sym_ops_high, sym_parts)
 from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
 
-from tools import torch_frac_beta, torch_fuzz
+from tools import torch_frac_band, torch_frac_beta, torch_fuzz
 from tools.torch_sym_beta import truncation_model
 
 from .helpers import lcg_uniform, load_golden, load_manifest, rms_db
@@ -70,9 +70,10 @@ def test_kernel_matches_plain(cuda_device, shape, dtype):
     big = torch.zeros((C, xp.shape[1] + 3), **dev)
     big[:, 3:] = torch.from_numpy(xp)
     before = frac_whole.launches
-    y = frac_whole(big[:, 3:], operator_parts(torch.tensor(skT, **dev),
-                                              torch.tensor(skT_lo, **dev)),
-                   I, D, O, n_win)
+    parts = operator_parts(torch.tensor(skT, **dev),
+                           torch.tensor(skT_lo, **dev))
+    y = frac_whole(big[:, 3:], parts, I, D, O, n_win,
+                   band=operator_band(parts))
     torch.cuda.synchronize()
     assert frac_whole.launches == before + 1
     err = np.abs(y.cpu().double().numpy() - ref).max() / np.abs(ref).max()
@@ -98,8 +99,9 @@ def test_kernel_fold_lengths_match_plain(cuda_device, kc):
                              for a in (skT, skT_lo)))
     model = frac_whole_ref(x32, parts, I, D, O, n_win,
                            kc=kc).double().numpy()
-    y = frac_whole(x32.to(cuda_device), parts.to(cuda_device), I, D, O,
-                   n_win, kc=kc)
+    parts = parts.to(cuda_device)
+    y = frac_whole(x32.to(cuda_device), parts, I, D, O, n_win, kc=kc,
+                   band=operator_band(parts))
     y = y.cpu().double().numpy()
     scale = np.abs(ref).max()
     assert np.abs(y - ref).max() / scale < 1e-5
@@ -146,7 +148,8 @@ def test_split_kernel_matches_model(cuda_device, shape, kc, lo):
               if lo else None)
     parts = operator_parts(skT, skT_lo)
     before = frac_whole.launches
-    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc)
+    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc,
+                   band=operator_band(parts))
     torch.cuda.synchronize()
     assert frac_whole.launches == before + 1
     model = frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc).double()
@@ -190,17 +193,41 @@ def test_tensor_core_accumulation_pin(cuda_device, terms):
     xw = x0.double().reshape(C, n_win, terms)
     for d0 in range(0, skT.shape[0] - terms, 8 * terms):
         op = s0[d0 : d0 + terms].to(cuda_device)
-        y = frac_whole(x0, operator_parts(op), terms, terms, op.shape[1],
-                       n_win, kc=terms)
+        p = operator_parts(op)
+        y = frac_whole(x0, p, terms, terms, op.shape[1], n_win, kc=terms,
+                       band=operator_band(p))
         exact = (xw @ op.double()).reshape(C, -1)
         assert torch.equal(y.double(), exact), d0
         of = sf[d0 : d0 + terms].to(cuda_device)
-        y = frac_whole(x0, operator_parts(torch.zeros_like(of), of), terms,
-                       terms, of.shape[1], n_win, kc=terms)
+        p = operator_parts(torch.zeros_like(of), of)
+        y = frac_whole(x0, p, terms, terms, of.shape[1], n_win, kc=terms,
+                       band=operator_band(p))
         exact = (xw @ of.double()).reshape(C, -1)
         mag = (xw.abs() @ of.double().abs()).reshape(C, -1)
         err = (y.double() - exact).abs()
         assert bool((err <= (terms - 1) * 2.0**-23 * mag).all()), d0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", torch_frac_band.LABELS)
+def test_band_walk_is_bit_exact(cuda_device, label):
+    """frac_whole walking only each column tile's band (the executor's
+    operator_band) gives the full walk's y bit for bit, at the fused
+    flagship fast and "high" (four slices), 44.1k -> 96001's two toeplitz
+    convs, the half-band up and down stages, the direct stage (the
+    8-column tile) and a steady block of the flagship's stream
+    (tools/torch_frac_band.py, 1024 channels); a float32 call on the card
+    without a band is refused."""
+    xp, parts, I, D, O, n_win, kc, band = torch_frac_band.call(label,
+                                                               cuda_device)
+    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc, band=band)
+    y_full = frac_whole(xp, parts, I, D, O, n_win, kc=kc,
+                        band=torch_frac_band.full_band(parts, D))
+    assert torch.equal(y.view(torch.int32), y_full.view(torch.int32))
+    walked, full = torch_frac_band.folds(parts, D, kc, band)
+    print(f"frac_whole band {label}: {walked} of {full} folds a row tile")
+    with pytest.raises(ValueError, match="band"):
+        frac_whole(xp, parts, I, D, O, n_win, kc=kc)
 
 
 @pytest.mark.cuda
@@ -214,7 +241,7 @@ def test_frac_whole_unbiased(cuda_device, label):
     "fast" and "high" (tools/torch_frac_beta.py); prints the kernel's beta
     beside its model's and that of the floating split with truncated fold
     sums (the arithmetic before the fixed grids)."""
-    (_l, I, D, O, n_win, parts, p64, kc), = torch_frac_beta.calls(
+    (_l, I, D, O, n_win, parts, p64, kc, band), = torch_frac_beta.calls(
         cuda_device, (label,))
     g = torch.Generator(device=cuda_device).manual_seed(18)
     u = torch.rand((1024, (n_win - 1) * I + D), generator=g,
@@ -224,7 +251,8 @@ def test_frac_whole_unbiased(cuda_device, label):
     betas = {name: torch_frac_beta.beta(fn(xp, parts, I, D, O, n_win, kc),
                                         y64)
              for name, fn in (
-                 ("kernel", frac_whole), ("plain", frac_whole_ref),
+                 ("kernel", partial(frac_whole, band=band)),
+                 ("plain", partial(frac_whole_ref, band=band)),
                  ("floating split truncated",
                   partial(torch_frac_beta.floating_split,
                           fold_sum="truncate")))}
@@ -1031,7 +1059,8 @@ def test_adjoint_kernel_matches_model(cuda_device, shape, lo):
             xt = torch.tensor(x, dtype=dtype, device=dev,
                               requires_grad=True)
             before = (frac_whole.launches, frac_whole.adjoint_launches)
-            y = frac_whole(xt, parts, I, D, O, n_win)
+            y = frac_whole(xt, parts, I, D, O, n_win,
+                           band=operator_band(parts))
             y.backward(torch.tensor(w, dtype=dtype, device=dev))
             if dev != "cpu":
                 torch.cuda.synchronize()

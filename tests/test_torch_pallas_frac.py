@@ -23,14 +23,15 @@ from r8brain_torch.models.plan import make_plan
 from r8brain_torch.ops.pallas_frac import (KC, KC_LO, TILE_K, _fold_slices,
                                            _swizzle, adjoint_geometry,
                                            adjoint_parts, frac_whole,
-                                           frac_whole_ref, operator_parts,
-                                           split3, split_grid, unpack_parts)
+                                           frac_whole_ref, operator_band,
+                                           operator_parts, split3,
+                                           split_grid, unpack_parts)
 from r8brain_torch.ops.dfloat import two_sum
 from r8brain_torch.ops.framing import _frames
 from r8brain_torch.ops.stages import (ConvExec, FracWholeExec, HBDownExec,
                                       HBUpExec)
 
-from tools import torch_frac_beta
+from tools import torch_frac_band, torch_frac_beta
 
 from .helpers import rms_db
 
@@ -679,7 +680,10 @@ def test_adjoint_operator_cached_under_transforms(how):
     """The adjoint operator is built once per operator whichever way the
     gradient is taken: torch.func hands the backward a fresh wrapper of
     the operator on every call, and the cache is keyed on the buffer
-    itself, so a second gradient reuses the first one's adjoint."""
+    itself, so a second gradient reuses the first one's adjoint; the
+    cached operator and band are plain tensors with storage (the kernel
+    reads their pointers), not wrappers of the transform they were built
+    under."""
     from torch.func import grad
 
     from r8brain_torch.ops.pallas_frac import _ADJOINTS
@@ -702,6 +706,36 @@ def test_adjoint_operator_cached_under_transforms(how):
     assert len(_ADJOINTS[parts]) == 1
     assert next(iter(_ADJOINTS[parts].values())) is adj
     assert torch.equal(g1, g2)
+    ap, band = adj
+    for t in (ap, band.steps):
+        assert not torch._C._functorch.is_functorch_wrapped_tensor(t)
+        assert t.data_ptr() != 0
+
+
+def test_band_built_under_a_transform_has_storage():
+    """An executor built under a torch.func transform (a gradient's twin
+    is built inside the backward) holds its operator and band as the
+    transform's wrappers; the kernel reads the band's storage through
+    ``_operator``, during the transform and after it."""
+    from r8brain_torch.ops.pallas_frac import _operator
+
+    built = {}
+
+    def f(v):
+        g = torch.Generator().manual_seed(3)
+        built["band"] = operator_band(operator_parts(
+            torch.randn((100, 40), generator=g)))
+        steps = _operator(built["band"].steps)
+        assert not torch._C._functorch.is_functorch_wrapped_tensor(steps)
+        assert steps.data_ptr() != 0
+        return (2 * v).sum()
+
+    torch.func.grad(f)(torch.ones(3))
+    assert torch._C._functorch.is_functorch_wrapped_tensor(
+        built["band"].steps)
+    steps = _operator(built["band"].steps)
+    assert steps.data_ptr() != 0
+    assert steps.tolist() == [list(ab) for ab in built["band"].host]
 
 
 def test_beta_tool_cpu_smoke(capsys):
@@ -721,3 +755,47 @@ def test_beta_tool_cpu_smoke(capsys):
         assert float(b["truncated"]) < float(b["model"]) - 0.1, ln
         model.append(float(b["model"]))
     assert abs(np.mean(model)) < 0.02, model
+
+
+# (call of tools/torch_frac_band.py, folds a row tile walks over its band
+# and over all of D, at fold 16 and at fold 32): the fused flagship of
+# cd24_44k1_96k, the two toeplitz convs of cd24_44k1_96001, the half-band
+# upsampler of 44.1k -> 192k, and the dense direct conv stage
+BAND_OPS = [("flagship_fast", {KC_LO: (247, 325), KC: (126, 165)}),
+            ("toeplitz_964", {KC_LO: (196, 244), KC: (100, 124)}),
+            ("toeplitz_561", {KC_LO: (96, 144), KC: (48, 72)}),
+            ("hb_up", {KC_LO: (12, 20), KC: (6, 10)}),
+            ("direct", {KC_LO: (45, 45), KC: (23, 23)})]
+
+
+@pytest.mark.parametrize("kc", [KC_LO, KC])
+@pytest.mark.parametrize("op", BAND_OPS, ids=[o[0] for o in BAND_OPS])
+def test_operator_band(op, kc):
+    """The executor's operator_band of its packed operator: every fold
+    that a column tile does not walk is zero in every slice of the tile's
+    columns, and the band's edge folds are not; the folds walked (126 of
+    165 on the flagship at fold 32, 100 of 124 and 48 of 72 on
+    44.1k -> 96001's convs); a dense operator walks all of D; and the
+    plain model walking only the band equals the full walk bit for bit."""
+    label, want = op
+    xp, parts, I, D, O, n_win, _kc, band = torch_frac_band.call(
+        label, "cpu", channels=2)
+    assert operator_band(parts).host == band.host
+    s = unpack_parts(parts, D, O)
+    BN, n_f = parts.shape[3], -(-D // kc)
+    for t, (a, b) in enumerate(band.host):
+        cols = s[:, :, t * BN : (t + 1) * BN]
+        walk = band.fold_range(t, kc)
+        for f in range(n_f):
+            if f not in walk:
+                assert not cols[:, f * kc : (f + 1) * kc].any(), (t, f)
+        # the band's first and last k16 steps hold a nonzero entry
+        assert walk and cols[:, a * 16 : (a + 1) * 16].any() \
+            and cols[:, (b - 1) * 16 : b * 16].any()
+    assert torch_frac_band.folds(parts, D, kc, band) == want[kc]
+    if label == "direct":
+        assert band.host == ((0, -(-D // 16)),)
+    n = min(n_win, 24)
+    y = frac_whole_ref(xp, parts, I, D, O, n, kc, band)
+    y_full = frac_whole_ref(xp, parts, I, D, O, n, kc)
+    assert torch.equal(y.view(torch.int32), y_full.view(torch.int32))

@@ -217,8 +217,8 @@ def test_toeplitz_is_one_call_at_reference_geometry(pair, precision,
     """The toeplitz engine makes one frac_whole call: hop B*down, D = L_f,
     O = B*up, the reference's block count, 32-term folds, and the
     operator as the executor packed it once (its bf16 slices, with the
-    placed residual's slice under "high"), on an input that covers the
-    reference's framing extent (n_blocks + n_seg) * hop."""
+    placed residual's slice under "high") with its band, on an input that
+    covers the reference's framing extent (n_blocks + n_seg) * hop."""
     st, rst = pair
     ex = ConvExec(st, torch.float32, precision, engine="toeplitz")
     ref = RefConvExec(rst, jnp.float32, precision=precision,
@@ -237,7 +237,7 @@ def test_toeplitz_is_one_call_at_reference_geometry(pair, precision,
     assert len(calls) == 1
     width, T, geo, kw = calls[0]
     assert T is ex.T_toep_parts and geo == (B * down, L_f, B * up, n_blocks)
-    assert kw == dict(kc=KC)
+    assert kw == dict(kc=KC, band=ex.T_toep_band)
     assert (ex.T_toep_lo is None) == (precision == "fast")
     assert T.shape[2] == (3 if precision == "fast" else 4)
     assert width >= (n_blocks + -(-L_f // (B * down))) * B * down

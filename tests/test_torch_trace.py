@@ -171,8 +171,33 @@ def test_poly_cache_counts(rs96001):
         rs96001.oneshot(x)
         both = trace.counters()
     trace.reset_counters()
-    assert first == {"poly_cache.miss": 1}
-    assert both == {"poly_cache.miss": 1, "poly_cache.hit": 1}
+
+    def cache(c):
+        return {k: v for k, v in c.items() if k.startswith("poly_cache.")}
+
+    assert cache(first) == {"poly_cache.miss": 1}
+    assert cache(both) == {"poly_cache.miss": 1, "poly_cache.hit": 1}
+
+
+def test_fold_counters(rs96k):
+    """While a profiler records, a 44.1k -> 96k oneshot counts the folds
+    frac_whole walks (``frac_whole.folds``: each column tile's band) and
+    those of all of D (``frac_whole.folds_full``) over the same row
+    tiles, so their ratio is the fused operator's band share, 126 of 165
+    folds a row tile at fold 32; with no profiler neither moves."""
+    ex, = rs96k.execs
+    trace.reset_counters()
+    rs96k.oneshot(_x(2, 4410))
+    assert not any(k.startswith("frac_whole.") for k in trace.counters())
+    with torch.profiler.profile(activities=ACTS):
+        trace.reset_counters()
+        rs96k.oneshot(_x(2, 4410))
+        c = trace.counters()
+    trace.reset_counters()
+    walked, full = c["frac_whole.folds"], c["frac_whole.folds_full"]
+    assert (ex.kc, ex.sk_band.folds[ex.kc]) == (32, 126)
+    assert full == 5 * 33 * (walked // 126) and walked % 126 == 0
+    assert walked / full == pytest.approx(126 / 165, abs=0)
 
 
 @pytest.mark.parametrize("case", CASES)

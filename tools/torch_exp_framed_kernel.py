@@ -56,7 +56,8 @@ def main(argv=None) -> int:
         print("torch_exp_framed_kernel: CUDA is not available",
               file=sys.stderr)
         return 2
-    from r8brain_torch.ops.pallas_frac import frac_whole, operator_parts
+    from r8brain_torch.ops.pallas_frac import (frac_whole, operator_band,
+                                               operator_parts)
     from r8brain_torch.ops.scout import dense_gemm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -67,13 +68,14 @@ def main(argv=None) -> int:
     xp = torch.randn((C, (nb + n_seg + 8) * hop), generator=g, device=dev)
     T = torch.randn((L_f, N), generator=g, device=dev)
     parts = operator_parts(T)  # split once, as the toeplitz engine does
+    band = operator_band(parts)
     M = C * nb  # logical frame rows
     lcm = 512 * 176 // math.gcd(512, 176)
     A = torch.randn((-(-M // lcm) * lcm, L_f), generator=g, device=dev)
     flops = 2.0 * M * L_f * N
     cases = (
         ("frac_whole_chain", lambda: frac_whole(xp, parts, hop, L_f, N,
-                                                nb)),
+                                                nb, band=band)),
         ("gemm_mt512", lambda: dense_gemm(A, T, 512)),
         ("gemm_mt176", lambda: dense_gemm(A, T, 176)),
         ("gemm_seg512", lambda: dense_gemm(A, T, 512, hop)),

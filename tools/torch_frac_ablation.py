@@ -19,8 +19,10 @@ parts of the work (their outputs are wrong; only their times are read):
   nofold_nostage  no fold and no staging
 
 and times each with CUDA events (chip_smoke.cuda_ms) at the fused
-flagship's call (C=1024, I=294, D=1027, O=640, 150 windows, 32-term folds)
-and the direct conv stage's (C=1024, I=1, D=709, O=2, 44106 windows).
+flagship's call (C=1024, I=294, D=1027, O=640, 150 windows, 32-term folds),
+44.1k -> 96001's two toeplitz conv calls (C=1024, I=256, D=964 / 561,
+O=512, 173 / 188 blocks) and the direct conv stage's (C=1024, I=1, D=709,
+O=2, 44106 windows), each against its executor's operator and band.
 Then it times the kernel as built with the operator packed for the
 64-column tile (no register spill) against the 128-column tile the
 executors use (255 registers, spilling), at the flagship's call and at the
@@ -30,8 +32,10 @@ is).  ``--against NAME=DIR`` also builds DIR/r8brain_torch/csrc/
 frac_whole.cu as it is (another tree of this repository, say an unpacked
 parent commit) under NAME; the builds are then timed in one order and
 again in the reverse one (parent, change, change, parent), at the same
-calls with the same operators.  Prints one line a timing and the card's
-name.  Needs a CUDA device and nvcc; exits non-zero without them.
+calls with the same operators (a tree whose kernel takes no band, from
+before the band walk, is called without one).  Prints one line a timing
+and the card's name.  Needs a CUDA device and nvcc; exits non-zero
+without them.
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ def main(argv=None) -> int:
     from r8brain_torch import Resampler
     from r8brain_torch.ops import _cuda
     from r8brain_torch.ops.pallas_frac import (_F32_ARGS, _pack, _slices,
-                                               operator_parts)
+                                               operator_band, operator_parts)
 
     flags = [f for f in _cuda.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     src = ROOT / "r8brain_torch" / "csrc" / "frac_whole.cu"
@@ -99,35 +103,48 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     ex = Resampler(44100, 96000, 2.0, 180.15, device=dev).execs[0]
+    c1, _poly, c2 = Resampler(44100, 96001, 2.0, 180.15, device=dev).execs
     C = 1024
-    shapes = {"flagship": (ex.p_in, ex.D, ex.p_out, 150, ex.sk_parts),
-              "direct": (1, 709, 2, 44106, None)}
+    shapes = {"flagship": (ex.p_in, ex.D, ex.p_out, 150, ex.sk_parts,
+                           ex.sk_band)}
+    for label, cx, n_blk in (("toeplitz964", c1, 173),
+                             ("toeplitz561", c2, 188)):
+        shapes[label] = (cx.B_toep * cx.spec.down, cx.T_toep.shape[0],
+                         cx.B_toep * cx.spec.up, n_blk, cx.T_toep_parts,
+                         cx.T_toep_band)
+    shapes["direct"] = (1, 709, 2, 44106, None, None)
     calls = {}
-    for label, (I, D, O, n_win, parts) in shapes.items():
+    for label, (I, D, O, n_win, parts, band) in shapes.items():
         xp = torch.rand((C, (n_win - 1) * I + D), generator=g,
                         device=dev) * 2 - 1
         if parts is None:
             parts = operator_parts(torch.randn((D, O), generator=g,
                                                device=dev))
+            band = operator_band(parts)
         y = torch.empty((C, n_win * O), device=dev)
-        calls[label] = (xp, parts, I, D, O, n_win, y)
+        calls[label] = (xp, parts, band, I, D, O, n_win, y)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def timed(fn, name, label, xp, parts, I, D, O, n_win, y):
+    def timed(fn, name, label, xp, parts, band, I, D, O, n_win, y):
         Nt, Kt, P, BN, _ = parts.shape
+        # a build from before the band walk takes no band
+        head = (xp.data_ptr(), xp.stride(0), parts.data_ptr()) + (
+            (band.steps.data_ptr(),) if banded[name] else ())
 
         def run():
-            rc = fn(xp.data_ptr(), xp.stride(0), parts.data_ptr(),
-                    P - (BN == 8), BN, Kt, y.data_ptr(), C, n_win, I, D, O,
-                    32, stream)
+            rc = fn(*head, P - (BN == 8), BN, Kt, y.data_ptr(), C, n_win, I,
+                    D, O, 32, stream)
             if rc != 0:
                 raise RuntimeError(f"{name} {label}: CUDA error {rc}")
         return f"{label} {cuda_ms(run, args.iters):8.3f} ms"
 
-    lib = {}
-    for name in builds:
+    lib, banded = {}, {}
+    for name, (path, _mask) in builds.items():
         fn = ctypes.CDLL(str(tmp / f"{name}.so")).r8b_frac_whole_f32
-        fn.argtypes, fn.restype = _F32_ARGS, ctypes.c_int
+        banded[name] = "const int* band" in path.read_text()
+        fn.argtypes = (_F32_ARGS if banded[name]
+                       else _F32_ARGS[:3] + _F32_ARGS[4:])
+        fn.restype = ctypes.c_int
         lib[name] = fn
     order = list(against) + list(variants)
     for name in order + (order[::-1] if against else []):
@@ -142,15 +159,16 @@ def main(argv=None) -> int:
     L_f, n_blk = cx.T_toep.shape[0], 173
     xt = torch.rand((C, (n_blk - 1) * B * down + L_f), generator=g,
                     device=dev) * 2 - 1
-    xf, _p, If, Df, Of, nf, _y = calls["flagship"]
+    xf, _p, _b, If, Df, Of, nf, _y = calls["flagship"]
     wide = {"flagship": (xf, If, Df, Of, nf, ex.skT),
             "toeplitz": (xt, B * down, L_f, B * up, n_blk, cx.T_toep)}
     for label, (xp, I, D, O, n_win, skT) in (wide.items() if "base" in lib
                                              else ()):
         y = torch.empty((C, n_win * O), device=dev)
-        times = [timed(lib["base"], f"bn{bn}", f"{label} BN={bn}", xp,
-                       _pack(_slices(skT, None), bn), I, D, O, n_win, y)
-                 for bn in (128, 64)]
+        packed = {bn: _pack(_slices(skT, None), bn) for bn in (128, 64)}
+        times = [timed(lib["base"], "base", f"{label} BN={bn}", xp, p,
+                       operator_band(p), I, D, O, n_win, y)
+                 for bn, p in packed.items()]
         print(f"{'tile ' + label:15s} " + "   ".join(times))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

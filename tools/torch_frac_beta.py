@@ -95,8 +95,9 @@ LABELS = tuple(f"{c} {p}" for p in ("fast", "high")
 
 
 def calls(dev, only=LABELS):
-    """(label, I, D, O, n_win, parts, float64 operator parts, fold) of the
-    calls in ``only`` (LABELS: four calls, "fast" and "high")."""
+    """(label, I, D, O, n_win, parts, float64 operator parts, fold, band)
+    of the calls in ``only`` (LABELS: four calls, "fast" and "high"); band
+    is the executor's own operator_band of parts."""
     import torch
 
     from r8brain_torch.models.plan import make_plan
@@ -113,24 +114,28 @@ def calls(dev, only=LABELS):
             ex = FusedUpExec(p96, torch.float32, prec).to(dev)
             geo = (ex.p_in, ex.D, ex.p_out, 8, ex.sk_parts, ex.skT,
                    ex.skT_lo)
+            band = ex.sk_band
         elif call == "hb_up":
             ex = HBUpExec(hb, torch.float32, precision=prec).to(dev)
             geo = (128, ex.L_f, ex.Kcols, 20, ex.T_parts, ex.T, ex.T_lo)
+            band = ex.T_band
         elif call == "toeplitz":
             ex = ConvExec(p96.stages[0], torch.float32, prec,
                           engine="toeplitz").to(dev)
             geo = (ex.B_toep * ex.spec.down, *ex.T_toep.shape, 10,
                    ex.T_toep_parts, ex.T_toep, ex.T_toep_lo)
+            band = ex.T_toep_band
         else:
             ex = ConvExec(p96.stages[0], torch.float32, prec,
                           engine="direct").to(dev)
             geo = (ex.spec.down, *ex.skT_direct.shape, 100,
                    ex.skT_direct_parts, ex.skT_direct, ex.skT_direct_lo)
+            band = ex.skT_direct_band
         *head, hi, lo = geo
         p64 = operator_parts(hi.double(), None if lo is None else lo.double())
         # the direct stage folds 16 under "high" (ConvExec._apply_direct)
         kc = KC_LO if call == "direct" and lo is not None else ex.kc
-        out.append((label, *head, p64, kc))
+        out.append((label, *head, p64, kc, band))
     return out
 
 
@@ -147,14 +152,15 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     g = torch.Generator(device=dev).manual_seed(0)
-    for label, I, D, O, n_win, parts, p64, kc in calls(dev):
+    for label, I, D, O, n_win, parts, p64, kc, band in calls(dev):
         L = (n_win - 1) * I + D
         u = torch.rand((args.channels, L), generator=g, device=dev,
                        dtype=torch.float64)
         xp = (u * 2 - 1).float()
         y64 = frac_whole_ref(xp.double(), p64, I, D, O, n_win)
         cols = []
-        for name, fn in (("kernel", frac_whole), ("model", frac_whole_ref),
+        for name, fn in (("kernel", partial(frac_whole, band=band)),
+                         ("model", partial(frac_whole_ref, band=band)),
                          ("floating truncated",
                           partial(floating_split, fold_sum="truncate")),
                          ("floating nearest",
