@@ -53,7 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.trace import spanned
+from ..utils.trace import count, spanned
 from . import _cuda
 from .dfloat import two_sum
 from .framing import _frames
@@ -254,9 +254,14 @@ def ozaki_framed(xp: torch.Tensor, sx: torch.Tensor, T_parts: torch.Tensor,
     ``ozaki_framed_ref``.  It has no gradient: an input that autograd or
     torch.func tracks raises (``_cuda.no_gradient``).  Each launch adds one to ``ozaki_framed.launches``
     and to ``ozaki_framed.launches_by[(hop, L_f, Kcols, has_lo,
-    emit_pair)]``, so a run can tell the stages and variants apart."""
+    emit_pair)]``, so a run can tell the stages and variants apart.  Each
+    call, on either device, adds the multiply-adds it computes, C x
+    n_blocks x L_f x Kcols from host integers, to the counter
+    ``ozaki_framed.macs`` (``utils/trace.py``: while a profiler
+    records)."""
     _check(xp, sx, T_parts, L_f, hop, Kcols, n_blocks, x_lo)
     _cuda.no_gradient("ozaki_framed", xp, x_lo)
+    count("ozaki_framed.macs", xp.shape[0] * n_blocks * L_f * Kcols)
     if packed is not None:
         _check_packed(packed, L_f, Kcols, xp.device)
     if xp.device.type == "cpu":

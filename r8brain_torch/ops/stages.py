@@ -59,7 +59,7 @@ from torch import nn
 
 from ..models.lengths import frac_positions, stage_out_len
 from ..models.plan import ConvStage, FracStage, HBDownStage, HBUpStage
-from ..utils.trace import count, trace
+from ..utils.trace import count, span, trace
 from .dfloat import two_sum
 from .ozaki import (K0, N_DIAG, N_PARTS, channel_scale, framed_cheap,
                     split_input, split_operator_batched,
@@ -537,11 +537,12 @@ class ConvExec(nn.Module):
                      x_lo=None, pair: bool = False):
         L_f, hop, Kcols, n_blocks = self.geometry(M)
         need = (n_blocks - (-L_f // hop)) * hop
-        xp = _shifted(x, self.s_min, need, torch.float32)
-        xl = None
-        if x_lo is not None:  # bf16 seam-residual stream: keep its dtype
-            xl = _shifted(x_lo, self.s_min, need, x_lo.dtype)
-        sx = channel_scale(xp[:, : (n_blocks - 1) * hop + L_f])
+        with span("r8b.ozaki.prep"):
+            xp = _shifted(x, self.s_min, need, torch.float32)
+            xl = None
+            if x_lo is not None:  # bf16 seam-residual stream: keep its dtype
+                xl = _shifted(x_lo, self.s_min, need, x_lo.dtype)
+            sx = channel_scale(xp[:, : (n_blocks - 1) * hop + L_f])
         res = ozaki_framed(xp, sx, self.oz_parts, L_f, hop, Kcols, n_blocks,
                            x_lo=xl, emit_pair=pair, packed=self.oz_packed)
         if pair:
@@ -783,17 +784,21 @@ class FracWholeExec(nn.Module):
                                                 x_lo.dtype)
         return xp, xl
 
-    def _scale(self, xp: torch.Tensor, M: int) -> torch.Tensor:
-        """Per-channel power-of-two scales over the windows (ozaki)."""
+    def _oz_prep(self, x: torch.Tensor, M: int, x_lo=None):
+        """(xp, xl, sx) of the ozaki engine: ``_frame`` and the
+        per-channel power-of-two scales over the windows."""
         D, I, _O, n_cyc = self.geometry(M)
-        return channel_scale(xp[:, : (n_cyc - 1) * I + D])
+        with span("r8b.ozaki.prep"):
+            xp, xl = self._frame(x, M, x_lo)
+            return xp, xl, channel_scale(xp[:, : (n_cyc - 1) * I + D])
 
     def _run(self, x: torch.Tensor, M: int) -> torch.Tensor:
-        xp, _ = self._frame(x, M)
         D, I, O, n_cyc = self.geometry(M)
         if self.engine == "ozaki":
-            return ozaki_framed(xp, self._scale(xp, M), self.oz_parts, D, I,
-                                O, n_cyc, packed=self.oz_packed)[:, :M]
+            xp, _, sx = self._oz_prep(x, M)
+            return ozaki_framed(xp, sx, self.oz_parts, D, I, O, n_cyc,
+                                packed=self.oz_packed)[:, :M]
+        xp, _ = self._frame(x, M)
         return frac_whole(xp, self.sk_parts, I, D, O, n_cyc,
                           kc=self.kc, band=self.sk_band)[:, :M]
 
@@ -842,21 +847,20 @@ class FracWholeExec(nn.Module):
             return h.new_zeros((C, 0), dtype=self.dtype), None, 0
         if self.engine != "ozaki":
             # no carry path: collapse the pair over the logical prefix
-            # (the reference's _df_collapse_input)
             nv = h.shape[1] if spec.in_latency else n_valid
-            x = h[:, :nv] if l is None else h[:, :nv] + l[:, :nv]
-            return self._run(x, M), None, M
+            return self._run(_df_collapse_input(h, l, nv), M), None, M
         if l is None and not emit_pair:
             return self._run(h, M), None, M
         geo = self.geometry(M)
         _D, I, _O, n_cyc = geo
-        xp, xl = self._frame(h, M, l)
-        sx = self._scale(xp, M)
+        xp, xl, sx = self._oz_prep(h, M, l)
         if not emit_pair:
-            cheap = framed_cheap(xl, self.oz_parts[0], n_cyc, I)
+            with span("r8b.ozaki.carry"):
+                cheap = framed_cheap(xl, self.oz_parts[0], n_cyc, I)
             yh, yl = ozaki_framed(xp, sx, self.oz_parts, *geo, emit_pair=True,
                                   packed=self.oz_packed)
-            y = yh + (yl.float() + cheap.reshape(C, -1))
+            with span("r8b.ozaki.carry"):
+                y = yh + (yl.float() + cheap.reshape(C, -1))
             return y[:, :M], None, M
         yh, yl = ozaki_framed(xp, sx, self.oz_parts, *geo, x_lo=xl,
                               emit_pair=True, packed=self.oz_packed)
@@ -872,7 +876,8 @@ def _df_collapse_input(h, l, n_valid):
     carry."""
     hl = h if h.shape[1] == n_valid else h[:, :n_valid]
     if l is not None:
-        hl = hl + (l if l.shape[1] == n_valid else l[:, :n_valid])
+        with span("r8b.ozaki.carry"):
+            hl = hl + (l if l.shape[1] == n_valid else l[:, :n_valid])
     return hl
 
 
@@ -955,10 +960,12 @@ class _HalfBandExec(nn.Module):
             xp = _shifted(x, start, need, self.dtype)
             return frac_whole(xp, self.T_parts, hop, self.L_f, self.Kcols,
                               n_blocks, kc=self.kc, band=self.T_band)
-        xp = _shifted(x, start, need, torch.float32)
-        xl = None if x_lo is None else _shifted(x_lo, start, need,
-                                                x_lo.dtype)
-        return ozaki_framed(xp, channel_scale(xp[:, :need]), self.oz_parts,
+        with span("r8b.ozaki.prep"):
+            xp = _shifted(x, start, need, torch.float32)
+            xl = None if x_lo is None else _shifted(x_lo, start, need,
+                                                    x_lo.dtype)
+            sx = channel_scale(xp[:, :need])
+        return ozaki_framed(xp, sx, self.oz_parts,
                             self.L_f, hop, self.Kcols, n_blocks, x_lo=xl,
                             emit_pair=pair, packed=self.oz_packed)
 

@@ -24,13 +24,21 @@ synchronises or allocates.  The names the package records:
   inside it ``r8b.poly.positions`` (host read positions and geometry) and
   ``r8b.poly.operators`` (their upload and the operators' build),
   ``r8b.stream.suffix`` (the suffix ring after the polynomial stage),
-  ``r8b.exec.<class>`` (each executor call of ``run_chain``) and
-  ``r8b.kernel.<name>`` (the CUDA kernels' wrappers);
+  ``r8b.exec.<class>`` (each executor call of ``run_chain``),
+  ``r8b.kernel.<name>`` (the CUDA kernels' wrappers), and in the
+  guarantee chain ``r8b.ozaki.prep`` (an ozaki executor's framing copies
+  and per-channel scales before each ``ozaki_framed`` call) and
+  ``r8b.ozaki.carry`` (the df32 carry's torch work: the last stage's
+  seam-residual pass and its collapse, and every other collapse of a
+  seam's pair);
 * counters ``h2d_bytes`` (bytes copied from the host to a card: inputs
   given as host arrays and the polynomial stage's positions),
   ``poly_cache.hit`` and ``poly_cache.miss`` (a polynomial stage's state
   for one input length found in its cache, or built on the host and
-  uploaded).
+  uploaded), ``frac_whole.folds`` and ``frac_whole.folds_full`` (the
+  folds ``frac_whole`` walks, and those of all of D), and
+  ``ozaki_framed.macs`` (the multiply-adds of each ``ozaki_framed``
+  call).
 """
 
 from __future__ import annotations
