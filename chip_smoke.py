@@ -3993,7 +3993,7 @@ def main() -> int:
     import numpy as np
 
     from r8brain_torch import Resampler
-    from r8brain_torch.ops.ozaki import framed_cheap, split_operator_host
+    from r8brain_torch.ops.ozaki import split_operator_host
     from r8brain_torch.ops.pallas_ozaki import pack_operator
 
     # full fp32 everywhere: TF32 cannot hold the -141 dB class
@@ -4065,18 +4065,20 @@ def main() -> int:
                                        geos[k], cases[k], parts[k], packs[k])
 
     # every path's launches: each stage of each chain went through the kernel
-    paths = {  # (stage, emit_pair): (run, replaced TPU kernel)
-        ("conv", True): (by_on, "pallas_ozaki.py:263"),
-        ("frac", True): (by_on, "pallas_ozaki.py:207"),
-        ("conv", False): (by_off, "pallas_ozaki.py:317"),
-        ("frac", False): (by_off, "pallas_ozaki.py:232")}
+    # in its variant (with the carry on, the conv stage emits the pair and
+    # the frac stage, the last, takes its residual as x_lo)
+    paths = {  # (stage, carry): (run, (has_lo, emit_pair))
+        ("conv", True): (by_on, (False, True)),
+        ("frac", True): (by_on, (True, False)),
+        ("conv", False): (by_off, (False, False)),
+        ("frac", False): (by_off, (False, False))}
     launches = {}
-    for (k, emit), (by, _r) in paths.items():
+    for (k, carry), (by, var) in paths.items():
         L_f, hop, Kcols, _nb = geos[k]
-        launches[(k, emit)] = by.get((hop, L_f, Kcols, False, emit), 0)
-        check(launches[(k, emit)] >= 1,
-              f"the guarantee chain (carry {'on' if emit else 'off'}) never "
-              f"launched ozaki_framed at the {k} stage")
+        launches[(k, carry)] = by.get((hop, L_f, Kcols, *var), 0)
+        check(launches[(k, carry)] >= 1,
+              f"the guarantee chain (carry {'on' if carry else 'off'}) never "
+              f"launched ozaki_framed{var} at the {k} stage")
 
     # timing
     for carry, rs in ((True, rs_on), (False, rs_off)):
@@ -4087,18 +4089,14 @@ def main() -> int:
     for k, ex in (("conv", conv), ("frac", frac)):
         lib = library_call(ex, cases[k][0], parts[k].double().sum(dim=0),
                            geos[k][1], torch.float64)
-        for emit in (True, False):
+        for carry in (True, False):
+            has_lo, emit = paths[(k, carry)][1]
             kernels.append(ozaki_record(
-                f"ozaki_framed[{k}, emit_pair={int(emit)}]",
-                paths[(k, emit)][1], geos[k], cases[k], parts[k], packs[k],
-                False, emit, launches[(k, emit)], errs[k][(False, emit)], lib,
-                peaks, card))
-    L_f, hop, Kcols, nb = geos["frac"]
-    xl = cases["frac"][2]
-    c_ms = cuda_ms(lambda: framed_cheap(xl, parts["frac"][0], nb, hop),
-                   reps=10)
-    print(f"timing {card}: framed_cheap (the frac stage's x_lo pass, plain "
-          f"PyTorch) {c_ms:.3f} ms")
+                f"ozaki_framed[{k}, x_lo={int(has_lo)}, "
+                f"emit_pair={int(emit)}]", ozaki_replaces(ex, has_lo, emit),
+                geos[k], cases[k], parts[k], packs[k], has_lo, emit,
+                launches[(k, carry)], errs[k][(has_lo, emit)], lib, peaks,
+                card))
     del cases, rs_on, rs_off
     torch.cuda.empty_cache()
 

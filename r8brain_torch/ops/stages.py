@@ -61,9 +61,8 @@ from ..models.lengths import frac_positions, stage_out_len
 from ..models.plan import ConvStage, FracStage, HBDownStage, HBUpStage
 from ..utils.trace import count, span, trace
 from .dfloat import two_sum
-from .ozaki import (K0, N_DIAG, N_PARTS, channel_scale, framed_cheap,
-                    split_input, split_operator_batched,
-                    split_operator_host)
+from .ozaki import (K0, N_DIAG, N_PARTS, channel_scale, split_input,
+                    split_operator_batched, split_operator_host)
 from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
 from .pallas_frac import (KC, KC_LO, frac_whole, operator_band,
@@ -539,10 +538,11 @@ class ConvExec(nn.Module):
         need = (n_blocks - (-L_f // hop)) * hop
         with span("r8b.ozaki.prep"):
             xp = _shifted(x, self.s_min, need, torch.float32)
-            xl = None
-            if x_lo is not None:  # bf16 seam-residual stream: keep its dtype
-                xl = _shifted(x_lo, self.s_min, need, x_lo.dtype)
             sx = channel_scale(xp[:, : (n_blocks - 1) * hop + L_f])
+        xl = None
+        if x_lo is not None:  # bf16 seam-residual stream: keep its dtype
+            with span("r8b.ozaki.carry"):
+                xl = _shifted(x_lo, self.s_min, need, x_lo.dtype)
         res = ozaki_framed(xp, sx, self.oz_parts, L_f, hop, Kcols, n_blocks,
                            x_lo=xl, emit_pair=pair, packed=self.oz_packed)
         if pair:
@@ -772,25 +772,28 @@ class FracWholeExec(nn.Module):
         O = self.spec.out_step
         return self.D, self.spec.in_step, O, -(-M // O)
 
-    def _frame(self, x: torch.Tensor, M: int, x_lo=None):
-        """(xp, xl): the signal shifted and padded so that xp[:, m*I : m*I
-        + D] is window m (float32 for the ozaki engine, else the stage's
-        dtype), and the bfloat16 seam residual ``x_lo`` alike (or None)."""
+    def _frame(self, x: torch.Tensor, M: int, dtype=None) -> torch.Tensor:
+        """x shifted and padded so that [:, m*I : m*I + D] is window m, in
+        ``dtype`` (by default float32 for the ozaki engine, else the
+        stage's dtype; the bfloat16 seam residual keeps its own)."""
         D, I, _O, n_cyc = self.geometry(M)
-        need = (n_cyc + -(-D // I)) * I
-        dt = torch.float32 if self.engine == "ozaki" else self.dtype
-        xp = _shifted(x, self.a0, need, dt)
-        xl = None if x_lo is None else _shifted(x_lo, self.a0, need,
-                                                x_lo.dtype)
-        return xp, xl
+        if dtype is None:
+            dtype = torch.float32 if self.engine == "ozaki" else self.dtype
+        return _shifted(x, self.a0, (n_cyc + -(-D // I)) * I, dtype)
 
     def _oz_prep(self, x: torch.Tensor, M: int, x_lo=None):
-        """(xp, xl, sx) of the ozaki engine: ``_frame`` and the
-        per-channel power-of-two scales over the windows."""
+        """(xp, xl, sx) of the ozaki engine: the signal's ``_frame`` and
+        its per-channel power-of-two scales over the windows, then the
+        seam residual's ``_frame`` (or None), the carry's only torch work
+        here."""
         D, I, _O, n_cyc = self.geometry(M)
         with span("r8b.ozaki.prep"):
-            xp, xl = self._frame(x, M, x_lo)
-            return xp, xl, channel_scale(xp[:, : (n_cyc - 1) * I + D])
+            xp = self._frame(x, M)
+            sx = channel_scale(xp[:, : (n_cyc - 1) * I + D])
+        if x_lo is None:
+            return xp, None, sx
+        with span("r8b.ozaki.carry"):
+            return xp, self._frame(x_lo, M, x_lo.dtype), sx
 
     def _run(self, x: torch.Tensor, M: int) -> torch.Tensor:
         D, I, O, n_cyc = self.geometry(M)
@@ -798,7 +801,7 @@ class FracWholeExec(nn.Module):
             xp, _, sx = self._oz_prep(x, M)
             return ozaki_framed(xp, sx, self.oz_parts, D, I, O, n_cyc,
                                 packed=self.oz_packed)[:, :M]
-        xp, _ = self._frame(x, M)
+        xp = self._frame(x, M)
         return frac_whole(xp, self.sk_parts, I, D, O, n_cyc,
                           kc=self.kc, band=self.sk_band)[:, :M]
 
@@ -826,14 +829,14 @@ class FracWholeExec(nn.Module):
 
     def apply_df(self, h: torch.Tensor, l, n_valid=None,
                  emit_pair: bool = True):
-        """df32 carry (see ConvExec.apply_df).  In the ozaki engine, as
-        the last stage of a chain it consumes the seam residual with one
-        segmented bfloat16 pass (``framed_cheap``) while the kernel emits
-        its (hi, lo) pair, so the collapse hi + (lo + cheap) rounds once
-        (adding the residual to a collapsed output would round twice:
-        -149.5 against -151.9 dB on the flagship in the reference
-        package).  The other engines have no carry path: they collapse
-        the pair over the logical prefix first."""
+        """df32 carry (see ConvExec.apply_df).  The ozaki engine hands the
+        seam residual to ``ozaki_framed`` as ``x_lo``: as a chain's last
+        stage its output is then hi + (lo + cheap) rounded once, inside
+        the kernel (adding the residual to a collapsed output would round
+        twice: -149.5 against -151.9 dB on the flagship in the reference
+        package), and as an inner stage it emits the next seam's pair.
+        The other engines have no carry path: they collapse the pair over
+        the logical prefix first."""
         spec = self.spec
         C, N = h.shape
         if n_valid is None:
@@ -851,22 +854,12 @@ class FracWholeExec(nn.Module):
             return self._run(_df_collapse_input(h, l, nv), M), None, M
         if l is None and not emit_pair:
             return self._run(h, M), None, M
-        geo = self.geometry(M)
-        _D, I, _O, n_cyc = geo
         xp, xl, sx = self._oz_prep(h, M, l)
-        if not emit_pair:
-            with span("r8b.ozaki.carry"):
-                cheap = framed_cheap(xl, self.oz_parts[0], n_cyc, I)
-            yh, yl = ozaki_framed(xp, sx, self.oz_parts, *geo, emit_pair=True,
-                                  packed=self.oz_packed)
-            with span("r8b.ozaki.carry"):
-                y = yh + (yl.float() + cheap.reshape(C, -1))
-            return y[:, :M], None, M
-        yh, yl = ozaki_framed(xp, sx, self.oz_parts, *geo, x_lo=xl,
-                              emit_pair=True, packed=self.oz_packed)
-        return yh[:, :M], yl[:, :M], M
-
-
+        res = ozaki_framed(xp, sx, self.oz_parts, *self.geometry(M), x_lo=xl,
+                           emit_pair=emit_pair, packed=self.oz_packed)
+        if emit_pair:
+            return res[0][:, :M], res[1][:, :M], M
+        return res[:, :M], None, M
 
 
 def _df_collapse_input(h, l, n_valid):
@@ -962,9 +955,11 @@ class _HalfBandExec(nn.Module):
                               n_blocks, kc=self.kc, band=self.T_band)
         with span("r8b.ozaki.prep"):
             xp = _shifted(x, start, need, torch.float32)
-            xl = None if x_lo is None else _shifted(x_lo, start, need,
-                                                    x_lo.dtype)
             sx = channel_scale(xp[:, :need])
+        xl = None
+        if x_lo is not None:
+            with span("r8b.ozaki.carry"):
+                xl = _shifted(x_lo, start, need, x_lo.dtype)
         return ozaki_framed(xp, sx, self.oz_parts,
                             self.L_f, hop, self.Kcols, n_blocks, x_lo=xl,
                             emit_pair=pair, packed=self.oz_packed)

@@ -28,9 +28,9 @@ synchronises or allocates.  The names the package records:
   ``r8b.kernel.<name>`` (the CUDA kernels' wrappers), and in the
   guarantee chain ``r8b.ozaki.prep`` (an ozaki executor's framing copies
   and per-channel scales before each ``ozaki_framed`` call) and
-  ``r8b.ozaki.carry`` (the df32 carry's torch work: the last stage's
-  seam-residual pass and its collapse, and every other collapse of a
-  seam's pair);
+  ``r8b.ozaki.carry`` (the df32 carry's torch work: the framing copy of
+  the seam residual that ``ozaki_framed`` takes as ``x_lo``, and every
+  collapse of a seam's pair before a stage without a carry path);
 * counters ``h2d_bytes`` (bytes copied from the host to a card: inputs
   given as host arrays and the polynomial stage's positions),
   ``poly_cache.hit`` and ``poly_cache.miss`` (a polynomial stage's state

@@ -447,6 +447,31 @@ def test_guarantee_chain_on_card(cuda_device, cfg, carry, monkeypatch):
                                               else -141.0)
 
 
+@pytest.mark.cuda
+def test_guarantee_last_stage_takes_residual_in_kernel(cuda_device):
+    """With the carry on, 44.1k -> 96k's last (frac) stage hands the seam
+    residual to the kernel: one oneshot launches the frac geometry's
+    x_lo variant with the collapsed output once and its pair variant
+    never, and agrees with the same chain's CPU run at -150 dB."""
+    rs = Resampler(44100, 96000, 2.0, 180.15, **OZ_CHAIN, device=cuda_device)
+    assert rs.df_carry
+    x = np.random.default_rng(23).uniform(
+        -1.0, 1.0, (13, 4410)).astype(np.float32)
+    frac = (147, 170, 160)
+    before = dict(ozaki_framed.launches_by)
+    y = rs.oneshot(x)
+    torch.cuda.synchronize()
+    new = {k: v - before.get(k, 0)
+           for k, v in ozaki_framed.launches_by.items()}
+    assert new.get((*frac, True, False), 0) == 1
+    assert new.get((*frac, True, True), 0) == 0
+    assert new.get((*frac, False, True), 0) == 0
+    y = y.cpu().double().numpy()
+    y_cpu = Resampler(44100, 96000, 2.0, 180.15, **OZ_CHAIN,
+                      device="cpu").oneshot(x).double().numpy()
+    assert _rms_db(y - y_cpu) - _rms_db(y_cpu) < -150.0
+
+
 # (mode, n, head, C, n_frames): every mode of df_fft_conv, one-CTA and
 # four-step sizes; C * n_frames is odd in frames and framed mode, so the
 # last transform packs one frame

@@ -16,7 +16,8 @@ import torch
 from r8brain_tpu.models.oracle import OracleResampler
 from r8brain_tpu.models.resampler import Resampler as RefResampler
 from r8brain_torch import Resampler
-from r8brain_torch.ops.pallas_ozaki import ozaki_framed
+from r8brain_torch.ops.ozaki import channel_scale, framed_cheap
+from r8brain_torch.ops.pallas_ozaki import ozaki_framed, ozaki_framed_ref
 from r8brain_torch.ops.stages import ConvExec, FracWholeExec, build_exec
 
 from .helpers import lcg_uniform, rms_db
@@ -129,6 +130,37 @@ def test_apply_df_vs_reference(stage, has_l, emit_pair, monkeypatch):
         y = y + yl[:, :n].double().numpy()
         r = r + np.asarray(rl, np.float64)[:, :n]
     assert _rel_db(y, r) < -150.0
+
+
+def test_last_frac_stage_takes_residual_in_kernel(monkeypatch):
+    """The last frac stage of 44.1k -> 96k with the carry on hands the
+    seam residual to ozaki_framed as x_lo and returns the kernel's
+    collapsed output bit for bit (its plain version on the CPU), from
+    inputs framed by the executor's own ``_frame`` and scaled by
+    ``channel_scale``; that output is within -150 dB of the composition
+    it replaces: the residual's bfloat16 pass (``framed_cheap``), the
+    kernel's (hi, lo) pair, then hi + (lo + cheap)."""
+    rs, _ref = _pair(44100, 96000, 180.15, "1", monkeypatch)
+    conv, frac = rs.execs
+    x = torch.from_numpy(np.stack([lcg_uniform(41, 4410),
+                                   lcg_uniform(42, 4410) * 0.01]
+                                  ).astype(np.float32))
+    h, l, n = conv.apply_df(x, None, x.shape[1], emit_pair=True)
+    y, none, M = frac.apply_df(h, l, n, emit_pair=False)
+    assert none is None and M == frac.out_len(n) > 0
+    geo = D, I, _O, n_cyc = frac.geometry(M)
+    xp = frac._frame(h, M)
+    xl = frac._frame(l, M, torch.bfloat16)
+    sx = channel_scale(xp[:, : (n_cyc - 1) * I + D])
+    want = ozaki_framed_ref(xp, sx, frac.oz_parts, *geo, x_lo=xl,
+                            emit_pair=False)[:, :M]
+    assert y.dtype == want.dtype and torch.equal(y, want)
+    cheap = framed_cheap(xl, frac.oz_parts[0], n_cyc, I)
+    yh, yl = ozaki_framed_ref(xp, sx, frac.oz_parts, *geo, emit_pair=True)
+    old = (yh + (yl.float() + cheap.reshape(x.shape[0], -1)))[:, :M]
+    for c in range(x.shape[0]):
+        assert _rel_db(y[c].double().numpy(), old[c].double().numpy()) \
+            < -150.0
 
 
 def test_cpu_chain_launches_no_kernel(monkeypatch):

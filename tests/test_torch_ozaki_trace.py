@@ -1,6 +1,8 @@
 """The guarantee chain's spans and counter (r8brain_torch/utils/trace.py):
 ``r8b.ozaki.prep`` around each ozaki executor's framing copies and scales,
-``r8b.ozaki.carry`` around the df32 carry's torch work, and the counter
+``r8b.ozaki.carry`` around the df32 carry's torch work (the seam
+residual's framing before the kernel that takes it, and a pair's
+collapse before a stage without a carry path), and the counter
 ``ozaki_framed.macs``.  They record exactly while a ``torch.profiler``
 session records, nest inside their executor's span beside the kernel's,
 and leave every output as it was.
@@ -86,8 +88,9 @@ def test_spans_nest_by_executor(guarantee):
     """r8b.oneshot holds the two ozaki executors.  Each holds one framing
     span and then one kernel span; the conv stage (which emits the pair)
     opens no carry span, the frac stage (the last, which takes it) opens
-    two: the seam residual's pass before its kernel and the collapse
-    after it, neither holding the kernel."""
+    one: the seam residual's framing, after its prep and before its
+    kernel, which takes the residual; nothing of the carry follows the
+    kernel."""
     _, r, _ = _traced(guarantee, _x(2, 4410))
     root, = [e for e in r if e[0] == "r8b.oneshot"]
     conv, = _children(r, root, "r8b.exec.ConvExec")
@@ -97,10 +100,10 @@ def test_spans_nest_by_executor(guarantee):
         kern, = _children(r, ex, KERNEL)
         assert prep[2] <= kern[1]
     assert not _children(r, conv, "r8b.ozaki.carry")
+    prep, = _children(r, frac, "r8b.ozaki.prep")
     kern, = _children(r, frac, KERNEL)
-    carry = _children(r, frac, "r8b.ozaki.carry")
-    assert len(carry) == 2
-    assert carry[0][2] <= kern[1] and kern[2] <= carry[1][1]
+    carry, = _children(r, frac, "r8b.ozaki.carry")
+    assert prep[2] <= carry[1] and carry[2] <= kern[1]
     assert {n for n, _, _ in r} == {
         "r8b.oneshot", "r8b.exec.ConvExec", "r8b.exec.FracWholeExec",
         "r8b.ozaki.prep", "r8b.ozaki.carry", KERNEL}
@@ -133,12 +136,16 @@ def test_collapse_before_a_stage_without_carry_path():
 
 def test_half_band_frames_in_prep():
     """44.1k -> 176.4k's guarantee chain, a conv and a half-band stage:
-    the half-band executor frames inside its own prep span too."""
+    the half-band executor frames its signal inside its own prep span too,
+    and the seam residual (it is the last stage) inside one carry span
+    before its kernel."""
     rs = Resampler(44100, 176400, 2.0, 180.15, **OZAKI)
     _, r, c = _traced(rs, _x(2, 2205))
     hb, = [e for e in r if e[0] == "r8b.exec.HBUpExec"]
-    assert len(_children(r, hb, "r8b.ozaki.prep")) == 1
-    assert len(_children(r, hb, KERNEL)) == 1
+    prep, = _children(r, hb, "r8b.ozaki.prep")
+    carry, = _children(r, hb, "r8b.ozaki.carry")
+    kern, = _children(r, hb, KERNEL)
+    assert prep[2] <= carry[1] and carry[2] <= kern[1]
     assert c["ozaki_framed.macs"] > 0
 
 
