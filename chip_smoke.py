@@ -415,9 +415,8 @@ LAT_CHANNELS, LAT_BLOCKS, LAT_ITERS = 1024, (256, 1024, 4096, 8192), 16
 LAT_DSTS = (96000, 96001)
 # the kernels whose every call shape the sweep holds to its plain version:
 # kernel -> the modules that call it
-ACC_KERNELS = {"frac_whole": ("stages", "fused", "hb_cascade"),
-               "ozaki_framed": ("stages",), "df_fft_conv": ("stages",),
-               "sym_conv": ("stages",)}
+ACC_KERNELS = {"frac_whole": ("operators",), "ozaki_framed": ("operators",),
+               "df_fft_conv": ("stages",), "sym_conv": ("stages",)}
 # the accuracy-grid phase: the rows of tools/torch_bench_matrix.py's
 # ACCURACY_RUNS (the reference matrix's grid) that no earlier phase runs
 # (the flagship, 44.1k -> 96001 and 96k -> 44.1k at 180.15 dB run above),
@@ -653,21 +652,18 @@ def check_frac_model(label, y, model, ref64):
     return max_abs, err_m, max_abs / scale, beta, beta_m
 
 
-# the executors' operator buffers: (packed operator, skT, skT_lo)
-OPERATOR_BUFFERS = (("sk_parts", "skT", "skT_lo"),
-                    ("T_parts", "T", "T_lo"),
-                    ("T_toep_parts", "T_toep", "T_toep_lo"),
-                    ("T_pal_parts", "T_pal", "T_pal_lo"),
-                    ("skT_direct_parts", "skT_direct", "skT_direct_lo"))
+def exec_parts(ex):
+    """The packed operator of the executor ``ex`` (ops/operators.py), or
+    None."""
+    return getattr(getattr(ex, "op", None), "parts", None)
 
 
 def exec_operator(ex, parts):
-    """(skT, skT_lo) of the executor ``ex`` whose packed operator buffer a
-    path's frac_whole call got as ``parts``: the float64 checks and the
-    residual check read the operator that the executor packed."""
-    for p, hi, lo in OPERATOR_BUFFERS:
-        if getattr(ex, p, None) is parts:
-            return getattr(ex, hi), getattr(ex, lo, None)
+    """(skT, skT_lo) of the executor ``ex`` whose packed operator a path's
+    frac_whole call got as ``parts``: the float64 checks and the residual
+    check read the operator that the executor packed."""
+    if exec_parts(ex) is parts:
+        return ex.op.hi, ex.op.lo
     raise SmokeFailure("a frac_whole call got an operator that is no "
                        "buffer of its executor")
 
@@ -730,14 +726,14 @@ def fast_path(dev, x, ref, skip, peaks, card):
 
     rs = Resampler(SRC, DST, TB, ATTEN, device=dev)
     ex = rs.execs[0]
-    I, D, O, parts, band = ex.p_in, ex.D, ex.p_out, ex.sk_parts, ex.sk_band
+    I, D, O, parts, band = ex.p_in, ex.D, ex.p_out, ex.op.parts, ex.op.band
     # the window count oneshot gives the kernel (its zero-flush pad)
     T = max(N_IN, rs.in_len_for_out(rs.default_out_len(N_IN)))
     n_win = -(-rs.out_len_for_in(T) // O)
     L = (n_win - 1) * I + D
     g = torch.Generator(device=dev).manual_seed(SEED)
     xp = torch.rand((CHANNELS, L), generator=g, device=dev) * 2 - 1
-    ref64 = frac_whole_ref(xp.double(), operator_parts(ex.skT.double()), I,
+    ref64 = frac_whole_ref(xp.double(), operator_parts(ex.op.hi.double()), I,
                            D, O, n_win)
     for kc in (KC_LO, KC):
         y = frac_whole(xp, parts, I, D, O, n_win, kc=kc, band=band)
@@ -809,13 +805,13 @@ def fast_path(dev, x, ref, skip, peaks, card):
     p_ms = cuda_ms(lambda: frac_whole_ref(xp, parts, I, D, O, n_win,
                                           band=band),
                    reps=3, warmup=1)
-    w = ex.skT.T.contiguous()[:, None, :]
+    w = ex.op.hi.T.contiguous()[:, None, :]
     lib_ms = cuda_ms(lambda: F.conv1d(xp[:, None, :], w, stride=I), reps=10)
     R = CHANNELS * n_win
     io = 4.0 * (CHANNELS * L + R * O)
     # the operator's nonzero entries: the work the function needs (the
     # kernel multiplies the operator dense)
-    nnz = int((ex.skT != 0).sum().item())
+    nnz = int((ex.op.hi != 0).sum().item())
     (bound_ms, bound_by, form), simt, split = frac_bounds(R, nnz, None, io,
                                                           D, O, peaks)
     dense = frac_bounds(R, D * O, None, io, D, O, peaks)
@@ -1117,26 +1113,27 @@ def check_fft_cases(dev) -> None:
           f"(tol {FFT_REL_TOL:.2e})")
 
 
-def capture_calls(rs, x, module, names=("df_fft_conv", "frac_whole")):
+def capture_calls(rs, x, modules, names=("df_fft_conv", "frac_whole")):
     """Run rs.oneshot(x) once with the kernel wrappers ``names`` that
-    ``module`` calls recorded: the arguments each kernel gets on this
+    ``modules`` call recorded: the arguments each kernel gets on this
     path."""
     calls = {}
-    real = {k: getattr(module, k) for k in names}
+    real = {(m, k): getattr(m, k) for m in modules for k in names
+            if hasattr(m, k)}
 
-    def recorder(k):
+    def recorder(k, fn):
         def rec(*args, **kw):
             calls.setdefault(k, (args, kw))
-            return real[k](*args, **kw)
+            return fn(*args, **kw)
         return rec
 
     try:
-        for k in real:
-            setattr(module, k, recorder(k))
+        for (m, k), fn in real.items():
+            setattr(m, k, recorder(k, fn))
         rs.oneshot(x)
     finally:
-        for k, fn in real.items():
-            setattr(module, k, fn)
+        for (m, k), fn in real.items():
+            setattr(m, k, fn)
     return calls
 
 
@@ -1239,7 +1236,7 @@ def fft_paths(dev, x, ref, skip, peaks, card):
     import torch
 
     from r8brain_torch import Resampler
-    from r8brain_torch.ops import stages
+    from r8brain_torch.ops import operators, stages
     from r8brain_torch.ops.pallas_dfft import df_fft_conv
     from r8brain_torch.ops.pallas_frac import frac_whole
 
@@ -1286,7 +1283,7 @@ def fft_paths(dev, x, ref, skip, peaks, card):
             del rs
             continue
 
-        calls = capture_calls(rs, x, stages)
+        calls = capture_calls(rs, x, (stages, operators))
         records.append(fft_record(label, calls["df_fft_conv"], replaces,
                                   by.get(want, 0), peaks, card))
         if label == "poly":
@@ -1306,7 +1303,7 @@ def fused_high_path(dev, x, ref, skip, peaks, card):
     import torch
 
     from r8brain_torch import Resampler
-    from r8brain_torch.ops import fused
+    from r8brain_torch.ops import operators
     from r8brain_torch.ops.pallas_frac import frac_whole
 
     rs = Resampler(SRC, DST, TB, ATTEN, precision="high", device=dev)
@@ -1330,7 +1327,7 @@ def fused_high_path(dev, x, ref, skip, peaks, card):
     one_ms = cuda_ms(lambda: rs.oneshot(x), reps=10)
     print(f"timing {card}: fused high oneshot {one_ms:.3f} ms = "
           f"{1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
-    calls = capture_calls(rs, x, fused, ("frac_whole",))
+    calls = capture_calls(rs, x, (operators,), ("frac_whole",))
     rec = frac_record("frac_whole[fused, skT_lo]", calls["frac_whole"],
                       rs.execs[0], launches, peaks, card, expect_lo=True)
     del calls, rs
@@ -1502,11 +1499,11 @@ def conv_library(ex, x_in, n_cyc: int):
     import torch
     import torch.nn.functional as F
 
-    from r8brain_torch.ops.stages import _shifted
+    from r8brain_torch.ops.framing import shifted
 
     down = ex.spec.down
-    xp = _shifted(x_in, ex.s_min, (n_cyc - 1) * down + ex.D_direct,
-                  torch.float32)
+    xp = shifted(x_in, ex.s_min, (n_cyc - 1) * down + ex.D_direct,
+                 torch.float32)
     w = ex.skT_direct.T.contiguous()[:, None, :]
     return lambda: F.conv1d(xp[:, None, :], w, stride=down)[:, :, :n_cyc]
 
@@ -1635,7 +1632,7 @@ def matmul_paths(dev, x, ref, skip, peaks, card):
     import torch
 
     from r8brain_torch import Resampler
-    from r8brain_torch.ops import stages
+    from r8brain_torch.ops import operators, stages
     from r8brain_torch.ops.pallas_frac import KC, frac_whole
     from r8brain_torch.ops.pallas_symconv import sym_conv
 
@@ -1679,14 +1676,14 @@ def matmul_paths(dev, x, ref, skip, peaks, card):
               f"= {1e-6 * CHANNELS * N_IN / (one_ms * 1e-3):.1f} Mrops")
         if label in RESIDUAL_PATHS:
             (xp, parts, I, D, O, n_win), kw = capture_calls(
-                rs, x, stages, ("frac_whole",))["frac_whole"]
+                rs, x, (operators,), ("frac_whole",))["frac_whole"]
             skT, _lo = exec_operator(rs.execs[0], parts)
             check_residual(f"the {label} conv stage", xp, skT, I, D, O,
                            n_win, kw.get("kc", KC))
             del xp, parts
         if label in MATMUL_RECORDS:
             kernel, name = MATMUL_RECORDS[label]
-            calls = capture_calls(rs, x, stages, (kernel,))
+            calls = capture_calls(rs, x, (stages, operators), (kernel,))
             T = max(N_IN, rs.in_len_for_out(rs.default_out_len(N_IN)))
             x_in = torch.nn.functional.pad(x, (0, T - N_IN))
             records.append(matmul_record(label, kernel, name, calls[kernel],
@@ -1825,8 +1822,7 @@ def record_calls(rs, x, modules, name):
 def owner(rs, parts):
     """The executor of rs that holds the packed operator ``parts``."""
     for ex in rs.execs:
-        if any(getattr(ex, p, None) is parts for p, _h, _l in
-               OPERATOR_BUFFERS + (("oz_parts", "", ""),)):
+        if exec_parts(ex) is parts:
             return ex
     raise SmokeFailure("a kernel call got an operator of no executor")
 
@@ -2007,7 +2003,7 @@ def stage_paths(dev, peaks, card):
     import torch
 
     from r8brain_torch import Resampler
-    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops import operators
     from r8brain_torch.ops.pallas_frac import frac_whole
 
     refs, records, seen = {}, [], set(FRAC_SHAPES_SEEN)
@@ -2022,8 +2018,7 @@ def stage_paths(dev, peaks, card):
         torch.cuda.reset_peak_memory_stats()
         frac_whole.launches = 0
         t0 = time.perf_counter()
-        out, calls = record_calls(rs, x, (stages, fused, hb_cascade),
-                                  "frac_whole")
+        out, calls = record_calls(rs, x, (operators,), "frac_whole")
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         got = frac_whole.launches
@@ -2166,7 +2161,7 @@ def ozaki_paths(dev, peaks, card):
     import torch
 
     from r8brain_torch import Resampler
-    from r8brain_torch.ops import stages
+    from r8brain_torch.ops import operators
     from r8brain_torch.ops.pallas_ozaki import ozaki_framed
 
     refs, runs = {}, []
@@ -2192,7 +2187,7 @@ def ozaki_paths(dev, peaks, card):
                   f"{rs.df_carry}")
             ozaki_framed.launches = 0
             ozaki_framed.launches_by.clear()
-            out, calls = record_calls(rs, x, (stages,), "ozaki_framed")
+            out, calls = record_calls(rs, x, (operators,), "ozaki_framed")
             torch.cuda.synchronize()
             by = dict(ozaki_framed.launches_by)
             n_st = sum(type(e).__name__ != "FracPolyExec" for e in rs.execs)
@@ -2426,7 +2421,7 @@ def stream_paths(dev, peaks, peaks64, card):
     import torch
 
     from r8brain_torch import Resampler, StreamResampler
-    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops import operators, stages
     from r8brain_torch.ops.pallas_dfft import df_fft_conv
     from r8brain_torch.ops.pallas_frac import frac_whole
     from r8brain_torch.ops.pallas_ozaki import ozaki_framed
@@ -2453,8 +2448,8 @@ def stream_paths(dev, peaks, peaks64, card):
                 lambda: record_run(
                     lambda: record_run(lambda: stream_drive(st, x, k),
                                        (stages,), "df_fft_conv"),
-                    (stages,), "ozaki_framed"),
-                (stages, fused, hb_cascade), "frac_whole")
+                    (operators,), "ozaki_framed"),
+                (operators,), "frac_whole")
             torch.cuda.synchronize()
             got_f, got_o = frac_whole.launches, ozaki_framed.launches
             got_d = df_fft_conv.launches
@@ -2721,13 +2716,12 @@ def operator_owner(rs, parts):
     import torch
 
     for ex in rs.execs:
-        for p, _h, _l in OPERATOR_BUFFERS:
-            b = getattr(ex, p, None)
-            if b is parts or (isinstance(b, torch.Tensor)
-                              and b.shape == parts.shape
-                              and b.dtype == parts.dtype
-                              and torch.equal(b, parts)):
-                return ex, b
+        b = exec_parts(ex)
+        if b is parts or (isinstance(b, torch.Tensor)
+                          and b.shape == parts.shape
+                          and b.dtype == parts.dtype
+                          and torch.equal(b, parts)):
+            return ex, b
     raise SmokeFailure("a backward frac_whole call got an operator of no "
                        "executor")
 
@@ -3025,7 +3019,7 @@ def shard_run(fn):
     df_fft_conv launches)."""
     import torch
 
-    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops import operators, stages
     from r8brain_torch.ops.pallas_dfft import df_fft_conv
     from r8brain_torch.ops.pallas_frac import frac_whole
 
@@ -3033,7 +3027,7 @@ def shard_run(fn):
     df_fft_conv.launches = 0
     (y, dcalls), fcalls = record_run(
         lambda: record_run(fn, (stages,), "df_fft_conv"),
-        (stages, fused, hb_cascade), "frac_whole")
+        (operators,), "frac_whole")
     torch.cuda.synchronize()
     fcalls = [c for c in fcalls if on_card(c[0])]
     dcalls = [c for c in dcalls if on_card(c[0])]
@@ -3276,7 +3270,7 @@ def sharding_paths(dev, peaks, peaks64, card):
 
     # (1b) the guarantee chain over ch2 x t2: each shard's chain on
     # ozaki_framed with the df32 carry
-    from r8brain_torch.ops import stages
+    from r8brain_torch.ops import operators
     from r8brain_torch.ops.pallas_ozaki import ozaki_framed
 
     rs_g = Resampler(SRC, DST, TB, ATTEN, precision="high",
@@ -3285,7 +3279,7 @@ def sharding_paths(dev, peaks, peaks64, card):
     y_un = rs_g.oneshot(x)
     ozaki_framed.launches = 0
     (y, _f, _d, _nf, _nd), ocalls = record_run(
-        lambda: shard_run(lambda: srs_g.oneshot(x)), (stages,),
+        lambda: shard_run(lambda: srs_g.oneshot(x)), (operators,),
         "ozaki_framed")
     ocalls = [c for c in ocalls if on_card(c[0])]
     no = ozaki_framed.launches
@@ -3656,8 +3650,11 @@ def acc_recorder(store, name, real):
     (acc_shape), the first call's [args, kw, executor, stage input] and
     the number of calls on the card (a CPU model's calls are not kept):
     the executor is the nearest calling frame's ``self`` that is a torch
-    module, the stage input that frame's ``x``."""
+    module but no operator of ops/operators.py, the stage input that
+    frame's ``x``."""
     import torch
+
+    from r8brain_torch.ops.operators import FramedOperator, OzakiOperator
 
     def rec(*args, **kw):
         if args[0].device.type != "cuda":  # a CPU model's call
@@ -3667,7 +3664,8 @@ def acc_recorder(store, name, real):
             f, ex, x_in = sys._getframe(1), None, None
             while f is not None and ex is None:
                 s = f.f_locals.get("self")
-                if isinstance(s, torch.nn.Module):
+                if isinstance(s, torch.nn.Module) and not isinstance(
+                        s, (FramedOperator, OzakiOperator)):
                     ex, x_in = s, f.f_locals.get("x")
                 f = f.f_back
             store[key] = [args, kw, ex, x_in, 0]
@@ -3814,7 +3812,7 @@ def acceptance_paths(dev, peaks, peaks64, card, native_build):
     import torch_latency_curve
     import torch_zerotest
 
-    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops import operators, stages
     from r8brain_torch.ops.pallas_dfft import df_fft_conv
     from r8brain_torch.ops.pallas_frac import frac_whole
     from r8brain_torch.ops.pallas_ozaki import ozaki_framed
@@ -3822,7 +3820,7 @@ def acceptance_paths(dev, peaks, peaks64, card, native_build):
 
     native_build.result()
     t_phase = time.perf_counter()
-    mods = {"stages": stages, "fused": fused, "hb_cascade": hb_cascade}
+    mods = {"stages": stages, "operators": operators}
     real = {"frac_whole": frac_whole, "ozaki_framed": ozaki_framed,
             "df_fft_conv": df_fft_conv, "sym_conv": sym_conv}
     store = {}
@@ -3922,12 +3920,12 @@ def grid_paths(dev, peaks, peaks64, card):
     import torch_bench_matrix
     import torch_chip_accuracy
 
-    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops import operators
     from r8brain_torch.ops.pallas_frac import frac_whole
     from r8brain_torch.ops.pallas_ozaki import ozaki_framed
 
     t_phase = time.perf_counter()
-    mods = {"stages": stages, "fused": fused, "hb_cascade": hb_cascade}
+    mods = {"operators": operators}
     real = {"frac_whole": frac_whole, "ozaki_framed": ozaki_framed}
     rows = [r for r in torch_bench_matrix.ACCURACY_RUNS
             if r[0] not in GRID_SKIP]
@@ -4032,7 +4030,7 @@ def main() -> int:
 
     peaks = (peak_f32, peak_bf16, peak_bytes)
     accumulation_pin(dev, Resampler(SRC, DST, TB, ATTEN,
-                                    device=dev).execs[0].skT)
+                                    device=dev).execs[0].op.hi)
     check_frac_beta(dev)
     check_frac_band()
     kernels = [fast_path(dev, x, ref, skip, peaks, card),
@@ -4047,8 +4045,9 @@ def main() -> int:
     T_in = max(N_IN, rs_on.in_len_for_out(rs_on.default_out_len(N_IN)))
     M1 = conv.out_len(T_in)
     geos = {"conv": conv.geometry(M1), "frac": frac.geometry(frac.out_len(M1))}
-    parts = {"conv": conv.oz_parts, "frac": frac.oz_parts}
-    packs = {"conv": conv.oz_packed, "frac": frac.oz_packed}
+    parts = {"conv": conv.op.parts, "frac": frac.op.parts}
+    packs = {k: (ex.op.tiles, ex.op.bands)
+             for k, ex in (("conv", conv), ("frac", frac))}
     g = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     t_odd = np.sinc((np.arange(599)[:, None] - 300

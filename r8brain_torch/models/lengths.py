@@ -16,12 +16,14 @@ streaming oracle sample-for-sample.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from fractions import Fraction
+from typing import Optional, Sequence, Tuple
 
 from .plan import ConvStage, FracStage, HBDownStage, HBUpStage, Plan, Stage
 
 __all__ = ["stage_out_len", "stage_in_for_out", "chain_out_len",
            "chain_in_for_out", "stage_max_out_len", "chain_max_out_len",
+           "chain_shift_period", "chain_input_span", "round_up",
            "frac_positions"]
 
 
@@ -121,6 +123,55 @@ def chain_max_out_len(stages: Sequence[Stage], max_in: int) -> int:
     for s in stages:
         max_in = stage_max_out_len(s, max_in)
     return max_in
+
+
+def chain_shift_period(plan: Plan) -> Optional[Tuple[int, int]]:
+    """Minimal (p_in, p_out) integer shift-invariance period of the chain,
+    or None when the plan contains a polynomial-mode interpolator."""
+    stages = plan.stages
+    if any(isinstance(s, FracStage) and not s.is_whole for s in stages):
+        return None
+    p = 1
+    for _ in range(16):
+        q = Fraction(p)
+        mult = 1
+        for s in stages:
+            if isinstance(s, ConvStage):
+                q = q * s.up / s.down
+            elif isinstance(s, HBUpStage):
+                q = q * 2
+            elif isinstance(s, HBDownStage):
+                q = q / 2
+            elif isinstance(s, FracStage):
+                q = q * s.out_step / s.in_step
+            if q.denominator != 1:
+                mult = mult * q.denominator // math.gcd(mult, q.denominator)
+        if mult == 1 and q.denominator == 1:
+            return p, int(q)
+        p *= mult
+    return None
+
+
+def chain_input_span(plan: Plan) -> int:
+    """Conservative dependency width: any output sample depends on at most
+    this many consecutive input samples."""
+    span = 1
+    for s in reversed(plan.stages):
+        if isinstance(s, ConvStage):
+            span = ((span - 1) * s.down + s.filt.kernel_len) // s.up + 2
+        elif isinstance(s, HBUpStage):
+            span = span // 2 + 2 * s.hb.num_taps + 2
+        elif isinstance(s, HBDownStage):
+            span = 2 * span + 4 * s.hb.num_taps + 2
+        elif isinstance(s, FracStage):
+            span = int(math.ceil(span * s.src_rate / s.dst_rate)) \
+                + s.filter_len + 2
+    return span
+
+
+def round_up(n: int, m: int) -> int:
+    """n rounded up to a multiple of m."""
+    return -(-n // m) * m
 
 
 def frac_positions(spec: FracStage, n0: int, count: int):

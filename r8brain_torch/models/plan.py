@@ -45,6 +45,7 @@ __all__ = [
     "FracStage",
     "Stage",
     "Plan",
+    "subplan",
     "make_plan",
 ]
 
@@ -194,6 +195,12 @@ class Plan:
                     f"in_lat={s.in_latency}"
                 )
         return "\n".join(lines)
+
+
+def subplan(plan: Plan, stages) -> Plan:
+    """``plan`` with only ``stages``, a run of its stages."""
+    return Plan(plan.src_rate, plan.dst_rate, plan.trans_band, plan.atten,
+                plan.phase, tuple(stages), plan.latency_frac)
 
 
 # -- Stage spec construction (latency algebra) --------------------------------

@@ -43,7 +43,7 @@ import torch
 from torch import nn
 
 from ..ops.fused import fuse_stage_list
-from ..ops.stages import _df_collapse_input, build_exec
+from ..ops.stages import build_exec, df_collapse_input
 from ..utils.trace import count, exec_span, spanned, trace_plan
 from .lengths import chain_in_for_out, chain_max_out_len, chain_out_len
 from .plan import Plan, make_plan
@@ -99,7 +99,7 @@ def run_chain(execs, x: torch.Tensor, df_carry: bool = False, x_lo=None,
                     h, l, n = e.apply_df(
                         h, l, n, emit_pair=emit_pair or i < len(execs) - 1)
                 else:  # no carry path (the fused executors): one rounding
-                    h, l = e(_df_collapse_input(h, l, n)), None
+                    h, l = e(df_collapse_input(h, l, n)), None
                     n = h.shape[1]
         h = h if h.shape[1] == n else h[:, :n]
         if not emit_pair:

@@ -6,7 +6,7 @@ buffers (CDSPResampler.h:559-575); here the whole-array stage chain runs
 over fixed-size *blocks* with a carried device-side history window:
 
 * Plans with a finite shift-invariance period (every rational rate pair,
-  ``parallel/sharding.chain_shift_period``) stream with period-aligned
+  ``models/lengths.chain_shift_period``) stream with period-aligned
   blocks: after the first block every block runs the same chain on a
   window of H + L samples and emits exactly ``L * dst/src`` samples.  The
   carried state is the last H input samples (H >= the chain's dependency
@@ -47,10 +47,10 @@ from ..ops.fused import FusedUpExec, fuse_stage_list
 from ..ops.dfloat import two_sum
 from ..ops.hb_cascade import HBUpCascadeExec
 from ..ops.stages import build_exec, poly_contract
-from ..parallel.sharding import chain_input_span, chain_shift_period
 from ..utils.trace import span, spanned
-from .lengths import chain_out_len, frac_positions, stage_out_len
-from .plan import FracStage, Plan
+from .lengths import (chain_input_span, chain_out_len, chain_shift_period,
+                      frac_positions, round_up, stage_out_len)
+from .plan import FracStage, subplan
 from .resampler import Resampler, run_chain, to_device
 
 __all__ = ["StreamResampler"]
@@ -67,18 +67,9 @@ TAIL_SPAN_GROUPS = 64
 TAIL_MARGIN = 64
 
 
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
 def _opt(f, t):
     """f(t) for a tensor, None for None (a pair's absent lo stream)."""
     return None if t is None else f(t)
-
-
-def _subplan(plan: Plan, stages) -> Plan:
-    return Plan(plan.src_rate, plan.dst_rate, plan.trans_band, plan.atten,
-                plan.phase, tuple(stages), plan.latency_frac)
 
 
 def _sub_execs(rs: Resampler, stages):
@@ -96,7 +87,7 @@ def _sub_execs(rs: Resampler, stages):
                               frac_engine=rs.frac_engine)
     execs = None
     if any(isinstance(e, (FusedUpExec, HBUpCascadeExec)) for e in rs.execs):
-        execs = fuse_stage_list(_subplan(rs.plan, stages), rs.dtype,
+        execs = fuse_stage_list(subplan(rs.plan, stages), rs.dtype,
                                 rs.precision, build, engine=rs.conv_engine)
     if execs is None:
         execs = [build(s, rs.dtype, rs.precision) for s in stages]
@@ -116,11 +107,11 @@ class _PeriodStream:
         self.execs = _sub_execs(rs, stages)
         self.stages = stages
         self.p_in, self.p_out = p_in, p_out
-        L = _round_up(max(block_len, 2 * p_in), p_in)
-        H = _round_up(span + 64, p_in)
+        L = round_up(max(block_len, 2 * p_in), p_in)
+        H = round_up(span + 64, p_in)
         # steady-state latency in output samples: n*r - out_len(n) is
         # constant for period-aligned n past warmup
-        n0 = _round_up(H + L + span, p_in)
+        n0 = round_up(H + L + span, p_in)
         lat_o = n0 * p_out // p_in - chain_out_len(stages, n0)
         # the first block must complete the chain warmup: its emission
         # count must already be on the steady-state line, else every later
@@ -128,7 +119,7 @@ class _PeriodStream:
         L = self._steady_len(L, p_in, p_out, span, lat_o)
         W0 = H * p_out // p_in - lat_o
         while W0 < 0:
-            H += _round_up(-W0 * p_in // p_out + p_in, p_in)
+            H += round_up(-W0 * p_in // p_out + p_in, p_in)
             W0 = H * p_out // p_in - lat_o
         # the first block must carry the FULL real history: a left-zero-
         # padded first history would switch the stream head to mid-stream
@@ -136,7 +127,7 @@ class _PeriodStream:
         # chain in the first ~span outputs (later stages read their
         # predecessors' pre-start look-ahead); so L grows to H
         if L < H:
-            L = self._steady_len(_round_up(H, p_in), p_in, p_out, span,
+            L = self._steady_len(round_up(H, p_in), p_in, p_out, span,
                                  lat_o)
         self.L, self.H, self.W0 = L, H, W0
         self.out_per_block = L * p_out // p_in
@@ -152,7 +143,7 @@ class _PeriodStream:
             m = chain_out_len(self.stages, L)
             if m > 0 and m == L * p_out // p_in - lat_o:
                 return L
-            L += _round_up(max(p_in, span), p_in)
+            L += round_up(max(p_in, span), p_in)
         raise AssertionError("cannot reach steady state; plan too deep")
 
     def reset(self):
@@ -305,7 +296,7 @@ class _PolyTailStream:
         rel = sr.reshape(n_span, P, G) - (np.arange(P)[:, None] * S)
         A0s = rel.min(axis=(1, 2))
         off = rel - A0s[:, None, None]
-        W = _round_up(int(off.max()) + ex.fl, 32)
+        W = round_up(int(off.max()) + ex.fl, 32)
         return n_span, A0s + (S + ex.fl + TAIL_MARGIN), off, W
 
     def _banded(self, window, window_lo, start, fti, t64, count: int):
@@ -457,7 +448,7 @@ class StreamResampler:
         assert len(poly) == 1
         pi = poly[0]
         prefix, suffix = stages[:pi], stages[pi + 1 :]
-        pperiod = chain_shift_period(_subplan(self.plan, prefix))
+        pperiod = chain_shift_period(subplan(self.plan, prefix))
         if pperiod is None:
             raise NotImplementedError(
                 "streaming needs a rational-prefix plan; use oneshot")
@@ -466,13 +457,13 @@ class StreamResampler:
         # as in the oneshot chain
         self._core = _PeriodStream(
             rs, prefix, block_len, *pperiod,
-            chain_input_span(_subplan(self.plan, prefix)),
+            chain_input_span(subplan(self.plan, prefix)),
             emit_pair=True) if prefix else None
         self.block = self._core.L if prefix else max(1, block_len)
         self._tail = _PolyTailStream(_sub_execs(rs, [stages[pi]])[0],
                                      emit_pair=bool(suffix) and rs.df_carry)
         if suffix:
-            sub = _subplan(self.plan, suffix)
+            sub = subplan(self.plan, suffix)
             speriod = chain_shift_period(sub)
             assert speriod is not None and speriod[0] == 1, \
                 "suffix after a polynomial stage must be integer-upsampling"

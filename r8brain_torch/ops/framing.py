@@ -1,5 +1,5 @@
-"""Overlapping frames of a [C, N] signal as reshape views, and the plain
-framed contraction over them.
+"""A signal framed at an offset, overlapping frames of a [C, N] signal as
+reshape views, and the plain framed contraction over them.
 
 Counterparts of the reference package's ``ops/stages.py`` helpers
 ``_frames`` and ``_framed_matmul``.  A leaf module: the kernel modules and
@@ -11,7 +11,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["_frames", "_framed_matmul"]
+__all__ = ["shifted", "_frames", "_framed_matmul"]
+
+
+def shifted(x: torch.Tensor, start: int, need: int, dtype) -> torch.Tensor:
+    """[C, >= need] tensor of ``dtype`` whose column 0 is x's column
+    ``start`` (zeros outside x): one padded copy, or a view of x when x
+    already covers [start, start + need)."""
+    pad_l = max(0, -start)
+    pad_r = max(0, need + start - x.shape[1])
+    x = x.to(dtype)
+    if pad_l or pad_r:
+        x = F.pad(x, (pad_l, pad_r))
+    return x[:, start + pad_l :]
 
 
 def _frames(xp: torch.Tensor, n_blocks: int, hop: int, L_f: int

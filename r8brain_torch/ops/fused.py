@@ -17,9 +17,9 @@ residue t_j mod up is constant per j because the per-supercycle advance
 p_in*up is divisible by up.
 
 The operator is built on the host in float64 exactly as the reference
-package builds it (r8brain_tpu/ops/fused.py), and held as registered
-buffers.  The contraction runs through ``frac_whole``: the CUDA kernel on
-a CUDA tensor, its plain PyTorch version on a CPU tensor.
+package builds it (r8brain_tpu/ops/fused.py), and held as ``op``
+(ops/operators.py).  The contraction runs through ``frac_whole``: the
+CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor.
 
 Applicability: plan == [ConvStage(up, down=1), FracStage(whole)].
 ``fuse_stage_list`` also replaces each run of two or more float32
@@ -34,13 +34,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.lengths import chain_out_len
+from ..models.lengths import chain_out_len, chain_shift_period
 from ..models.plan import ConvStage, FracStage, Plan
-from ..parallel.sharding import chain_shift_period
 from .hb_cascade import HBUpCascadeExec, hb_up_run_fusable
-from .pallas_frac import KC, frac_whole, operator_band, operator_parts
+from .operators import FramedOperator
 from .poly_fused import FusedPolyExec
-from .stages import build_exec
+from .stages import build_exec, check_dtype, check_precision
 
 __all__ = ["can_fuse", "fuse_stage_list", "FusedUpExec"]
 
@@ -118,11 +117,8 @@ class FusedUpExec(nn.Module):
         if not can_fuse(plan):
             raise ValueError("FusedUpExec needs a [conv(up, down=1), "
                              "whole-frac] plan:\n" + plan.describe())
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"dtype must be float32 or float64, got {dtype}")
-        if precision not in ("fast", "high"):
-            raise ValueError(f"precision must be 'fast' or 'high', got "
-                             f"{precision!r}")
+        check_dtype(dtype)
+        check_precision(precision)
         conv: ConvStage = plan.stages[0]
         frac: FracStage = plan.stages[1]
         self.stages = plan.stages
@@ -233,21 +229,11 @@ class FusedUpExec(nn.Module):
                                                          dtype=torch.long))
         else:
             self.corr = self.corr_js = None
-        self.register_buffer(
-            "skT", torch.from_numpy(np.ascontiguousarray(sk.T.astype(np_dt))))
+        lo = None
         if self.precision == "high":
-            hi = sk.T.astype(np.float32)
-            self.register_buffer("skT_lo", torch.from_numpy(np.ascontiguousarray(
-                (sk.T - hi.astype(np.float64)).astype(np.float32))))
-        else:
-            self.skT_lo = None
-        # the operator in the kernel's form (float32: bf16 slices) and its
-        # nonzero band, once
-        self.register_buffer("sk_parts", operator_parts(self.skT,
-                                                        self.skT_lo))
-        self.sk_band = operator_band(self.sk_parts)
-        #: terms a frac_whole big-pair partial sums before its fold
-        self.kc = KC
+            lo = (sk.T - sk.T.astype(np.float32).astype(np.float64)).astype(
+                np.float32)
+        self.op = FramedOperator(sk.T, dtype, lo)
 
     def out_len(self, n_in: int) -> int:
         return chain_out_len(self.stages, n_in)
@@ -258,19 +244,13 @@ class FusedUpExec(nn.Module):
         M = self.out_len(N)
         if M <= 0:
             return x.new_zeros((C_, 0), dtype=self.dtype)
-        p_in, p_out = self.p_in, self.p_out
-        n_cyc = -(-M // p_out)
+        p_in = self.p_in
+        n_cyc = -(-M // self.p_out)
         x = x.to(self.dtype)
-        # xp[:, t] = x[:, t + a0], zero outside x, long enough for n_cyc
-        # windows of D samples ((n_cyc + n_seg) * p_in past a0)
-        n_seg = -(-self.D // p_in)
-        need = self.a0 + (n_cyc + n_seg) * p_in
-        xp = x.new_zeros((C_, max(need, N) - self.a0))
-        s0 = max(0, self.a0)
-        if N > s0:
-            xp[:, s0 - self.a0 : N - self.a0] = x[:, s0:]
-        y = frac_whole(xp, self.sk_parts, p_in, self.D, p_out, n_cyc,
-                       kc=self.kc, band=self.sk_band)
+        # n_cyc windows of D samples from a0, framed over (n_cyc + n_seg) *
+        # p_in samples
+        y = self.op.apply(x, self.a0, (n_cyc - (-self.D // p_in)) * p_in,
+                          p_in, n_cyc)
         if self.corr_js is not None:
             qw = self.corr.shape[1]
             xw = x[:, :qw]

@@ -44,8 +44,9 @@ from torch import nn
 
 from ..models.lengths import stage_in_for_out, stage_out_len
 from ..models.plan import HBUpStage
-from .pallas_frac import KC, frac_whole, operator_band, operator_parts
-from .stages import HB_BLOCK, _check_dtype, _shifted
+from .framing import shifted
+from .operators import FramedOperator
+from .stages import HB_BLOCK, check_dtype
 
 __all__ = ["HBUpCascadeExec", "hb_up_run_fusable", "compose_run"]
 
@@ -132,7 +133,7 @@ class HBUpCascadeExec(nn.Module):
                                      for s in specs):
             raise ValueError("HBUpCascadeExec needs a run of >= 2 "
                              "half-band upsamplers")
-        _check_dtype(dtype)
+        check_dtype(dtype)
         self.specs = tuple(specs)
         self.dtype = dtype
         np_dt = np.float32 if dtype == torch.float32 else np.float64
@@ -153,17 +154,12 @@ class HBUpCascadeExec(nn.Module):
         minr = min(c - (len(h) - 1) for c, h in phases)
         maxr = max(c for c, h in phases)
         self.minr = minr
-        L_f = self.L_f = B + (maxr - minr)
-        T = np.zeros((L_f, U * B), dtype=np.float64)
+        T = np.zeros((B + (maxr - minr), U * B), dtype=np.float64)
         b = np.arange(B)
         for p, (c, h) in enumerate(phases):
             for j, v in enumerate(h):
                 T[c - j - minr + b, p + U * b] = v
-        self.register_buffer("T", torch.from_numpy(T.astype(np_dt)))
-        self.register_buffer("T_parts", operator_parts(self.T))
-        self.T_band = operator_band(self.T_parts)
-        #: terms a frac_whole big-pair partial sums before its fold
-        self.kc = KC
+        self.op = FramedOperator(T, dtype)
 
         # the left edge: carry each inner stage's edge width through the
         # rest of the run
@@ -211,7 +207,7 @@ class HBUpCascadeExec(nn.Module):
     def _edge(self, x: torch.Tensor, Mx: torch.Tensor) -> torch.Tensor:
         """x's first P samples (zero-padded) times an edge matrix, in
         float64 (never TF32), in x's dtype."""
-        xh = _shifted(x, 0, self.P, torch.float64)[:, : self.P]
+        xh = shifted(x, 0, self.P, torch.float64)[:, : self.P]
         return torch.matmul(xh, Mx.double()).to(self.dtype)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
@@ -225,12 +221,10 @@ class HBUpCascadeExec(nn.Module):
             return self._edge(x, self.edge_D[:, :M])
         B, U = HB_BLOCK, self.U
         n_blocks = -(-(-(-M // U)) // B)
-        # block b reads xb[b*B + l], l < L_f, xb[i] = x[i + minr]; cells of
-        # zero weight may lie outside x (zeros there)
-        xb = _shifted(x, self.minr, (n_blocks - 1) * B + self.L_f,
-                      self.dtype)
-        y = frac_whole(xb, self.T_parts, B, self.L_f, U * B, n_blocks,
-                       kc=self.kc, band=self.T_band)
+        # block b reads x[minr + b*B + l], l < L_f; cells of zero weight
+        # may lie outside x (zeros there)
+        y = self.op.apply(x, self.minr, (n_blocks - 1) * B + self.op.L_f, B,
+                          n_blocks)
         if self.edge_C is not None:
             E = min(self.E, M)
             y[:, :E] += self._edge(x, self.edge_C[:, :E])

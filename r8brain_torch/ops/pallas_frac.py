@@ -11,9 +11,10 @@ against the f64->f32 operator residual that ``precision="high"`` passes.
 ``frac_whole`` launches ``csrc/frac_whole.cu`` on a CUDA tensor and runs
 ``frac_whole_ref`` on a CPU tensor.  Both take the operator as
 ``operator_parts(skT, skT_lo)`` and, in float32, its nonzero band
-``operator_band(parts)``, which each executor builds once.  In float32
-both compute the three-slice bfloat16 split that the kernel runs on the
-tensor cores, with its lead slices on fixed grids:
+``operator_band(parts)``, which ``ops/operators.py`` builds once for
+each executor.  In float32 both compute the three-slice bfloat16 split
+that the kernel runs on the tensor cores, with its lead slices on fixed
+grids:
 
 * the big pair x0*s0 sums in ``kc``-term folds (``KC`` = 32, or ``KC_LO``
   = 16 where the caller asks), each starting at a multiple of kc from d =
@@ -200,7 +201,7 @@ def _pack(s: torch.Tensor, BN: int) -> torch.Tensor:
 def operator_parts(skT: torch.Tensor,
                    skT_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The operator skT (+ skT_lo), [D, O], in the form ``frac_whole``
-    takes it; each executor builds it once (a buffer beside skT).
+    takes it; ``ops/operators.py`` builds it once for each executor.
 
     float64: [P, D, O], skT (and skT_lo) stacked, which the float64 kernel
     reads as it is.  float32: the P slices of skT (and bf16(skT_lo)),

@@ -35,8 +35,8 @@ then q), so without ``x_lo`` the two agree bit for bit; the inexact
 ``cheap`` pass (~2^-24 of the output) is summed in another order on the
 card, which may move the last bit of an output.
 
-The kernel takes the operator as ``pack_operator(T_parts)``, which each
-executor builds once: per (32-column tile, 64-deep k-tile) one contiguous
+The kernel takes the operator as ``pack_operator(T_parts)``, which
+``ops/operators.py`` builds once for each executor: per (32-column tile, 64-deep k-tile) one contiguous
 block of the four slices, each a K-major 128-byte-swizzled bf16 tile
 (``pallas_frac``'s packing), and per column tile the range of k-tiles
 that hold nonzeros.  ``wgmma_dot`` and ``mma_dot`` are the probes that pin
@@ -248,8 +248,9 @@ def ozaki_framed(xp: torch.Tensor, sx: torch.Tensor, T_parts: torch.Tensor,
     sx: [C, 1] float32 powers of two >= each channel's max |xp| over the
     windows (``ozaki.channel_scale``); T_parts: [4, L_f, Kcols] bfloat16
     from ``ozaki.split_operator_host``; x_lo: bfloat16, xp's shape;
-    packed: ``pack_operator(T_parts)`` on xp's device, which the executors
-    build once (packed here at each call when None).  On a CUDA tensor
+    packed: ``pack_operator(T_parts)`` on xp's device, which
+    ``ops/operators.py`` builds once (packed here at each call when
+    None).  On a CUDA tensor
     this launches the kernel or raises; on a CPU tensor it is
     ``ozaki_framed_ref``.  It has no gradient: an input that autograd or
     torch.func tracks raises (``_cuda.no_gradient``).  Each launch adds one to ``ozaki_framed.launches``

@@ -51,7 +51,7 @@ from torch import nn
 
 from ..models.lengths import chain_out_len, frac_positions
 from ..models.plan import ConvStage, FracStage
-from .stages import (_check_dtype, _check_precision, _to_device,
+from .stages import (_to_device, check_dtype, check_precision,
                      chunk_drift_groups, poly_cached, poly_contract)
 
 __all__ = ["FusedPolyExec"]
@@ -70,8 +70,8 @@ class FusedPolyExec(nn.Module):
                 and isinstance(frac, FracStage) and not frac.is_whole):
             raise ValueError("FusedPolyExec needs a [conv(up, down=1), "
                              "polynomial-frac] pair")
-        _check_dtype(dtype)
-        _check_precision(precision)
+        check_dtype(dtype)
+        check_precision(precision)
         self.stages = (conv, frac)
         self.frac = frac
         self.dtype = dtype

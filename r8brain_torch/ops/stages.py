@@ -42,8 +42,10 @@ Ported: every stage kind the planner makes.
   error-free split form under frac_engine="ozaki"), or a per-tap gather
   in float64.
 
-Each kernel wrapper runs the CUDA kernel on a CUDA tensor and its plain
-version on a CPU tensor.
+Each engine on ``frac_whole`` or ``ozaki_framed`` holds its banded
+operator as ``op`` (ops/operators.py), which frames the input and makes
+the call; the executors keep the geometry.  Each kernel wrapper runs the
+CUDA kernel on a CUDA tensor and its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -61,16 +63,16 @@ from ..models.lengths import frac_positions, stage_out_len
 from ..models.plan import ConvStage, FracStage, HBDownStage, HBUpStage
 from ..utils.trace import count, span, trace
 from .dfloat import two_sum
-from .ozaki import (K0, N_DIAG, N_PARTS, channel_scale, split_input,
-                    split_operator_batched, split_operator_host)
+from .framing import shifted
+from .operators import FramedOperator, OzakiOperator
+from .ozaki import K0, N_DIAG, N_PARTS, split_input, split_operator_batched
 from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
-from .pallas_frac import (KC, KC_LO, frac_whole, operator_band,
-                          operator_parts)
-from .pallas_ozaki import ozaki_framed, pack_operator
+from .pallas_frac import KC, KC_LO
 from .pallas_symconv import BH, sym_conv, sym_parts
 
-__all__ = ["truncate_residual", "ConvExec", "FracWholeExec", "HBUpExec",
+__all__ = ["truncate_residual", "check_dtype", "check_precision",
+           "df_collapse_input", "ConvExec", "FracWholeExec", "HBUpExec",
            "HBDownExec", "FracPolyExec", "chunk_drift_groups",
            "banded_contract", "banded_contract_ozaki", "place_operator",
            "poly_operators", "poly_contract", "build_exec",
@@ -106,16 +108,16 @@ def _check_ozaki(dtype, precision):
         raise NotImplementedError(
             f"the ozaki engine runs in float32 only (got {dtype}); float64 "
             f"runs conv_engine='fft'")
-    _check_precision(precision)
+    check_precision(precision)
 
 
-def _check_precision(precision):
+def check_precision(precision):
     if precision not in ("fast", "high"):
         raise ValueError(f"precision must be 'fast' or 'high', got "
                          f"{precision!r}")
 
 
-def _check_dtype(dtype):
+def check_dtype(dtype):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dtype must be float32 or float64, got {dtype}")
 
@@ -130,34 +132,12 @@ def _banded(sk: np.ndarray, B: int, down: int) -> np.ndarray:
     return T
 
 
-def _placed(rows: np.ndarray, r0: int, n_rows: int) -> torch.Tensor:
+def _placed(rows: np.ndarray, r0: int, n_rows: int) -> np.ndarray:
     """A row-truncated residual (rows from r0) placed in a zero operator
     of n_rows rows."""
     out = np.zeros((n_rows, rows.shape[1]), dtype=rows.dtype)
     out[r0 : r0 + rows.shape[0]] = rows
-    return torch.from_numpy(out)
-
-
-def _shifted(x: torch.Tensor, start: int, need: int, dtype) -> torch.Tensor:
-    """[C, >= need] tensor of ``dtype`` whose column 0 is x's column
-    ``start`` (zeros outside x): one padded copy, or a view of x when x
-    already covers [start, start + need)."""
-    pad_l = max(0, -start)
-    pad_r = max(0, need + start - x.shape[1])
-    x = x.to(dtype)
-    if pad_l or pad_r:
-        x = F.pad(x, (pad_l, pad_r))
-    return x[:, start + pad_l :]
-
-
-def _register_ozaki(ex: nn.Module, parts: torch.Tensor) -> None:
-    """The ozaki engine's operator as buffers of ``ex``: the slices
-    ``oz_parts`` (the plain version's) and their packing for the kernel,
-    ``oz_tiles`` and ``oz_bands`` (``pack_operator``), built once."""
-    ex.register_buffer("oz_parts", parts)
-    tiles, bands = pack_operator(parts)
-    ex.register_buffer("oz_tiles", tiles)
-    ex.register_buffer("oz_bands", bands)
+    return out
 
 
 class ConvExec(nn.Module):
@@ -174,7 +154,7 @@ class ConvExec(nn.Module):
         operator [L_f, B*up] (B = 256, halved while B*down > 2*D),
         applied at hop B*down on ``frac_whole`` with 32-term folds; under
         ``precision="high"`` the row-truncated float32 residual of the
-        operator rides the same call (``skT_lo``).
+        operator rides the same call (``op.lo``).
       * "toeplitz_sym": for a symmetric kernel each phase's operator is
         centrosymmetric and folds into Te, To of half the rows and columns
         (``sym_conv``: half the products); under "high" with the fold-error
@@ -189,10 +169,10 @@ class ConvExec(nn.Module):
         back.
       * "direct": the strided product of x with SK itself (no band), on
         ``frac_whole`` at I = down, D = D_direct, O = up with 32-term folds
-        and, under "high", the residual ``skT_direct_lo`` and 16-term
-        folds.  The reference ran an XLA convolution; cuDNN's float32
-        ``F.conv1d`` sums the taps without folds and misses the -141 dB
-        class (chip_smoke.py prints both on the card; PERF.md).
+        and, under "high", the float32 residual and 16-term folds.  The
+        reference ran an XLA convolution; cuDNN's float32 ``F.conv1d``
+        sums the taps without folds and misses the -141 dB class
+        (chip_smoke.py prints both on the card; PERF.md).
       * "ozaki": the toeplitz engine's operator in the error-free split
         form on ``ozaki_framed``.
       * "pallas_fft5", "pallas_fft4", "pallas_fft": overlap-save at nfft =
@@ -220,10 +200,9 @@ class ConvExec(nn.Module):
         self.spec = spec
         self.dtype = dtype
         self.engine = engine
-        #: terms a frac_whole big-pair partial sums before its fold, on
-        #: the "toeplitz" and "pallas" engines (its fold sums are exact, so
-        #: a chain of any length holds its class at KC)
-        self.kc = KC
+        #: the engine's banded operator (ops/operators.py), None for the
+        #: FFT engines and "toeplitz_sym"
+        self.op = None
         self.framed5 = self.framed5_poly = False
         k = np.asarray(spec.filt.kernel, dtype=np.float64)
         self.K = k.shape[0]
@@ -232,13 +211,11 @@ class ConvExec(nn.Module):
             return
         if engine == "ozaki":
             _check_ozaki(dtype, precision)
-        _check_dtype(dtype)
-        _check_precision(precision)
+        check_dtype(dtype)
+        check_precision(precision)
         self.precision = precision if dtype == torch.float32 else "fast"
         self._build_direct(k)
-        if engine == "ozaki":
-            self._build_ozaki(B)
-        elif engine == "toeplitz":
+        if engine in ("ozaki", "toeplitz"):
             self._build_toeplitz(B)
         elif engine == "toeplitz_sym":
             if not self._build_toeplitz_sym():
@@ -254,8 +231,8 @@ class ConvExec(nn.Module):
         max(128, next_pow2(P) << ext), doubled while the saved overlap P
         exceeds the hop; the engines' plans and spectra."""
         spec, engine = self.spec, self.engine
-        _check_dtype(self.dtype)
-        _check_precision(precision)
+        check_dtype(self.dtype)
+        check_precision(precision)
         if engine != "fft":
             if self.dtype != torch.float32:
                 raise ValueError(f"conv_engine={engine!r} takes float32; "
@@ -310,9 +287,12 @@ class ConvExec(nn.Module):
     def _build_direct(self, k: np.ndarray):
         """Polyphase superkernel: SK[j, d] = k[(j*down + off) - (s_min+d)*up]
         so that y[m*up + j] = sum_d SK[j, d] * x[m*down + s_min + d];
-        ``skT_direct`` = SK.T in the stage's dtype and, under "high", its
-        float32 residual ``skT_direct_lo`` (the reference's sk_direct and
-        sk_lo, transposed)."""
+        ``skT_direct`` = SK.T in the stage's dtype (the reference's
+        sk_direct, transposed) and, for the "direct" engine, SK.T as its
+        operator with, under "high", its float32 residual (the reference's
+        sk_lo) and 16-term folds, the counterpart of the reference's
+        compensated 128-tap chunks (tests/test_torch_stage_chain.py holds
+        the chain at -141 dB)."""
         spec = self.spec
         up, down, off = spec.up, spec.down, spec.offset
         K = self.K
@@ -332,15 +312,14 @@ class ConvExec(nn.Module):
         self.D_direct = D
         self.register_buffer("skT_direct", torch.from_numpy(
             np.ascontiguousarray(sk.T.astype(self._np_dtype()))))
-        lo = None
-        if self.precision == "high":
-            lo = torch.from_numpy(np.ascontiguousarray((sk - sk.astype(
-                np.float32).astype(np.float64)).astype(np.float32).T))
-        self.register_buffer("skT_direct_lo", lo)
-        self.register_buffer("skT_direct_parts", operator_parts(
-            self.skT_direct, lo) if self.engine == "direct" else None)
-        self.skT_direct_band = (operator_band(self.skT_direct_parts)
-                                if self.engine == "direct" else None)
+        if self.engine == "direct":
+            lo = None
+            if self.precision == "high":
+                lo = (sk - sk.astype(np.float32).astype(np.float64)).astype(
+                    np.float32).T
+            self.B_op = 1
+            self.op = FramedOperator(sk.T, self.dtype, lo,
+                                     KC if lo is None else KC_LO)
 
     def _np_dtype(self):
         return np.float32 if self.dtype == torch.float32 else np.float64
@@ -354,27 +333,28 @@ class ConvExec(nn.Module):
 
         built from the float64 superkernel over all D taps (the
         reference's single chunk) and its truncated residual ``toep_lo`` =
-        (r0, rows) under "high"."""
+        (r0, rows) under "high"; the ozaki engine takes the same operator
+        in the split form (ops/ozaki.py).  B halves while B*down > 2*D,
+        down to 128."""
         down = self.spec.down
         D = self.D_direct
         while B * down > 2 * D and B > 128:
             B //= 2
-        np_dt = self._np_dtype()
         T = _banded(self._sk64, B, down)
-        Thi = T.astype(np_dt)
+        self.B_toep = self.B_op = B
+        if self.engine == "ozaki":
+            self.op = OzakiOperator(T)
+            return
         Tlo = None
         if self.precision == "high":
+            np_dt = self._np_dtype()
+            Thi = T.astype(np_dt)
             Tlo = truncate_residual(
                 (T - Thi.astype(np.float64)).astype(np_dt),
                 float(np.abs(Thi).max()))
         self.toep_lo = Tlo
-        self.B_toep = B
-        self.register_buffer("T_toep", torch.from_numpy(Thi))
-        self.register_buffer("T_toep_lo", None if Tlo is None else
-                             _placed(Tlo[1], Tlo[0], T.shape[0]))
-        self.register_buffer("T_toep_parts",
-                             operator_parts(self.T_toep, self.T_toep_lo))
-        self.T_toep_band = operator_band(self.T_toep_parts)
+        self.op = FramedOperator(T, self.dtype, None if Tlo is None else
+                                 _placed(Tlo[1], Tlo[0], T.shape[0]))
 
     def _build_toeplitz_sym(self) -> bool:
         """Centrosymmetry-folded operators (the reference's
@@ -491,63 +471,35 @@ class ConvExec(nn.Module):
         _build_pallas): band waste (B*down + D)/D ~ 1.1x; ``T_pallas`` and,
         under "high", the full residual ``T_pallas_lo`` in float32 as the
         reference keeps them (float64 stages use the float64 operator)."""
-        up, down = self.spec.up, self.spec.down
-        T = _banded(self._sk64, B, down)
+        T = _banded(self._sk64, B, self.spec.down)
         self.T_pallas = T.astype(np.float32)
         self.T_pallas_lo = (
             (T - self.T_pallas.astype(np.float64)).astype(np.float32)
             if self.precision == "high" else None)
-        self.B_pallas = B
+        self.B_pallas = self.B_op = B
         self.Lf_pallas = T.shape[0]
-        self.register_buffer("T_pal", torch.from_numpy(
-            self.T_pallas if self.dtype == torch.float32 else T))
-        self.register_buffer("T_pal_lo", None if self.T_pallas_lo is None
-                             else torch.from_numpy(self.T_pallas_lo))
-        self.register_buffer("T_pal_parts",
-                             operator_parts(self.T_pal, self.T_pal_lo))
-        self.T_pal_band = operator_band(self.T_pal_parts)
-
-    def _build_ozaki(self, B: int):
-        """Split form of the banded-Toeplitz operator (ops/ozaki.py): the
-        block count B halves while B*down > 2*D, down to 128."""
-        down = self.spec.down
-        D = self.D_direct
-        while B * down > 2 * D and B > 128:
-            B //= 2
-        T = _banded(self._sk64, B, down)
-        parts, self.oz_scale = split_operator_host(T)
-        _register_ozaki(self, parts)
-        self.oz_Lf = T.shape[0]
-        self.B_toep = B
-
-    @property
-    def oz_packed(self):
-        """The ozaki engine's operator as the kernel takes it."""
-        return self.oz_tiles, self.oz_bands
+        self.op = FramedOperator(T, self.dtype, self.T_pallas_lo)
 
     def geometry(self, M: int):
-        """(L_f, hop, Kcols, n_blocks) of the framed product behind M
-        outputs: blocks of B_toep cycles, each cycle ``up`` outputs."""
-        B, up = self.B_toep, self.spec.up
+        """(L_f, hop, Kcols, n_blocks) of the engine's framed product
+        behind M outputs: blocks of B_op cycles (B_toep, B_pallas, or one
+        for "direct"), each cycle ``up`` outputs."""
+        B, up = self.B_op, self.spec.up
         n_blocks = -(-(-(-M // up)) // B)
-        return self.oz_Lf, B * self.spec.down, B * up, n_blocks
+        return self.op.L_f, B * self.spec.down, B * up, n_blocks
 
-    def _apply_ozaki(self, x: torch.Tensor, M: int, raw: bool = False,
-                     x_lo=None, pair: bool = False):
-        L_f, hop, Kcols, n_blocks = self.geometry(M)
-        need = (n_blocks - (-L_f // hop)) * hop
-        with span("r8b.ozaki.prep"):
-            xp = _shifted(x, self.s_min, need, torch.float32)
-            sx = channel_scale(xp[:, : (n_blocks - 1) * hop + L_f])
-        xl = None
-        if x_lo is not None:  # bf16 seam-residual stream: keep its dtype
-            with span("r8b.ozaki.carry"):
-                xl = _shifted(x_lo, self.s_min, need, x_lo.dtype)
-        res = ozaki_framed(xp, sx, self.oz_parts, L_f, hop, Kcols, n_blocks,
-                           x_lo=xl, emit_pair=pair, packed=self.oz_packed)
-        if pair:
-            yh, yl = res
-            return (yh, yl) if raw else (yh[:, :M], yl[:, :M])
+    def _apply_op(self, x: torch.Tensor, M: int, raw: bool = False,
+                  **carry):
+        """The engine's operator on x from s_min: "toeplitz" and "ozaki"
+        frame the reference's extent (n_blocks + ceil(L_f/hop)) * hop,
+        "pallas" and "direct" the windows' own.  ``raw`` returns every
+        block's columns (the seam protocols'); ``carry`` (the ozaki
+        engine's) x_lo and pair, raw only."""
+        L_f, hop, _Kcols, n_blocks = self.geometry(M)
+        need = ((n_blocks - (-L_f // hop)) * hop
+                if self.engine in ("toeplitz", "ozaki")
+                else (n_blocks - 1) * hop + L_f)
+        res = self.op.apply(x, self.s_min, need, hop, n_blocks, **carry)
         return res if raw else res[:, :M]
 
     def out_len(self, n_in: int) -> int:
@@ -599,61 +551,20 @@ class ConvExec(nn.Module):
         W = torch.fft.irfft(Y, n=nfft, dim=-1).to(self.dtype)
         return W[:, :, P:].reshape(C, n_frames * hop)[:, pick]
 
-    def _apply_toeplitz(self, x: torch.Tensor, M: int,
-                        raw: bool = False) -> torch.Tensor:
-        """The banded operator on frac_whole: I = hop = B*down, D = L_f, O
-        = B*up, one window a block; the output [C, n_blocks*B*up] is in
-        the stage's order.  ``raw`` returns every block's columns."""
-        up, down, B = self.spec.up, self.spec.down, self.B_toep
-        L_f = self.T_toep.shape[0]
-        n_blocks = -(-(-(-M // up)) // B)
-        hop = B * down
-        xp = _shifted(x, self.s_min, (n_blocks - (-L_f // hop)) * hop,
-                      self.dtype)
-        y = frac_whole(xp, self.T_toep_parts, hop, L_f, B * up, n_blocks,
-                       kc=self.kc, band=self.T_toep_band)
-        return y if raw else y[:, :M]
-
     def _apply_toeplitz_sym(self, x: torch.Tensor, M: int) -> torch.Tensor:
         """The folded operators on sym_conv, every phase in one launch:
         frames of hop B*down from the common origin s_min + dmin."""
         up, down, B = self.spec.up, self.spec.down, self.B_sym
         nb = -(-(-(-M // up)) // B)
         hop = B * down
-        xp = _shifted(x, self.s_min + self.sym_dmin,
-                      (nb - 1) * hop + max(self.sym_Lf), self.dtype)
+        xp = shifted(x, self.s_min + self.sym_dmin,
+                     (nb - 1) * hop + max(self.sym_Lf), self.dtype)
         return sym_conv(xp, self.sym_parts, self.sym_Lf, nb, hop)[:, :M]
-
-    def _apply_pallas(self, x: torch.Tensor, M: int) -> torch.Tensor:
-        """The mini-Toeplitz on frac_whole: I = 64*down, D = L_f, O =
-        64*up."""
-        up, down, B = self.spec.up, self.spec.down, self.B_pallas
-        n_grp = -(-(-(-M // up)) // B)
-        L_f = self.Lf_pallas
-        xp = _shifted(x, self.s_min, (n_grp - 1) * B * down + L_f, self.dtype)
-        return frac_whole(xp, self.T_pal_parts, B * down, L_f, B * up, n_grp,
-                          kc=self.kc, band=self.T_pal_band)[:, :M]
-
-    def _apply_direct(self, x: torch.Tensor, M: int) -> torch.Tensor:
-        """The superkernel's strided product on frac_whole: I = down, D =
-        D_direct, O = up, one window a cycle; under "high" with 16-term
-        folds, the counterpart of the reference's compensated 128-tap
-        chunks (tests/test_torch_stage_chain.py holds the chain at
-        -141 dB)."""
-        up, down, D = self.spec.up, self.spec.down, self.D_direct
-        n_cyc = -(-M // up)
-        lo = self.skT_direct_lo
-        xp = _shifted(x, self.s_min, (n_cyc - 1) * down + D, self.dtype)
-        return frac_whole(xp, self.skT_direct_parts, down, D, up, n_cyc,
-                          kc=KC if lo is None else KC_LO,
-                          band=self.skT_direct_band)[:, :M]
 
     def apply_v(self, x: torch.Tensor, n_valid: int):
         M = self.out_len(n_valid)
-        if M > 0 and self.engine == "toeplitz":
-            return self._apply_toeplitz(x, M, raw=True), M
-        if M > 0 and self.engine == "ozaki":
-            return self._apply_ozaki(x, M, raw=True), M
+        if M > 0 and self.engine in ("toeplitz", "ozaki"):
+            return self._apply_op(x, M, raw=True), M
         if M > 0:
             y = self.apply(x if x.shape[1] == n_valid else x[:, :n_valid])
             return y, y.shape[1]
@@ -670,7 +581,7 @@ class ConvExec(nn.Module):
         M = self.out_len(n_valid)
         if M <= 0:
             return h.new_zeros((h.shape[0], 0), dtype=self.dtype), None, 0
-        res = self._apply_ozaki(h, M, raw=True, x_lo=l, pair=emit_pair)
+        res = self._apply_op(h, M, raw=True, x_lo=l, pair=emit_pair)
         if emit_pair:
             return res[0], res[1], M
         return res, None, M
@@ -679,11 +590,11 @@ class ConvExec(nn.Module):
         M = self.out_len(x.shape[1])
         if M <= 0:
             return x.new_zeros((x.shape[0], 0), dtype=self.dtype)
-        run = {"ozaki": self._apply_ozaki, "toeplitz": self._apply_toeplitz,
-               "toeplitz_sym": self._apply_toeplitz_sym,
-               "pallas": self._apply_pallas,
-               "direct": self._apply_direct}.get(self.engine, self._apply_fft)
-        return run(x, M)
+        if self.op is not None:
+            return self._apply_op(x, M)
+        if self.engine == "toeplitz_sym":
+            return self._apply_toeplitz_sym(x, M)
+        return self._apply_fft(x, M)
 
     forward = apply
 
@@ -700,7 +611,7 @@ class FracWholeExec(nn.Module):
 
     Engines: "ozaki", the error-free split form on ``ozaki_framed``;
     "im2col" on ``frac_whole``, with the float32 residual of the operator
-    (``skT_lo``) and 16-term folds (``KC_LO``: a column's ~24 nonzero taps
+    (``op.lo``) and 16-term folds (``KC_LO``: a column's ~24 nonzero taps
     would otherwise share one partial) under ``precision="high"``;
     "pallas" and "conv", the same call (the reference's pallas tile
     constraint is the TPU's, and its strided convolution computes the same
@@ -734,36 +645,22 @@ class FracWholeExec(nn.Module):
         if engine not in ("ozaki", "im2col", "pallas", "conv"):
             raise ValueError(f"unknown frac engine {engine!r}")
         self.engine = engine
+        skT = np.ascontiguousarray(sk.T)
         if engine == "ozaki":
             _check_ozaki(dtype, precision)
-            parts, self.oz_scale = split_operator_host(
-                np.ascontiguousarray(sk.T))
-            _register_ozaki(self, parts)
+            self.op = OzakiOperator(skT)
             return
-        _check_dtype(dtype)
-        _check_precision(precision)
+        check_dtype(dtype)
+        check_precision(precision)
         self.precision = precision if dtype == torch.float32 else "fast"
-        skT = np.ascontiguousarray(sk.T)
         lo = None
         if self.precision == "high":
             lo = (skT - skT.astype(np.float32).astype(np.float64)).astype(
                 np.float32)
-        np_dt = np.float32 if dtype == torch.float32 else np.float64
-        self.register_buffer("skT", torch.from_numpy(skT.astype(np_dt)))
-        self.register_buffer("skT_lo", None if lo is None else
-                             torch.from_numpy(lo))
-        self.register_buffer("sk_parts", operator_parts(self.skT,
-                                                        self.skT_lo))
-        self.sk_band = operator_band(self.sk_parts)
-        self.kc = KC if lo is None else KC_LO
+        self.op = FramedOperator(skT, dtype, lo, KC if lo is None else KC_LO)
 
     def out_len(self, n_in: int) -> int:
         return stage_out_len(self.spec, n_in)
-
-    @property
-    def oz_packed(self):
-        """The ozaki engine's operator as the kernel takes it."""
-        return self.oz_tiles, self.oz_bands
 
     def geometry(self, M: int):
         """(L_f, hop, Kcols, n_blocks) of the framed product behind M
@@ -772,38 +669,16 @@ class FracWholeExec(nn.Module):
         O = self.spec.out_step
         return self.D, self.spec.in_step, O, -(-M // O)
 
-    def _frame(self, x: torch.Tensor, M: int, dtype=None) -> torch.Tensor:
-        """x shifted and padded so that [:, m*I : m*I + D] is window m, in
-        ``dtype`` (by default float32 for the ozaki engine, else the
-        stage's dtype; the bfloat16 seam residual keeps its own)."""
+    def _run(self, x: torch.Tensor, M: int, **carry):
+        """The first M outputs: windows m of x[:, a0 + m*I : a0 + m*I +
+        D] framed over (n_cyc + ceil(D/I)) * I samples; ``carry`` (the
+        ozaki engine's) x_lo and pair."""
         D, I, _O, n_cyc = self.geometry(M)
-        if dtype is None:
-            dtype = torch.float32 if self.engine == "ozaki" else self.dtype
-        return _shifted(x, self.a0, (n_cyc + -(-D // I)) * I, dtype)
-
-    def _oz_prep(self, x: torch.Tensor, M: int, x_lo=None):
-        """(xp, xl, sx) of the ozaki engine: the signal's ``_frame`` and
-        its per-channel power-of-two scales over the windows, then the
-        seam residual's ``_frame`` (or None), the carry's only torch work
-        here."""
-        D, I, _O, n_cyc = self.geometry(M)
-        with span("r8b.ozaki.prep"):
-            xp = self._frame(x, M)
-            sx = channel_scale(xp[:, : (n_cyc - 1) * I + D])
-        if x_lo is None:
-            return xp, None, sx
-        with span("r8b.ozaki.carry"):
-            return xp, self._frame(x_lo, M, x_lo.dtype), sx
-
-    def _run(self, x: torch.Tensor, M: int) -> torch.Tensor:
-        D, I, O, n_cyc = self.geometry(M)
-        if self.engine == "ozaki":
-            xp, _, sx = self._oz_prep(x, M)
-            return ozaki_framed(xp, sx, self.oz_parts, D, I, O, n_cyc,
-                                packed=self.oz_packed)[:, :M]
-        xp = self._frame(x, M)
-        return frac_whole(xp, self.sk_parts, I, D, O, n_cyc,
-                          kc=self.kc, band=self.sk_band)[:, :M]
+        res = self.op.apply(x, self.a0, (n_cyc + -(-D // I)) * I, I, n_cyc,
+                            **carry)
+        if carry.get("pair"):
+            return res[0][:, :M], res[1][:, :M]
+        return res[:, :M]
 
     def apply_v(self, x: torch.Tensor, n_valid: int):
         """Valid-prefix seam protocol; latency-shifted specs slice to the
@@ -851,18 +726,14 @@ class FracWholeExec(nn.Module):
         if self.engine != "ozaki":
             # no carry path: collapse the pair over the logical prefix
             nv = h.shape[1] if spec.in_latency else n_valid
-            return self._run(_df_collapse_input(h, l, nv), M), None, M
-        if l is None and not emit_pair:
-            return self._run(h, M), None, M
-        xp, xl, sx = self._oz_prep(h, M, l)
-        res = ozaki_framed(xp, sx, self.oz_parts, *self.geometry(M), x_lo=xl,
-                           emit_pair=emit_pair, packed=self.oz_packed)
+            return self._run(df_collapse_input(h, l, nv), M), None, M
+        res = self._run(h, M, x_lo=l, pair=emit_pair)
         if emit_pair:
-            return res[0][:, :M], res[1][:, :M], M
-        return res[:, :M], None, M
+            return res[0], res[1], M
+        return res, None, M
 
 
-def _df_collapse_input(h, l, n_valid):
+def df_collapse_input(h, l, n_valid):
     """A df32 seam pair collapsed to one input for a stage (or engine)
     without a carry path: both streams sliced to the logical prefix and
     added once, exactly the seam rounding of the chain without the
@@ -886,17 +757,16 @@ class _HalfBandExec(nn.Module):
     Engines: "matmul" (float32's "auto"), the framed product against the
     banded operator on ``frac_whole`` (32-term folds; under
     ``precision="high"`` with the row-truncated residual of the rounded
-    taps, ``T_lo``, and 16-term folds, as FracWholeExec: a column's 2*nt
-    taps would otherwise share one partial); "stencil" (float64's
-    "auto"), the symmetric shifted adds in the oracle's summation order;
-    "ozaki", the same
-    operator in the error-free split form on ``ozaki_framed`` (float64
-    runs "stencil" instead, as in the reference)."""
+    taps and 16-term folds, as FracWholeExec: a column's 2*nt taps would
+    otherwise share one partial); "stencil" (float64's "auto"), the
+    symmetric shifted adds in the oracle's summation order; "ozaki", the
+    same operator in the error-free split form on ``ozaki_framed``
+    (float64 runs "stencil" instead, as in the reference)."""
 
     def __init__(self, spec, dtype, engine: str, precision: str):
         super().__init__()
-        _check_dtype(dtype)
-        _check_precision(precision)
+        check_dtype(dtype)
+        check_precision(precision)
         if engine == "auto":
             engine = "matmul" if dtype == torch.float32 else "stencil"
         if engine == "ozaki" and dtype != torch.float32:
@@ -915,54 +785,30 @@ class _HalfBandExec(nn.Module):
         if engine == "stencil":
             return
         T = self._operator(t64)
-        self.L_f, self.Kcols = T.shape
         if engine == "ozaki":
-            parts, self.oz_scale = split_operator_host(T)
-            _register_ozaki(self, parts)
+            self.op = OzakiOperator(T)
             return
-        Thi = T.astype(np_dt)
         lo = None
         if self.precision == "high":
             # the rounded taps' residual (the identity entries are exact)
             r0, rows = truncate_residual(
-                (T - Thi.astype(np.float64)).astype(np.float32),
+                (T - T.astype(np_dt).astype(np.float64)).astype(np.float32),
                 float(np.abs(T).max()))
             if rows.shape[0]:
                 lo = _placed(rows, r0, T.shape[0])
-        self.register_buffer("T", torch.from_numpy(Thi))
-        self.register_buffer("T_lo", lo)
-        self.register_buffer("T_parts", operator_parts(self.T, self.T_lo))
-        self.T_band = operator_band(self.T_parts)
-        self.kc = KC_LO if self.precision == "high" else KC
-
-    @property
-    def oz_packed(self):
-        """The ozaki engine's operator as the kernel takes it."""
-        return self.oz_tiles, self.oz_bands
+        self.op = FramedOperator(T, dtype, lo,
+                                 KC_LO if self.precision == "high" else KC)
 
     def out_len(self, n_in: int) -> int:
         return stage_out_len(self.spec, n_in)
 
-    def _framed(self, x, n_in: int, x_lo=None, pair: bool = False):
+    def _framed(self, x, n_in: int, **carry):
         """The framed product over the blocks behind n_in input samples,
         every block's columns ([C, n_blocks * Kcols], or the (hi, lo)
-        pair)."""
+        pair); ``carry`` (the ozaki engine's) x_lo and pair."""
         start, n_blocks, hop = self._geometry(n_in)
-        need = (n_blocks - 1) * hop + self.L_f
-        if self.engine == "matmul":
-            xp = _shifted(x, start, need, self.dtype)
-            return frac_whole(xp, self.T_parts, hop, self.L_f, self.Kcols,
-                              n_blocks, kc=self.kc, band=self.T_band)
-        with span("r8b.ozaki.prep"):
-            xp = _shifted(x, start, need, torch.float32)
-            sx = channel_scale(xp[:, :need])
-        xl = None
-        if x_lo is not None:
-            with span("r8b.ozaki.carry"):
-                xl = _shifted(x_lo, start, need, x_lo.dtype)
-        return ozaki_framed(xp, sx, self.oz_parts,
-                            self.L_f, hop, self.Kcols, n_blocks, x_lo=xl,
-                            emit_pair=pair, packed=self.oz_packed)
+        return self.op.apply(x, start, (n_blocks - 1) * hop + self.op.L_f,
+                             hop, n_blocks, **carry)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         C, N = x.shape
@@ -988,7 +834,7 @@ class _HalfBandExec(nn.Module):
         if M <= 0:
             return h.new_zeros((C, 0), dtype=self.dtype), None, 0
         if self.engine != "ozaki":
-            y = self.apply(_df_collapse_input(h, l, n_valid))
+            y = self.apply(df_collapse_input(h, l, n_valid))
             return y, None, y.shape[1]
         lat = self.spec.out_latency
         res = self._framed(h, n_valid, x_lo=l, pair=emit_pair)
@@ -1379,8 +1225,8 @@ class FracPolyExec(nn.Module):
         super().__init__()
         if spec.is_whole:
             raise ValueError("FracPolyExec needs a polynomial-mode stage")
-        _check_dtype(dtype)
-        _check_precision(precision)
+        check_dtype(dtype)
+        check_precision(precision)
         self.spec = spec
         self.dtype = dtype
         self.precision = precision if dtype == torch.float32 else "fast"
@@ -1467,7 +1313,7 @@ class FracPolyExec(nn.Module):
             n_valid = N
         M = stage_out_len(self.spec, n_valid)
         if self.engine != "banded" or self.spec.in_latency or M <= 0:
-            y = self.apply(_df_collapse_input(h, l, n_valid))
+            y = self.apply(df_collapse_input(h, l, n_valid))
             return y, None, y.shape[1]
         Mp = -(-M // self.G) * self.G
         res = self._apply_banded(h, Mp, raw=True, x_lo=l, pair=emit_pair)

@@ -17,7 +17,8 @@ object per channel (README.md:52-55).  The sharded form:
 
 Correctness rests on the shift invariance of the planned chain: shifting
 the input by p_in samples shifts the output by p_out = p_in*dst/src samples
-with the same filter phases.  ``chain_shift_period`` computes the least such
+with the same filter phases.  ``chain_shift_period`` (models/lengths.py)
+computes the least such
 (p_in, p_out); halos and segments are rounded to it, so every shard runs
 the same executor shapes on shifted data.  The fused executor
 (ops/fused.py) builds one supercycle of its operator from the period, and
@@ -36,68 +37,24 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from fractions import Fraction
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.lengths import chain_in_for_out, chain_out_len, frac_positions
-from ..models.plan import ConvStage, FracStage, HBDownStage, HBUpStage, Plan
+from ..models.lengths import (chain_in_for_out, chain_input_span,
+                              chain_out_len, chain_shift_period,
+                              frac_positions, round_up)
+from ..models.plan import FracStage, Plan, subplan
 from ..ops.dfloat import df_add, df_add_f, two_prod
 
-__all__ = ["chain_shift_period", "chain_input_span", "split_poly_chain",
-           "poly_split", "shard_geometry", "poly_geometry",
+__all__ = ["split_poly_chain", "poly_split", "shard_geometry", "poly_geometry",
            "ShardedResampler"]
 
 #: Geometries (and the polynomial path's device data) a sharded resampler
 #: keeps, by (out_len, n_in).
 LAYOUT_CACHE = 4
-
-
-def chain_shift_period(plan: Plan) -> Optional[Tuple[int, int]]:
-    """Minimal (p_in, p_out) integer shift-invariance period of the chain,
-    or None when the plan contains a polynomial-mode interpolator."""
-    stages = plan.stages
-    if any(isinstance(s, FracStage) and not s.is_whole for s in stages):
-        return None
-    p = 1
-    for _ in range(16):
-        q = Fraction(p)
-        mult = 1
-        for s in stages:
-            if isinstance(s, ConvStage):
-                q = q * s.up / s.down
-            elif isinstance(s, HBUpStage):
-                q = q * 2
-            elif isinstance(s, HBDownStage):
-                q = q / 2
-            elif isinstance(s, FracStage):
-                q = q * s.out_step / s.in_step
-            if q.denominator != 1:
-                mult = mult * q.denominator // math.gcd(mult, q.denominator)
-        if mult == 1 and q.denominator == 1:
-            return p, int(q)
-        p *= mult
-    return None
-
-
-def chain_input_span(plan: Plan) -> int:
-    """Conservative dependency width: any output sample depends on at most
-    this many consecutive input samples."""
-    span = 1
-    for s in reversed(plan.stages):
-        if isinstance(s, ConvStage):
-            span = ((span - 1) * s.down + s.filt.kernel_len) // s.up + 2
-        elif isinstance(s, HBUpStage):
-            span = span // 2 + 2 * s.hb.num_taps + 2
-        elif isinstance(s, HBDownStage):
-            span = 2 * span + 4 * s.hb.num_taps + 2
-        elif isinstance(s, FracStage):
-            span = int(math.ceil(span * s.src_rate / s.dst_rate)) \
-                + s.filter_len + 2
-    return span
 
 
 def split_poly_chain(plan: Plan):
@@ -112,15 +69,6 @@ def split_poly_chain(plan: Plan):
     return plan.stages[:i], plan.stages[i], plan.stages[i + 1 :]
 
 
-def _subplan(plan: Plan, stages) -> Plan:
-    return Plan(plan.src_rate, plan.dst_rate, plan.trans_band, plan.atten,
-                plan.phase, tuple(stages), plan.latency_frac)
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
 def shard_geometry(plan: Plan, period: Optional[Tuple[int, int]],
                    span: int, n_t: int, out_len: int, n_in: int):
     """Per-shard (M_s, L_s, H, W, R) for ``n_t`` time shards: M_s outputs
@@ -133,20 +81,20 @@ def shard_geometry(plan: Plan, period: Optional[Tuple[int, int]],
         R = max(0, chain_in_for_out(plan.stages, out_len) - L_s)
         return M_s, L_s, 0, 0, R
     p_in, p_out = period
-    M_s = _round_up(_round_up(out_len, n_t) // n_t, p_out)
+    M_s = round_up(round_up(out_len, n_t) // n_t, p_out)
     # cover both the output-derived input need and the whole given input
     # (outputs near out_len reach real samples past out_len * p_in/p_out;
     # cutting real input would feed the last shard zeros)
-    L_s = _round_up(max(M_s * p_in // p_out, -(-n_in // n_t)), p_in)
+    L_s = round_up(max(M_s * p_in // p_out, -(-n_in // n_t)), p_in)
     M_s = L_s * p_out // p_in
-    H = _round_up(span + 64, p_in)
+    H = round_up(span + 64, p_in)
     W = H * p_out // p_in
     need = chain_in_for_out(plan.stages, W + M_s)
     R = max(0, need - (H + L_s))
-    R = _round_up(R, p_in) + p_in
+    R = round_up(R, p_in) + p_in
     if H > L_s or R > L_s:
         # halos come from the immediate neighbour only
-        grow = _round_up(max(H, R), p_in)
+        grow = round_up(max(H, R), p_in)
         L_s = max(L_s, grow)
         M_s = L_s * p_out // p_in
     return M_s, L_s, H, W, R
@@ -157,15 +105,15 @@ def poly_split(plan: Plan) -> dict:
     around the interpolator, their periods and dependency spans.  Raises
     ValueError when the stages around it are not periodic."""
     pre, fs, post = split_poly_chain(plan)
-    pre_p = chain_shift_period(_subplan(plan, pre)) if pre else (1, 1)
-    post_p = chain_shift_period(_subplan(plan, post)) if post else (1, 1)
+    pre_p = chain_shift_period(subplan(plan, pre)) if pre else (1, 1)
+    post_p = chain_shift_period(subplan(plan, post)) if post else (1, 1)
     if pre_p is None or post_p is None:
         raise ValueError("plan has non-periodic stages around the "
                          "polynomial interpolator; channel sharding only")
     return {"pre": pre, "fs": fs, "post": post,
             "pre_p": pre_p, "post_p": post_p,
-            "span_pre": chain_input_span(_subplan(plan, pre)) if pre else 1,
-            "span_post": chain_input_span(_subplan(plan, post))
+            "span_pre": chain_input_span(subplan(plan, pre)) if pre else 1,
+            "span_post": chain_input_span(subplan(plan, post))
             if post else 0}
 
 
@@ -183,17 +131,17 @@ def poly_geometry(plan: Plan, P_: dict, n_t: int, out_len: int,
     in_lat = fs.in_latency
 
     ratio = plan.dst_rate / plan.src_rate
-    Wf_in = _round_up(span_post + 16, sp_in) if post else 0
+    Wf_in = round_up(span_post + 16, sp_in) if post else 0
     Wf_out = Wf_in * sp_out // sp_in if post else 0
 
-    L_s = _round_up(max(-(-n_in // n_t), 2 * pp_in), pp_in)
-    H = _round_up(span_pre + 64, pp_in)
+    L_s = round_up(max(-(-n_in // n_t), 2 * pp_in), pp_in)
+    H = round_up(span_pre + 64, pp_in)
     R = H
     settle = -(-(span_pre * pp_out) // pp_in) + 2
     for _ in range(64):
         # a shard's outputs track its own input segment (shard k's
         # reads land near k*Lmid); n_t*M_s >= out_len by construction
-        M_s = _round_up(max(-(-out_len // n_t),
+        M_s = round_up(max(-(-out_len // n_t),
                             int(math.ceil(L_s * ratio))), sp_out)
         if post:
             Ff = M_s * sp_in // sp_out
@@ -235,18 +183,18 @@ def poly_geometry(plan: Plan, P_: dict, n_t: int, out_len: int,
         relpos = in_lat + s_all - fll - origin
         if n_t > 1 and relpos[1:].min() < settle:
             d = settle - int(relpos[1:].min())
-            H += _round_up(-(-d * pp_in // pp_out) + pp_in, pp_in)
+            H += round_up(-(-d * pp_in // pp_out) + pp_in, pp_in)
             if H > L_s:
-                L_s = _round_up(H, pp_in)
+                L_s = round_up(H, pp_in)
             continue
         if relpos.max() + fl > midlen:
             d = int(relpos.max()) + fl - midlen
-            R += _round_up(-(-d * pp_in // pp_out) + pp_in, pp_in)
+            R += round_up(-(-d * pp_in // pp_out) + pp_in, pp_in)
             if R > L_s:
-                L_s = _round_up(R, pp_in)
+                L_s = round_up(R, pp_in)
             continue
         if H > L_s or R > L_s:
-            L_s = _round_up(max(H, R), pp_in)
+            L_s = round_up(max(H, R), pp_in)
             continue
         break
     else:

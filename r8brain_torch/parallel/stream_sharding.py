@@ -44,9 +44,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.lengths import chain_in_for_out, chain_out_len, frac_positions
-from .sharding import (_round_up, chain_input_span, chain_shift_period,
-                       filter_values, gather_dot, poly_split, spline_values)
+from ..models.lengths import (chain_in_for_out, chain_input_span,
+                              chain_out_len, chain_shift_period,
+                              frac_positions, round_up)
+from .sharding import filter_values, gather_dot, poly_split, spline_values
 
 __all__ = ["ShardedStreamResampler"]
 
@@ -276,35 +277,35 @@ class _RationalShardedStream(_ShardedStream):
         stages = rs.plan.stages
 
         # --- geometry (all period-aligned) -------------------------------
-        H = _round_up(span + 64, p_in)          # history / left halo
-        L = _round_up(max(seg_len, H, 2 * p_in), p_in)  # segment a shard
+        H = round_up(span + 64, p_in)          # history / left halo
+        L = round_up(max(seg_len, H, 2 * p_in), p_in)  # segment a shard
         # steady output lag: n*r - out_len(n) is constant past warm-up
-        n0 = _round_up(3 * (H + L) + span, p_in)
+        n0 = round_up(3 * (H + L) + span, p_in)
         lat_o = n0 * p_out // p_in - chain_out_len(stages, n0)
         # W0: where the steady window [hist H | seg L] starts emitting
         W0 = H * p_out // p_in - lat_o
         while W0 < 0:
-            H += _round_up((-W0) * p_in // p_out + p_in, p_in)
+            H += round_up((-W0) * p_in // p_out + p_in, p_in)
             W0 = H * p_out // p_in - lat_o
         M = L * p_out // p_in                    # outputs a shard a call
         # the steady window must be past warm-up (on the steady line) and
         # causal: out_len(H + L) == (H+L)*r - lat_o >= W0 + M
         guard = 0
         while chain_out_len(stages, H + L) < W0 + M or M <= lat_o:
-            L += _round_up(max(p_in, span), p_in)
+            L += round_up(max(p_in, span), p_in)
             M = L * p_out // p_in
             guard += 1
             assert guard < 64, "cannot reach steady state; plan too deep"
         if H > L:  # halos come from the immediate neighbour
-            L = _round_up(H, p_in)
+            L = round_up(H, p_in)
             M = L * p_out // p_in
         # call 0's right halo: mid / start windows emit [W, W+M) / [0, M)
         # and need chain_in_for_out(W + M) <= H + L + R inputs
         W = H * p_out // p_in
         R = max(0, chain_in_for_out(stages, W + M) - (H + L))
-        R = _round_up(R, p_in) + p_in
+        R = round_up(R, p_in) + p_in
         if R > L:
-            L = _round_up(R, p_in)
+            L = round_up(R, p_in)
             M = L * p_out // p_in
         self.p_in, self.p_out = p_in, p_out
         self.H, self.L, self.M, self.R = H, L, M, R
@@ -395,7 +396,7 @@ class _PolyShardedStream(_ShardedStream):
         lam_post = chain_in_for_out(post, 1) if post else 0
         reach_mid = fl + 66 + int(math.ceil(
             (self.Wf_in + lam_post) * r_frac))
-        H = _round_up(span_pre + 64 + lam_pre
+        H = round_up(span_pre + 64 + lam_pre
                       + (-(-reach_mid * pp_in // pp_out)), pp_in)
         ratio = rs.plan.dst_rate / rs.plan.src_rate
         self._high = rs.precision == "high" and rs.dtype == torch.float32
@@ -404,7 +405,7 @@ class _PolyShardedStream(_ShardedStream):
             # before shard 1 takes over (its window start a_k >= 0)
             L_min = int(math.ceil((self.Wf_out + sp_out + 64) / ratio)) \
                 + span_pre + H if post else 0
-            L = _round_up(max(seg_len, H, 2 * pp_in, L_min), pp_in)
+            L = round_up(max(seg_len, H, 2 * pp_in, L_min), pp_in)
             self.H, self.L = H, L
             self.block = self.n_t * L
             self.midlen = chain_out_len(pre, H + L) if pre else H + L
@@ -437,7 +438,7 @@ class _PolyShardedStream(_ShardedStream):
                     self.n_out += int(sum(counts))
                 break
             except RuntimeError:
-                H = _round_up(H + max(H // 4, pp_in), pp_in)
+                H = round_up(H + max(H // 4, pp_in), pp_in)
         else:
             raise RuntimeError("poly stream geometry did not converge")
         self.reset()

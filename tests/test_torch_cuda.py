@@ -183,7 +183,7 @@ def test_tensor_core_accumulation_pin(cuda_device, terms):
     from r8brain_torch.ops.fused import FusedUpExec
 
     skT = FusedUpExec(make_plan(44100, 96000, 2.0, 180.15, 0),
-                      torch.float32).skT
+                      torch.float32).op.hi
     s0 = torch.round(skT / skT.abs().max() * 255) / 256
     sf = split3(skT)[0]
     rng = np.random.default_rng(17)
@@ -381,8 +381,9 @@ def test_ozaki_kernel_on_chain_operators(cuda_device, carry):
         xp = torch.tensor(rng.uniform(-1, 1, (5, (nb - 1) * hop + L_f)),
                           dtype=torch.float32, device=cuda_device)
         sx = ozaki.channel_scale(xp)
-        args = (xp, sx, ex.oz_parts, L_f, hop, Kcols, nb)
-        y = ozaki_framed(*args, emit_pair=carry, packed=ex.oz_packed)
+        args = (xp, sx, ex.op.parts, L_f, hop, Kcols, nb)
+        y = ozaki_framed(*args, emit_pair=carry,
+                         packed=(ex.op.tiles, ex.op.bands))
         r = ozaki_framed_ref(*args, emit_pair=carry)
         ys, rs_ = (y, r) if carry else ((y,), (r,))
         assert all(torch.equal(a, b) for a, b in zip(ys, rs_))

@@ -172,7 +172,7 @@ def test_frac_im2col_vs_reference():
     frac = make_plan(44100, 96000, 2.0, 180.15, 0).stages[1]
     rfrac = ref_make_plan(44100, 96000, 2.0, 180.15, 0).stages[1]
     ex = FracWholeExec(frac, torch.float32, "high", engine="auto")
-    assert ex.engine == "im2col" and ex.skT_lo is not None
+    assert ex.engine == "im2col" and ex.op.lo is not None
     x64 = np.random.default_rng(6).uniform(-1, 1, (2, 6000))
     x = x64.astype(np.float32)
     y = ex.apply(torch.from_numpy(x)).double().numpy()
@@ -180,7 +180,7 @@ def test_frac_im2col_vs_reference():
                                      engine="im2col").apply(jnp.asarray(x)),
                     np.float64)
     e64 = FracWholeExec(frac, torch.float64, engine="auto")
-    assert e64.engine == "conv" and e64.skT_lo is None
+    assert e64.engine == "conv" and e64.op.lo is None
     y64 = e64.apply(torch.from_numpy(x.astype(np.float64))).numpy()
     assert rms_db(y - ry) < -141.0
     assert rms_db(y - y64) < min(-141.0, rms_db(ry - y64))

@@ -76,8 +76,8 @@ def test_operator_bit_equal_to_reference(cfg, dt):
     ex = port_exec(label, dt)
     assert (ex.p_in, ex.p_out, ex.D, ex.a0, ex.kx) == (
         ref.p_in, ref.p_out, ref.D, ref.a0, ref.kx)
-    assert ex.skT.numpy().dtype == ref.skT.dtype
-    assert np.array_equal(ex.skT.numpy(), ref.skT)
+    assert ex.op.hi.numpy().dtype == ref.skT.dtype
+    assert np.array_equal(ex.op.hi.numpy(), ref.skT)
     assert ex.corr.numpy().dtype == ref.corr.dtype
     assert np.array_equal(ex.corr.numpy(), ref.corr)
     assert np.array_equal(ex.corr_js.numpy(), ref.corr_js)
@@ -88,15 +88,15 @@ def test_high_precision_operator_and_truncation_match_reference():
     ref = RefFusedUpExec(ref_make_plan(44100, 96000, 2.0, 180.15, 0), jnp.float32,
                          precision="high")
     ex = FusedUpExec(plan, torch.float32, precision="high")
-    assert np.array_equal(ex.skT_lo.numpy(), ref.skT_lo)
+    assert np.array_equal(ex.op.lo.numpy(), ref.skT_lo)
     scale = float(np.abs(ref.skT).max())
-    r0, rows = truncate_residual(ex.skT_lo.numpy(), scale)
+    r0, rows = truncate_residual(ex.op.lo.numpy(), scale)
     ref_r0, ref_rows = ref_truncate_residual(ref.skT_lo, scale)
     assert r0 == ref_r0 == ref.lo_r0
     assert np.array_equal(rows, ref_rows) and np.array_equal(rows,
                                                              ref.skT_lo_t)
     # float64 has no residual dot (precision falls back to "fast")
-    assert FusedUpExec(plan, torch.float64, precision="high").skT_lo is None
+    assert FusedUpExec(plan, torch.float64, precision="high").op.lo is None
 
 
 def _padded_input(orc, x, dst, src):

@@ -111,7 +111,8 @@ def test_chain_fold_rule(cfg, precision, folds):
     from r8brain_torch import Resampler
 
     rs = Resampler(*cfg, 0, precision=precision, device="cpu")
-    assert [getattr(e, "kc", None) for e in rs.execs] == folds, \
+    assert [getattr(getattr(e, "op", None), "kc", None)
+            for e in rs.execs] == folds, \
         [type(e).__name__ for e in rs.execs]
 
 
@@ -126,5 +127,5 @@ def test_chain_fold_rule_in_stream_sub_chains():
     rs = Resampler(96000, 2822400, 2.0, 180.15, 0, device="cpu")
     sub = _sub_execs(rs, rs.plan.stages[2:])
     assert [type(e).__name__ for e in sub] == ["ConvExec", "HBUpCascadeExec"]
-    assert [e.kc for e in sub] == [32, 32]
-    assert [e.kc for e in rs.execs[1:]] == [32, 32]
+    assert [e.op.kc for e in sub] == [32, 32]
+    assert [e.op.kc for e in rs.execs[1:]] == [32, 32]

@@ -16,6 +16,7 @@ import torch
 from r8brain_tpu.models.oracle import OracleResampler
 from r8brain_tpu.models.resampler import Resampler as RefResampler
 from r8brain_torch import Resampler
+from r8brain_torch.ops.framing import shifted
 from r8brain_torch.ops.ozaki import channel_scale, framed_cheap
 from r8brain_torch.ops.pallas_ozaki import ozaki_framed, ozaki_framed_ref
 from r8brain_torch.ops.stages import ConvExec, FracWholeExec, build_exec
@@ -149,14 +150,15 @@ def test_last_frac_stage_takes_residual_in_kernel(monkeypatch):
     y, none, M = frac.apply_df(h, l, n, emit_pair=False)
     assert none is None and M == frac.out_len(n) > 0
     geo = D, I, _O, n_cyc = frac.geometry(M)
-    xp = frac._frame(h, M)
-    xl = frac._frame(l, M, torch.bfloat16)
+    need = (n_cyc + -(-D // I)) * I
+    xp = shifted(h, frac.a0, need, torch.float32)
+    xl = shifted(l, frac.a0, need, torch.bfloat16)
     sx = channel_scale(xp[:, : (n_cyc - 1) * I + D])
-    want = ozaki_framed_ref(xp, sx, frac.oz_parts, *geo, x_lo=xl,
+    want = ozaki_framed_ref(xp, sx, frac.op.parts, *geo, x_lo=xl,
                             emit_pair=False)[:, :M]
     assert y.dtype == want.dtype and torch.equal(y, want)
-    cheap = framed_cheap(xl, frac.oz_parts[0], n_cyc, I)
-    yh, yl = ozaki_framed_ref(xp, sx, frac.oz_parts, *geo, emit_pair=True)
+    cheap = framed_cheap(xl, frac.op.parts[0], n_cyc, I)
+    yh, yl = ozaki_framed_ref(xp, sx, frac.op.parts, *geo, emit_pair=True)
     old = (yh + (yl.float() + cheap.reshape(x.shape[0], -1)))[:, :M]
     for c in range(x.shape[0]):
         assert _rel_db(y[c].double().numpy(), old[c].double().numpy()) \

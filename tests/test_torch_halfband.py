@@ -152,14 +152,14 @@ def test_operators_equal_reference(kind):
     for a, b in zip(port, ref):
         ex = Exec(a, torch.float32, precision="high")
         rex = RefExec(b, jnp.float32, precision="high")
-        assert np.array_equal(ex.T.numpy(), np.asarray(rex.T))
+        assert np.array_equal(ex.op.hi.numpy(), np.asarray(rex.T))
         r0, rows = rex.T_lo
-        lo = np.zeros_like(ex.T.numpy())
+        lo = np.zeros_like(ex.op.hi.numpy())
         lo[r0 : r0 + rows.shape[0]] = rows
-        assert np.array_equal(ex.T_lo.numpy(), lo)
+        assert np.array_equal(ex.op.lo.numpy(), lo)
         oz = Exec(a, torch.float32, engine="ozaki")
         roz = RefExec(b, jnp.float32, engine="ozaki")
-        assert np.array_equal(oz.oz_parts.double().numpy(),
+        assert np.array_equal(oz.op.parts.double().numpy(),
                               np.asarray(roz.oz_parts, np.float64))
 
 
@@ -208,15 +208,15 @@ def test_ozaki_product_vs_reference_composition(kind, has_lo, pair):
     hop = HB_BLOCK * (1 if kind == "up" else 2)
     n_blocks, C = 7, 3
     rng = np.random.default_rng(13)
-    span = (n_blocks - 1) * hop + ex.L_f
+    span = (n_blocks - 1) * hop + ex.op.L_f
     xp = rng.standard_normal((C, span)).astype(np.float32)
     xl = (rng.standard_normal((C, span)) * 2.0**-26).astype(np.float32)
     xlt = torch.from_numpy(xl).to(torch.bfloat16) if has_lo else None
     xt = torch.from_numpy(xp)
-    res = ozaki_framed(xt, channel_scale(xt), ex.oz_parts, ex.L_f, hop,
-                       ex.Kcols, n_blocks, x_lo=xlt, emit_pair=pair)
+    res = ozaki_framed(xt, channel_scale(xt), ex.op.parts, ex.op.L_f, hop,
+                       ex.op.Kcols, n_blocks, x_lo=xlt, emit_pair=pair)
     ref = ref_framed_ozaki(jnp.asarray(xp), jnp.asarray(
-        ex.oz_parts.float().numpy(), jnp.bfloat16), n_blocks, hop,
+        ex.op.parts.float().numpy(), jnp.bfloat16), n_blocks, hop,
         x_lo=jnp.asarray(xl, jnp.bfloat16) if has_lo else None, pair=pair)
     if pair:
         y = _np(res[0]) + _np(res[1].float())
@@ -276,9 +276,9 @@ def test_cascade_operator_equals_reference(cfg):
     assert len(port) == m
     ex = _cascade(src, dst, atten, "float32")
     rex = ref_cascade.HBUpCascadeExec(ref, jnp.float32)
-    assert (ex.U, ex.L_f, ex.minr, ex.E, ex.P) == (rex.U, rex.L_f, rex.minr,
-                                                   rex.E, rex.P)
-    assert np.array_equal(ex.T.numpy(), np.asarray(rex.T))
+    assert (ex.U, ex.op.L_f, ex.minr, ex.E, ex.P) == (
+        rex.U, rex.L_f, rex.minr, rex.E, rex.P)
+    assert np.array_equal(ex.op.hi.numpy(), np.asarray(rex.T))
     assert np.array_equal(ex.edge_C.numpy(), np.asarray(rex.C))
     assert np.array_equal(ex.edge_D.numpy(), np.asarray(rex.D))
 

@@ -80,17 +80,17 @@ def test_operator_slices_bit_equal_to_reference(cfg):
     rconv, rfrac = ref_make_plan(src, dst, 2.0, atten, 0).stages
     ce = ConvExec(conv, torch.float32, "high", engine="ozaki")
     rce = RefConvExec(rconv, jnp.float32, precision="high", engine="ozaki")
-    assert (ce.D_direct, ce.B_toep, ce.oz_Lf, ce.s_min) == \
+    assert (ce.D_direct, ce.B_toep, ce.op.L_f, ce.s_min) == \
         (rce.D_direct, rce.B_toep, rce.oz_Lf, rce.s_min)
-    assert np.array_equal(_np(ce.oz_parts.double()), _np(rce.oz_parts))
-    assert np.array_equal(ce.oz_scale, rce.oz_scale)
+    assert np.array_equal(_np(ce.op.parts.double()), _np(rce.oz_parts))
+    assert np.array_equal(ce.op.scale, rce.oz_scale)
     fe = FracWholeExec(frac, torch.float32, "high", engine="ozaki")
     rfe = RefFracWholeExec(rfrac, jnp.float32, precision="high",
                            engine="ozaki")
     assert (fe.a0, fe.D) == (rfe.a0, rfe.D)
     rparts, rscale = ref_oz.split_operator_host(rfe._sk64_t)
-    assert np.array_equal(_np(fe.oz_parts.double()), _np(rparts))
-    assert np.array_equal(fe.oz_scale, rscale)
+    assert np.array_equal(_np(fe.op.parts.double()), _np(rparts))
+    assert np.array_equal(fe.op.scale, rscale)
 
 
 def test_split_operator_exact_and_reconstructs():

@@ -41,7 +41,7 @@ def chain_parts():
     operator slices, with the executors' packing."""
     rs = Resampler(44100, 96000, 2.0, 180.15, precision="high",
                    conv_engine="ozaki", frac_engine="ozaki", device="cpu")
-    return {k: (ex.oz_parts, ex.oz_packed)
+    return {k: (ex.op.parts, (ex.op.tiles, ex.op.bands))
             for k, ex in zip(("conv", "frac"), rs.execs)}
 
 

@@ -155,11 +155,11 @@ def test_f32_model_holds_class_on_flagship(flagship_exec):
     xp = rng.uniform(-1.0, 1.0, (C, (n_win - 1) * I + D))
     x32 = torch.tensor(xp, dtype=torch.float32)
     ref = frac_whole_ref(torch.from_numpy(xp),
-                         operator_parts(ex.skT.double()), I, D, O, n_win)
-    old = rms_db((_chunked_f32(x32, ex.skT, I, D, O, n_win, KC).double()
+                         operator_parts(ex.op.hi.double()), I, D, O, n_win)
+    old = rms_db((_chunked_f32(x32, ex.op.hi, I, D, O, n_win, KC).double()
                   - ref).numpy())
     for kc in (KC_LO, KC):
-        y = frac_whole(x32, ex.sk_parts, I, D, O, n_win, kc=kc).double()
+        y = frac_whole(x32, ex.op.parts, I, D, O, n_win, kc=kc).double()
         db = rms_db((y - ref).numpy())
         assert db < -141.0 and db < old - 3.0, (kc, db, old)
         if kc == KC:
@@ -168,7 +168,7 @@ def test_f32_model_holds_class_on_flagship(flagship_exec):
     xw = x32.unfold(1, D, I)[:, :n_win]
     naive = torch.zeros(C, n_win, O)
     for k in range(D):
-        naive += xw[:, :, k : k + 1] * ex.skT[k]
+        naive += xw[:, :, k : k + 1] * ex.op.hi[k]
     assert rms_db((naive.reshape(C, -1).double() - ref).numpy()) > d + 3.0
 
 
@@ -220,16 +220,16 @@ def test_fold_length_on_the_frac_stage(frac_stage_exec, kc):
     32 terms -148.93), and the previous chunked float32 model's 8-term
     fold (-149.85)."""
     ex = frac_stage_exec
-    assert ex.kc == KC_LO
+    assert ex.op.kc == KC_LO
     D, I, O = ex.D, ex.spec.in_step, ex.spec.out_step
     C, n_win = 2, 300
     xp = np.random.default_rng(7).uniform(-1.0, 1.0, (C, (n_win - 1) * I + D))
     x32 = torch.tensor(xp, dtype=torch.float32)
     ref = frac_whole_ref(x32.double(), operator_parts(
-        ex.skT.double(), ex.skT_lo.double()), I, D, O, n_win)
+        ex.op.hi.double(), ex.op.lo.double()), I, D, O, n_win)
 
     def err_db(k):
-        y = frac_whole(x32, ex.sk_parts, I, D, O, n_win, kc=k)
+        y = frac_whole(x32, ex.op.parts, I, D, O, n_win, kc=k)
         return rms_db((y.double() - ref).numpy())
 
     d = err_db(kc)
@@ -303,8 +303,8 @@ def test_operator_split_on_flagship(flagship_exec):
     and 32-row group of D, k 2^(F-8) with |k| <= 256 and 2^F above the
     group's largest |entry|, and its three slices sum to within 2^(F-27)
     of each entry (rounded to nearest); most entries split exactly."""
-    skT = flagship_exec.skT
-    s = unpack_parts(flagship_exec.sk_parts, *skT.shape)
+    skT = flagship_exec.op.hi
+    s = unpack_parts(flagship_exec.op.parts, *skT.shape)
     assert _on_grids(s[0], skT)
     err = (s.double().sum(dim=0) - skT.double()).abs()
     assert bool((err <= torch.pow(2.0, _group_exponents(skT) - 27)).all())
@@ -524,15 +524,16 @@ def _exec_operators():
                   torch.float32)
     hd = HBDownExec(make_plan(192000, 44100, 2.0, 180.15, 0).stages[0],
                     torch.float32)
-    return [("flagship", fu.p_in, fu.D, fu.p_out, fu.sk_parts, fu.skT, KC),
-            ("toeplitz", tp.B_toep * tp.spec.down, *tp.T_toep.shape,
-             tp.T_toep_parts, tp.T_toep, tp.kc),
-            ("hb_up", hu._geometry(1000)[2], hu.L_f, hu.Kcols, hu.T_parts,
-             hu.T, hu.kc),
-            ("hb_down", hd._geometry(1000)[2], hd.L_f, hd.Kcols, hd.T_parts,
-             hd.T, hd.kc),
+    return [("flagship", fu.p_in, fu.D, fu.p_out, fu.op.parts, fu.op.hi,
+             KC),
+            ("toeplitz", tp.B_toep * tp.spec.down, *tp.op.hi.shape,
+             tp.op.parts, tp.op.hi, tp.op.kc),
+            ("hb_up", hu._geometry(1000)[2], hu.op.L_f, hu.op.Kcols,
+             hu.op.parts, hu.op.hi, hu.op.kc),
+            ("hb_down", hd._geometry(1000)[2], hd.op.L_f, hd.op.Kcols,
+             hd.op.parts, hd.op.hi, hd.op.kc),
             ("direct", dr.spec.down, *dr.skT_direct.shape,
-             dr.skT_direct_parts, dr.skT_direct, KC)]
+             dr.op.parts, dr.skT_direct, KC)]
 
 
 EXEC_OPS = _exec_operators()
@@ -578,14 +579,14 @@ def _fold_cases():
     dr = ConvExec(p96.stages[0], torch.float32, "fast", engine="direct")
     fr = FracWholeExec(p96.stages[1], torch.float32, "high", engine="im2col")
     Ia, Da, Oa, _K = adjoint_geometry(fu.p_in, fu.D, fu.p_out)
-    return [("flagship", fu.p_in, fu.D, fu.p_out, fu.sk_parts),
-            ("pallas", pa.B_pallas * pa.spec.down, *pa.T_pal.shape,
-             pa.T_pal_parts),
-            ("direct", 1, *dr.skT_direct.shape, dr.skT_direct_parts),
+    return [("flagship", fu.p_in, fu.D, fu.p_out, fu.op.parts),
+            ("pallas", pa.B_pallas * pa.spec.down, *pa.op.hi.shape,
+             pa.op.parts),
+            ("direct", 1, *dr.skT_direct.shape, dr.op.parts),
             ("frac_high", fr.spec.in_step, fr.D, fr.spec.out_step,
-             fr.sk_parts),
+             fr.op.parts),
             ("adjoint", Ia, Da, Oa,
-             adjoint_parts(fu.sk_parts, fu.p_in, fu.D, fu.p_out))]
+             adjoint_parts(fu.op.parts, fu.p_in, fu.D, fu.p_out))]
 
 
 FOLD_CASES = _fold_cases()

@@ -36,10 +36,9 @@ from r8brain_tpu.parallel.sharding import chain_shift_period as ref_period
 from r8brain_tpu.parallel.sharding import shard_geometry as ref_geometry
 from r8brain_torch import (Mesh, Resampler, ShardedResampler, make_plan,
                            resample_fn)
+from r8brain_torch.models.lengths import chain_input_span, chain_shift_period
 from r8brain_torch.parallel.dryrun import dryrun_multichip
-from r8brain_torch.parallel.sharding import (chain_input_span,
-                                             chain_shift_period,
-                                             poly_geometry, poly_split,
+from r8brain_torch.parallel.sharding import (poly_geometry, poly_split,
                                              shard_geometry)
 
 from .helpers import lcg_uniform, rms_db

@@ -26,7 +26,7 @@ from r8brain_tpu.models.plan import ConvStage as RefConvStage
 from r8brain_tpu.models.plan import make_plan as ref_make_plan
 from r8brain_tpu.ops.stages import ConvExec as RefConvExec
 from r8brain_torch.models.plan import ConvStage, make_plan
-from r8brain_torch.ops import stages
+from r8brain_torch.ops import operators, stages
 from r8brain_torch.ops.pallas_frac import KC, frac_whole
 from r8brain_torch.ops.pallas_symconv import sym_conv
 from r8brain_torch.ops.stages import MATMUL_ENGINES, ConvExec
@@ -96,18 +96,18 @@ def test_operators_bit_equal(pair, precision):
     assert (d.s_min, d.D_direct) == (rd.s_min, rd.D_direct)
     assert np.array_equal(d.skT_direct.T.numpy(), rd.sk_direct)
     if precision == "high":
-        assert np.array_equal(d.skT_direct_lo.T.numpy(), rd.sk_lo)
+        assert np.array_equal(d.op.lo.T.numpy(), rd.sk_lo)
     else:
-        assert d.skT_direct_lo is None
+        assert d.op.lo is None
     t, rt = ex["toeplitz"], ref["toeplitz"]
     assert t.B_toep == rt.B_toep and len(rt.toep_chunks) == 1
     rd0, rT, rlo = rt.toep_chunks[0]
-    assert rd0 == 0 and t.T_toep.dtype == torch.float32
-    assert np.array_equal(t.T_toep.numpy(), rT) and _lo_equal(t.toep_lo, rlo)
+    assert rd0 == 0 and t.op.hi.dtype == torch.float32
+    assert np.array_equal(t.op.hi.numpy(), rT) and _lo_equal(t.toep_lo, rlo)
     if rlo is not None:
         placed = np.zeros_like(rT)
         placed[rlo[0] : rlo[0] + rlo[1].shape[0]] = rlo[1]
-        assert np.array_equal(t.T_toep_lo.numpy(), placed)
+        assert np.array_equal(t.op.lo.numpy(), placed)
     s, rs = ex["toeplitz_sym"], ref["toeplitz_sym"]
     assert s.engine == rs.engine == "toeplitz_sym"
     assert (s.B_sym, s.sym_dmin, s.sym_comp) \
@@ -130,10 +130,10 @@ def test_operators_bit_equal(pair, precision):
     p, rp = ex["pallas"], ref["pallas"]
     assert (p.B_pallas, p.Lf_pallas) == (rp.B_pallas, rp.Lf_pallas)
     assert np.array_equal(p.T_pallas, rp.T_pallas)
-    assert np.array_equal(p.T_pal.numpy(), rp.T_pallas)
+    assert np.array_equal(p.op.hi.numpy(), rp.T_pallas)
     if precision == "high":
         assert np.array_equal(p.T_pallas_lo, rp.T_pallas_lo)
-        assert np.array_equal(p.T_pal_lo.numpy(), rp.T_pallas_lo)
+        assert np.array_equal(p.op.lo.numpy(), rp.T_pallas_lo)
     else:
         assert p.T_pallas_lo is None and rp.T_pallas_lo is None
 
@@ -225,8 +225,8 @@ def test_toeplitz_is_one_call_at_reference_geometry(pair, precision,
                       engine="toeplitz")
     x = np.random.default_rng(9).uniform(-1, 1, (2, 3000)).astype(np.float32)
     calls = []
-    real = stages.frac_whole
-    monkeypatch.setattr(stages, "frac_whole", lambda *a, **k: calls.append(
+    real = operators.frac_whole
+    monkeypatch.setattr(operators, "frac_whole", lambda *a, **k: calls.append(
         (a[0].shape[1], a[1], a[2:6], k)) or real(*a, **k))
     y, m = ex.apply_v(torch.from_numpy(x), 3000)
     ry, rm = ref.apply_v(jnp.asarray(x), 3000)
@@ -236,9 +236,9 @@ def test_toeplitz_is_one_call_at_reference_geometry(pair, precision,
     n_blocks = ry.shape[1] // (B * up)
     assert len(calls) == 1
     width, T, geo, kw = calls[0]
-    assert T is ex.T_toep_parts and geo == (B * down, L_f, B * up, n_blocks)
-    assert kw == dict(kc=KC, band=ex.T_toep_band)
-    assert (ex.T_toep_lo is None) == (precision == "fast")
+    assert T is ex.op.parts and geo == (B * down, L_f, B * up, n_blocks)
+    assert kw == dict(kc=KC, band=ex.op.band)
+    assert (ex.op.lo is None) == (precision == "fast")
     assert T.shape[2] == (3 if precision == "fast" else 4)
     assert width >= (n_blocks + -(-L_f // (B * down))) * B * down
 
@@ -296,8 +296,8 @@ def test_pallas_keeps_its_engine_at_two_channels(precision, monkeypatch):
     x = torch.from_numpy(np.random.default_rng(1).uniform(
         -1, 1, (2, 3000)).astype(np.float32))
     calls = []
-    real = stages.frac_whole
-    monkeypatch.setattr(stages, "frac_whole",
+    real = operators.frac_whole
+    monkeypatch.setattr(operators, "frac_whole",
                         lambda *a, **k: calls.append(a[2:5]) or real(*a, **k))
     ex.apply(x)
     assert ex.engine == "pallas"
@@ -314,7 +314,7 @@ def test_defaults_match_reference():
     assert ConvExec(st, torch.float64).engine == "fft"
     frac = make_plan(44100, 96000, 2.0, 180.15, 0).stages[1]
     fx = stages.FracWholeExec(frac)
-    assert (fx.engine, fx.precision, fx.skT_lo) == ("im2col", "fast", None)
+    assert (fx.engine, fx.precision, fx.op.lo) == ("im2col", "fast", None)
     with pytest.raises(ValueError, match="unknown conv engine"):
         ConvExec(st, engine="nonesuch")
     with pytest.raises(ValueError, match="unknown frac engine"):

@@ -195,7 +195,7 @@ def test_fold_counters(rs96k):
         c = trace.counters()
     trace.reset_counters()
     walked, full = c["frac_whole.folds"], c["frac_whole.folds_full"]
-    assert (ex.kc, ex.sk_band.folds[ex.kc]) == (32, 126)
+    assert (ex.op.kc, ex.op.band.folds[ex.op.kc]) == (32, 126)
     assert full == 5 * 33 * (walked // 126) and walked % 126 == 0
     assert walked / full == pytest.approx(126 / 165, abs=0)
 

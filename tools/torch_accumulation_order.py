@@ -46,7 +46,7 @@ def main() -> None:
     args = ap.parse_args()
 
     plan = make_plan(44100, 96000, 2.0, 180.15, 0)
-    s64 = FusedUpExec(plan, torch.float64).skT
+    s64 = FusedUpExec(plan, torch.float64).op.hi
     s32 = s64.float()
     I, D = 294, s64.shape[0]
     C, n = args.channels, args.windows

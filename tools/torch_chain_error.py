@@ -90,16 +90,16 @@ def apply_variant(rs, variant: str, stages):
         if m is None and tok not in ("poly64", "polyf32", "symhigh"):
             raise SystemExit(f"unknown variant token {tok!r}")
         for ex in rs.execs if m else ():
-            if isinstance(ex, classes[m[1]]) and hasattr(ex, "kc"):
-                undo.append((ex, "kc", ex.kc))
-                ex.kc = int(m[2])
+            op = getattr(ex, "op", None)
+            if isinstance(ex, classes[m[1]]) and hasattr(op, "kc"):
+                undo.append((op, "kc", op.kc))
+                op.kc = int(m[2])
     swapped = []
     for i, ex in enumerate(rs.execs):
         if ("symhigh" in tokens and isinstance(ex, stages.ConvExec)
                 and ex.engine == "toeplitz_sym" and ex.precision == "fast"):
             hi = stages.ConvExec(ex.spec, ex.dtype, "high",
                                  engine="toeplitz_sym").to(rs.device)
-            hi.kc = ex.kc
             swapped.append((i, ex))
             rs.execs[i] = hi
     for ex in rs.execs:
@@ -201,7 +201,8 @@ def main() -> int:
         print(f"{tag} fused={args.fused} conv_engine={args.conv_engine} "
               f"executors "
               f"{[type(e).__name__ for e in r32.execs]}, folds "
-              f"{[getattr(e, 'kc', None) for e in r32.execs]}")
+              f"{[getattr(getattr(e, 'op', None), 'kc', None)
+                  for e in r32.execs]}")
         # each float32 executor against the float64 executors of the
         # stages it covers (a fused pair or cascade covers several), fed
         # the float64 chain's own input to them

@@ -105,13 +105,13 @@ def main(argv=None) -> int:
     ex = Resampler(44100, 96000, 2.0, 180.15, device=dev).execs[0]
     c1, _poly, c2 = Resampler(44100, 96001, 2.0, 180.15, device=dev).execs
     C = 1024
-    shapes = {"flagship": (ex.p_in, ex.D, ex.p_out, 150, ex.sk_parts,
-                           ex.sk_band)}
+    shapes = {"flagship": (ex.p_in, ex.D, ex.p_out, 150, ex.op.parts,
+                           ex.op.band)}
     for label, cx, n_blk in (("toeplitz964", c1, 173),
                              ("toeplitz561", c2, 188)):
-        shapes[label] = (cx.B_toep * cx.spec.down, cx.T_toep.shape[0],
-                         cx.B_toep * cx.spec.up, n_blk, cx.T_toep_parts,
-                         cx.T_toep_band)
+        shapes[label] = (cx.B_toep * cx.spec.down, cx.op.L_f,
+                         cx.B_toep * cx.spec.up, n_blk, cx.op.parts,
+                         cx.op.band)
     shapes["direct"] = (1, 709, 2, 44106, None, None)
     calls = {}
     for label, (I, D, O, n_win, parts, band) in shapes.items():
@@ -156,12 +156,12 @@ def main(argv=None) -> int:
     cx = Resampler(44100, 96000, 2.0, 180.15, fused=False,
                    device=dev).execs[0]
     B, down, up = cx.B_toep, cx.spec.down, cx.spec.up
-    L_f, n_blk = cx.T_toep.shape[0], 173
+    L_f, n_blk = cx.op.L_f, 173
     xt = torch.rand((C, (n_blk - 1) * B * down + L_f), generator=g,
                     device=dev) * 2 - 1
     xf, _p, _b, If, Df, Of, nf, _y = calls["flagship"]
-    wide = {"flagship": (xf, If, Df, Of, nf, ex.skT),
-            "toeplitz": (xt, B * down, L_f, B * up, n_blk, cx.T_toep)}
+    wide = {"flagship": (xf, If, Df, Of, nf, ex.op.hi),
+            "toeplitz": (xt, B * down, L_f, B * up, n_blk, cx.op.hi)}
     for label, (xp, I, D, O, n_win, skT) in (wide.items() if "base" in lib
                                              else ()):
         y = torch.empty((C, n_win * O), device=dev)

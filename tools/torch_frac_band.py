@@ -48,22 +48,19 @@ def full_band(parts, D: int):
 
 def _record(fn):
     """fn() with the executors' frac_whole calls recorded as (args, kw)."""
-    from r8brain_torch.ops import fused, hb_cascade, stages
+    from r8brain_torch.ops import operators
 
-    mods, calls = (fused, hb_cascade, stages), []
-    real = fused.frac_whole
+    calls, real = [], operators.frac_whole
 
     def rec(*args, **kw):
         calls.append((args, kw))
         return real(*args, **kw)
 
     try:
-        for m in mods:
-            m.frac_whole = rec
+        operators.frac_whole = rec
         fn()
     finally:
-        for m in mods:
-            m.frac_whole = real
+        operators.frac_whole = real
     return calls
 
 
@@ -95,7 +92,6 @@ def call(label: str, dev, channels: int = CHANNELS):
 
     from r8brain_torch.models.plan import make_plan
     from r8brain_torch.ops.fused import FusedUpExec
-    from r8brain_torch.ops.pallas_frac import KC
     from r8brain_torch.ops.stages import ConvExec, HBDownExec, HBUpExec
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -105,14 +101,14 @@ def call(label: str, dev, channels: int = CHANNELS):
     if label.startswith("flagship"):
         ex = FusedUpExec(make_plan(44100, 96000, 2.0, 180.15, 0), f32,
                          label.split("_")[1]).to(dev)
-        geo = (ex.p_in, ex.D, ex.p_out, 150, ex.sk_parts, ex.kc, ex.sk_band)
+        geo = (ex.p_in, ex.D, ex.p_out, 150, ex.op.parts, ex.op.kc,
+               ex.op.band)
     elif label.startswith("toeplitz"):
         p = make_plan(44100, 96001, 2.0, 180.15, 0)
         i, n_blk = (0, 173) if label == "toeplitz_964" else (2, 188)
         ex = ConvExec(p.stages[i], f32, "fast", engine="toeplitz").to(dev)
-        geo = (ex.B_toep * ex.spec.down, ex.T_toep.shape[0],
-               ex.B_toep * ex.spec.up, n_blk, ex.T_toep_parts, ex.kc,
-               ex.T_toep_band)
+        geo = (ex.B_toep * ex.spec.down, ex.op.L_f, ex.B_toep * ex.spec.up,
+               n_blk, ex.op.parts, ex.op.kc, ex.op.band)
     elif label.startswith("hb"):
         up = label == "hb_up"
         p = make_plan(*((44100, 192000) if up else (192000, 44100)), 2.0,
@@ -120,13 +116,13 @@ def call(label: str, dev, channels: int = CHANNELS):
         kind = "hb_up" if up else "hb_down"
         spec = next(s for s in p.stages if s.kind == kind)
         ex = (HBUpExec if up else HBDownExec)(spec, f32).to(dev)
-        geo = (ex._geometry(ex.L_f)[2], ex.L_f, ex.Kcols, 750 if up else 757,
-               ex.T_parts, ex.kc, ex.T_band)
+        geo = (ex._geometry(ex.op.L_f)[2], ex.op.L_f, ex.op.Kcols,
+               750 if up else 757, ex.op.parts, ex.op.kc, ex.op.band)
     elif label == "direct":
         ex = ConvExec(make_plan(44100, 96000, 2.0, 180.15, 0).stages[0], f32,
                       "fast", engine="direct").to(dev)
-        geo = (ex.spec.down, ex.D_direct, ex.spec.up, 44106,
-               ex.skT_direct_parts, KC, ex.skT_direct_band)
+        geo = (ex.spec.down, ex.D_direct, ex.spec.up, 44106, ex.op.parts,
+               ex.op.kc, ex.op.band)
     else:
         raise ValueError(f"unknown call {label!r}")
     I, D, O, n_win, parts, kc, band = geo

@@ -102,7 +102,7 @@ def calls(dev, only=LABELS):
 
     from r8brain_torch.models.plan import make_plan
     from r8brain_torch.ops.fused import FusedUpExec
-    from r8brain_torch.ops.pallas_frac import KC_LO, operator_parts
+    from r8brain_torch.ops.pallas_frac import operator_parts
     from r8brain_torch.ops.stages import ConvExec, HBUpExec
 
     p96 = make_plan(44100, 96000, 2.0, 180.15, 0)
@@ -112,30 +112,22 @@ def calls(dev, only=LABELS):
         call, prec = label.split()
         if call == "flagship":
             ex = FusedUpExec(p96, torch.float32, prec).to(dev)
-            geo = (ex.p_in, ex.D, ex.p_out, 8, ex.sk_parts, ex.skT,
-                   ex.skT_lo)
-            band = ex.sk_band
+            head = (ex.p_in, ex.D, ex.p_out, 8)
         elif call == "hb_up":
             ex = HBUpExec(hb, torch.float32, precision=prec).to(dev)
-            geo = (128, ex.L_f, ex.Kcols, 20, ex.T_parts, ex.T, ex.T_lo)
-            band = ex.T_band
+            head = (128, ex.op.L_f, ex.op.Kcols, 20)
         elif call == "toeplitz":
             ex = ConvExec(p96.stages[0], torch.float32, prec,
                           engine="toeplitz").to(dev)
-            geo = (ex.B_toep * ex.spec.down, *ex.T_toep.shape, 10,
-                   ex.T_toep_parts, ex.T_toep, ex.T_toep_lo)
-            band = ex.T_toep_band
+            head = (ex.B_toep * ex.spec.down, ex.op.L_f, ex.op.Kcols, 10)
         else:
             ex = ConvExec(p96.stages[0], torch.float32, prec,
                           engine="direct").to(dev)
-            geo = (ex.spec.down, *ex.skT_direct.shape, 100,
-                   ex.skT_direct_parts, ex.skT_direct, ex.skT_direct_lo)
-            band = ex.skT_direct_band
-        *head, hi, lo = geo
-        p64 = operator_parts(hi.double(), None if lo is None else lo.double())
-        # the direct stage folds 16 under "high" (ConvExec._apply_direct)
-        kc = KC_LO if call == "direct" and lo is not None else ex.kc
-        out.append((label, *head, p64, kc, band))
+            head = (ex.spec.down, ex.op.L_f, ex.op.Kcols, 100)
+        op = ex.op
+        p64 = operator_parts(op.hi.double(),
+                             None if op.lo is None else op.lo.double())
+        out.append((label, *head, op.parts, p64, op.kc, op.band))
     return out
 
 

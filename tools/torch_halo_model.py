@@ -30,9 +30,10 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from r8brain_torch.models.lengths import (  # noqa: E402
+    chain_input_span, chain_shift_period)
 from r8brain_torch.models.plan import make_plan  # noqa: E402
-from r8brain_torch.parallel.sharding import (  # noqa: E402
-    chain_input_span, chain_shift_period, shard_geometry)
+from r8brain_torch.parallel.sharding import shard_geometry  # noqa: E402
 
 
 def efficiency(plan, period, span, n_t: int, n_in: int) -> dict:

@@ -90,8 +90,9 @@ def main(argv=None) -> int:
         xp = torch.rand((C, (nb - 1) * hop + L_f), generator=g,
                         device=dev) * 2 - 1
         y = torch.empty((C, nb * Kcols), device=dev)
-        calls[label] = launch_args(xp, channel_scale(xp), ex.oz_packed, L_f,
-                                   hop, Kcols, nb, None, y, None)
+        calls[label] = launch_args(xp, channel_scale(xp),
+                                   (ex.op.tiles, ex.op.bands), L_f, hop,
+                                   Kcols, nb, None, y, None)
     stream = torch.cuda.current_stream().cuda_stream
 
     for name in VARIANTS:
