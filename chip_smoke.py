@@ -43,8 +43,10 @@ uniform float32 input:
   as one cascade: ``frac_whole`` at O = 4096; its device memory peak
   held under 40 GB), SACD -> PCM 2.8224 MHz -> 96 kHz (three half-band
   decimators, fused pair) and 44.1 kHz -> 96001 Hz (conv, polynomial
-  interpolator on ``torch.matmul`` in IEEE float32, conv) fast and high
-  (and again with TF32 on: bit-equal), each checked at -141 dB ("fast")
+  interpolator, conv) fast (the interpolator on ``poly_dot``, held to its
+  plain version and to the banded contraction, timed beside its bound;
+  again with TF32 on: bit-equal) and high (on ``torch.matmul`` in IEEE
+  float32), each checked at -141 dB ("fast")
   or -143 dB ("high"); and their guarantee chains (44.1 kHz -> 192 kHz,
   44.1 kHz -> 96001 Hz, 192 kHz -> 44.1 kHz) with the carry on and off,
   at -150 and -141 dB.  Every kernel call shape these paths make that no
@@ -315,15 +317,15 @@ RESIDUAL_PATHS = ("direct/high",)
 
 # the half-band, cascade and polynomial paths (default engines): (label,
 # src, dst, seconds of input, precision, frac_whole launches a oneshot,
-# bound dB re full scale)
+# poly_dot launches a oneshot, bound dB re full scale)
 STAGE_PATHS = (
-    ("44.1k->192k fast", 44100, 192000, 1.0, "fast", 3, CLASS_DB),
-    ("44.1k->192k high", 44100, 192000, 1.0, "high", 3, HIGH_CHAIN_DB),
-    ("192k->44.1k fast", 192000, 44100, 1.0, "fast", 2, CLASS_DB),
-    ("44.1k->2.8224M fast", 44100, 2822400, 1.0, "fast", 2, CLASS_DB),
-    ("2.8224M->96k fast", 2822400, 96000, 0.25, "fast", 4, CLASS_DB),
-    ("44.1k->96001 fast", 44100, 96001, 1.0, "fast", 2, CLASS_DB),
-    ("44.1k->96001 high", 44100, 96001, 1.0, "high", 2, HIGH_CHAIN_DB))
+    ("44.1k->192k fast", 44100, 192000, 1.0, "fast", 3, 0, CLASS_DB),
+    ("44.1k->192k high", 44100, 192000, 1.0, "high", 3, 0, HIGH_CHAIN_DB),
+    ("192k->44.1k fast", 192000, 44100, 1.0, "fast", 2, 0, CLASS_DB),
+    ("44.1k->2.8224M fast", 44100, 2822400, 1.0, "fast", 2, 0, CLASS_DB),
+    ("2.8224M->96k fast", 2822400, 96000, 0.25, "fast", 4, 0, CLASS_DB),
+    ("44.1k->96001 fast", 44100, 96001, 1.0, "fast", 2, 1, CLASS_DB),
+    ("44.1k->96001 high", 44100, 96001, 1.0, "high", 2, 0, HIGH_CHAIN_DB))
 # the guarantee chains of those plans: (label, src, dst), each with the
 # df32 carry on and off
 OZ_PATHS = (("44.1k->192k", 44100, 192000), ("44.1k->96001", 44100, 96001),
@@ -551,7 +553,7 @@ def build_kernels() -> None:
     from r8brain_torch.ops import _cuda
 
     names = ["frac_whole", "ozaki_framed", "df_fft_conv", "sym_conv",
-             "dense_gemm"]
+             "dense_gemm", "poly_dot"]
     t0 = time.perf_counter()
     _cuda.build(names)
     print(f"build: {', '.join(names)} {time.perf_counter() - t0:.1f} s")
@@ -1991,13 +1993,50 @@ def poly_parts_ms(ex, v, reps: int = 5):
              ("spline residual", resid))}, len(chunks)
 
 
+def poly_dot_record(label, ex, v, m, card, launches):
+    """poly_dot at the polynomial stage's seam call
+    (tools/torch_poly_dot.py seam_call): one launch a stage call, within
+    ``abs_bound`` of its plain version and of the banded contraction it
+    replaces, timed beside the bytes' bound, the plain version and the
+    library yardstick (the stage on the banded contraction).  launches:
+    the kernel's launches in the path's own first oneshot (stage_paths),
+    the record's count."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_poly_dot
+
+    sc = torch_poly_dot.seam_call(ex, v, m)
+    shape = " ".join(f"{k}={x}" for k, x in sc["shape"].items())
+    check(sc["launches"] == 1 and sc["same_shape"], f"{label}: poly_dot "
+          f"launched {sc['launches']} times a stage call, shapes equal to "
+          f"the banded contraction's: {sc['same_shape']}")
+    check(sc["of_bound_plain"] <= 1.0 and sc["of_bound_banded"] <= 1.0,
+          f"{label}: poly_dot at {sc['of_bound_plain']:.3f} / "
+          f"{sc['of_bound_banded']:.3f} of abs_bound from its plain version "
+          f"/ the banded contraction")
+    print(f"timing {card}: poly_dot ({label}, {shape}) kernel "
+          f"{sc['kernel_ms']:.4f} ms, bound {sc['bound_ms']:.4f} ms by bytes "
+          f"({sc['mbytes']:.1f} MB), plain poly_dot_ref {sc['plain_ms']:.3f} "
+          f"ms, the stage on the banded contraction {sc['banded_ms']:.3f} ms; "
+          f"{sc['of_bound_plain']:.3f} / {sc['of_bound_banded']:.3f} of "
+          f"abs_bound from the plain version / the banded contraction")
+    return {"name": f"poly_dot[{label}]", "route": "cuda",
+            "source": "r8brain_torch/csrc/poly_dot.cu",
+            "replaces": "none (r8brain_tpu/ops/stages.py FracPolyExec is XLA)",
+            "launches": launches, "max_abs_err": sc["max_abs"],
+            "ms": sc["kernel_ms"], "plain_ms": sc["plain_ms"],
+            "bound_ms": sc["bound_ms"], "bound_by": "bytes",
+            "library_ms": sc["banded_ms"]}
+
+
 def stage_paths(dev, peaks, card):
     """The half-band, cascade and polynomial paths (STAGE_PATHS), each
-    counted (launches set to 0 just before, read just after, and held to
-    the path's count), checked against the port's float64 CPU path and
-    timed; PCM -> DSD64's device memory peak held under PEAK_GB; the
-    polynomial stage timed alone and its chain run again with TF32 on
-    (bit-equal: the stage forces IEEE float32 products).  Every
+    counted (frac_whole's and poly_dot's launches set to 0 just before,
+    read just after, and held to the path's counts), checked against the
+    port's float64 CPU path and timed; PCM -> DSD64's device memory peak held under PEAK_GB; the
+    polynomial stage timed alone (under "fast" its ``poly_dot`` record,
+    ``poly_dot_record``) and the fast chain run again with TF32 on
+    (bit-equal: its polynomial stage runs no matmul).  Every
     frac_whole call shape no earlier phase recorded gets a record
     (frac_record)."""
     import torch
@@ -2005,9 +2044,10 @@ def stage_paths(dev, peaks, card):
     from r8brain_torch import Resampler
     from r8brain_torch.ops import operators
     from r8brain_torch.ops.pallas_frac import frac_whole
+    from r8brain_torch.ops.poly_dot import poly_dot
 
     refs, records, seen = {}, [], set(FRAC_SHAPES_SEEN)
-    for label, src, dst, secs, prec, want, bound_db in STAGE_PATHS:
+    for label, src, dst, secs, prec, want, want_pd, bound_db in STAGE_PATHS:
         n = int(round(src * secs))
         x = uniform_input(dev, n)
         if (src, dst, n) not in refs:
@@ -2016,12 +2056,12 @@ def stage_paths(dev, peaks, card):
         rs = Resampler(src, dst, TB, ATTEN, precision=prec, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        frac_whole.launches = 0
+        frac_whole.launches = poly_dot.launches = 0
         t0 = time.perf_counter()
         out, calls = record_calls(rs, x, (operators,), "frac_whole")
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        got = frac_whole.launches
+        got, got_pd = frac_whole.launches, poly_dot.launches
         peak = torch.cuda.max_memory_allocated() / 1e9
         out_len = rs.default_out_len(n)
         check(tuple(out.shape) == (CHANNELS, out_len),
@@ -2029,6 +2069,8 @@ def stage_paths(dev, peaks, card):
         check(bool(torch.isfinite(out).all()), f"{label} output not finite")
         check(got == want == len(calls), f"path {label} launched frac_whole "
               f"{got} times ({len(calls)} calls), want {want}")
+        check(got_pd == want_pd, f"path {label} launched poly_dot {got_pd} "
+              f"times, want {want_pd}")
         db = rms_db(out[:N_CMP].cpu().double().numpy()[:, sk:-sk]
                     - r64[:, sk:-sk])
         print(f"stage path {label}: Resampler({src}, {dst}, {TB}, {ATTEN}, "
@@ -2036,7 +2078,8 @@ def stage_paths(dev, peaks, card):
               f"executors {[type(e).__name__ for e in rs.execs]}; {N_CMP} "
               f"channels vs port f64 CPU path {db:.2f} dB re full scale "
               f"(bound {bound_db:g}, {EDGE_S * 1e3:g} ms edge skip); "
-              f"frac_whole launches {got}; device memory peak {peak:.2f} GB")
+              f"frac_whole launches {got}, poly_dot {got_pd}; device memory "
+              f"peak {peak:.2f} GB")
         check(db <= bound_db, f"stage path {label}: {db:.2f} dB misses "
               f"{bound_db:g} dB")
         check(peak <= PEAK_GB, f"stage path {label}: {peak:.2f} GB of "
@@ -2068,9 +2111,13 @@ def stage_paths(dev, peaks, card):
             for e in rs.execs[:i]:
                 v, m = e.apply_v(v, m)
             p_ms = cuda_ms(lambda: poly[0].apply_v(v, m), reps=5)
-            print(f"timing {card}: {label} polynomial stage (banded, "
-                  f"S={poly[0].S} G={poly[0].G} W={poly[0].W}, torch.matmul "
-                  f"in IEEE float32; no kernel of its own) {p_ms:.3f} ms")
+            print(f"timing {card}: {label} polynomial stage ("
+                  f"{'poly_dot' if prec == 'fast' else 'banded'}, "
+                  f"S={poly[0].S} G={poly[0].G} W={poly[0].W}) "
+                  f"{p_ms:.3f} ms")
+            if prec == "fast":
+                records.append(poly_dot_record(label, poly[0], v, m, card,
+                                               got_pd))
             if prec == "high":
                 parts_ms, n_chunks = poly_parts_ms(poly[0], v)
                 print(f"timing {card}: {label} polynomial stage by part "

@@ -40,7 +40,8 @@ Ported: every stage kind the planner makes.
 * ``FracPolyExec``: polynomial mode, a banded batched product against
   operators built from host-side float64 positions (IEEE float32, or the
   error-free split form under frac_engine="ozaki"), or a per-tap gather
-  in float64.
+  in float64; on the card the float32 "fast" contraction without a seam
+  residual or a pair is one ``poly_dot`` (ops/poly_dot.py).
 
 Each engine on ``frac_whole`` or ``ozaki_framed`` holds its banded
 operator as ``op`` (ops/operators.py), which frames the input and makes
@@ -70,6 +71,7 @@ from .pallas_dfft import (DfFFTPlan, df_fft_conv, framed_supported,
                           supported_n)
 from .pallas_frac import KC, KC_LO
 from .pallas_symconv import BH, sym_conv, sym_parts
+from .poly_dot import poly_dot, tile_width
 
 __all__ = ["truncate_residual", "check_dtype", "check_precision",
            "df_collapse_input", "ConvExec", "FracWholeExec", "HBUpExec",
@@ -1208,7 +1210,13 @@ class FracPolyExec(nn.Module):
         sum of a window's taps was the chain's largest error on an H100
         (about -146 dB re full scale, against -150 for each frac_whole
         stage); ``poly_contract`` runs it, for the oneshot and the
-        stream.
+        stream.  On the card the oneshot's float32 "fast" contraction
+        without a seam residual or a pair is one ``poly_dot`` launch
+        (ops/poly_dot.py) over the window starts and the same rounded
+        values, with no pad, chunks or operators (``_takes_kernel``); the
+        CPU keeps the banded contraction, its outputs unchanged.  Each
+        call counts ``poly.kernel`` or ``poly.banded`` by the path it
+        took.
       * "gather" (float64's "auto"): one gather a tap with the filter
         evaluated in the stage's dtype, in the oracle's summation order
         (``gather``).
@@ -1407,8 +1415,48 @@ class FracPolyExec(nn.Module):
             check=True)) for g0, nloc, A, off in chunks]
         return built, need_len, pad_l + shift
 
+    def _dot_state(self, M: int, dev):
+        """(starts int32 [M], taps [M, fl], width) of ``poly_dot``: the
+        window starts of outputs [0, M) in the input's coordinates and the
+        values ``operators`` places, evaluated in float64 on ``dev`` and
+        rounded once, shipped in one copy; ``width`` (``tile_width``) from
+        the host's starts."""
+        start, fti, t = self.host_positions(M)
+        d = _to_device(np.stack([start, fti, t]).astype(np.float64), dev)
+        return (d[0].int(), self.values(d[1].long(), d[2]).to(self.dtype),
+                tile_width(start, self.fl))
+
+    def _dot_math(self, x: torch.Tensor, x_lo, pair: bool) -> bool:
+        """True where ``poly_dot`` computes the contraction's arithmetic: a
+        float32 tensor, precision "fast" (so no split products), no seam
+        residual and no pair."""
+        return (x.dtype == self.dtype == torch.float32
+                and self.precision == "fast" and x_lo is None and not pair)
+
+    def _takes_kernel(self, x: torch.Tensor, x_lo, pair: bool) -> bool:
+        """True where the contraction runs on ``poly_dot``: on the card,
+        where the kernel is, and ``_dot_math``."""
+        return x.is_cuda and self._dot_math(x, x_lo, pair)
+
     def _apply_banded(self, x: torch.Tensor, M: int, raw: bool = False,
                       x_lo=None, pair: bool = False):
+        if self._takes_kernel(x, x_lo, pair):
+            return self._apply_kernel(x, M)
+        return self._apply_operators(x, M, raw, x_lo, pair)
+
+    def _apply_kernel(self, x: torch.Tensor, M: int) -> torch.Tensor:
+        """The contraction's M columns on ``poly_dot``."""
+        count("poly.kernel")
+        starts, taps, width = poly_cached(
+            self._state, ("dot", M, x.device),
+            lambda: self._dot_state(M, x.device))
+        return poly_dot(x, starts, taps, width)
+
+    def _apply_operators(self, x: torch.Tensor, M: int, raw: bool = False,
+                         x_lo=None, pair: bool = False):
+        """The contraction on the banded operators (raw: the chunks'
+        ceil(M/G)*G columns)."""
+        count("poly.banded")
         C, N = x.shape
         G, S, W = self.G, self.S, self.W
         chunks, need_len, pad_l = poly_cached(

@@ -25,7 +25,8 @@ synchronises or allocates.  The names the package records:
   ``r8b.poly.operators`` (their upload and the operators' build),
   ``r8b.stream.suffix`` (the suffix ring after the polynomial stage),
   ``r8b.exec.<class>`` (each executor call of ``run_chain``),
-  ``r8b.kernel.<name>`` (the CUDA kernels' wrappers), and in the
+  ``r8b.kernel.<name>`` (the CUDA kernels' wrappers, ``poly_dot`` among
+  them), and in the
   guarantee chain ``r8b.ozaki.prep`` (an ozaki executor's framing copies
   and per-channel scales before each ``ozaki_framed`` call) and
   ``r8b.ozaki.carry`` (the df32 carry's torch work: the framing copy of
@@ -36,9 +37,11 @@ synchronises or allocates.  The names the package records:
   ``poly_cache.hit`` and ``poly_cache.miss`` (a polynomial stage's state
   for one input length found in its cache, or built on the host and
   uploaded), ``frac_whole.folds`` and ``frac_whole.folds_full`` (the
-  folds ``frac_whole`` walks, and those of all of D), and
+  folds ``frac_whole`` walks, and those of all of D),
   ``ozaki_framed.macs`` (the multiply-adds of each ``ozaki_framed``
-  call).
+  call), and ``poly.kernel`` and ``poly.banded`` (one a polynomial
+  stage's banded-engine call, by the path its contraction took:
+  ``poly_dot``, or the banded operators).
 """
 
 from __future__ import annotations

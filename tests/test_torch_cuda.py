@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from r8brain_torch import Resampler
+from r8brain_torch import Resampler, resample_fn
 from r8brain_torch.ops import ozaki
 from r8brain_torch.ops.framing import _framed_matmul
 from r8brain_torch.ops.pallas_dfft import (SMEM_MAX_N, DfFFTPlan,
@@ -24,11 +24,13 @@ from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
 from r8brain_torch.ops.pallas_ozaki import (lemma_operands, mma_dot,
                                             ozaki_framed, ozaki_framed_ref,
                                             pack_operator, wgmma_dot)
+from r8brain_torch.ops import stages
+from r8brain_torch.ops.poly_dot import abs_bound, poly_dot, poly_dot_ref
 from r8brain_torch.ops.pallas_symconv import (sym_conv, sym_conv_ref,
                                                sym_ops_high, sym_parts)
 from r8brain_torch.ops.scout import M_TILES, dense_gemm, dense_gemm_ref
 
-from tools import torch_frac_band, torch_frac_beta, torch_fuzz
+from tools import torch_frac_band, torch_frac_beta, torch_fuzz, torch_poly_dot
 from tools.torch_sym_beta import truncation_model
 
 from .helpers import lcg_uniform, load_golden, load_manifest, rms_db
@@ -958,8 +960,11 @@ def test_cascade_f64_on_card(cuda_device):
 def test_poly_operators_on_card_equal_cpu(cuda_device, kw):
     """The polynomial stage's operators placed (and split) on the card
     from the host float64 filter values are the CPU's bit for bit, chunk
-    by chunk, and the stage on the card holds the CPU's output within a
-    few float32 ulps (the batched matmuls sum in their own order)."""
+    by chunk; under "fast" the card runs poly_dot instead, and its window
+    starts and taps (the same values, rounded once) are the CPU's bit for
+    bit.  The stage on the card holds the CPU's output within a few
+    float32 ulps (the batched matmuls and the kernel sum in their own
+    order)."""
     from r8brain_torch.models.plan import make_plan
     from r8brain_torch.ops import stages
 
@@ -972,14 +977,22 @@ def test_poly_operators_on_card_equal_cpu(cuda_device, kw):
     card = stages.FracPolyExec(spec, torch.float32, **kw).to(cuda_device)
     y_cpu, y_card = cpu.apply(x), card.apply(x.to(cuda_device)).cpu()
     (c_cpu, *_), = cpu._state.values()
-    (c_card, *_), = card._state.values()
-    assert len(c_cpu) == len(c_card)
-    for (A, n, ops), (A2, n2, ops2) in zip(c_cpu, c_card):
-        assert (A, n) == (A2, n2) and set(ops) == set(ops2)
-        for k, v in ops.items():
-            assert (v is None) == (ops2[k] is None)
-            if v is not None:
-                assert torch.equal(v, ops2[k].cpu()), k
+    (key_card, st_card), = card._state.items()
+    if key_card[0] == "dot":
+        assert kw == dict(precision="fast")
+        want = cpu._dot_state(key_card[1], torch.device("cpu"))
+        assert torch.equal(want[0], st_card[0].cpu())
+        assert torch.equal(want[1], st_card[1].cpu())
+        assert want[2] == st_card[2]
+    else:
+        c_card = st_card[0]
+        assert len(c_cpu) == len(c_card)
+        for (A, n, ops), (A2, n2, ops2) in zip(c_cpu, c_card):
+            assert (A, n) == (A2, n2) and set(ops) == set(ops2)
+            for k, v in ops.items():
+                assert (v is None) == (ops2[k] is None)
+                if v is not None:
+                    assert torch.equal(v, ops2[k].cpu()), k
     assert (y_cpu - y_card).abs().max() <= 2.0**-20 * y_cpu.abs().max()
 
 
@@ -1210,3 +1223,86 @@ def test_fuzzer_32_draws_on_card(cuda_device):
     assert not fails, fails
     over = summary["re_fs_over_141"]
     assert all(n == 0 for n in over.values()), summary
+
+
+# poly_dot, the polynomial stage's fast contraction.  Tolerance: the kernel
+# sums each output as one fmaf chain in tap order, the plain version rounds
+# each product first and the banded contraction sums in the GEMM's order;
+# each float32 sum is within (fl - 1) 2^-24 of the sum of the products'
+# magnitudes, so any two within ``abs_bound`` = 2 fl 2^-24 of it.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+def test_poly_dot_matches_plain(cuda_device, case):
+    """The kernel against poly_dot_ref within abs_bound at ragged shapes
+    (tools/torch_poly_dot.ragged_cases): C = 1, 2, 3, 130, 1024; starts
+    below 0 and windows past N; contiguous x (TMA boxes) and a row-strided
+    view at an unaligned offset (element copies); M a multiple of 4 (bulk
+    row stores) or not; fl 24, 18 (runs split), 17 and 26."""
+    label, x, starts, taps = torch_poly_dot.ragged_cases(cuda_device)[case]
+    before = poly_dot.launches
+    y = poly_dot(x, starts, taps)
+    torch.cuda.synchronize()
+    assert poly_dot.launches == before + 1
+    r = torch_poly_dot.within(y, poly_dot_ref(x, starts, taps),
+                              abs_bound(x, starts, taps))
+    assert r <= 1.0, (label, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+def test_poly_dot_narrow_width(cuda_device, case):
+    """A width below a tile's span (here fl, so nearly every tile) sizes
+    the shared-memory rows too small: those tiles read x from global
+    memory and sum the same fmaf chains, bit for bit the outputs at
+    ``tile_width``."""
+    label, x, starts, taps = torch_poly_dot.ragged_cases(cuda_device)[case]
+    fl = taps.shape[1]
+    y = poly_dot(x, starts, taps)
+    y_narrow = poly_dot(x, starts, taps, fl)
+    torch.cuda.synchronize()
+    assert torch.equal(y_narrow, y), label
+
+
+@pytest.mark.cuda
+def test_poly_dot_at_the_cell_shape(cuda_device):
+    """44.1k -> 96001 at 1024 channels (the benchmark cell's polynomial
+    stage, seam path): the kernel against its plain version, and the
+    stage on the kernel against the stage on the banded contraction it
+    replaces, each within abs_bound, the shapes and counts equal."""
+    _rs, ex, _x, v, m, Mp = torch_poly_dot.stage_input(cuda_device)
+    starts, taps, width = ex._dot_state(Mp, cuda_device)
+    bnd = abs_bound(v, starts, taps)
+    y = poly_dot(v, starts, taps, width)
+    assert torch_poly_dot.within(y, poly_dot_ref(v, starts, taps),
+                                 bnd) <= 1.0
+    y_kern, m_kern = ex.apply_v(v, m)
+    y_band = ex._apply_operators(v, Mp, raw=True)
+    assert m_kern == ex.out_len(m)
+    assert y_kern.shape == y_band.shape == (1024, Mp)
+    assert torch_poly_dot.within(y_kern, y_band, bnd) <= 1.0
+
+
+@pytest.mark.cuda
+def test_poly_dot_gradient_through_resample_fn(cuda_device, monkeypatch):
+    """torch.func.grad through resample_fn at 44.1k -> 96001 fast (2
+    channels, 0.1 s): on the kernel path (its backward the adjoint in
+    plain PyTorch) the gradient equals the banded path's within 1e-5 of
+    max |g| (float32 sums of the same terms in other orders), and the
+    forward launched the kernel."""
+    rs = Resampler(44100, 96001, 2.0, 180.15, device=cuda_device)
+    n = 4410
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    x = torch.rand((2, n), generator=g, device=cuda_device) * 2 - 1
+    w = torch.rand((2, rs.default_out_len(n)), generator=g,
+                   device=cuda_device)
+    f = resample_fn(rs, n)
+    before = poly_dot.launches
+    g_kern = torch.func.grad(lambda z: (w * f(z)).sum())(x)
+    assert poly_dot.launches > before
+    monkeypatch.setattr(stages.FracPolyExec, "_takes_kernel",
+                        lambda self, *a: False)
+    g_band = torch.func.grad(lambda z: (w * f(z)).sum())(x)
+    err = float((g_kern - g_band).abs().max() / g_band.abs().max())
+    assert err <= 1e-5, err
