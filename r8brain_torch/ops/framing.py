@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["shifted", "_frames", "_framed_matmul"]
+__all__ = ["shifted", "shifted_bytes", "_frames", "_framed_matmul"]
 
 
 def shifted(x: torch.Tensor, start: int, need: int, dtype) -> torch.Tensor:
@@ -24,6 +24,17 @@ def shifted(x: torch.Tensor, start: int, need: int, dtype) -> torch.Tensor:
     if pad_l or pad_r:
         x = F.pad(x, (pad_l, pad_r))
     return x[:, start + pad_l :]
+
+
+def shifted_bytes(x: torch.Tensor, start: int, need: int, dtype) -> int:
+    """The bytes ``shifted(x, start, need, dtype)`` writes, from host
+    integers: its cast and its padded copy, each where it makes one; 0
+    where it returns a view of x."""
+    C, N = x.shape
+    pad = max(0, -start) + max(0, need + start - N)
+    size = dtype.itemsize
+    cast = C * N * size if x.dtype != dtype else 0
+    return cast + (C * (N + pad) * size if pad else 0)
 
 
 def _frames(xp: torch.Tensor, n_blocks: int, hop: int, L_f: int

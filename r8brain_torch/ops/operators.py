@@ -14,6 +14,8 @@ float64 operator T:
 * ``FramedOperator``, T on ``frac_whole`` (ops/pallas_frac.py): T in the
   stage's dtype with the optional float32 residual each executor builds,
   packed (``operator_parts``), its nonzero band and the fold width ``kc``;
+  each call frames the signal in the stage's dtype (the ``r8b.frame``
+  span; its bytes, the ``frame.bytes`` counter);
 * ``OzakiOperator``, T on ``ozaki_framed`` (ops/pallas_ozaki.py): its
   error-free split form (``split_operator_host``) and the kernel's packing
   (``pack_operator``); each call frames the signal to float32 with its
@@ -32,8 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.trace import span
-from .framing import shifted
+from ..utils.trace import count, span
+from .framing import shifted, shifted_bytes
 from .ozaki import channel_scale, split_operator_host
 from .pallas_frac import KC, frac_whole, operator_band, operator_parts
 from .pallas_ozaki import ozaki_framed, pack_operator
@@ -66,8 +68,12 @@ class FramedOperator(nn.Module):
     def apply(self, x: torch.Tensor, start: int, need: int, hop: int,
               n_blocks: int) -> torch.Tensor:
         """Every block's columns [C, n_blocks*Kcols] of x framed from
-        column ``start`` over ``need`` samples (zeros outside x)."""
-        xp = shifted(x, start, need, self.dtype)
+        column ``start`` over ``need`` samples (zeros outside x); the
+        framing copy inside the ``r8b.frame`` span, its bytes counted as
+        ``frame.bytes``."""
+        with span("r8b.frame"):
+            xp = shifted(x, start, need, self.dtype)
+        count("frame.bytes", shifted_bytes(x, start, need, self.dtype))
         return frac_whole(xp, self.parts, hop, self.L_f, self.Kcols,
                           n_blocks, kc=self.kc, band=self.band)
 

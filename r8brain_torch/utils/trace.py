@@ -26,9 +26,10 @@ synchronises or allocates.  The names the package records:
   ``r8b.stream.suffix`` (the suffix ring after the polynomial stage),
   ``r8b.exec.<class>`` (each executor call of ``run_chain``),
   ``r8b.kernel.<name>`` (the CUDA kernels' wrappers, ``poly_dot`` among
-  them), and in the
-  guarantee chain ``r8b.ozaki.prep`` (an ozaki executor's framing copies
-  and per-channel scales before each ``ozaki_framed`` call) and
+  them), ``r8b.frame`` (the framing copy before each ``frac_whole`` call
+  of a ``FramedOperator``), and in the guarantee chain
+  ``r8b.ozaki.prep`` (an ozaki executor's framing copies and per-channel
+  scales before each ``ozaki_framed`` call) and
   ``r8b.ozaki.carry`` (the df32 carry's torch work: the framing copy of
   the seam residual that ``ozaki_framed`` takes as ``x_lo``, and every
   collapse of a seam's pair before a stage without a carry path);
@@ -39,9 +40,10 @@ synchronises or allocates.  The names the package records:
   uploaded), ``frac_whole.folds`` and ``frac_whole.folds_full`` (the
   folds ``frac_whole`` walks, and those of all of D),
   ``ozaki_framed.macs`` (the multiply-adds of each ``ozaki_framed``
-  call), and ``poly.kernel`` and ``poly.banded`` (one a polynomial
+  call), ``poly.kernel`` and ``poly.banded`` (one a polynomial
   stage's banded-engine call, by the path its contraction took:
-  ``poly_dot``, or the banded operators).
+  ``poly_dot``, or the banded operators), and ``frame.bytes`` (the bytes
+  each ``r8b.frame`` span's copy writes, 0 where the framing is a view).
 """
 
 from __future__ import annotations

@@ -114,7 +114,8 @@ def test_oneshot_spans_nest(rs96k):
 
 def test_period_stream_spans_nest(rs96k):
     """A 44.1k -> 96k stream block after the first: r8b.stream.block holds
-    the window copies and the executor, and the executor the kernel."""
+    the window copies and the executor, and the executor its framing copy
+    and the kernel."""
     st, blocks = _blocks(rs96k, 2)
     st.process_block_device(blocks[0])
     with torch.profiler.profile(activities=ACTS) as prof:
@@ -124,9 +125,10 @@ def test_period_stream_spans_nest(rs96k):
     assert len(_children(r, root, "r8b.stream.window")) == 1
     ex, = _children(r, root, "r8b.exec.")
     assert _children(r, ex, "r8b.kernel.frac_whole")
+    assert len(_children(r, ex, "r8b.frame")) == 1
     assert not _children(r, ex, "r8b.stream.window")
     assert {n for n, _, _ in r} == {"r8b.stream.block", "r8b.stream.window",
-                                    "r8b.exec.FusedUpExec",
+                                    "r8b.exec.FusedUpExec", "r8b.frame",
                                     "r8b.kernel.frac_whole"}
 
 
