@@ -670,9 +670,9 @@ def exec_operator(ex, parts):
                        "buffer of its executor")
 
 
-def check_residual(label, xp, skT, I, D, O, n_win, kc):
+def check_residual(label, xp, skT, I, D, O, n_win, kc, start=0):
     """frac_whole's residual slice at one call's shape: the call's input
-    and operator with an skT_lo planted at RESIDUAL_SCALE of it (Gaussian
+    (read from window origin ``start``) and operator with an skT_lo planted at RESIDUAL_SCALE of it (Gaussian
     factors).  The kernel with the slice against its model within
     MODEL_REL_TOL of max |y|, the slice moving the model by at least
     RESIDUAL_MOVE times that, and the kernel's own contribution of the
@@ -688,11 +688,13 @@ def check_residual(label, xp, skT, I, D, O, n_win, kc):
     with_lo = operator_parts(skT, lo * RESIDUAL_SCALE)
     bare = operator_parts(skT)
     y = frac_whole(xp, with_lo, I, D, O, n_win, kc=kc,
-                   band=operator_band(with_lo)).double()
+                   band=operator_band(with_lo), start=start).double()
     dy = y - frac_whole(xp, bare, I, D, O, n_win, kc=kc,
-                        band=operator_band(bare)).double()
-    m = frac_whole_ref(xp, with_lo, I, D, O, n_win, kc=kc).double()
-    dm = m - frac_whole_ref(xp, bare, I, D, O, n_win, kc=kc).double()
+                        band=operator_band(bare), start=start).double()
+    m = frac_whole_ref(xp, with_lo, I, D, O, n_win, kc=kc,
+                       start=start).double()
+    dm = m - frac_whole_ref(xp, bare, I, D, O, n_win, kc=kc,
+                            start=start).double()
     torch.cuda.synchronize()
     scale = float(m.abs().max().item())
     moved = float(dm.abs().max().item())
@@ -1115,17 +1117,34 @@ def check_fft_cases(dev) -> None:
           f"(tol {FFT_REL_TOL:.2e})")
 
 
+def held(name, args):
+    """A kernel call's arguments as the replays here keep them: a
+    frac_whole call's input (the stage's input, which it reads in place)
+    copied at the same strides and storage offset mod 4, so at the same
+    alignment, since the program may write into that storage after the
+    call (a stream's ring); any other call's as they are."""
+    x = args[0]
+    if name != "frac_whole" or x.numel() == 0 or x.stride(1) != 1:
+        return args
+    off = x.storage_offset() % 4
+    span = (x.shape[0] - 1) * x.stride(0) + x.shape[1]
+    buf = x.new_empty(off + span)
+    buf[off:] = x.as_strided((span,), (1,), x.storage_offset())
+    return (buf.as_strided(x.shape, x.stride(), off),) + tuple(args[1:])
+
+
 def capture_calls(rs, x, modules, names=("df_fft_conv", "frac_whole")):
     """Run rs.oneshot(x) once with the kernel wrappers ``names`` that
     ``modules`` call recorded: the arguments each kernel gets on this
-    path."""
+    path (held)."""
     calls = {}
     real = {(m, k): getattr(m, k) for m in modules for k in names
             if hasattr(m, k)}
 
     def recorder(k, fn):
         def rec(*args, **kw):
-            calls.setdefault(k, (args, kw))
+            if k not in calls:
+                calls[k] = (held(k, args), kw)
             return fn(*args, **kw)
         return rec
 
@@ -1567,7 +1586,7 @@ def matmul_record(label, kernel, name, call, ex, x_in, launches, peaks,
         y, model = fn(*args, **kw), ref(*args, **kw)
         r = ref(xp.double(), operator_parts(
             skT.double(), None if lo is None else lo.double()), I, D, O,
-            n_win)
+            n_win, start=kw.get("start", 0))
         torch.cuda.synchronize()
         _a, err_m, err, beta, _bm = check_frac_model(name, y, model, r)
         del model
@@ -1681,7 +1700,7 @@ def matmul_paths(dev, x, ref, skip, peaks, card):
                 rs, x, (operators,), ("frac_whole",))["frac_whole"]
             skT, _lo = exec_operator(rs.execs[0], parts)
             check_residual(f"the {label} conv stage", xp, skT, I, D, O,
-                           n_win, kw.get("kc", KC))
+                           n_win, kw.get("kc", KC), kw.get("start", 0))
             del xp, parts
         if label in MATMUL_RECORDS:
             kernel, name = MATMUL_RECORDS[label]
@@ -1797,13 +1816,13 @@ def f64_reference(src, dst, x):
 
 def record_run(fn, modules, name):
     """fn() with every call of the kernel wrapper ``name`` that
-    ``modules`` make recorded, in order, as (args, kw); the wrapper itself
-    still runs (and counts).  Returns (fn's result, calls)."""
+    ``modules`` make recorded, in order, as (args, kw) (held); the wrapper
+    itself still runs (and counts).  Returns (fn's result, calls)."""
     calls = []
     real = getattr(modules[0], name)
 
     def rec(*args, **kw):
-        calls.append((args, kw))
+        calls.append((held(name, args), kw))
         return real(*args, **kw)
 
     try:
@@ -1871,34 +1890,39 @@ def library_call(ex, xp, skT, I, dtype):
 
 def frac_record(name, call, ex, launches, peaks, card,
                 expect_lo: bool = False):
-    """One frac_whole call of a path (``ex`` made it): against its plain
+    """One frac_whole call of a path (``ex`` made it), replayed as the path
+    made it (on the stage's input read in place from its window origin
+    ``start``): against its plain
     model (within MODEL_REL_TOL of max |y|) and its float64 product
     (KERNEL_REL_TOL), in channel chunks, its bias held (frac_beta); with
     skT_lo (which ``expect_lo``
     requires) its residual slice held with a planted skT_lo
     (check_residual) and the kernel timed at both fold lengths; timed beside the plain version (the same chunks)
-    and library_call (float32; float64 of skT + skT_lo with skT_lo).  The
+    and library_call (float32; float64 of skT + skT_lo with skT_lo) on
+    the call's framed copy.  The
     bound counts the operator's nonzero entries (frac_bounds)."""
     import torch
 
+    from r8brain_torch.ops.framing import shifted
     from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
                                                frac_whole_ref, operator_parts)
 
     (xp, parts, I, D, O, n_win), kw = call
-    kc, band = kw.get("kc", KC), kw["band"]
+    kc, band, start = kw.get("kc", KC), kw["band"], kw.get("start", 0)
     skT, lo = exec_operator(ex, parts)
     if expect_lo:
         check(lo is not None, f"{name}: the call has no skT_lo")
     C = xp.shape[0]
     chunks = channel_chunks(C, n_win * O)
-    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc, band=band)
+    y = frac_whole(xp, parts, I, D, O, n_win, kc=kc, band=band, start=start)
     p64 = operator_parts(skT.double(), None if lo is None else lo.double())
     e_m = e_r = scale = 0.0
     sums = sums_m = (0.0, 0.0, 0)
     for c0, c1 in chunks:
         m = frac_whole_ref(xp[c0:c1], parts, I, D, O, n_win, kc=kc,
-                           band=band).double()
-        r = frac_whole_ref(xp[c0:c1].double(), p64, I, D, O, n_win)
+                           band=band, start=start).double()
+        r = frac_whole_ref(xp[c0:c1].double(), p64, I, D, O, n_win,
+                           start=start)
         yc = y[c0:c1].double()
         e_m = max(e_m, float((yc - m).abs().max().item()))
         e_r = max(e_r, float((yc - r).abs().max().item()))
@@ -1916,19 +1940,20 @@ def frac_record(name, call, ex, launches, peaks, card,
     check(err <= KERNEL_REL_TOL, f"{name}: max rel err {err:.3e} vs f64 "
           f"plain")
     if lo is not None:
-        check_residual(name, xp, skT, I, D, O, n_win, kc)
+        check_residual(name, xp, skT, I, D, O, n_win, kc, start)
     ms = {k: cuda_ms(lambda: frac_whole(xp, parts, I, D, O, n_win, kc=k,
-                                        band=band),
+                                        band=band, start=start),
                      reps=10)
           for k in ((KC_LO, KC) if lo is not None else (kc,))}
     k_ms = ms[kc]
     p_ms = cuda_ms(lambda: [frac_whole_ref(xp[c0:c1], parts, I, D, O, n_win,
-                                           kc=kc, band=band)
+                                           kc=kc, band=band, start=start)
                             for c0, c1 in chunks],
                    reps=2, warmup=1)
     lib_dt = torch.float32 if lo is None else torch.float64
     lib, lib_what = library_call(
-        ex, xp, skT if lo is None else skT.double() + lo.double(), I, lib_dt)
+        ex, shifted(xp, start, (n_win - 1) * I + D, xp.dtype),
+        skT if lo is None else skT.double() + lo.double(), I, lib_dt)
     lib_ms = cuda_ms(lib, reps=3, warmup=1)
     torch.cuda.empty_cache()
     R = C * n_win
@@ -2672,15 +2697,17 @@ def adjoint_record(name, call, ex, launches, peaks, card):
     n_adj = n_win + K - 1
     g = torch.Generator(device=dev).manual_seed(SEED)
     gy = torch.rand((C, n_win * O), generator=g, device=dev) * 2 - 1
-    gyp = F.pad(gy, ((K - 1) * O, (K - 1) * O))
+    # the backward reads gy in place, (K-1)*O zeros on each side
+    g0 = -(K - 1) * O
     chunks = channel_chunks(C, n_adj * Oa)
-    y = frac_whole(gyp, adj, Ia, Da, Oa, n_adj, kc=kc, band=band)
+    y = frac_whole(gy, adj, Ia, Da, Oa, n_adj, kc=kc, band=band, start=g0)
     e_m = e_r = scale = 0.0
     sums = sums_m = (0.0, 0.0, 0)
     for c0, c1 in chunks:
-        m = frac_whole_ref(gyp[c0:c1], adj, Ia, Da, Oa, n_adj, kc=kc,
-                           band=band)
-        r = frac_whole_ref(gyp[c0:c1].double(), adj64, Ia, Da, Oa, n_adj)
+        m = frac_whole_ref(gy[c0:c1], adj, Ia, Da, Oa, n_adj, kc=kc,
+                           band=band, start=g0)
+        r = frac_whole_ref(gy[c0:c1].double(), adj64, Ia, Da, Oa, n_adj,
+                           start=g0)
         yc = y[c0:c1].double()
         e_m = max(e_m, float((yc - m.double()).abs().max().item()))
         e_r = max(e_r, float((yc - r).abs().max().item()))
@@ -2694,17 +2721,18 @@ def adjoint_record(name, call, ex, launches, peaks, card):
     check(err_m <= MODEL_REL_TOL, f"{name}: {err_m:.3e} of max |xbar| from "
           f"the plain model (tol {MODEL_REL_TOL:.2e})")
     check(err <= KERNEL_REL_TOL, f"{name}: max rel err {err:.3e} vs f64")
-    k_ms = cuda_ms(lambda: frac_whole(gyp, adj, Ia, Da, Oa, n_adj, kc=kc,
-                                      band=band),
+    k_ms = cuda_ms(lambda: frac_whole(gy, adj, Ia, Da, Oa, n_adj, kc=kc,
+                                      band=band, start=g0),
                    reps=10)
-    p_ms = cuda_ms(lambda: [frac_whole_ref(gyp[c0:c1], adj, Ia, Da, Oa,
-                                           n_adj, kc=kc, band=band)
+    p_ms = cuda_ms(lambda: [frac_whole_ref(gy[c0:c1], adj, Ia, Da, Oa,
+                                           n_adj, kc=kc, band=band,
+                                           start=g0)
                             for c0, c1 in chunks], reps=2, warmup=1)
     u = gy.reshape(C, n_win, O).transpose(1, 2).contiguous()
     wt = skT.float().T.contiguous()[:, None, :]
     lib_ms = cuda_ms(lambda: F.conv_transpose1d(u, wt, stride=I), reps=3,
                      warmup=1)
-    del u, gyp, gy
+    del u, gy
     torch.cuda.empty_cache()
     R = C * n_adj
     nnz = int((skT != 0).sum().item())
@@ -2741,9 +2769,9 @@ def record_adjoints(fn):
 
     calls, real = [], pallas_frac._adjoint
 
-    def rec(gy, parts, I, D, O, n_win, kc, L):
+    def rec(gy, parts, I, D, O, n_win, kc, *span):
         before = frac_whole.launches
-        out = real(gy, parts, I, D, O, n_win, kc, L)
+        out = real(gy, parts, I, D, O, n_win, kc, *span)
         calls.append((gy.shape[0], _operator(parts), I, D, O, n_win, kc,
                       frac_whole.launches - before))
         return out
@@ -3694,7 +3722,7 @@ def acc_shape(name, args, kw):
 def acc_recorder(store, name, real):
     """A stand-in for the kernel wrapper ``name`` that runs ``real`` (which
     counts its launch) and keeps in ``store``, for each call shape
-    (acc_shape), the first call's [args, kw, executor, stage input] and
+    (acc_shape), the first call's [args (held), kw, executor, stage input] and
     the number of calls on the card (a CPU model's calls are not kept):
     the executor is the nearest calling frame's ``self`` that is a torch
     module but no operator of ops/operators.py, the stage input that
@@ -3715,7 +3743,7 @@ def acc_recorder(store, name, real):
                         s, (FramedOperator, OzakiOperator)):
                     ex, x_in = s, f.f_locals.get("x")
                 f = f.f_back
-            store[key] = [args, kw, ex, x_in, 0]
+            store[key] = [held(name, args), kw, ex, x_in, 0]
         store[key][4] += 1
         return real(*args, **kw)
     return rec
@@ -3753,7 +3781,7 @@ def acc_hold(store, dev, peaks, peaks64, card, launches,
             y, model = frac_whole(*args, **kw), frac_whole_ref(*args, **kw)
             r = frac_whole_ref(args[0].double(), operator_parts(
                 skT.double(), None if lo is None else lo.double()),
-                *args[2:])
+                *args[2:], start=kw.get("start", 0))
             err = check_frac_model(label, y, model, r)[1]
         elif name == "ozaki_framed":
             lo, emit = kw.get("x_lo"), bool(kw.get("emit_pair"))

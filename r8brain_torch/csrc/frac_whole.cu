@@ -1,8 +1,12 @@
 // Framed matmul of the fused 44.1k->96k chain (and of every whole-stepping
 // interpolator and matmul conv stage), for sm_90a:
 //
-//     y[c, m*O + j] = sum_{d<D} xp[c, m*I + d] * skT[d, j]
-//                   (+ sum_{d<D} xp[c, m*I + d] * skT_lo[d, j])
+//     y[c, m*O + j] = sum_{d<D} x[c, x0 + m*I + d] * skT[d, j]
+//                   (+ sum_{d<D} x[c, x0 + m*I + d] * skT_lo[d, j])
+//
+// with x [C, n] read where it lies (any row stride) and zero outside
+// columns [0, n): the window origin x0 is signed, and the windows may run
+// past n, so no caller frames a padded copy of x.
 //
 // Replaces the reference package's TPU kernel
 // r8brain_tpu/ops/pallas_frac.py::frac_whole_pallas (its pallas_call and
@@ -63,8 +67,8 @@
 //     reassociated.
 //
 // Design:
-//   * Rows r = c*n_win + m of an implicit im2col matrix A[r, d] = xp[c,
-//     m*I + d] against the operator slices.  A block is two warpgroups,
+//   * Rows r = c*n_win + m of an implicit im2col matrix A[r, d] = x[c,
+//     x0 + m*I + d] against the operator slices.  A block is two warpgroups,
 //     each 64 rows x BN columns (BN = 128 where O is a multiple of 128 or
 //     above 192, 64 otherwise, 8 for O <= 2: the direct stage's), so
 //     a 128 x BN tile of y (exactly the [R, O] row-major layout of y); one
@@ -84,13 +88,23 @@
 //   * A from registers: the windows start at m*I, unaligned for I = 294,
 //     147 and 1, so neither a TMA tile nor a swizzled A tile fits them.
 //     Each warpgroup stages its own 64 rows of the k-tile in float32 with
-//     cp.async, a warp a row (per-row 64-bit starts kept in shared memory,
-//     zero-filled edges; 16-byte copies where xp, I and the row stride
-//     allow, else 8-byte on rows that start 8-byte aligned, 4-byte on the
-//     others), rows padded to 72 floats so that the fragment reads are
-//     free of bank conflicts, behind a named barrier.  Each thread reads
-//     its fragment as float pairs and splits them into the three bf16
-//     fragment sets in registers.
+//     cp.async, a warp a row, rows padded to 72 floats so that the
+//     fragment reads are free of bank conflicts, behind a named barrier.
+//     Each row keeps in shared memory its 64-bit start and the window's
+//     columns [lo, hi) inside x (one 16-byte record, one load a copy): a
+//     copy's byte count (cp.async's src-size) zero-fills past hi, past D
+//     included, and a copy before lo reads nothing; where a k-tile leaves
+//     x on one of a warp's rows, such a 0-byte copy names the operator's
+//     address, not one outside x (a warp-wide test a k-tile, from the
+//     k-tiles each row's span keeps inside x).  16-byte copies where
+//     the caller asks for them (ops/pallas_frac.py::copy_width; refused
+//     unless x, the origin, I and the row stride allow them), else 8-byte
+//     on rows that start 8-byte aligned and whose copies do not straddle
+//     x's first column, 4-byte on the others.  The caller puts the origin
+//     on the widest alignment it can (ops/pallas_frac.py::lead_rows: up to
+//     3 leading zero rows in the operator).  Each thread reads its fragment
+//     as float pairs and splits them into the three bf16 fragment sets in
+//     registers.
 //   * The 8-column tile (O <= 2) multiplies the slices side by side: one
 //     tile [s0 | s1 | s2 | bf16(skT_lo)], so a k16 step is 3 MMAs, not 6
 //     or 7 (x1*s2 and the like ride along, below 2^-26 of a product);
@@ -148,6 +162,14 @@ using bf16 = __nv_bfloat16;
 // ---------------------------------------------------------------------------
 // float32: the split form on the tensor cores
 
+// The columns [lo, hi) of a window of D from column p of a row of n that
+// lie inside the row (lo = hi where none do); the others read as zeros.
+__device__ __forceinline__ int2 window_span(long long p, long long n, int D) {
+  const long long lo = min(static_cast<long long>(D), max(0LL, -p));
+  const long long hi = max(lo, min(static_cast<long long>(D), n - p));
+  return make_int2(static_cast<int>(lo), static_cast<int>(hi));
+}
+
 namespace split {
 
 constexpr int BM = 128;            // rows a block: two warpgroups of 64
@@ -174,9 +196,33 @@ constexpr bool kNoSplit = R8B_ABLATE & 2;
 constexpr bool kNoSmall = R8B_ABLATE & 4;
 constexpr bool kNoStage = R8B_ABLATE & 8;
 
+// Whether the row staging guards the source address of its 0-byte copies.
+template <bool B>
+struct Guard {
+  static constexpr bool on = B;
+};
+
+// A window row as the staging reads it: its first column's offset from x,
+// the window's columns [lo, hi) that lie inside x (the rest read as zeros),
+// and hi stored as ~hi (negative) where the row takes 4-byte copies in the
+// 8-byte mode: its start is not 8-byte aligned, or x's first column falls
+// inside one of its 8-byte copies.
+struct __align__(16) Row {
+  long long b;
+  int lo, hi;
+};
+// one 16-byte shared-memory load
+__device__ __forceinline__ Row load_row(const Row* r) {
+  const int4 v = *reinterpret_cast<const int4*>(r);
+  return Row{static_cast<long long>(
+                 (static_cast<unsigned long long>(static_cast<unsigned>(v.y))
+                  << 32) | static_cast<unsigned>(v.x)),
+             v.z, v.w};
+}
+
 // Shared memory: STAGES operator stages (P swizzled tiles each), STAGES A
 // stages of a_stage floats (by row, A_ROWS; or two stretches), the full
-// and empty barriers, the rows' starts.
+// and empty barriers, the rows, the staging warps' k-tiles inside x.
 template <int BN, int P>
 struct Smem {
   static constexpr int ST = STAGES<BN>;
@@ -186,7 +232,8 @@ struct Smem {
   static constexpr size_t a_off = ST * B_STAGE;
   static_assert((BN * TK * 2) % 1024 == 0, "swizzle atoms are 1 KB");
   static constexpr size_t bytes(int a_stage) {
-    return a_off + ST * a_stage * 4 + 2 * ST * 8 + BM * 8 +
+    return a_off + ST * a_stage * 4 + 2 * ST * 8 + BM * sizeof(Row) +
+           BM / 16 * sizeof(int2) +
            1024;  // + alignment
   }
 };
@@ -198,6 +245,7 @@ struct Smem {
 template <int BN, int FOLD, int P>
 __global__ void __launch_bounds__(NT, BN == 8 ? 2 : 1)
 frac_split_kernel(const float* __restrict__ xp, long long ldx,
+                  long long x0, long long n_x,
                   const bf16* __restrict__ parts,
                   const int* __restrict__ band, float* __restrict__ y,
                   long long R, int n_win, int I, int D, int O, int n_kt,
@@ -218,7 +266,12 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
   float* As = reinterpret_cast<float*>(base + S::a_off);  // [ST][a_stage]
   uint64_t* full = reinterpret_cast<uint64_t*>(As + ST * a_stage);
   uint64_t* empty = full + ST;
-  long long* row_base = reinterpret_cast<long long*>(empty + ST);
+  Row* rows = reinterpret_cast<Row*>(empty + ST);  // 16-byte aligned
+  // per staging warp (16 rows): the k-tiles [x, y) whose copies all lie
+  // inside x, on every one of its rows
+  int2* inside = reinterpret_cast<int2*>(rows + BM);
+  // the source of a copy that reads nothing (16-byte aligned: TMA's)
+  const float* zsrc = reinterpret_cast<const float*>(parts);
 
   const bool stretch = BN == 8 && n_mt > 0;
   const int tid = threadIdx.x;
@@ -247,13 +300,33 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
     r0 = (tile / n_col_tiles) * BM;
   }
   if (tid < BM) {
+    // row r's window: from x's column p of channel c (no columns past R;
+    // those rows copy nothing, from x's first column)
     const long long r = r0 + tid;
-    long long b = -1;
+    Row w{0, 0, 0};
+    long long p = 0;
     if (r < r_end) {
       const long long c = r / n_win;
-      b = c * ldx + (r - c * n_win) * static_cast<long long>(I);
+      p = x0 + (r - c * n_win) * static_cast<long long>(I);
+      const int2 sp = window_span(p, n_x, D);
+      const bool al = ((reinterpret_cast<uintptr_t>(xp) +
+                        4 * static_cast<uintptr_t>(c * ldx + p)) & 7) == 0 &&
+                      (sp.x & 1) == 0;
+      w = Row{c * ldx + p, sp.x, al ? sp.y : ~sp.y};
     }
-    row_base[tid] = b;
+    rows[tid] = w;
+    // k-tile t reads columns p + t*TK + [0, TK) of the row: inside x for
+    // t in [ta, tb); over the staging warp's 16 rows (half a warp here)
+    int ta = p >= 0 ? 0 : static_cast<int>(min(static_cast<long long>(n_kt),
+                                               (TK - 1 - p) / TK));
+    int tb = static_cast<int>(
+        max(0LL, min(static_cast<long long>(n_kt), (n_x - p) / TK)));
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+      ta = max(ta, __shfl_xor_sync(0xffffffffu, ta, o));
+      tb = min(tb, __shfl_xor_sync(0xffffffffu, tb, o));
+    }
+    if ((tid & 15) == 0) inside[tid >> 4] = make_int2(ta, tb);
   }
   if (tid == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -282,52 +355,82 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
 
   const int wg = tid >> 7, tw = tid & 127;
   const int wq = tw >> 5, lane = tw & 31, g = lane >> 2, tq = lane & 3;
-  const long long* rb = row_base + wg * 64;
+  const Row* rw = rows + wg * 64;
   const int sw = a_stage / 2;  // floats of one warpgroup's stretch
   float* Aw = As + wg * (stretch ? sw : 64 * APITCH);
   const int rs = stretch ? I : APITCH;  // row stride of the staged A
 
-  // this warpgroup's 64 rows of k-tile t into its slot, zero past D and R:
-  // warp wq stages rows 16wq..16wq+15, one row (two with 16-byte copies)
-  // an instruction, 8-byte copies on rows whose start is 8-byte aligned
+  // this warpgroup's 64 rows of k-tile t into its slot, zero past D and R
+  // and outside x: warp wq stages rows 16wq..16wq+15, one row (two with
+  // 16-byte copies) an instruction, 8-byte copies on rows marked so.  A
+  // copy of w floats at column d of a window takes n = min(w, hi - d) of
+  // them, 0 before lo (the rest zero-filled; where a row of the warp
+  // leaves x in this k-tile, a copy of 0 bytes takes the operator's first
+  // element as its source, so no copy names an address outside x): no copy
+  // begins before x and ends in it, since the 16-byte mode puts x's first
+  // column on its grid and the 8-byte mode copies such a row by the float.
   auto stage_a = [&](int t) {
     if constexpr (kNoStage) return;
     float* dst = Aw + ((t - t_lo) % ST) * a_stage;
     const int d0 = t * TK;
     if (stretch) {
-      // positions in channel c0; past the windows' extent zero
+      // positions p0 + e of channel c0's windows (x's column x0 + p0 + e):
+      // zero past the windows' extent and outside x, e in [e_lo, e_hi)
       const long long p0 = static_cast<long long>(m0 + 64 * wg) * I + d0;
       const long long ext = static_cast<long long>(n_win - 1) * I + D;
-      const float* src = xp + c0 * ldx + p0;
+      const long long a0 = x0 + p0;
+      const long long n_sw = sw, lo = min(n_sw, max(0LL, -a0));
+      const int e_lo = static_cast<int>(lo);
+      const int e_hi = static_cast<int>(max(lo, min(n_sw, min(ext - p0,
+                                                              n_x - a0))));
+      const float* src = xp + c0 * ldx + a0;
       for (int e = tw; e < sw; e += 128) {
-        const bool ok = p0 + e < ext;
-        cp_async_elem(dst + e, ok ? src + e : xp, ok);
-      }
-    } else if (vec) {
-#pragma unroll
-      for (int it = 0; it < 8; ++it) {
-        const int i = wq * 16 + it * 2 + (lane >> 4);
-        const int d = d0 + 4 * (lane & 15);
-        const long long b = rb[i];
-        const int n = b < 0 ? 0 : max(0, min(4, D - d));
-        cp_async16(dst + i * APITCH + 4 * (lane & 15),
-                   n > 0 ? xp + b + d : xp, 4 * n);
+        const bool ok = static_cast<unsigned>(e - e_lo) <
+                        static_cast<unsigned>(e_hi - e_lo);
+        cp_async_elem(dst + e, ok ? src + e : zsrc, ok);
       }
     } else {
-      const int d = d0 + 2 * lane;
-#pragma unroll 4
-      for (int it = 0; it < 16; ++it) {
-        const int i = wq * 16 + it;
-        const long long b = rb[i];
-        const int n = b < 0 ? 0 : max(0, min(2, D - d));
-        const float* src = n > 0 ? xp + b + d : xp;
-        float* to = dst + i * APITCH + 2 * lane;
-        if ((reinterpret_cast<uintptr_t>(xp + b + d0) & 7) == 0) {
-          cp_async8(to, src, 4 * n);
+      // where the k-tile leaves x on a row of this warp, a copy of 0 bytes
+      // takes zsrc as its source; elsewhere every copy's address lies in x
+      const int2 in = inside[wg * 4 + wq];
+      auto stage_rows = [&](auto guard) {
+        auto src = [&](const Row& r, int d, int n) {
+          return !decltype(guard)::on || n > 0 ? xp + r.b + d : zsrc;
+        };
+        if (vec) {
+#pragma unroll
+          for (int it = 0; it < 8; ++it) {
+            const int i = wq * 16 + it * 2 + (lane >> 4);
+            const int d = d0 + 4 * (lane & 15);
+            const Row r = load_row(rw + i);
+            const int n = d < r.lo ? 0 : max(0, min(4, r.hi - d));
+            cp_async16(dst + i * APITCH + 4 * (lane & 15), src(r, d, n),
+                       4 * n);
+          }
         } else {
-          cp_async_elem(to, src, n > 0);
-          cp_async_elem(to + 1, n > 1 ? src + 1 : xp, n > 1);
+          const int d = d0 + 2 * lane;
+#pragma unroll 4
+          for (int it = 0; it < 16; ++it) {
+            const int i = wq * 16 + it;
+            const Row r = load_row(rw + i);
+            float* to = dst + i * APITCH + 2 * lane;
+            if (r.hi >= 0) {
+              const int n = d < r.lo ? 0 : max(0, min(2, r.hi - d));
+              cp_async8(to, src(r, d, n), 4 * n);
+            } else {
+              const int hi = ~r.hi;
+              const bool ok0 = d >= r.lo && d < hi;
+              const bool ok1 = d + 1 >= r.lo && d + 1 < hi;
+              cp_async_elem(to, ok0 ? xp + r.b + d : zsrc, ok0);
+              cp_async_elem(to + 1, ok1 ? xp + r.b + d + 1 : zsrc, ok1);
+            }
+          }
         }
+      };
+      if (t >= in.x && t < in.y) {
+        stage_rows(Guard<false>{});
+      } else {
+        stage_rows(Guard<true>{});
       }
     }
   };
@@ -541,8 +644,9 @@ frac_split_kernel(const float* __restrict__ xp, long long ldx,
 
 template <int BN, int FOLD, int P>
 cudaError_t launch_split(cudaStream_t s, const float* xp, long long ldx,
-                         const bf16* parts, const int* band, float* y, int C,
-                         int n_win, int I, int D, int O, int n_kt) {
+                         long long x0, long long n_x, const bf16* parts,
+                         const int* band, float* y, int C, int n_win, int I,
+                         int D, int O, int n_kt, int vec) {
   const long long R = static_cast<long long>(C) * n_win;
   const int n_col = (O + BN - 1) / BN;
   const bool stretch = BN == 8 && I <= MAX_STRETCH_I;
@@ -553,16 +657,20 @@ cudaError_t launch_split(cudaStream_t s, const float* xp, long long ldx,
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   // one warpgroup's stretch, rounded to whole 16-byte rows
   const int a_stage = stretch ? 2 * ((63 * I + TK + 3) / 4 * 4) : A_ROWS;
-  const int vec = reinterpret_cast<uintptr_t>(xp) % 16 == 0 && ldx % 4 == 0 &&
-                  I % 4 == 0;
+  // 16-byte copies, as the caller asks (ops/pallas_frac.py::copy_width),
+  // only where every row's window and x's first column of every channel
+  // start 16-byte aligned
+  if (vec && !(reinterpret_cast<uintptr_t>(xp) % 16 == 0 && ldx % 4 == 0 &&
+               I % 4 == 0 && (x0 & 3) == 0))
+    return cudaErrorInvalidValue;
   const size_t smem = Smem<BN, P>::bytes(a_stage);
   auto* kern = frac_split_kernel<BN, FOLD, P>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   kern<<<static_cast<unsigned>(blocks), NT, smem, s>>>(
-      xp, ldx, parts, band, y, R, n_win, I, D, O, n_kt, n_col, vec, a_stage,
-      n_mt);
+      xp, ldx, x0, n_x, parts, band, y, R, n_win, I, D, O, n_kt, n_col, vec,
+      a_stage, n_mt);
   return cudaGetLastError();
 }
 
@@ -580,15 +688,17 @@ struct Smem {
   static constexpr int APAD = BM + 4;  // keeps each row of As 16-byte aligned
   static constexpr int A = BK * APAD;  // elements of one A stage
   static constexpr int B = BK * BN;    // elements of one B stage
+  static constexpr size_t rows = BM * (sizeof(long long) + sizeof(int2));
   static constexpr size_t bytes =
-      BM * sizeof(long long) + 2 * (A + B * (HAS_LO ? 2 : 1)) * sizeof(T);
+      rows + 2 * (A + B * (HAS_LO ? 2 : 1)) * sizeof(T);
 };
 
 template <typename T, int BM, int BN, int BK, int TM, int TN, int FOLD,
           bool HAS_LO>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-frac_whole_kernel(const T* __restrict__ xp, long long ldx,
-                  const T* __restrict__ skT, const T* __restrict__ skT_lo,
+frac_whole_kernel(const T* __restrict__ xp, long long ldx, long long x0,
+                  long long n_x, const T* __restrict__ skT,
+                  const T* __restrict__ skT_lo,
                   T* __restrict__ y, long long R, int n_win, int I, int D,
                   int O, int n_col_tiles) {
   using S = Smem<T, BM, BN, BK, HAS_LO>;
@@ -596,12 +706,13 @@ frac_whole_kernel(const T* __restrict__ xp, long long ldx,
   constexpr int APAD = S::APAD;
   static_assert((BM * BK) % NT == 0 && (BK * BN) % NT == 0, "tile/threads");
   static_assert(NT % BK == 0 && NT % BN == 0, "load mapping");
-  static_assert((BM * sizeof(long long)) % 16 == 0, "stage alignment");
+  static_assert(S::rows % 16 == 0, "stage alignment");
   // two stages of each slab: the next slab's copies run under this one's
   // FMAs
   extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* row_base = reinterpret_cast<long long*>(smem_raw);
-  T* As = reinterpret_cast<T*>(smem_raw + BM * sizeof(long long));  // [2][BK][APAD]
+  int2* row_span = reinterpret_cast<int2*>(row_base + BM);
+  T* As = reinterpret_cast<T*>(smem_raw + S::rows);  // [2][BK][APAD]
   T* Bs = As + 2 * S::A;                                             // [2][BK][BN]
   T* Bl = Bs + 2 * S::B;  // [2][BK][BN], HAS_LO only
 
@@ -613,19 +724,22 @@ frac_whole_kernel(const T* __restrict__ xp, long long ldx,
 
   for (int i = tid; i < BM; i += NT) {
     const long long r = r0 + i;
+    long long b = 0;
+    int2 sp = make_int2(0, 0);
     if (r < R) {
       const long long c = r / n_win;
-      const long long m = r - c * n_win;
-      row_base[i] = c * ldx + m * static_cast<long long>(I);
-    } else {
-      row_base[i] = -1;
+      const long long p = x0 + (r - c * n_win) * static_cast<long long>(I);
+      b = c * ldx + p;
+      sp = window_span(p, n_x, D);
     }
+    row_base[i] = b;
+    row_span[i] = sp;
   }
   __syncthreads();
 
   // Start the copies of slab [d0, d0 + BK) into stage `st`: A transposed to
   // As[kk][row] (lanes along d, coalesced), B as Bs[kk][j] (lanes along j);
-  // out-of-range elements are written as zeros.
+  // out-of-range elements (past D or R, outside x) are written as zeros.
   auto load_slab = [&](int st, int d0) {
     T* as = As + st * S::A;
 #pragma unroll
@@ -634,9 +748,9 @@ frac_whole_kernel(const T* __restrict__ xp, long long ldx,
       const int kk = e % BK;
       const int i = e / BK;
       const int d = d0 + kk;
-      const long long base = row_base[i];
-      const bool ok = base >= 0 && d < D;
-      cp_async_elem(as + kk * APAD + i, ok ? xp + base + d : xp, ok);
+      const int2 sp = row_span[i];
+      const bool ok = d >= sp.x && d < sp.y;
+      cp_async_elem(as + kk * APAD + i, ok ? xp + row_base[i] + d : skT, ok);
     }
     T* bs = Bs + st * S::B;
 #pragma unroll
@@ -756,24 +870,25 @@ frac_whole_kernel(const T* __restrict__ xp, long long ldx,
 template <typename T, int BM, int BN, int BK, int TM, int TN, int FOLD,
           bool HAS_LO>
 cudaError_t launch_one(unsigned blocks, cudaStream_t s, const T* xp,
-                       long long ldx, const T* skT, const T* skT_lo, T* y,
-                       long long R, int n_win, int I, int D, int O,
-                       int n_col) {
+                       long long ldx, long long x0, long long n_x,
+                       const T* skT, const T* skT_lo, T* y, long long R,
+                       int n_win, int I, int D, int O, int n_col) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr size_t smem = Smem<T, BM, BN, BK, HAS_LO>::bytes;
   auto* kern = frac_whole_kernel<T, BM, BN, BK, TM, TN, FOLD, HAS_LO>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kern<<<blocks, NT, smem, s>>>(xp, ldx, skT, skT_lo, y, R, n_win, I, D, O,
-                                n_col);
+  kern<<<blocks, NT, smem, s>>>(xp, ldx, x0, n_x, skT, skT_lo, y, R, n_win,
+                                I, D, O, n_col);
   return cudaGetLastError();
 }
 
 template <typename T, int BM, int BN, int BK, int TM, int TN, int FOLD>
-int launch(const T* xp, long long ldx, const T* skT, const T* skT_lo, T* y,
-           int C, int n_win, int I, int D, int O, void* stream) {
-  if (C < 0 || n_win < 1 || I < 1 || D < 1 || O < 1 || ldx < 0)
+int launch(const T* xp, long long ldx, long long x0, long long n_x,
+           const T* skT, const T* skT_lo, T* y, int C, int n_win, int I,
+           int D, int O, void* stream) {
+  if (C < 0 || n_win < 1 || I < 1 || D < 1 || O < 1 || ldx < 0 || n_x < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long R = static_cast<long long>(C) * n_win;
   if (R == 0) return 0;
@@ -785,28 +900,35 @@ int launch(const T* xp, long long ldx, const T* skT, const T* skT_lo, T* y,
   const cudaError_t e =
       skT_lo != nullptr
           ? launch_one<T, BM, BN, BK, TM, TN, FOLD, true>(
-                nb, s, xp, ldx, skT, skT_lo, y, R, n_win, I, D, O, n_col)
+                nb, s, xp, ldx, x0, n_x, skT, skT_lo, y, R, n_win, I, D, O,
+                n_col)
           : launch_one<T, BM, BN, BK, TM, TN, FOLD, false>(
-                nb, s, xp, ldx, skT, skT_lo, y, R, n_win, I, D, O, n_col);
+                nb, s, xp, ldx, x0, n_x, skT, skT_lo, y, R, n_win, I, D, O,
+                n_col);
   return static_cast<int>(e);
 }
 
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t); returns the launch's cudaError_t.
-// xp: [C, >= (n_win-1)*I + D] float32 with row stride ldx elements; parts:
+// xp: x [C, n_x] float32 with row stride ldx elements, read from the signed
+// window origin x0 (window m of channel c: columns x0 + m*I + [0, D)),
+// zero outside [0, n_x); parts:
 // the packed bf16 operator slices [n_col_tiles, n_kt, n_parts, bn, 64]
 // (ops/pallas_frac.py::operator_parts; n_parts 3, or 4 with bf16(skT_lo));
 // band: int32 [n_col_tiles, 2], each column tile's first and one past its
 // last nonzero k16 step of D (operator_band); y: [C, n_win*O] row-major.
-// fold: the terms of one big-pair partial, 16 or 32.
+// fold: the terms of one big-pair partial, 16 or 32.  vec: 1 to stage
+// the windows with 16-byte copies (refused where x, x0, I or ldx do not
+// allow them), 0 for 8-byte copies on the rows that allow them.
 extern "C" int r8b_frac_whole_f32(const float* xp, long long ldx,
+                                  long long x0, long long n_x,
                                   const void* parts, const int* band,
                                   int n_parts, int bn, int n_kt, float* y,
                                   int C, int n_win, int I, int D, int O,
-                                  int fold, void* stream) {
+                                  int fold, int vec, void* stream) {
   using split::TK;
-  if (C < 0 || n_win < 1 || I < 1 || D < 1 || O < 1 || ldx < 0 ||
+  if (C < 0 || n_win < 1 || I < 1 || D < 1 || O < 1 || ldx < 0 || n_x < 0 ||
       n_kt * TK < D || n_kt > D / TK + 1 || band == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0) return 0;
@@ -815,7 +937,7 @@ extern "C" int r8b_frac_whole_f32(const float* xp, long long ldx,
 #define R8B_SPLIT(BN_, FOLD_, P_)                                    \
   if (bn == BN_ && fold == FOLD_ && n_parts == P_)                   \
     return static_cast<int>(split::launch_split<BN_, FOLD_, P_>(     \
-        s, xp, ldx, pb, band, y, C, n_win, I, D, O, n_kt));
+        s, xp, ldx, x0, n_x, pb, band, y, C, n_win, I, D, O, n_kt, vec));
   R8B_SPLIT(128, 32, 3)
   R8B_SPLIT(128, 32, 4)
   R8B_SPLIT(128, 16, 3)
@@ -832,12 +954,14 @@ extern "C" int r8b_frac_whole_f32(const float* xp, long long ldx,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// xp: [C, >= (n_win-1)*I + D] float64 with row stride ldx; skT, skT_lo:
-// [D, O] row-major (skT_lo may be null); y: [C, n_win*O] row-major.
+// xp: x [C, n_x] float64 with row stride ldx, read from the signed window
+// origin x0, zero outside [0, n_x); skT, skT_lo: [D, O] row-major (skT_lo
+// may be null); y: [C, n_win*O] row-major.
 extern "C" int r8b_frac_whole_f64(const double* xp, long long ldx,
+                                  long long x0, long long n_x,
                                   const double* skT, const double* skT_lo,
                                   double* y, int C, int n_win, int I, int D,
                                   int O, void* stream) {
-  return launch<double, 64, 64, 16, 4, 4, 16>(xp, ldx, skT, skT_lo, y, C,
-                                              n_win, I, D, O, stream);
+  return launch<double, 64, 64, 16, 4, 4, 16>(xp, ldx, x0, n_x, skT, skT_lo,
+                                              y, C, n_win, I, D, O, stream);
 }

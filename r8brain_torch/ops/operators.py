@@ -7,15 +7,17 @@ applied to windows of the input at stride ``hop``, window 0 at column
     y[c, b*Kcols + k] = x[c, start + b*hop : start + b*hop + L_f] . T[:, k],
 
 b < n_blocks.  The executors keep the geometry (start, hop, n_blocks and
-the framed length ``need``, which sets the row stride the kernel reads)
-and their seam protocols; this module owns the rest, built once from the
+the framed length ``need``, the length of a framing copy where one is
+made) and their seam protocols; this module owns the rest, built once from the
 float64 operator T:
 
 * ``FramedOperator``, T on ``frac_whole`` (ops/pallas_frac.py): T in the
   stage's dtype with the optional float32 residual each executor builds,
   packed (``operator_parts``), its nonzero band and the fold width ``kc``;
-  each call frames the signal in the stage's dtype (the ``r8b.frame``
-  span; its bytes, the ``frame.bytes`` counter);
+  on the card each call hands the kernel the signal as it lies and the
+  window origin (the ``frame.direct`` counter), and elsewhere, or where
+  the signal needs a cast, frames a copy in the stage's dtype first (the
+  ``r8b.frame`` span; its bytes, the ``frame.bytes`` counter);
 * ``OzakiOperator``, T on ``ozaki_framed`` (ops/pallas_ozaki.py): its
   error-free split form (``split_operator_host``) and the kernel's packing
   (``pack_operator``); each call frames the signal to float32 with its
@@ -68,14 +70,28 @@ class FramedOperator(nn.Module):
     def apply(self, x: torch.Tensor, start: int, need: int, hop: int,
               n_blocks: int) -> torch.Tensor:
         """Every block's columns [C, n_blocks*Kcols] of x framed from
-        column ``start`` over ``need`` samples (zeros outside x); the
-        framing copy inside the ``r8b.frame`` span, its bytes counted as
+        column ``start`` over ``need`` samples (zeros outside x).  On the
+        card, in the stage's dtype, the kernel reads x where it lies (a
+        call counted as ``frame.direct``); else x is framed first, the
+        copy inside the ``r8b.frame`` span, its bytes counted as
         ``frame.bytes``."""
+        if _reads_in_place(x, self.dtype):
+            count("frame.direct")
+            return frac_whole(x, self.parts, hop, self.L_f, self.Kcols,
+                              n_blocks, kc=self.kc, band=self.band,
+                              start=start)
         with span("r8b.frame"):
             xp = shifted(x, start, need, self.dtype)
         count("frame.bytes", shifted_bytes(x, start, need, self.dtype))
         return frac_whole(xp, self.parts, hop, self.L_f, self.Kcols,
                           n_blocks, kc=self.kc, band=self.band)
+
+
+def _reads_in_place(x: torch.Tensor, dtype) -> bool:
+    """Whether ``frac_whole`` reads x in place: on the card, in the
+    operator's dtype, unit stride along time.  The CPU's plain model frames
+    a copy, as a cast does."""
+    return x.device.type == "cuda" and x.dtype == dtype and x.stride(1) == 1
 
 
 class OzakiOperator(nn.Module):

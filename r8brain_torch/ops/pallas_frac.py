@@ -1,8 +1,11 @@
 """Framed matmul of the fused chain: the hand-written CUDA kernel and its
 plain PyTorch version.
 
-    y[c, m*O + j] = sum_{d<D} xp[c, m*I + d] * skT[d, j]
-                  (+ sum_{d<D} xp[c, m*I + d] * skT_lo[d, j])
+    y[c, m*O + j] = sum_{d<D} x[c, start + m*I + d] * skT[d, j]
+                  (+ sum_{d<D} x[c, start + m*I + d] * skT_lo[d, j])
+
+with x zero outside [0, N): the kernel reads x where it lies, from a
+signed window origin ``start``.
 
 Counterpart of the reference package's ``ops/pallas_frac.py``
 (``frac_whole_pallas``): the same function, with the optional residual dot
@@ -56,17 +59,29 @@ the flagship operator the model reads about -150 dB re full scale, where
 float32 products summed in 32-term chunks folded with two_sum read -144.5
 and a single running float32 sum over D = 1027 terms about -132.
 
-The function is linear in xp, and ``frac_whole`` is differentiable in it
+The function is linear in x, and ``frac_whole`` is differentiable in it
 (torch.autograd and torch.func): its gradient is ``frac_whole`` itself on
 the adjoint geometry (``adjoint_geometry``) against the float32 operator
 re-blocked and split anew on the adjoint's own grids (``adjoint_parts``,
 built once per operator), so on the card the backward launches the
 kernel too, with the same exact fold sums.
+
+On the card the kernel stages each window row with 16-byte copies where
+the window origin, x's row stride and I allow, else with 8-byte copies on
+rows that start 8-byte aligned (``copy_width``).  Where the origin itself
+is off that alignment, the launch gives the operator s < 4 leading zero
+rows and reads from start - s (``lead_rows``): the same products, the
+origin aligned.  That operator is split anew on its own grids
+(``_lead_operator``, built once per operator and s), so its fold sums are
+exact too, but they group D's rows otherwise: on the card the output's
+bits follow x's address mod 16 bytes (a view at another storage offset, a
+stream's window), within the kernel's tolerance of its plain model.
 """
 
 from __future__ import annotations
 
 import ctypes
+import operator
 from typing import Optional
 
 import torch
@@ -77,12 +92,12 @@ from torch.utils.weak import WeakTensorKeyDictionary
 from ..utils.trace import count, spanned
 from . import _cuda
 from .dfloat import two_sum
-from .framing import _framed_matmul
+from .framing import _framed_matmul, shifted
 
 __all__ = ["KC", "KC_LO", "TILE_K", "K_STEP", "split3", "split_grid",
            "operator_parts", "OperatorBand", "operator_band", "unpack_parts",
-           "adjoint_geometry", "adjoint_parts", "frac_whole",
-           "frac_whole_ref"]
+           "adjoint_geometry", "adjoint_parts", "copy_width", "lead_rows",
+           "frac_whole", "frac_whole_ref"]
 
 #: Terms per partial sum of the big pair before the two_sum fold (two k16
 #: tensor-core steps), and the rows of D that share one grid of the
@@ -286,14 +301,14 @@ def operator_band(parts: torch.Tensor) -> Optional[OperatorBand]:
     return OperatorBand(steps.to(torch.int32))
 
 
-def _check(xp, parts, I, D, O, n_win, kc):
+def _check(x, parts, I, D, O, n_win, kc):
     if kc not in (KC_LO, KC):
         raise ValueError(f"kc must be {KC_LO} or {KC}, got {kc}")
-    if xp.dim() != 2:
-        raise ValueError(f"xp must be [C, L], got {tuple(xp.shape)}")
-    if xp.dtype == torch.float32:
+    if x.dim() != 2:
+        raise ValueError(f"x must be [C, N], got {tuple(x.shape)}")
+    if x.dtype == torch.float32:
         if parts.dtype != torch.bfloat16:
-            raise TypeError(f"a float32 xp takes the packed bfloat16 "
+            raise TypeError(f"a float32 x takes the packed bfloat16 "
                             f"operator_parts, got {parts.dtype}")
         BN = _tile_n(O)
         want = (-(-O // BN), -(-D // TILE_K), BN, TILE_K)
@@ -304,9 +319,9 @@ def _check(xp, parts, I, D, O, n_win, kc):
                              f"O={O}] operator: bfloat16 [{want[0]}, "
                              f"{want[1]}, 3 or 4{' (+1)' if BN == 8 else ''}"
                              f", {BN}, {TILE_K}], got {tuple(parts.shape)}")
-    elif xp.dtype == torch.float64:
+    elif x.dtype == torch.float64:
         if parts.dtype != torch.float64:
-            raise TypeError(f"a float64 xp takes the float64 operator_parts, "
+            raise TypeError(f"a float64 x takes the float64 operator_parts, "
                             f"got {parts.dtype}")
         if parts.dim() != 3 or parts.shape[0] not in (1, 2) \
                 or tuple(parts.shape[1:]) != (D, O):
@@ -314,21 +329,18 @@ def _check(xp, parts, I, D, O, n_win, kc):
                              f"O={O}] operator: float64 [1 or 2, {D}, {O}], "
                              f"got {tuple(parts.shape)}")
     else:
-        raise TypeError(f"xp must be float32 or float64, got {xp.dtype}")
+        raise TypeError(f"x must be float32 or float64, got {x.dtype}")
     if n_win < 1 or I < 1:
         raise ValueError(f"need n_win >= 1 and I >= 1, got {n_win}, {I}")
-    if xp.shape[1] < (n_win - 1) * I + D:
-        raise ValueError(f"xp has {xp.shape[1]} samples; {n_win} windows "
-                         f"need {(n_win - 1) * I + D}")
 
 
-def _check_band(xp, parts, band):
+def _check_band(x, parts, band):
     """A float32 call on the card takes its operator's band; one given
-    must fit the operator and lie on xp's device."""
-    if xp.dtype != torch.float32:
+    must fit the operator and lie on x's device."""
+    if x.dtype != torch.float32:
         return
     if band is None:
-        if xp.device.type == "cuda":
+        if x.device.type == "cuda":
             raise ValueError("a float32 frac_whole on the card takes the "
                              "operator's band, operator_band(parts)")
         return
@@ -336,9 +348,9 @@ def _check_band(xp, parts, band):
             or tuple(band.steps.shape) != (parts.shape[0], 2):
         raise ValueError(f"band must be the OperatorBand of the operator's "
                          f"{parts.shape[0]} column tiles")
-    if band.steps.device != xp.device:
-        raise ValueError(f"the band lies on {band.steps.device}, xp on "
-                         f"{xp.device}")
+    if band.steps.device != x.device:
+        raise ValueError(f"the band lies on {band.steps.device}, x on "
+                         f"{x.device}")
 
 
 def _fold_slices(x: torch.Tensor, n_win: int, I: int, D: int, O: int,
@@ -378,32 +390,36 @@ def _band_mask(band, f: int, kc: int, BN: int, O: int, device):
     return torch.tensor(walk, device=device).repeat_interleave(BN)[:O]
 
 
-def frac_whole_ref(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
+def frac_whole_ref(x: torch.Tensor, parts: torch.Tensor, I: int, D: int,
                    O: int, n_win: int, kc: int = KC,
-                   band: Optional[OperatorBand] = None) -> torch.Tensor:
+                   band: Optional[OperatorBand] = None,
+                   start: int = 0) -> torch.Tensor:
     """Plain PyTorch version of ``frac_whole``, on any device.
 
-    float64: one framed contraction per stacked operator (segmented reshape
-    views).  float32: the kernel's split arithmetic on the slices of
-    ``parts``, fold by fold (``_fold_slices``): the small pairs x0*(s1+s2)
-    + x1*(s0+s1) + x2*s0 (+ x0*bf16(skT_lo)) as one float32 matmul a fold,
-    added to lo; the big pair x0*s0 as one matmul a fold, exact in float32
-    whatever its order (its products lie on one grid), folded with
-    two_sum into (hi, lo), both 0 at the start; once a TILE_K-row k-tile lo
-    moves into hi (Fast2Sum: t = hi + lo, lo = lo - (t - hi), hi = t); hi
-    + lo.  With ``band`` (``operator_band(parts)``) a column takes a fold
-    only where the fold meets its tile's band, as the kernel walks it (the
-    8-column tile walks all of D), and a fold that meets no tile's band is
-    not computed."""
-    _check(xp, parts, I, D, O, n_win, kc)
-    C = xp.shape[0]
+    The windows are framed first: ``shifted(x, start, L)`` (L = (n_win-1)*I
+    + D), a view of x where x covers [start, start + L), else a zero-padded
+    copy.  float64: one framed contraction per stacked operator (segmented
+    reshape views).  float32: the kernel's split arithmetic on the slices
+    of ``parts``, fold by fold (``_fold_slices``): the small pairs
+    x0*(s1+s2) + x1*(s0+s1) + x2*s0 (+ x0*bf16(skT_lo)) as one float32
+    matmul a fold, added to lo; the big pair x0*s0 as one matmul a fold,
+    exact in float32 whatever its order (its products lie on one grid),
+    folded with two_sum into (hi, lo), both 0 at the start; once a
+    TILE_K-row k-tile lo moves into hi (Fast2Sum: t = hi + lo, lo = lo -
+    (t - hi), hi = t); hi + lo.  With ``band`` (``operator_band(parts)``) a
+    column takes a fold only where the fold meets its tile's band, as the
+    kernel walks it (the 8-column tile walks all of D), and a fold that
+    meets no tile's band is not computed."""
+    _check(x, parts, I, D, O, n_win, kc)
+    C = x.shape[0]
+    L = (n_win - 1) * I + D
+    xp = shifted(x, start, L, x.dtype)
     s = unpack_parts(parts, D, O)
     if xp.dtype == torch.float64:
         y = _framed_matmul(xp, s[0], n_win, I)
         if s.shape[0] == 2:
             y = y + _framed_matmul(xp, s[1], n_win, I)
         return y.reshape(C, n_win * O)
-    L = (n_win - 1) * I + D
     # the small pairs' operator rows, stacked along K to match the
     # concatenated slices [x0, x1, x2 (, x0)] of a fold
     rhs = [s[1] + s[2], s[0] + s[1], s[0]] + ([s[3]] if s.shape[0] == 4
@@ -430,12 +446,89 @@ def frac_whole_ref(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
     return (hi + lo).reshape(C, n_win * O)
 
 
-_F64_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_F32_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+def copy_width(x: torch.Tensor, origin: int, I: int, O: int) -> int:
+    """The bytes of each copy with which the float32 kernel stages the
+    windows of a call reading x from window origin ``origin``; the launch
+    hands the kernel this choice (``csrc/frac_whole.cu``, ``launch_split``,
+    which refuses 16 where the alignment does not allow it).  16 where x's
+    first column and the origin lie on 16 bytes and I and x's row stride
+    are multiples of 4 floats; 8 where the origin lies on 8 bytes and I and
+    the row stride are even (a row whose copies would straddle x's first
+    column copies a float at a time); else 4, as for float64 and the
+    8-column tile's stretches, which copy a float at a time."""
+    if x.dtype != torch.float32 or (_tile_n(O) == 8
+                                    and I <= _MAX_STRETCH_I):
+        return 4
+    p, ldx = x.data_ptr() // 4 + origin, x.stride(0)  # the origin's float
+    if p % 4 == 0 and x.data_ptr() % 16 == 0 and ldx % 4 == 0 \
+            and I % 4 == 0:
+        return 16
+    return 8 if p % 2 == 0 and ldx % 2 == 0 and I % 2 == 0 else 4
+
+
+def lead_rows(x: torch.Tensor, start: int, I: int, D: int, O: int) -> int:
+    """The leading zero rows s (0 to 3) a launch on the card gives the
+    operator so that the window origin start - s takes the widest copies
+    (``copy_width``), the fewest rows among the widest; none that would
+    add a k-tile of D.  Which s that is follows x's address: the same
+    samples at another storage offset may take another s, and with it an
+    operator whose folds group D's rows otherwise (``_lead_operator``), so
+    other bits within the kernel's tolerance."""
+    k_tiles = -(-D // TILE_K)
+    fits = [s for s in range(4) if -(-(D + s) // TILE_K) == k_tiles]
+    return max(fits, key=lambda s: (copy_width(x, start - s, I, O), -s))
+
+
+#: Operators with leading zero rows, per operator_parts tensor: {(D, O, s,
+#: version): (operator_parts, band)}, built on first use and dropped with
+#: the operator.
+_LEADS = WeakTensorKeyDictionary()
+
+
+def _lead_operator(parts: torch.Tensor, D: int, O: int, s: int):
+    """(operator_parts, operator_band) of the float32 operator the forward
+    computes with, s0 + s1 + s2 (exact in float32), and bf16(skT_lo) as it
+    is, each with s leading zero rows: split anew, so that its lead slice
+    lies on grids of its own 32-row groups (the kernel's folds start at a
+    multiple of kc from its row 0).  Built once per operator and s, from
+    the buffer itself, outside torch.func's transforms."""
+    def build():
+        with torch.no_grad():
+            sl = unpack_parts(parts, D, O)
+            ops = [sl[0] + sl[1] + sl[2]] + ([sl[3]] if sl.shape[0] == 4
+                                             else [])
+            ap = operator_parts(*(F.pad(t, (0, 0, s, 0)) for t in ops))
+            return ap, operator_band(ap)
+
+    parts = _operator(parts)
+    return _derived(_LEADS, parts, (D, O, s), build)
+
+
+def _derived(cache, parts: torch.Tensor, key: tuple, build):
+    """build(), once per operator buffer ``parts``, ``key`` and the
+    buffer's version, kept in ``cache`` (a WeakTensorKeyDictionary, so it
+    goes with the operator) and built outside torch.func's transforms: a
+    backward under one would otherwise make them its wrappers, which
+    outlive it in the cache and have no storage for the kernel to read."""
+    per = cache.get(parts)
+    if per is None:
+        per = cache[parts] = {}
+    key = key + (parts._version,)
+    value = per.get(key)
+    if value is None:
+        with torch._C._DisableFuncTorch():
+            value = per[key] = build()
+    return value
+
+
+_F64_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_F32_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -449,27 +542,29 @@ def _launcher(dtype):
     return fn
 
 
-def _launch(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int, O: int,
-            n_win: int, kc: int, band) -> torch.Tensor:
-    """One launch of the kernel (counted in ``frac_whole.launches``)."""
-    if xp.stride(1) != 1:
-        raise ValueError("xp must have unit stride along time")
-    if parts.device != xp.device or not parts.is_contiguous():
-        raise ValueError("the operator must be contiguous on xp's device")
-    C = xp.shape[0]
-    y = torch.empty((C, n_win * O), dtype=xp.dtype, device=xp.device)
+def _launch(x: torch.Tensor, parts: torch.Tensor, I: int, D: int, O: int,
+            n_win: int, kc: int, band, start: int) -> torch.Tensor:
+    """One launch of the kernel (counted in ``frac_whole.launches``),
+    reading x in place from window origin ``start``."""
+    if x.stride(1) != 1:
+        raise ValueError("x must have unit stride along time")
+    if parts.device != x.device or not parts.is_contiguous():
+        raise ValueError("the operator must be contiguous on x's device")
+    C, N = x.shape
+    y = torch.empty((C, n_win * O), dtype=x.dtype, device=x.device)
     if C == 0:
         return y
-    fn = _launcher(xp.dtype)
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        if xp.dtype == torch.float32:
+    fn = _launcher(x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if x.dtype == torch.float32:
             Nt, Kt, P, BN, _ = parts.shape
-            rc = fn(xp.data_ptr(), xp.stride(0), parts.data_ptr(),
+            rc = fn(x.data_ptr(), x.stride(0), start, N, parts.data_ptr(),
                     _operator(band.steps).data_ptr(), P - (BN == 8), BN,
-                    Kt, y.data_ptr(), C, n_win, I, D, O, kc, stream)
+                    Kt, y.data_ptr(), C, n_win, I, D, O, kc,
+                    int(copy_width(x, start, I, O) == 16), stream)
         else:
-            rc = fn(xp.data_ptr(), xp.stride(0), parts[0].data_ptr(),
+            rc = fn(x.data_ptr(), x.stride(0), start, N, parts[0].data_ptr(),
                     parts[1].data_ptr() if parts.shape[0] == 2 else None,
                     y.data_ptr(), C, n_win, I, D, O, stream)
     if rc != 0:
@@ -478,14 +573,14 @@ def _launch(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int, O: int,
     return y
 
 
-def _count_folds(xp, parts, I, D, n_win, kc, band):
+def _count_folds(x, parts, I, D, n_win, kc, band):
     """``frac_whole.folds`` (folds walked: each column tile's band, or all
     of D without one and on the 8-column tile) and
     ``frac_whole.folds_full`` (all of D), over the kernel's row tiles
     (channel-aligned on the 8-column tile at I <= 64), from host
     integers."""
     Nt, BN = parts.shape[0], parts.shape[3]
-    C = xp.shape[0]
+    C = x.shape[0]
     if BN == 8 and I <= _MAX_STRETCH_I:
         rows = C * -(-n_win // _BLOCK_M)
     else:
@@ -496,16 +591,21 @@ def _count_folds(xp, parts, I, D, n_win, kc, band):
     count("frac_whole.folds_full", rows * full)
 
 
-def _run(xp, parts, I, D, O, n_win, kc, band):
-    if xp.dtype == torch.float32:
-        _count_folds(xp, parts, I, D, n_win, kc, band)
-    if xp.device.type == "cpu":
+def _run(x, parts, I, D, O, n_win, kc, band, start):
+    if x.device.type == "cuda":
+        s = lead_rows(x, start, I, D, O)
+        if s:
+            parts, band = _lead_operator(parts, D, O, s)
+            D, start = D + s, start - s
+    if x.dtype == torch.float32:
+        _count_folds(x, parts, I, D, n_win, kc, band)
+    if x.device.type == "cpu":
         # a fresh tensor, not a view: callers correct outputs in place
-        y = frac_whole_ref(xp, parts, I, D, O, n_win, kc, band)
+        y = frac_whole_ref(x, parts, I, D, O, n_win, kc, band, start)
         return y if y._base is None else y.clone()
-    if xp.device.type != "cuda":
-        raise RuntimeError(f"frac_whole runs on cuda or cpu, not {xp.device}")
-    return _launch(xp, parts, I, D, O, n_win, kc, band)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"frac_whole runs on cuda or cpu, not {x.device}")
+    return _launch(x, parts, I, D, O, n_win, kc, band, start)
 
 
 #: Adjoint operators, per operator_parts tensor: {(I, D, O, version): (the
@@ -528,19 +628,10 @@ def adjoint_geometry(I: int, D: int, O: int):
 
 def _adjoint_operator(parts: torch.Tensor, I: int, D: int, O: int):
     """(operator_parts, operator_band) of the adjoint, built once per
-    operator (see ``adjoint_parts``) from the buffer itself, outside
-    torch.func's transforms: a backward under one would otherwise make
-    them its wrappers, which outlive it in the cache and have no storage
-    for the kernel to read."""
-    per = _ADJOINTS.get(parts)
-    if per is None:
-        per = _ADJOINTS[parts] = {}
-    key = (I, D, O, parts._version)
-    adj = per.get(key)
-    if adj is None:
-        with torch._C._DisableFuncTorch():
-            adj = per[key] = _build_adjoint(parts, I, D, O)
-    return adj
+    operator (see ``adjoint_parts``) from the buffer itself
+    (``_derived``)."""
+    return _derived(_ADJOINTS, parts, (I, D, O),
+                    lambda: _build_adjoint(parts, I, D, O))
 
 
 def _build_adjoint(parts: torch.Tensor, I: int, D: int, O: int):
@@ -583,32 +674,35 @@ def _operator(parts: torch.Tensor) -> torch.Tensor:
     return parts
 
 
-def _adjoint(gy: torch.Tensor, parts, I, D, O, n_win, kc, L: int):
-    """xbar [C, L] = frac_whole's transpose on gy [C, n_win*O]."""
+def _adjoint(gy: torch.Tensor, parts, I, D, O, n_win, kc, N: int,
+             start: int):
+    """xbar [C, N] = frac_whole's transpose on gy [C, n_win*O]: the
+    adjoint reads gy in place with (K-1)*O zeros on each side, gives the
+    gradient over the windows' span from ``start``, and that span is cut
+    to x's [0, N)."""
     Ia, Da, Oa, K = adjoint_geometry(I, D, O)
-    gyp = F.pad(gy, ((K - 1) * O, (K - 1) * O))  # contiguous, as the kernel
     before = frac_whole.launches
     ap, ab = _adjoint_operator(_operator(parts), I, D, O)
-    gx = _FracWhole.apply(gyp, ap, Ia, Da, Oa, n_win + K - 1, kc, ab)
+    gx = _FracWhole.apply(gy.contiguous(), ap, Ia, Da, Oa, n_win + K - 1,
+                          kc, ab, -(K - 1) * O)
     frac_whole.adjoint_launches += frac_whole.launches - before
-    n = gx.shape[1]
-    return gx[:, :L] if n >= L else F.pad(gx, (0, L - n))
+    return shifted(gx, -start, N, gx.dtype)[:, :N]
 
 
 class _FracWhole(torch.autograd.Function):
-    """frac_whole as a linear map of xp (the operator is a constant): the
+    """frac_whole as a linear map of x (the operator is a constant): the
     backward is frac_whole itself on the adjoint geometry, the jvp
     frac_whole on the tangent, and vmap folds batch dimensions into rows
     (every row is independent)."""
 
     @staticmethod
-    def forward(xp, parts, I, D, O, n_win, kc, band):
-        return _run(xp, parts, I, D, O, n_win, kc, band)
+    def forward(x, parts, I, D, O, n_win, kc, band, start):
+        return _run(x, parts, I, D, O, n_win, kc, band, start)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        xp, parts, I, D, O, n_win, kc, band = inputs
-        ctx.geo = (I, D, O, n_win, kc, xp.shape[1])
+        x, parts, I, D, O, n_win, kc, band, start = inputs
+        ctx.geo = (I, D, O, n_win, kc, x.shape[1], start)
         ctx.band = band
         ctx.save_for_backward(parts)
         ctx.save_for_forward(parts)
@@ -616,66 +710,73 @@ class _FracWhole(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 8
+            return (None,) * 9
         (parts,) = ctx.saved_tensors
-        I, D, O, n_win, kc, L = ctx.geo
-        return (_adjoint(gy, parts, I, D, O, n_win, kc, L),) + (None,) * 7
+        return (_adjoint(gy, parts, *ctx.geo),) + (None,) * 8
 
     @staticmethod
-    def jvp(ctx, gxp, *_rest):
-        if gxp is None:
+    def jvp(ctx, gx, *_rest):
+        if gx is None:
             return None
         (parts,) = ctx.saved_tensors
-        I, D, O, n_win, kc, _L = ctx.geo
-        return _FracWhole.apply(gxp.contiguous(), parts, I, D, O, n_win, kc,
-                                ctx.band)
+        I, D, O, n_win, kc, _N, start = ctx.geo
+        return _FracWhole.apply(gx.contiguous(), parts, I, D, O, n_win, kc,
+                                ctx.band, start)
 
     @staticmethod
-    def vmap(info, in_dims, xp, parts, I, D, O, n_win, kc, band):
+    def vmap(info, in_dims, x, parts, I, D, O, n_win, kc, band, start):
         if in_dims[1] is not None:
             raise ValueError("frac_whole's operator cannot be batched")
         if in_dims[0] is None:
-            return _FracWhole.apply(xp, parts, I, D, O, n_win, kc,
-                                    band), None
-        xb = xp.movedim(in_dims[0], 0)
+            return _FracWhole.apply(x, parts, I, D, O, n_win, kc, band,
+                                    start), None
+        xb = x.movedim(in_dims[0], 0)
         B, C = xb.shape[0], xb.shape[1]
         y = _FracWhole.apply(xb.reshape(B * C, xb.shape[2]).contiguous(),
-                             parts, I, D, O, n_win, kc, band)
+                             parts, I, D, O, n_win, kc, band, start)
         return y.reshape(B, C, y.shape[1]), 0
 
 
 @spanned("r8b.kernel.frac_whole")
-def frac_whole(xp: torch.Tensor, parts: torch.Tensor, I: int, D: int,
+def frac_whole(x: torch.Tensor, parts: torch.Tensor, I: int, D: int,
                O: int, n_win: int, kc: int = KC,
-               band: Optional[OperatorBand] = None) -> torch.Tensor:
-    """y [C, n_win*O]: y[c, m*O + j] = xp[c, m*I : m*I + D] . skT[:, j]
-    (+ the same dot against skT_lo), for parts = ``operator_parts(skT,
-    skT_lo)`` of xp's dtype on xp's device.
+               band: Optional[OperatorBand] = None,
+               start: int = 0) -> torch.Tensor:
+    """y [C, n_win*O]: y[c, m*O + j] = x[c, start + m*I : start + m*I + D]
+    . skT[:, j] (+ the same dot against skT_lo), x zero outside [0, N), for
+    parts = ``operator_parts(skT, skT_lo)`` of x's dtype on x's device.
 
-    xp: [C, L] with L >= (n_win-1)*I + D and unit stride along time (any
-    row stride); kc: terms a float32 big-pair partial sums before its fold,
-    ``KC`` or ``KC_LO`` (float64 ignores it); band: ``operator_band(parts)``
-    on xp's device, which a float32 call on the card must give (float64
-    ignores it; on the CPU without one every fold is walked).  On a CUDA
-    tensor this launches the kernel (counted in ``frac_whole.launches``) or
-    raises; on a CPU tensor it is ``frac_whole_ref``.  Each float32 call
-    adds the folds it walks to the counter ``frac_whole.folds`` and those
-    of all of D to ``frac_whole.folds_full`` (``utils/trace.py``: while a
-    profiler records).
+    x: [C, N] with unit stride along time (any row stride, any storage
+    offset; slice it for a shorter logical length), read where it lies;
+    start: the signed column of x where window 0 begins; kc: terms a
+    float32 big-pair partial sums before its fold, ``KC`` or ``KC_LO``
+    (float64 ignores it); band: ``operator_band(parts)`` on x's device,
+    which a float32 call on the card must give (float64 ignores it; on the
+    CPU without one every fold is walked).  On a CUDA tensor this launches
+    the kernel (counted in ``frac_whole.launches``) or raises; on a CPU
+    tensor it is ``frac_whole_ref``.  Each float32 call adds the folds it
+    walks to the counter ``frac_whole.folds`` and those of all of D to
+    ``frac_whole.folds_full`` (``utils/trace.py``: while a profiler
+    records).
 
-    Differentiable in xp (torch.autograd, torch.func): the gradient is
+    Differentiable in x (torch.autograd, torch.func): the gradient is
     this function on the adjoint geometry (``adjoint_geometry``,
-    ``adjoint_parts``), so on a CUDA tensor the backward launches the
-    kernel too, counted in ``frac_whole.launches`` and apart in
-    ``frac_whole.adjoint_launches``.
+    ``adjoint_parts``), cut to x's columns, so on a CUDA tensor the
+    backward launches the kernel too, counted in ``frac_whole.launches``
+    and apart in ``frac_whole.adjoint_launches``.
 
     The float32 kernel's big-pair fold sums equal the model's, but it adds
     the small pairs into lo on the tensor cores, in their own order and
     truncated, so it matches ``frac_whole_ref`` to 2^-21 of max |y|, not
-    bit for bit; float64 matches to 1e-12."""
-    _check(xp, parts, I, D, O, n_win, kc)
-    _check_band(xp, parts, band)
-    return _FracWhole.apply(xp, parts, I, D, O, n_win, kc, band)
+    bit for bit; float64 matches to 1e-12.  A launch that shifts the
+    origin (``lead_rows``) matches the model of its shifted operator so,
+    and the model of this one within the same tolerance: which shift it
+    takes follows x's address, so the same samples at another storage
+    offset may give other bits, within that tolerance."""
+    start = operator.index(start)
+    _check(x, parts, I, D, O, n_win, kc)
+    _check_band(x, parts, band)
+    return _FracWhole.apply(x, parts, I, D, O, n_win, kc, band, start)
 
 
 frac_whole.launches = 0

@@ -26,8 +26,9 @@ synchronises or allocates.  The names the package records:
   ``r8b.stream.suffix`` (the suffix ring after the polynomial stage),
   ``r8b.exec.<class>`` (each executor call of ``run_chain``),
   ``r8b.kernel.<name>`` (the CUDA kernels' wrappers, ``poly_dot`` among
-  them), ``r8b.frame`` (the framing copy before each ``frac_whole`` call
-  of a ``FramedOperator``), and in the guarantee chain
+  them), ``r8b.frame`` (the framing copy before a ``frac_whole`` call of
+  a ``FramedOperator`` that does not read its input in place: on the CPU,
+  and where the input needs a cast), and in the guarantee chain
   ``r8b.ozaki.prep`` (an ozaki executor's framing copies and per-channel
   scales before each ``ozaki_framed`` call) and
   ``r8b.ozaki.carry`` (the df32 carry's torch work: the framing copy of
@@ -42,8 +43,10 @@ synchronises or allocates.  The names the package records:
   ``ozaki_framed.macs`` (the multiply-adds of each ``ozaki_framed``
   call), ``poly.kernel`` and ``poly.banded`` (one a polynomial
   stage's banded-engine call, by the path its contraction took:
-  ``poly_dot``, or the banded operators), and ``frame.bytes`` (the bytes
-  each ``r8b.frame`` span's copy writes, 0 where the framing is a view).
+  ``poly_dot``, or the banded operators), ``frame.bytes`` (the bytes
+  each ``r8b.frame`` span's copy writes, 0 where the framing is a view)
+  and ``frame.direct`` (one a ``FramedOperator`` call whose ``frac_whole``
+  reads the input where it lies, from the window origin, with no copy).
 """
 
 from __future__ import annotations

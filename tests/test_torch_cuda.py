@@ -15,7 +15,7 @@ import torch
 
 from r8brain_torch import Resampler, resample_fn
 from r8brain_torch.ops import ozaki
-from r8brain_torch.ops.framing import _framed_matmul
+from r8brain_torch.ops.framing import _framed_matmul, shifted
 from r8brain_torch.ops.pallas_dfft import (SMEM_MAX_N, DfFFTPlan,
                                            df_fft_conv, df_fft_conv_ref)
 from r8brain_torch.ops.pallas_frac import (KC, KC_LO, frac_whole,
@@ -108,6 +108,191 @@ def test_kernel_fold_lengths_match_plain(cuda_device, kc):
     scale = np.abs(ref).max()
     assert np.abs(y - ref).max() / scale < 1e-5
     assert np.abs(y - model).max() / scale < 2.0**-21
+
+
+# (label, dtype, I, D, O, n_win, start, N, row stride pad, storage offset,
+# skT_lo, kc): frac_whole reading x in place from a signed window origin,
+# zeros outside [0, N).  The half-band decimators' origins 1 - 2*nt and
+# every residue mod 4 (the launch's leading zero rows, lead_rows: 16-byte
+# copies), row strides off a multiple of 4 (odd: 4-byte copies on half the
+# rows) and a view at a storage offset; windows past N (the last ones
+# wholly so: exact zeros); the flagship's odd origin (8-byte copies); the
+# 8-column tile's stretches (I <= 64, O <= 2) and its rows (I > 64);
+# float64.
+IN_PLACE = [
+    ("hb_down_m9", torch.float32, 256, 274, 128, 61, -9, 15600, 0, 0, False,
+     KC),
+    ("res0", torch.float32, 256, 278, 128, 37, -12, 9400, 0, 0, False, KC),
+    ("res1", torch.float32, 256, 278, 128, 37, -11, 9400, 0, 0, False, KC),
+    ("res2", torch.float32, 256, 278, 128, 37, -10, 9400, 0, 0, False, KC),
+    ("res3", torch.float32, 256, 278, 128, 37, -21, 9400, 0, 0, True,
+     KC_LO),
+    ("past_n", torch.float32, 256, 298, 128, 40, 3, 8001, 0, 0, False, KC),
+    ("stride_2mod4", torch.float32, 256, 274, 128, 33, -9, 8400, 2, 0,
+     False, KC),
+    ("stride_odd", torch.float32, 256, 274, 128, 33, -9, 8401, 0, 0, True,
+     KC),
+    ("offset_view", torch.float32, 256, 1927, 256, 23, -708, 12000, 1, 3,
+     False, KC),
+    ("flagship", torch.float32, 294, 1027, 640, 31, -359, 8900, 0, 0, False,
+     KC),
+    ("stretch_i1", torch.float32, 1, 709, 2, 700, -354, 650, 0, 1, True,
+     KC_LO),
+    ("stretch_i47", torch.float32, 47, 300, 2, 90, -100, 3900, 3, 0, False,
+     KC),
+    ("rows_o1", torch.float32, 100, 331, 1, 50, -7, 5000, 0, 2, False, KC),
+    ("f64", torch.float64, 147, 171, 160, 45, -5, 6300, 1, 1, True, KC),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", IN_PLACE, ids=[c[0] for c in IN_PLACE])
+def test_in_place_read_matches_plain(cuda_device, case):
+    """frac_whole on x as it lies (a view of C = 5 rows with its own row
+    stride and storage offset) from window origin ``start``, against
+    frac_whole_ref on the framing copy shifted(x, start, L) at origin 0:
+    within 2^-21 of max |y| in float32 (the launch may give the operator
+    leading zero rows, whose fold grids differ from the model's by their
+    offset; 1e-12 in float64), within 1e-5 of the float64 product, and
+    exact zeros in every window that lies wholly outside x."""
+    (_label, dtype, I, D, O, n_win, start, N, pad, off, lo, kc) = case
+    C = 5
+    g = torch.Generator().manual_seed(I + D + N)
+    big = 2 * torch.rand((C, off + N + pad), generator=g,
+                         dtype=torch.float64) - 1
+    full = big.to(dtype)
+    x = big[:, off : off + N]
+    skT = torch.randn((D, O), generator=g, dtype=torch.float64)
+    skT_lo = (torch.randn((D, O), generator=g, dtype=torch.float64)
+              * 2.0**-24 if lo else None)
+    cast = dict(dtype=dtype)
+    parts = operator_parts(skT.to(**cast),
+                           None if skT_lo is None else skT_lo.to(**cast))
+    L = (n_win - 1) * I + D
+    xp = shifted(full[:, off : off + N], start, L, dtype)
+    model = frac_whole_ref(xp, parts, I, D, O, n_win, kc=kc).double()
+    ref = frac_whole_ref(shifted(x, start, L, torch.float64),
+                         operator_parts(skT, skT_lo), I, D, O, n_win)
+    xd = full.to(cuda_device)[:, off : off + N]
+    assert xd.stride(0) == N + pad + off and xd.storage_offset() == off
+    pd = parts.to(cuda_device)
+    before = frac_whole.launches
+    y = frac_whole(xd, pd, I, D, O, n_win, kc=kc,
+                   band=operator_band(pd), start=start)
+    torch.cuda.synchronize()
+    assert frac_whole.launches == before + 1
+    y = y.cpu().double()
+    scale = float(ref.abs().max())
+    tol = 2.0**-21 if dtype == torch.float32 else 1e-12
+    assert float((y - model).abs().max()) / scale < tol
+    assert float((y - ref).abs().max()) / scale < 1e-5
+    m_out = [m for m in range(n_win)
+             if start + m * I >= N or start + m * I + D <= 0]
+    for m in m_out:
+        assert not y.reshape(C, n_win, O)[:, m].any()
+
+
+@pytest.mark.cuda
+def test_storage_offset_moves_bits_within_tolerance(cuda_device):
+    """The launch's leading zero rows (lead_rows) follow x's address, so
+    the same samples at another storage offset may give other bits: at
+    the first half-band decimator's call (origin -9), x at storage
+    offsets 0 to 3 takes the shifts 3 (16-byte copies), 0, 1 and 0 (x off
+    16 bytes: 8-byte copies), and each output lies within 2^-21 of max
+    |y| of the plain model, so within 2^-20 of the others."""
+    from r8brain_torch.ops.pallas_frac import lead_rows
+
+    I, D, O, n_win, start, N, C = 256, 274, 128, 61, -9, 15600, 5
+    g = torch.Generator().manual_seed(27)
+    x = 2 * torch.rand((C, N), generator=g) - 1
+    skT = torch.randn((D, O), generator=g)
+    parts = operator_parts(skT)
+    model = frac_whole_ref(x, parts, I, D, O, n_win, start=start).double()
+    scale = float(model.abs().max())
+    pd = parts.to(cuda_device)
+    shifts, ys = [], []
+    for off in range(4):
+        big = torch.zeros((C, N + 4), device=cuda_device)
+        big[:, off : off + N] = x.to(cuda_device)
+        xd = big[:, off : off + N]
+        shifts.append(lead_rows(xd, start, I, D, O))
+        y = frac_whole(xd, pd, I, D, O, n_win, band=operator_band(pd),
+                       start=start).cpu().double()
+        assert float((y - model).abs().max()) < 2.0**-21 * scale, off
+        ys.append(y)
+    assert shifts == [3, 0, 1, 0]
+    for y in ys[1:]:
+        assert float((y - ys[0]).abs().max()) < 2.0**-20 * scale
+
+
+@pytest.mark.cuda
+def test_stream_windows_within_tolerance_of_plain(cuda_device,
+                                                  monkeypatch):
+    """The 44.1k -> 96k stream hands frac_whole windows of its ring, read
+    in place at their own storage offsets (the launch's leading zero rows
+    follow them): each block's output lies within 2^-21 of max |y| of the
+    same stream on the CPU, whose calls are the kernel's plain model (the
+    CPU's stream against its oneshot: tests/test_torch_stream.py)."""
+    from r8brain_torch import StreamResampler
+    from r8brain_torch.ops import pallas_frac
+
+    real, shifts = pallas_frac.lead_rows, []
+
+    def rec(x, *a):
+        s = real(x, *a)
+        shifts.append(s)
+        return s
+
+    monkeypatch.setattr(pallas_frac, "lead_rows", rec)
+    rng = np.random.default_rng(27)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, (3, 6 * 4096)).astype(
+        np.float32))
+    ys = {}
+    for dev in ("cpu", cuda_device):
+        rs = Resampler(44100, 96000, 2.0, 180.15, device=dev)
+        st = StreamResampler(rs, 4096)
+        L = st.block
+        xd = x.to(dev)
+        ys[dev] = torch.cat([st.process_block_device(xd[:, i : i + L])
+                             for i in range(0, x.shape[1] - L + 1, L)],
+                            dim=1).cpu().double()
+    y_cpu, y = ys["cpu"], ys[cuda_device]
+    assert shifts and y.shape == y_cpu.shape
+    scale = float(y_cpu.abs().max())
+    assert float((y - y_cpu).abs().max()) < 2.0**-21 * scale
+
+
+# (src, dst, input samples, frac_whole calls) of the three cells that run
+# frac_whole: 44.1k -> 96k (fused), 44.1k -> 96001 (two toeplitz convs),
+# DSD64 -> 176.4k (three half-band decimators and a toeplitz conv)
+DIRECT_PLANS = [(44100, 96000, 44100, 1), (44100, 96001, 44100, 2),
+                (2822400, 176400, 141120, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", DIRECT_PLANS,
+                         ids=[f"{p[0]}_{p[1]}" for p in DIRECT_PLANS])
+def test_every_frac_whole_call_reads_in_place(cuda_device, plan):
+    """On the card every float32 FramedOperator call hands frac_whole the
+    stage's input itself: ``frame.direct`` counts each call, no
+    ``r8b.frame`` copy is made (no ``frame.bytes``), one launch a call."""
+    from r8brain_torch.utils import trace
+
+    src, dst, n, calls = plan
+    rs = Resampler(src, dst, 2.0, 180.15, device=cuda_device)
+    x = torch.rand((8, n), device=cuda_device) * 2 - 1
+    rs.oneshot(x)
+    before = frac_whole.launches
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts):
+        trace.reset_counters()
+        rs.oneshot(x)
+        counts = trace.counters()
+    trace.reset_counters()
+    torch.cuda.synchronize()
+    assert frac_whole.launches - before == calls
+    assert counts.get("frame.direct") == calls
+    assert "frame.bytes" not in counts
 
 
 # (label, I, D, O): SHAPES and the float32 chains' other frac_whole calls:

@@ -1,13 +1,18 @@
-"""The framing copy's span and counter (r8brain_torch/utils/trace.py):
+"""The framing copy's span and counters (r8brain_torch/utils/trace.py):
 ``r8b.frame`` around the ``shifted`` call of each ``FramedOperator.apply``
-(ops/operators.py) and ``frame.bytes``, the bytes that call writes,
+(ops/operators.py) that still frames a copy (on the CPU, and where the
+input needs a cast) and ``frame.bytes``, the bytes that call writes,
 counted from host integers (``ops/framing.py::shifted_bytes``): the padded
-copy's, 0 where ``shifted`` returns a view.  They record exactly while a
-``torch.profiler`` session records, nest inside their executor's span
-before the kernel's, and leave every output as it was.
+copy's, 0 where ``shifted`` returns a view; ``frame.direct``, one for
+each call whose ``frac_whole`` reads the input in place (on the card).
+They record exactly while a ``torch.profiler`` session records, nest
+inside their executor's span before the kernel's, and leave every output
+as it was.
 
-CPU tests run ``frac_whole``'s plain version.  The file imports nothing
-of JAX.
+CPU tests run ``frac_whole``'s plain version; the in-place calls are the
+card's rule (``operators._reads_in_place``) taken whatever the device,
+and the plain version frames them inside.  The file imports nothing of
+JAX.
 """
 
 import numpy as np
@@ -175,3 +180,52 @@ def test_outputs_bit_equal_traced(sacd):
     off = sacd.oneshot(x)
     on, _, _ = _traced(lambda: sacd.oneshot(x))
     assert on.dtype == off.dtype and torch.equal(on, off)
+
+
+def _as_on_the_card(monkeypatch):
+    """FramedOperator's in-place rule as on the card, on any device."""
+    monkeypatch.setattr(operators, "_reads_in_place",
+                        lambda x, dtype: x.dtype == dtype
+                        and x.stride(1) == 1)
+
+
+def test_direct_counts_one_an_in_place_call(sacd, monkeypatch):
+    """Read in place, each of the chain's four FramedOperator calls counts
+    one frame.direct, opens no r8b.frame span, copies nothing (no
+    frame.bytes) and hands frac_whole the stage's input itself with its
+    window origin; the chain's output is the framed chain's bit for bit
+    (the plain version frames inside)."""
+    x = _x(2, 16384, seed=4)
+    framed = sacd.oneshot(x)
+    _as_on_the_card(monkeypatch)
+    seen, copied = [], _copied(monkeypatch)
+    real = operators.frac_whole
+
+    def rec(xin, *a, **kw):
+        seen.append((xin.data_ptr(), kw.get("start", 0)))
+        return real(xin, *a, **kw)
+
+    monkeypatch.setattr(operators, "frac_whole", rec)
+    y, r, c = _traced(lambda: sacd.oneshot(x))
+    assert torch.equal(y, framed)
+    assert c["frame.direct"] == len(seen) == 4 and "frame.bytes" not in c
+    assert copied == [] and [n for n, _, _ in r].count("r8b.frame") == 0
+    assert [s for _, s in seen[:3]] == [-9, -11, -21]
+
+
+def test_a_cast_still_frames(monkeypatch):
+    """Where the input is not in the operator's dtype the call frames a
+    cast copy, as before, whatever the device: one r8b.frame span, its
+    bytes counted, no frame.direct."""
+    _as_on_the_card(monkeypatch)
+    seen = _copied(monkeypatch)
+    g = np.random.default_rng(6)
+    op = FramedOperator(g.standard_normal((40, 16)), torch.float32)
+    x = _x(2, 200).double()
+    y, r, c = _traced(lambda: op.apply(x, -3, 4 * 32 + 40, 32, 5))
+    assert len(seen) == 1 and seen[0] > 0
+    assert c["frame.bytes"] == shifted_bytes(x, -3, 4 * 32 + 40,
+                                             torch.float32)
+    assert "frame.direct" not in c
+    assert [n for n, _, _ in r].count("r8b.frame") == 1
+    assert y.shape == (2, 5 * 16)

@@ -27,7 +27,7 @@ from r8brain_torch.ops.pallas_frac import (KC, KC_LO, TILE_K, _fold_slices,
                                            operator_parts, split3,
                                            split_grid, unpack_parts)
 from r8brain_torch.ops.dfloat import two_sum
-from r8brain_torch.ops.framing import _frames
+from r8brain_torch.ops.framing import _frames, shifted
 from r8brain_torch.ops.stages import (ConvExec, FracWholeExec, HBDownExec,
                                       HBUpExec)
 
@@ -176,8 +176,10 @@ def test_rejects_bad_arguments():
     xp = torch.zeros(2, 100)
     skT = torch.zeros(40, 8)
     parts = operator_parts(skT)
-    with pytest.raises(ValueError, match="windows"):
-        frac_whole(xp, parts, 10, 40, 8, 8)  # needs 110 samples
+    with pytest.raises(ValueError, match="n_win"):
+        frac_whole(xp, parts, 10, 40, 8, 0)  # no window
+    with pytest.raises(TypeError):
+        frac_whole(xp, parts, 10, 40, 8, 2, start=1.5)  # no column
     with pytest.raises(ValueError, match="parts"):
         frac_whole(xp, parts, 10, 70, 8, 2)  # packed for D <= 64
     with pytest.raises(TypeError):
@@ -800,3 +802,153 @@ def test_operator_band(op, kc):
     y = frac_whole_ref(xp, parts, I, D, O, n, kc, band)
     y_full = frac_whole_ref(xp, parts, I, D, O, n, kc)
     assert torch.equal(y.view(torch.int32), y_full.view(torch.int32))
+
+
+# (label, dtype, I, D, O, n_win, start, N, storage offset, skT_lo): the
+# window origin before x, windows past x's end (the last wholly), inside
+# it, every window outside x, a view at a storage offset
+OFFSET_CASES = [
+    ("before", torch.float32, 7, 51, 12, 9, -23, 90, 0, False),
+    ("past_end", torch.float32, 7, 51, 12, 9, 5, 60, 0, True),
+    ("inside", torch.float32, 5, 40, 2, 11, 3, 200, 1, False),
+    ("outside", torch.float32, 9, 5, 6, 4, 80, 60, 0, False),
+    ("view_i1", torch.float32, 1, 33, 2, 40, -20, 50, 3, True),
+    ("hb_down", torch.float32, 256, 274, 128, 6, -9, 1300, 0, False),
+    ("f64", torch.float64, 7, 51, 12, 9, -23, 70, 2, True),
+]
+
+
+def _offset_case(case, seed):
+    _label, dtype, I, D, O, n_win, start, N, off, lo = case
+    g = torch.Generator().manual_seed(seed)
+    big = torch.rand((3, off + N), generator=g, dtype=dtype) * 2 - 1
+    skT = torch.randn((D, O), generator=g, dtype=dtype)
+    skT_lo = torch.randn((D, O), generator=g, dtype=dtype) * 2.0**-15
+    return (big[:, off:], operator_parts(skT, skT_lo if lo else None),
+            (n_win - 1) * I + D)
+
+
+@pytest.mark.parametrize("kc", [KC_LO, KC])
+@pytest.mark.parametrize("case", OFFSET_CASES,
+                         ids=[c[0] for c in OFFSET_CASES])
+def test_offset_read_is_the_framed_read(case, kc):
+    """frac_whole on x in place from a signed window origin, zero outside
+    x, is frac_whole on the framing copy shifted(x, start, L) at origin 0,
+    bit for bit on the CPU (the plain version frames inside); windows
+    wholly outside x give exact zeros."""
+    _label, dtype, I, D, O, n_win, start, N, _off, _lo = case
+    x, parts, L = _offset_case(case, I + D + kc)
+    band = operator_band(parts)
+    y = frac_whole(x, parts, I, D, O, n_win, kc, band, start=start)
+    xp = shifted(x, start, L, dtype)
+    assert xp.shape[1] >= L
+    assert torch.equal(y, frac_whole(xp, parts, I, D, O, n_win, kc, band))
+    for m in range(n_win):
+        if start + m * I >= N or start + m * I + D <= 0:
+            assert not y.reshape(3, n_win, O)[:, m].any()
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES,
+                         ids=[c[0] for c in OFFSET_CASES])
+def test_gradient_through_offset_read(case):
+    """The gradient through the offset read (the adjoint over the windows'
+    span, cut to x's columns) equals the gradient through shifted +
+    frac_whole (the adjoint on the framing copy, then F.pad's backward)
+    bit for bit; so do the jvp and vmap through it."""
+    from torch.func import jvp, vmap
+
+    _label, dtype, I, D, O, n_win, start, _N, _off, _lo = case
+    x, parts, L = _offset_case(case, 2 * I + D)
+    g = torch.Generator().manual_seed(D)
+    w = torch.rand((3, n_win * O), generator=g, dtype=dtype)
+    xa = x.clone().requires_grad_()
+    (frac_whole(xa, parts, I, D, O, n_win, start=start) * w).sum().backward()
+    xb = x.clone().requires_grad_()
+    (frac_whole(shifted(xb, start, L, dtype), parts, I, D, O, n_win)
+     * w).sum().backward()
+    assert xa.grad.shape == x.shape and torch.equal(xa.grad, xb.grad)
+    dx = torch.flip(x, dims=[1]).contiguous()
+    f = lambda v: frac_whole(v, parts, I, D, O, n_win, start=start)  # noqa
+    _y, dy = jvp(f, (x,), (dx,))
+    assert torch.equal(dy, f(dx))
+    yb = vmap(f)(torch.stack([x, dx]))
+    assert torch.equal(yb[1], f(dx))
+
+
+@pytest.mark.parametrize("ldx,off,start,I,D,O,want", [
+    (1024, 0, -9, 256, 274, 128, 3),    # 16-byte copies: 3 rows back
+    (1024, 0, -12, 256, 274, 128, 0),   # already aligned
+    (1024, 1, -9, 256, 274, 128, 0),    # x off 16 bytes: 8-byte, aligned
+    (1024, 2, -9, 256, 274, 128, 1),    # x off 16 bytes: 8-byte, 1 back
+    (1024, 0, -359, 294, 1027, 640, 1),  # I = 2 mod 4: 8-byte copies
+    (1026, 0, -11, 256, 278, 128, 1),   # row stride 2 mod 4: 8-byte
+    (1025, 0, -9, 256, 274, 128, 0),    # odd row stride: no shift helps
+    (1024, 0, -9, 147, 171, 160, 0),    # odd I: no shift helps
+    (1024, 0, -9, 256, 62, 128, 1),     # 3 would add a k-tile; 1 does not
+    (1024, 0, -9, 256, 64, 128, 0),     # any shift adds a k-tile
+    (1024, 0, -9, 1, 709, 2, 0),        # stretches: a float a copy
+    (1024, 0, -9, 100, 331, 1, 3),      # rows of the 8-column tile
+])
+def test_lead_rows(ldx, off, start, I, D, O, want):
+    """The leading zero rows a float32 launch gives the operator: those
+    that put the window origin on 16-byte copies, else on 8-byte copies
+    on every row, never adding a k-tile of D; none in float64."""
+    from r8brain_torch.ops.pallas_frac import lead_rows
+
+    x = torch.zeros((2, ldx))[:, off:]
+    assert x.data_ptr() % 16 == 4 * off
+    assert lead_rows(x, start, I, D, O) == want
+    assert lead_rows(x.double(), start, I, D, O) == 0
+
+
+@pytest.mark.parametrize("ldx,off,origin,I,O,want", [
+    (1024, 0, -12, 256, 128, 16),  # x, origin, I, row stride on 16 bytes
+    (1024, 0, -10, 256, 128, 8),   # origin on 8 bytes only
+    (1024, 0, -9, 256, 128, 4),    # odd origin
+    (1024, 1, -9, 256, 128, 8),    # x off 16 bytes, origin on 8
+    (1024, 2, -10, 256, 128, 8),   # x off 16 bytes, origin on 16
+    (1026, 0, -12, 256, 128, 8),   # row stride 2 mod 4
+    (1025, 0, -12, 256, 128, 4),   # odd row stride
+    (1024, 0, -360, 294, 640, 8),  # I = 2 mod 4
+    (1024, 0, -12, 1, 2, 4),       # stretches: a float a copy
+    (1024, 0, -12, 100, 1, 16),    # rows of the 8-column tile
+])
+def test_copy_width(ldx, off, origin, I, O, want):
+    """The copy width a float32 launch hands the kernel for its window
+    staging, from x's address, its row stride, I and the origin; float64
+    copies a float at a time."""
+    from r8brain_torch.ops.pallas_frac import copy_width
+
+    x = torch.zeros((2, ldx))[:, off:]
+    assert x.data_ptr() % 16 == 4 * off
+    assert copy_width(x, origin, I, O) == want
+    assert copy_width(x.double(), origin, I, O) == 4
+
+
+@pytest.mark.parametrize("s", [1, 2, 3])
+@pytest.mark.parametrize("lo", [False, True], ids=["main", "skT_lo"])
+def test_lead_operator(s, lo):
+    """The operator with s leading zero rows: operator_parts of the
+    float32 operator the forward computes with (s0 + s1 + s2) and
+    bf16(skT_lo), each with s zero rows on top, split anew on its own
+    grids, with its band; built once per operator and s.  From origin
+    start - s it computes the same products: within 2^-21 of max |y| of
+    the operator from start (its folds group the terms otherwise)."""
+    from r8brain_torch.ops.pallas_frac import _LEADS, _lead_operator
+
+    I, D, O, n_win, start = 256, 274, 128, 7, -9
+    x, parts, _L = _offset_case(("", torch.float32, I, D, O, n_win, start,
+                                 2000, 0, lo), 17 + s)
+    ap, band = _lead_operator(parts, D, O, s)
+    assert _lead_operator(parts, D, O, s)[0] is ap
+    assert len(_LEADS[parts]) == 1
+    sl = unpack_parts(parts, D, O)
+    ops = [sl[0] + sl[1] + sl[2]] + ([sl[3]] if lo else [])
+    pad = [torch.nn.functional.pad(t, (0, 0, s, 0)) for t in ops]
+    assert torch.equal(ap, operator_parts(*pad))
+    assert torch.equal(band.steps, operator_band(ap).steps)
+    y = frac_whole(x, ap, I, D + s, O, n_win, band=band, start=start - s)
+    ref = frac_whole(x, parts, I, D, O, n_win, band=operator_band(parts),
+                     start=start)
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= 2.0**-21 * scale

@@ -78,7 +78,8 @@ def main(argv=None) -> int:
     from r8brain_torch import Resampler
     from r8brain_torch.ops import _cuda
     from r8brain_torch.ops.pallas_frac import (_F32_ARGS, _pack, _slices,
-                                               operator_band, operator_parts)
+                                               copy_width, operator_band,
+                                               operator_parts)
 
     flags = [f for f in _cuda.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     src = ROOT / "r8brain_torch" / "csrc" / "frac_whole.cu"
@@ -127,23 +128,36 @@ def main(argv=None) -> int:
 
     def timed(fn, name, label, xp, parts, band, I, D, O, n_win, y):
         Nt, Kt, P, BN, _ = parts.shape
-        # a build from before the band walk takes no band
-        head = (xp.data_ptr(), xp.stride(0), parts.data_ptr()) + (
+        # a build from before the band walk takes no band, one from before
+        # the in-place read no window origin and length
+        head = (xp.data_ptr(), xp.stride(0)) + (
+            (0, xp.shape[1]) if in_place[name] else ()) + (
+            parts.data_ptr(),) + (
             (band.steps.data_ptr(),) if banded[name] else ())
+
+        # one that chooses the copy width takes it from the caller
+        tail = (copy_width(xp, 0, I, O) == 16,) if takes_vec[name] else ()
 
         def run():
             rc = fn(*head, P - (BN == 8), BN, Kt, y.data_ptr(), C, n_win, I,
-                    D, O, 32, stream)
+                    D, O, 32, *tail, stream)
             if rc != 0:
                 raise RuntimeError(f"{name} {label}: CUDA error {rc}")
         return f"{label} {cuda_ms(run, args.iters):8.3f} ms"
 
-    lib, banded = {}, {}
+    lib, banded, in_place, takes_vec = {}, {}, {}, {}
     for name, (path, _mask) in builds.items():
         fn = ctypes.CDLL(str(tmp / f"{name}.so")).r8b_frac_whole_f32
-        banded[name] = "const int* band" in path.read_text()
-        fn.argtypes = (_F32_ARGS if banded[name]
-                       else _F32_ARGS[:3] + _F32_ARGS[4:])
+        text = path.read_text()
+        banded[name] = "const int* band" in text
+        in_place[name] = "long long x0" in text
+        takes_vec[name] = "int fold, int vec" in text
+        # _F32_ARGS: x, ldx, x0, n, parts, band, ..., fold, vec, stream
+        vec_at = len(_F32_ARGS) - 2
+        fn.argtypes = [t for i, t in enumerate(_F32_ARGS)
+                       if (in_place[name] or i not in (2, 3))
+                       and (banded[name] or i != 5)
+                       and (takes_vec[name] or i != vec_at)]
         fn.restype = ctypes.c_int
         lib[name] = fn
     order = list(against) + list(variants)
