@@ -34,6 +34,11 @@ response D that is the whole functional when every output lies in the
 edge.  In float64 the cascade equals the per-stage chain to ~1e-15
 (tests/test_torch_halfband.py); in float32 it is a different, shorter
 rounding chain, held to the same class.
+
+While a profiler records, the edge step (the float64 copy of the first P
+inputs, its product with C or D, the cast and the add) runs inside the
+``r8b.hb.edge`` span, and each call adds the bytes its ``frac_whole``
+call writes, trimmed columns included, to ``hb_cascade.out_bytes``.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from torch import nn
 
 from ..models.lengths import stage_in_for_out, stage_out_len
 from ..models.plan import HBUpStage
+from ..utils.trace import count, span
 from .framing import shifted
 from .operators import FramedOperator
 from .stages import HB_BLOCK, check_dtype
@@ -218,16 +224,20 @@ class HBUpCascadeExec(nn.Module):
         if self.edge_D is not None and M <= self.E:
             # every output lies in the edge: the dense cascade response
             # is the exact functional
-            return self._edge(x, self.edge_D[:, :M])
+            with span("r8b.hb.edge"):
+                return self._edge(x, self.edge_D[:, :M])
         B, U = HB_BLOCK, self.U
         n_blocks = -(-(-(-M // U)) // B)
         # block b reads x[minr + b*B + l], l < L_f; cells of zero weight
         # may lie outside x (zeros there)
         y = self.op.apply(x, self.minr, (n_blocks - 1) * B + self.op.L_f, B,
                           n_blocks)
+        count("hb_cascade.out_bytes", n_blocks * B * U * C
+              * self.dtype.itemsize)
         if self.edge_C is not None:
             E = min(self.E, M)
-            y[:, :E] += self._edge(x, self.edge_C[:, :E])
+            with span("r8b.hb.edge"):
+                y[:, :E] += self._edge(x, self.edge_C[:, :E])
         return y[:, :M]
 
     forward = apply

@@ -28,7 +28,9 @@ synchronises or allocates.  The names the package records:
   ``r8b.kernel.<name>`` (the CUDA kernels' wrappers, ``poly_dot`` among
   them), ``r8b.frame`` (the framing copy before a ``frac_whole`` call of
   a ``FramedOperator`` that does not read its input in place: on the CPU,
-  and where the input needs a cast), and in the guarantee chain
+  and where the input needs a cast), ``r8b.hb.edge`` (the half-band up
+  cascade's float64 edge correction, ``ops/hb_cascade.py``), and in the
+  guarantee chain
   ``r8b.ozaki.prep`` (an ozaki executor's framing copies and per-channel
   scales before each ``ozaki_framed`` call) and
   ``r8b.ozaki.carry`` (the df32 carry's torch work: the framing copy of
@@ -44,9 +46,11 @@ synchronises or allocates.  The names the package records:
   call), ``poly.kernel`` and ``poly.banded`` (one a polynomial
   stage's banded-engine call, by the path its contraction took:
   ``poly_dot``, or the banded operators), ``frame.bytes`` (the bytes
-  each ``r8b.frame`` span's copy writes, 0 where the framing is a view)
-  and ``frame.direct`` (one a ``FramedOperator`` call whose ``frac_whole``
-  reads the input where it lies, from the window origin, with no copy).
+  each ``r8b.frame`` span's copy writes, 0 where the framing is a view),
+  ``frame.direct`` (one a ``FramedOperator`` call whose ``frac_whole``
+  reads the input where it lies, from the window origin, with no copy)
+  and ``hb_cascade.out_bytes`` (the bytes the half-band up cascade's
+  ``frac_whole`` call writes, the columns it trims included).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The kernel calls of the benchmark's five cells, pinned.
+"""The kernel calls of the benchmark's six cells, pinned.
 
 Recorders stand in for ``frac_whole`` and ``ozaki_framed`` wherever the
 port holds them, return zeros of the output's shape (so no kernel time is
@@ -7,10 +7,11 @@ storage offset mod 4 (its alignment) and a digest of its values, the
 geometry, the fold width ``kc``, the band's steps, ``frac_whole``'s window
 origin ``start``, the seam residual ``x_lo`` and ``emit_pair``.  The
 configurations are the cells' (44.1k -> 96k fast, its stream blocks,
-44.1k -> 96001 fast, the 44.1k -> 96k guarantee chain, DSD64 -> 176.4k),
-at two channels and the cells' input lengths (the DSD64 one at 16384
-samples).  The calls are those the card receives: ``frac_whole`` reads
-its stage's input in place (``ops/operators.py::_reads_in_place`` taken
+44.1k -> 96001 fast, the 44.1k -> 96k guarantee chain, DSD64 -> 176.4k,
+44.1k -> DSD64 on the half-band up cascade), at two channels and the
+cells' input lengths (DSD64 -> 176.4k at 16384 samples, 44.1k -> DSD64 at
+its cell's 0.5 s).  The calls are those the card receives: ``frac_whole``
+reads its stage's input in place (``ops/operators.py::_reads_in_place`` taken
 as on the card, whatever the device).  A change to how an executor frames
 its input or stores its operator that reaches a kernel shows here, and so
 does the width of the copies the kernel stages its windows with.
@@ -34,6 +35,7 @@ BLOCK = 8192        # the stream cell's block, 8232 after the period
 N_BLOCKS = 3        # the head block and two steady ones
 
 N_DSD = 16384       # DSD64 samples a row: a short length
+N_PCM_DSD = 22050   # 0.5 s at 44.1 kHz, the DSD64 encoding cell's row
 
 CELLS = {
     "cd24_96k_oneshot": (dict(dst_rate=96000), "oneshot"),
@@ -44,6 +46,8 @@ CELLS = {
                                      frac_engine="ozaki"), "oneshot"),
     "cd24_dsd64_176k4_oneshot": (dict(src_rate=2822400, dst_rate=176400),
                                  "oneshot"),
+    "cd24_44k1_dsd64_oneshot": (dict(dst_rate=2822400, n_in=N_PCM_DSD),
+                                "oneshot"),
 }
 
 
@@ -113,11 +117,11 @@ def record(cell, monkeypatch, in_place=True, widths=None):
                 monkeypatch.setattr(mod, name, rec)
     kwargs = dict(kwargs)
     src = kwargs.pop("src_rate", 44100)
+    n = kwargs.pop("n_in", N_DSD if src != 44100 else N_ONESHOT)
     rs = Resampler(src, trans_band=2.0, atten=180.15, device="cpu",
                    **kwargs)
     rng = np.random.default_rng(24)
     if kind == "oneshot":
-        n = N_DSD if src != 44100 else N_ONESHOT
         x = rng.uniform(-1, 1, (C, n)).astype(np.float32)
         rs.oneshot(torch.from_numpy(x))
     else:
@@ -138,7 +142,8 @@ def test_kernel_calls_pinned(cell, monkeypatch):
 WIDTHS = {'cd24_96001_oneshot': ([16, 16], [16, 16]),
  'cd24_96k_oneshot': ([8], [8]),
  'cd24_96k_stream': ([8, 8, 8], [8, 8, 8]),
- 'cd24_dsd64_176k4_oneshot': ([16, 16, 16, 16], [8, 8, 8, 16])}
+ 'cd24_dsd64_176k4_oneshot': ([16, 16, 16, 16], [8, 8, 8, 16]),
+ 'cd24_44k1_dsd64_oneshot': ([16, 16], [16, 4])}
 
 
 @pytest.mark.parametrize("cell", [c for c in CELLS
@@ -148,7 +153,8 @@ def test_copy_widths_pinned(cell, monkeypatch):
     place than on its framed copy: the fused flagship's odd origin moves
     one row back (8-byte copies, as framed), the half-band decimators'
     origins 1 - 2*nt move up to 3 back and read 16-byte copies (8-byte on
-    their framed copies, whose row stride was 2 mod 4)."""
+    their framed copies, whose row stride was 2 mod 4), and the half-band
+    up cascade reads 16-byte copies (4-byte on its framed copy)."""
     direct, framed = [], []
     record(cell, monkeypatch, widths=direct)
     monkeypatch.undo()
@@ -338,4 +344,65 @@ PINS = {'cd24_96001_oneshot': [('frac_whole',
                                 (24576, 8192, 2048, 64, 1),
                                 0,
                                 'a5240ca60c79'),
-                               ((5, 2), 'int32', (2, 1), 0, '972a466ebd75')))]}
+                               ((5, 2), 'int32', (2, 1), 0, '972a466ebd75')))],
+ 'cd24_44k1_dsd64_oneshot': [('frac_whole',
+                              ((2, 22412),
+                               'float32',
+                               (22412, 1),
+                               0,
+                               '87025332ae15'),
+                              ((4, 16, 3, 128, 64),
+                               'bfloat16',
+                               (393216, 24576, 8192, 64, 1),
+                               0,
+                               '51e0191f7d73'),
+                              (256, 964, 512, 87),
+                              32,
+                              ((0, 49), (4, 53), (8, 57), (12, 61)),
+                              -354),
+                             ('frac_whole',
+                              ((2, 44116),
+                               'float32',
+                               (44544, 1),
+                               0,
+                               'fa040d5ec457'),
+                              ((32, 3, 3, 128, 64),
+                               'bfloat16',
+                               (73728, 24576, 8192, 64, 1),
+                               0,
+                               'd89ad198f9c8'),
+                              (128, 157, 4096, 345),
+                              32,
+                              ((0, 3),
+                               (0, 3),
+                               (0, 3),
+                               (0, 3),
+                               (1, 4),
+                               (1, 4),
+                               (1, 4),
+                               (1, 4),
+                               (2, 5),
+                               (2, 5),
+                               (2, 5),
+                               (2, 5),
+                               (3, 6),
+                               (3, 6),
+                               (3, 6),
+                               (3, 6),
+                               (4, 7),
+                               (4, 7),
+                               (4, 7),
+                               (4, 7),
+                               (5, 8),
+                               (5, 8),
+                               (5, 8),
+                               (5, 8),
+                               (6, 9),
+                               (6, 9),
+                               (6, 9),
+                               (6, 9),
+                               (7, 10),
+                               (7, 10),
+                               (7, 10),
+                               (7, 10)),
+                              -14)]}
